@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
+compiled with ``nvcc`` for ``sm_90a`` into ``lib<name>.so`` and loaded
+with ``ctypes``; every source is compiled by its own ``nvcc``, all
+started together. The libraries go under ``build/kernels/<hash>/`` at
+the root of the checkout (``.gitignore`` lists ``build/``), keyed by a
+hash of the sources and the flags, so a changed source is rebuilt and
+an unchanged one is loaded as it is.
+
+``LAUNCHES`` counts kernel launches: each wrapper adds one where it
+launches its kernel, and nowhere else, so a run can show that its
+main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("sparse_conv", "sparse_matmul")
+
+LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+
+#: ptxas's report (registers, shared memory, spills) of the last build
+BUILD_LOG: dict[str, str] = {}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
+    return nvcc
+
+
+def _build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build_all() -> float:
+    """Compile every kernel library that is not built yet, one ``nvcc``
+    per source, all in parallel. Returns the seconds spent."""
+    t0 = time.perf_counter()
+    out_dir = _build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in SOURCES:
+        lib = out_dir / f"lib{name}.so"
+        if lib.exists():
+            continue
+        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib)
+    failed = []
+    for name, (proc, tmp, lib) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)          # atomic: a reader never sees half a .so
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``lib<name>.so``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _build_dir() / f"lib{name}.so"
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+        getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by ``name``'s entry
+    point, with CUDA's own text for it."""
+    if err != 0:
+        text = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {text} "
+                           f"(cudaError_t {err})")

@@ -1,0 +1,59 @@
+"""Dispatch from the model code to the kernels.
+
+The tensor's device picks the path: a CPU tensor goes to the plain
+PyTorch version, a CUDA tensor to the hand-written kernel, which
+launches or raises. There is no fallback from one to the other and no
+switch that sends a CUDA tensor down the plain path.
+
+``LAUNCHES`` counts kernel launches by name (a plain int each, reset
+with ``reset_launches``): the CUDA wrappers add one per launch, so a
+run can show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import sparse_conv as _sc
+from repro_torch.kernels import sparse_matmul as _sm
+from repro_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
+
+
+def _route(x: torch.Tensor, op: str) -> bool:
+    """True for the kernel (CUDA tensor), False for the plain version
+    (CPU tensor); any other device raises."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{op}: no path for a tensor on {x.device}")
+
+
+def sparse_matmul(x: torch.Tensor, sw) -> torch.Tensor:
+    """x: (..., d_in) @ block-balanced SparseWeight -> (..., d_out)."""
+    *lead, d_in = x.shape
+    if d_in != sw.d_in:
+        raise ValueError(f"sparse_matmul: x has {d_in} features, the "
+                         f"weight takes {sw.d_in}")
+    xm = x.reshape(-1, d_in).contiguous()
+    fn = _sm.sparse_matmul if _route(x, "sparse_matmul") \
+        else _sm.sparse_matmul_torch
+    return fn(xm, sw.vals, sw.idx).reshape(*lead, sw.d_out)
+
+
+def sparse_conv(x, sw, bias, *, k: int, stride: int = 1, relu: bool = True,
+                residual=None) -> torch.Tensor:
+    """Fused implicit-GEMM block-sparse conv (HPIPE conv unit).
+
+    x: (N, H, W, C) NHWC; sw: block-balanced SparseWeight over the
+    HWIO-flattened (k*k*C, Cout) matrix (block rows divide C); bias:
+    (Cout,). SAME padding; bias, optional ``residual`` (N, Ho, Wo, Cout)
+    and optional ReLU fused into the epilogue."""
+    c = x.shape[-1]
+    if sw.d_in != k * k * c or c % sw.vals.shape[2]:
+        raise ValueError(f"sparse_conv: weight d_in={sw.d_in} with blocks "
+                         f"{tuple(sw.vals.shape[2:])} does not fit k={k}, "
+                         f"C={c}")
+    fn = _sc.sparse_conv if _route(x, "sparse_conv") \
+        else _sc.sparse_conv_torch
+    return fn(x, sw.vals, sw.idx, bias, residual, k=k, stride=stride,
+              relu=relu)

@@ -1,0 +1,137 @@
+"""Fused implicit-GEMM block-sparse convolution: the HPIPE conv unit.
+
+``sparse_conv`` launches the CUDA kernel in ``csrc/sparse_conv.cu``,
+which replaces the reference's ``kernels/sparse_conv.py::
+sparse_conv_pallas``. ``sparse_conv_torch`` is the plain PyTorch
+version of the same function: the CPU path and the check the kernel is
+held to on the card. Neither builds an im2col tensor: the plain
+version gathers one shifted (ky, kx, channel-block) window per
+surviving block, as the reference's XLA path does (``ops.py:228-276``).
+
+Weight layout: the 2D conv weight is (k*k*cin, cout) with rows in HWIO
+order — row f = (ky*k + kx)*cin + c — pruned block-balanced. The block
+row size ``bm`` divides ``cin``, so every surviving block is exactly one
+(ky, kx, channel-block) gather.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+
+def conv_block_coords(idx, k: int, cin: int, bm: int):
+    """Decompose flat HWIO block ids -> (ky, kx, cb) gather coordinates.
+
+    idx: (ob, K) ints in [0, k*k*cin/bm)."""
+    cpb = cin // bm                      # channel blocks per kernel position
+    pos = idx // cpb
+    return pos // k, pos % k, idx % cpb
+
+
+def same_pads(size: int, k: int, stride: int) -> tuple[int, int, int]:
+    """(out_size, pad_lo, pad_hi) matching lax SAME padding: the odd
+    pixel of padding goes to the high side."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return out, total // 2, total - total // 2
+
+
+def sparse_conv_torch(x, vals, idx, bias, residual=None, *, k: int,
+                      stride: int = 1, relu: bool = True) -> torch.Tensor:
+    """y[n, oy, ox, j*bn:+bn] = act(sum_l win(x; ky,kx,cb)[oy,ox] @ vals[j,l]
+    + b + residual), SAME padding, f32 accumulation, output in x.dtype.
+
+    x: (N, H, W, C) NHWC; vals: (ob, K, bm, bn); idx: (ob, K) int flat
+    HWIO block ids; bias: (ob*bn,); residual: optional (N, Ho, Wo,
+    ob*bn). Each step of the K loop gathers one window per output block
+    column, (N, ob, Ho, Wo, bm): the size of the output, never k*k times
+    the input."""
+    n, h, w, c = x.shape
+    ob, n_k, bm, bn = vals.shape
+    ho, ph_lo, ph_hi = same_pads(h, k, stride)
+    wo, pw_lo, pw_hi = same_pads(w, k, stride)
+    xp = F.pad(x, (0, 0, pw_lo, pw_hi, ph_lo, ph_hi))
+    ky, kx, cb = conv_block_coords(idx.long(), k, c, bm)
+    dev = x.device
+    oy = torch.arange(ho, device=dev) * stride
+    ox = torch.arange(wo, device=dev) * stride
+    ch = torch.arange(bm, device=dev)
+    acc = torch.zeros((n, ho, wo, ob, bn), dtype=torch.float32, device=dev)
+    for l in range(n_k):
+        rows = (ky[:, l, None] + oy)[:, :, None, None]         # (ob, Ho, 1, 1)
+        cols = (kx[:, l, None] + ox)[:, None, :, None]         # (ob, 1, Wo, 1)
+        chans = (cb[:, l, None] * bm + ch)[:, None, None, :]   # (ob, 1, 1, bm)
+        a = xp[:, rows, cols, chans]                  # (N, ob, Ho, Wo, bm)
+        acc += torch.einsum("njhwm,jmo->nhwjo", a.float(), vals[:, l].float())
+    y = acc.reshape(n, ho, wo, ob * bn) + bias.float()
+    if residual is not None:
+        y = y + residual.float()
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    lib = _build.load("sparse_conv")
+    fn = lib.sparse_conv_bf16
+    fn.argtypes = [_P] * 6 + [_I] * 15 + [_P]
+    fn.restype = _I
+    return lib, fn, lib.sparse_conv_max_bm(), lib.sparse_conv_max_bn()
+
+
+def sparse_conv(x, vals, idx, bias, residual=None, scale=None, *, k: int,
+                stride: int = 1, relu: bool = True) -> torch.Tensor:
+    """The CUDA kernel: same function and arguments as
+    :func:`sparse_conv_torch`, on bf16 CUDA tensors. Raises on anything
+    the kernel does not take; it never falls back to the plain version.
+    The output is allocated here and the kernel runs on the current
+    stream without synchronising."""
+    if scale is not None:
+        raise NotImplementedError(
+            "int8 scale in sparse_conv: ROADMAP Queue 1, int8/bf16 storage")
+    tensors = {"x": x, "vals": vals, "idx": idx, "bias": bias}
+    if residual is not None:
+        tensors["residual"] = residual
+    for name, t in tensors.items():
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"sparse_conv: {name} must be on {x.device} "
+                             f"(a CUDA device), got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"sparse_conv: {name} must be contiguous")
+        want = torch.int32 if name == "idx" else torch.bfloat16
+        if t.dtype != want:
+            raise ValueError(f"sparse_conv: {name} must be {want}, "
+                             f"got {t.dtype}")
+    n, h, w, c = x.shape
+    ob, n_k, bm, bn = vals.shape
+    lib, fn, max_bm, max_bn = _kernel()
+    if c % bm or bm > max_bm or bn > max_bn:
+        raise ValueError(f"sparse_conv: blocks ({bm}, {bn}) need bm | C={c}"
+                         f", bm <= {max_bm} and bn <= {max_bn}")
+    if tuple(idx.shape) != (ob, n_k) or tuple(bias.shape) != (ob * bn,):
+        raise ValueError(f"sparse_conv: idx {tuple(idx.shape)} / bias "
+                         f"{tuple(bias.shape)} do not match vals "
+                         f"{tuple(vals.shape)}")
+    ho, ph, _ = same_pads(h, k, stride)
+    wo, pw, _ = same_pads(w, k, stride)
+    out = torch.empty((n, ho, wo, ob * bn), dtype=torch.bfloat16,
+                      device=x.device)
+    if residual is not None and residual.shape != out.shape:
+        raise ValueError(f"sparse_conv: residual {tuple(residual.shape)} != "
+                         f"output {tuple(out.shape)}")
+    err = fn(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), bias.data_ptr(),
+             None if residual is None else residual.data_ptr(),
+             out.data_ptr(), n, h, w, c, ho, wo, k, stride, ph, pw, ob, n_k,
+             bm, bn, int(relu), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, "sparse_conv", err)
+    _build.LAUNCHES["sparse_conv"] += 1
+    return out

@@ -1,0 +1,79 @@
+"""Gathered block-sparse matmul: the pruned classifier of ResNet-50.
+
+``sparse_matmul`` launches the CUDA kernel in ``csrc/sparse_matmul.cu``,
+which replaces the reference's ``kernels/sparse_matmul.py::
+sparse_matmul_pallas``. ``sparse_matmul_torch`` is the plain PyTorch
+version of the same function: the CPU path and the check the kernel is
+held to on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+
+def sparse_matmul_torch(x, vals, idx) -> torch.Tensor:
+    """y[m, j*bn:+bn] = sum_k x[m, idx[j,k]*bm:+bm] @ vals[j,k].
+
+    x: (M, d_in); vals: (ob, K, bm, bn); idx: (ob, K). f32 accumulation,
+    output in x.dtype. Each step of the K loop gathers one input block
+    per output block column, (M, ob, bm): the size of the output."""
+    m, d_in = x.shape
+    ob, n_k, bm, bn = vals.shape
+    xb = x.reshape(m, d_in // bm, bm)
+    acc = torch.zeros((m, ob, bn), dtype=torch.float32, device=x.device)
+    for l in range(n_k):
+        xg = xb[:, idx[:, l].long()]                          # (M, ob, bm)
+        acc += torch.einsum("tjb,jbn->tjn", xg.float(), vals[:, l].float())
+    return acc.reshape(m, ob * bn).to(x.dtype)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    lib = _build.load("sparse_matmul")
+    fns = {}
+    for dtype, fn in ((torch.float32, lib.sparse_matmul_f32),
+                      (torch.bfloat16, lib.sparse_matmul_bf16)):
+        fn.argtypes = [_P] * 4 + [_I] * 6 + [_P]
+        fn.restype = _I
+        fns[dtype] = fn
+    return lib, fns, lib.sparse_matmul_max_bm(), lib.sparse_matmul_max_bn()
+
+
+def sparse_matmul(x, vals, idx) -> torch.Tensor:
+    """The CUDA kernel: same function and arguments as
+    :func:`sparse_matmul_torch`, with x f32 or bf16 and vals bf16 on a
+    CUDA device. Raises on anything the kernel does not take; it never
+    falls back to the plain version."""
+    for name, t in (("x", x), ("vals", vals), ("idx", idx)):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"sparse_matmul: {name} must be on {x.device} "
+                             f"(a CUDA device), got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"sparse_matmul: {name} must be contiguous")
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            or vals.dtype != torch.bfloat16 or idx.dtype != torch.int32:
+        raise ValueError(f"sparse_matmul: needs x f32/bf16, vals bf16, idx "
+                         f"int32; got {x.dtype}, {vals.dtype}, {idx.dtype}")
+    m, d_in = x.shape
+    ob, n_k, bm, bn = vals.shape
+    lib, fns, max_bm, max_bn = _kernel()
+    if d_in % bm or bm > max_bm or bn > max_bn \
+            or tuple(idx.shape) != (ob, n_k):
+        raise ValueError(f"sparse_matmul: vals {tuple(vals.shape)} / idx "
+                         f"{tuple(idx.shape)} do not fit x {tuple(x.shape)} "
+                         f"(bm <= {max_bm}, bn <= {max_bn})")
+    out = torch.empty((m, ob * bn), dtype=x.dtype, device=x.device)
+    err = fns[x.dtype](x.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                       out.data_ptr(), m, d_in, ob, n_k, bm, bn,
+                       torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, "sparse_matmul", err)
+    _build.LAUNCHES["sparse_matmul"] += 1
+    return out

@@ -1,0 +1,355 @@
+"""The paper's own networks on the port: ResNet-50 V1 now; MobileNet-V1
+and MobileNet-V2 build their graphs but do not run yet.
+
+Counterpart of the reference's ``src/repro/models/cnn.py``, with its
+layout (NHWC activations, HWIO-flattened (k*k*cin, cout) conv weights)
+and its dtype boundaries: images are cast to bf16 on entry, every conv
+accumulates in f32, adds its bias in f32 and rounds once to bf16, and
+the classifier runs in f32. Every pruned conv goes through the fused
+implicit-GEMM block-sparse conv (``kernels/ops.sparse_conv``) and the
+pruned classifier through ``kernels/ops.sparse_matmul``; the dense convs
+(the stem and five stage-0 1x1 convs too narrow to prune) run through
+``F.conv2d`` in full f32, as the reference leaves them to ``lax.conv``.
+
+``cnn_forward`` is the graph interpreter over the FUSED layer graph
+(``core/fusion.py``): residual ``add``(+relu) tails, the stem's max-pool
+and the avgpool->fc head are epilogues of the node before them.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.device import resolve_device
+from repro_torch.core.fusion import conv_part, fused_graph_for
+from repro_torch.core.graph import INPUT, ConvSpec, LayerGraph
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.sparse_conv import same_pads
+from repro_torch.models import layers as L
+from repro_torch.models.layers import SparseWeight
+
+_MOBILENET = "MobileNet path: ROADMAP Queue 1"
+
+
+# ---------------------------------------------------------------------------
+# layer spec builders (the "TensorFlow graph" the compiler walks)
+# ---------------------------------------------------------------------------
+
+def resnet50_specs() -> list[ConvSpec]:
+    specs = [ConvSpec("conv1", "conv", 3, 64, 7, 2, 224),
+             ConvSpec("pool1", "maxpool", 64, 64, 3, 2, 112)]
+    blocks = [(3, 64, 256, 56), (4, 128, 512, 28),
+              (6, 256, 1024, 14), (3, 512, 2048, 7)]
+    cin = 64
+    for si, (n, mid, out, hw) in enumerate(blocks):
+        for bi in range(n):
+            stride = 2 if (bi == 0 and si > 0) else 1
+            ihw = hw * stride      # input spatial before downsample
+            pre = f"s{si}b{bi}"
+            block_in = specs[-1].name
+            specs += [
+                ConvSpec(f"{pre}_c1", "conv", cin, mid, 1, stride, ihw),
+                ConvSpec(f"{pre}_c2", "conv", mid, mid, 3, 1, hw),
+                ConvSpec(f"{pre}_c3", "conv", mid, out, 1, 1, hw,
+                         relu=False),
+            ]
+            resid = block_in
+            if bi == 0:
+                resid = f"{pre}_proj"
+                specs.append(ConvSpec(f"{pre}_proj", "conv", cin, out, 1,
+                                      stride, ihw, relu=False,
+                                      input_from=block_in))
+            specs.append(ConvSpec(f"{pre}_add", "add", out, out, 1, 1, hw,
+                                  residual_from=resid,
+                                  input_from=f"{pre}_c3"))
+            cin = out
+    specs += [ConvSpec("avgpool", "avgpool", 2048, 2048, 7, 1, 7),
+              ConvSpec("fc", "fc", 2048, 1000, 1, 1, 1)]
+    return specs
+
+
+_MBV1 = [(32, 64, 1), (64, 128, 2), (128, 128, 1), (128, 256, 2),
+         (256, 256, 1), (256, 512, 2)] + [(512, 512, 1)] * 5 + \
+        [(512, 1024, 2), (1024, 1024, 1)]
+
+
+def mobilenet_v1_specs() -> list[ConvSpec]:
+    specs = [ConvSpec("conv1", "conv", 3, 32, 3, 2, 224)]
+    hw = 112
+    for i, (cin, cout, s) in enumerate(_MBV1):
+        specs += [ConvSpec(f"b{i}_dw", "dw", cin, cin, 3, s, hw),
+                  ConvSpec(f"b{i}_pw", "conv", cin, cout, 1, 1, hw // s)]
+        hw //= s
+    specs += [ConvSpec("avgpool", "avgpool", 1024, 1024, 7, 1, 7),
+              ConvSpec("fc", "fc", 1024, 1000, 1, 1, 1)]
+    return specs
+
+
+_MBV2 = [  # (expansion, cout, n, stride)
+    (1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+    (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1)]
+
+
+def mobilenet_v2_specs() -> list[ConvSpec]:
+    specs = [ConvSpec("conv1", "conv", 3, 32, 3, 2, 224)]
+    cin, hw = 32, 112
+    for si, (t, cout, n, stride) in enumerate(_MBV2):
+        for bi in range(n):
+            s = stride if bi == 0 else 1
+            mid = cin * t
+            pre = f"s{si}b{bi}"
+            block_in = specs[-1].name
+            if t != 1:
+                specs.append(ConvSpec(f"{pre}_exp", "conv", cin, mid, 1, 1, hw))
+            specs += [ConvSpec(f"{pre}_dw", "dw", mid, mid, 3, s, hw),
+                      ConvSpec(f"{pre}_pj", "conv", mid, cout, 1, 1, hw // s,
+                               relu=False)]
+            if s == 1 and cin == cout:
+                # MobileNet-V2 linear bottleneck: residual add, NO relu
+                specs.append(ConvSpec(f"{pre}_add", "add", cout, cout, 1, 1,
+                                      hw // s, residual_from=block_in,
+                                      relu=False))
+            hw //= s
+            cin = cout
+    specs += [ConvSpec("conv_last", "conv", 320, 1280, 1, 1, 7),
+              ConvSpec("avgpool", "avgpool", 1280, 1280, 7, 1, 7),
+              ConvSpec("fc", "fc", 1280, 1000, 1, 1, 1)]
+    return specs
+
+
+def specs_for(name: str) -> list[ConvSpec]:
+    return {"resnet50": resnet50_specs,
+            "mobilenet_v1": mobilenet_v1_specs,
+            "mobilenet_v2": mobilenet_v2_specs}[name]()
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def _maybe_sparse(w2d, sp, cin: Optional[int] = None):
+    """Prune a 2D weight block-balanced. For conv weights pass ``cin``:
+    the block-row size must divide the input-channel count (not just
+    k*k*cin) so every block is a single (ky, kx, channel-block) gather
+    of the fused implicit-GEMM kernel."""
+    if sp is None or not sp.enabled:
+        return w2d
+    d_in, d_out = w2d.shape
+    unit = cin if cin is not None else d_in
+    bm = sp.block_m if unit % sp.block_m == 0 else _largest_div(unit, sp.block_m)
+    bn = sp.block_n if d_out % sp.block_n == 0 else _largest_div(d_out, sp.block_n)
+    if bm < 4 or bn < 4 or d_in // bm < 4:
+        return w2d                       # too small to prune blockwise
+    from repro_torch.core import sparsity as S
+    return S.to_block_balanced(
+        w2d, dataclasses.replace(sp, block_m=bm, block_n=bn))
+
+
+def _largest_div(n, cap):
+    for b in range(min(cap, n), 0, -1):
+        if n % b == 0:
+            return b
+    return 1
+
+
+def _to(p: dict, dev: torch.device) -> dict:
+    return {name: {"w": q["w"].to(dev), "b": q["b"].to(dev)}
+            for name, q in p.items()}
+
+
+def init_cnn(cfg, generator: torch.Generator, *, device="cuda") -> dict:
+    """Random weights for ``cfg`` (the reference's ``init_cnn`` law:
+    uniform +-1/sqrt(fan_in) in f32 then bf16, zero biases, convs and
+    classifier pruned block-balanced where ``cfg.sparsity`` allows).
+
+    Drawn in spec order from ``generator`` on the generator's device and
+    then moved to ``device``, so one seed gives the same weights on the
+    CPU and on the card. torch's generator is not ``jax.random``: to
+    hold the port against the reference, carry the reference's weights
+    across with :func:`params_from_numpy` instead."""
+    dev = resolve_device(device)
+    if cfg.name != "resnet50":
+        raise NotImplementedError(_MOBILENET)
+    specs = [s for s in specs_for(cfg.name) if s.kind in ("conv", "fc")]
+    sp = cfg.sparsity
+    params = {}
+    for s in specs:
+        if s.kind == "conv":
+            fan_in = s.k * s.k * s.cin
+            w = L.dense_init(generator, (fan_in, s.cout), fan_in)
+            w = _maybe_sparse(w, sp, cin=s.cin)
+        else:
+            w = _maybe_sparse(L.dense_init(generator, (s.cin, s.cout), s.cin),
+                              sp)
+        params[s.name] = {"w": w, "b": torch.zeros((s.cout,),
+                                                   dtype=torch.bfloat16)}
+    return _to(params, dev)
+
+
+def tensor_from_numpy(a) -> torch.Tensor:
+    """numpy -> torch, bit-exact; bf16 (numpy dtype name ``bfloat16``,
+    what ``np.asarray`` of a JAX bf16 array gives) goes through int16."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def params_from_numpy(tree: dict, *, device="cuda") -> dict:
+    """The reference's CNN params, given as numpy, as the port's:
+    ``{name: {"w": ndarray | {"vals", "idx", "d_in"}, "b": ndarray}}``
+    -> ``{name: {"w": Tensor | SparseWeight, "b": Tensor}}`` on
+    ``device``. Every leaf keeps its dtype and bits."""
+    dev = resolve_device(device)
+    params = {}
+    for name, p in tree.items():
+        w = p["w"]
+        if isinstance(w, dict):
+            w = SparseWeight(tensor_from_numpy(w["vals"]),
+                             tensor_from_numpy(w["idx"]).to(torch.int32),
+                             int(w["d_in"]))
+        else:
+            w = tensor_from_numpy(w)
+        params[name] = {"w": w, "b": tensor_from_numpy(p["b"])}
+    return _to(params, dev)
+
+
+# ---------------------------------------------------------------------------
+# node executors
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _full_f32():
+    """cuDNN may run f32 convolutions in TF32 (its default); switched off
+    in scope so the dense convs do IEEE f32 arithmetic, the reference's
+    ``preferred_element_type=f32``, whatever values reach them."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _pad_same_nchw(x, k: int, stride: int, value: float = 0.0):
+    """SAME padding of an NCHW tensor, lo = total // 2 as in lax (the
+    stem's 7x7/2 conv at 224 px pads (2, 3); ``F.conv2d(padding=)``
+    would pad (3, 3))."""
+    _, ph_lo, ph_hi = same_pads(x.shape[2], k, stride)
+    _, pw_lo, pw_hi = same_pads(x.shape[3], k, stride)
+    return F.pad(x, (pw_lo, pw_hi, ph_lo, ph_hi), value=value)
+
+
+def conv2d(x, p, s: ConvSpec, *, relu=True, residual=None):
+    """The HPIPE convolution unit: the fused block-sparse conv kernel for
+    pruned weights, ``F.conv2d`` for dense ones. No im2col tensor either
+    way. ``residual``: optional skip tensor joined in the epilogue
+    before the activation."""
+    w = p["w"]
+    if isinstance(w, SparseWeight):
+        return kops.sparse_conv(x, w, p["b"], k=s.k, stride=s.stride,
+                                relu=relu, residual=residual)
+    # full-f32 operands: the products of bf16 values are exact, and the
+    # sums are f32 as in the reference's preferred_element_type=f32
+    xn = _pad_same_nchw(x.float().permute(0, 3, 1, 2), s.k, s.stride)
+    w4 = w.float().reshape(s.k, s.k, s.cin, s.cout).permute(3, 2, 0, 1)
+    with _full_f32():
+        y = F.conv2d(xn, w4, stride=s.stride)
+    y = y.permute(0, 2, 3, 1) + p["b"].float()
+    if residual is not None:
+        # the reference's order: round to bf16, add the bf16 skip, relu
+        y = y.to(x.dtype) + residual
+        y = torch.relu(y) if relu else y
+    else:
+        if relu:
+            y = torch.relu(y)
+        y = y.to(x.dtype)
+    return y.contiguous()
+
+
+def _maxpool_same(x, k: int, stride: int):
+    """``lax.reduce_window(max, SAME)``: -inf padding with lo = total // 2
+    (at 112 px, 3x3/2: (0, 1); ``F.max_pool2d(padding=1)`` would pad
+    (1, 1))."""
+    xn = _pad_same_nchw(x.permute(0, 3, 1, 2), k, stride, float("-inf"))
+    return F.max_pool2d(xn, k, stride).permute(0, 2, 3, 1).contiguous()
+
+
+def _global_avgpool(x):
+    """Mean over H, W of a bf16 tensor: summed in f32, divided, rounded
+    to bf16 (what ``jnp.mean`` does on bf16)."""
+    return x.float().mean(dim=(1, 2)).to(x.dtype)
+
+
+def fc_apply(p, x):
+    """The classifier matmul, dense or pruned: f32 inputs and
+    accumulation either way, so logits stay f32; the bias joins after,
+    in f32."""
+    w = p["w"]
+    x32 = x.float()
+    if isinstance(w, SparseWeight):
+        y = kops.sparse_matmul(x32, w)
+    else:
+        y = x32 @ w.float()
+    return y + p["b"].float()
+
+
+def run_node(node: ConvSpec, params, *args):
+    """Execute one IR node (original layer kinds + the fused super-nodes
+    of core/fusion.py). ``args`` are the resolved input values
+    (primary[, residual] — see LayerGraph.inputs)."""
+    x = args[0]
+    res = args[1] if (node.residual_from and node.kind != "add") else None
+    if node.kind == "conv":
+        p = params[conv_part(node).name]
+        y = conv2d(x, p, node, relu=node.relu, residual=res)
+        if node.pool_k:                  # fused pooling epilogue (R4)
+            y = _maxpool_same(y, node.pool_k, node.pool_stride)
+        return y
+    if node.kind in ("dw", "dw_pw"):
+        raise NotImplementedError(_MOBILENET)
+    if node.kind == "maxpool":
+        return _maxpool_same(x, node.k, node.stride)
+    if node.kind == "avgpool":
+        return _global_avgpool(x)
+    if node.kind == "add":
+        y = x + args[1]
+        return torch.relu(y) if node.relu else y
+    if node.kind in ("fc", "avgpool_fc"):
+        if node.kind == "avgpool_fc":                    # fused head
+            x = _global_avgpool(x)
+        return fc_apply(params[conv_part(node).name], x)
+    raise ValueError(f"unknown node kind {node.kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# the graph interpreter
+# ---------------------------------------------------------------------------
+
+def _interpret(g: LayerGraph, params, x) -> dict:
+    """Execute every node of ``g`` on input ``x``; returns the env that
+    maps each value name to its tensor."""
+    env = {INPUT: x}
+    for node, srcs in zip(g.nodes, g.inputs):
+        env[node.name] = run_node(node, params, *[env[s] for s in srcs])
+    return env
+
+
+def cnn_forward(cfg, params, images, *, graph: Optional[LayerGraph] = None,
+                device="cuda") -> torch.Tensor:
+    """images: (N, H, W, 3) f32 (tensor or numpy) -> f32 logits
+    (N, 1000) on ``device``, where ``params`` must live. Runs the FUSED
+    graph by default; pass ``graph=graph_for(name)`` for the unfused
+    view. The images are moved to ``device`` as they are and cast to
+    bf16 there."""
+    dev = resolve_device(device)
+    g = graph if graph is not None else fused_graph_for(cfg.name)
+    x = torch.as_tensor(images).to(dev).to(torch.bfloat16).contiguous()
+    with torch.inference_mode():
+        env = _interpret(g, params, x)
+    return env[g.output]

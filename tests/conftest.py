@@ -17,3 +17,8 @@ def pytest_configure(config):
         "drops/partitions/bit-flips through a frame-aware proxy; run on "
         "CI's network-fault leg, deselect elsewhere with "
         "-m 'not netfault')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc (the port's CUDA kernels); "
+        "skips without one. On the card: python -m pytest -m cuda "
+        "tests/test_torch_cuda.py")

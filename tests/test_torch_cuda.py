@@ -1,0 +1,102 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Needs an NVIDIA card and nvcc; skips without them (whether there is a
+card is decided inside the fixture, never at import). On the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+No JAX here: the machine with the card has none. The plain versions are
+held to the JAX reference by tests/test_torch_kernels.py on the CPU.
+"""
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import SparsityConfig, get_config  # noqa: E402
+from repro_torch.core.sparsity import to_block_balanced  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import sparse_conv as sc  # noqa: E402
+from repro_torch.kernels import sparse_matmul as sm  # noqa: E402
+from repro_torch.models import cnn  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda", 0)
+
+
+def _bf16_close(got, want):
+    """At most 1 bf16 ulp (f32 sums in another order, rounded once)."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    atol = 2.0 ** (math.floor(math.log2(scale)) - 7)
+    assert ((got - want).abs() <= 2.0 ** -7 * want.abs() + atol).all()
+
+
+def _weight(gen, d_in, d_out, bm, bn, sp, dev):
+    w = (torch.rand((d_in, d_out), generator=gen) * 2 - 1) / math.sqrt(d_in)
+    return to_block_balanced(w.to(torch.bfloat16),
+                             SparsityConfig(True, sp, bm, bn)).to(dev)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("k,stride", [(1, 1), (1, 2), (3, 1), (3, 2), (7, 2)])
+@pytest.mark.parametrize("case", [(1, 9, 64, 64, 32, 32),
+                                  (2, 7, 32, 48, 16, 16),
+                                  (1, 65, 32, 32, 32, 32)],
+                         ids=["n1h9b32", "n2h7b16", "n1h65m2tiles"])
+def test_sparse_conv_kernel_matches_plain(dev, case, k, stride, residual,
+                                          relu):
+    n, h, cin, cout, bm, bn = case
+    gen = torch.Generator().manual_seed(k * 10 + stride)
+    sw = _weight(gen, k * k * cin, cout, bm, bn, 0.5, dev)
+    x = torch.randn((n, h, h, cin), generator=gen).to(dev, torch.bfloat16)
+    b = (torch.randn((cout,), generator=gen) * 0.1).to(dev, torch.bfloat16)
+    ho = -(-h // stride)
+    r = (torch.randn((n, ho, ho, cout), generator=gen)
+         .to(dev, torch.bfloat16) if residual else None)
+    got = sc.sparse_conv(x, sw.vals, sw.idx, b, r, k=k, stride=stride,
+                         relu=relu)
+    want = sc.sparse_conv_torch(x, sw.vals, sw.idx, b, r, k=k,
+                                stride=stride, relu=relu)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 3, 17])
+@pytest.mark.parametrize("d_out,bn", [(128, 32), (100, 25)])
+def test_sparse_matmul_kernel_matches_plain(dev, d_out, bn, m, dtype):
+    gen = torch.Generator().manual_seed(m)
+    sw = _weight(gen, 256, d_out, 32, bn, 0.75, dev)
+    x = torch.randn((m, 256), generator=gen).to(dev, dtype)
+    got = sm.sparse_matmul(x, sw.vals, sw.idx)
+    want = sm.sparse_matmul_torch(x, sw.vals, sw.idx)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    else:
+        _bf16_close(got, want)
+
+
+def test_forward_on_card_matches_cpu_and_uses_the_kernels(dev):
+    cfg = get_config("resnet50")
+    params = cnn.init_cnn(cfg, torch.Generator().manual_seed(0), device=dev)
+    cpu = cnn.init_cnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(1))
+    ops.reset_launches()
+    got = cnn.cnn_forward(cfg, params, x, device=dev).cpu()
+    assert ops.LAUNCHES == {"sparse_conv": 47, "sparse_matmul": 1}
+    want = cnn.cnn_forward(cfg, cpu, x, device="cpu")
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-3 * scale
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
