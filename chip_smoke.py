@@ -8,14 +8,20 @@ Phases, in order; any failure raises and exits nonzero:
 2. build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a;
 3. kernel checks: each kernel against its plain PyTorch version on the
-   card, at every distinct shape the ResNet-50 main path gives it;
-4. main path: ``serve(ServeConfig(arch="resnet50", mode="latency",
-   image_size=224))`` with the launch counters reset just before and read
-   just after; the card's logits are held against the port's plain CPU
-   forward on the same weights and images;
+   card, at every distinct shape its main paths give it: sparse_conv and
+   sparse_matmul at the ResNet-50 shapes, dw_pw at every MobileNet-V1/V2
+   block shape, depthwise_conv at every dw shape of the unfused views;
+4. main paths, each with the launch counters reset just before and read
+   just after, every counter checked by name: ``serve(ServeConfig(arch=
+   "resnet50" | "mobilenet_v1" | "mobilenet_v2", mode="latency",
+   image_size=224))``, then one ``cnn_forward`` per MobileNet on the
+   unfused view (``graph_for(name)``); the card's logits are held against
+   the port's plain CPU forward on the same weights and images;
 5. timings (CUDA events over CUDA-graph replays, L2-warm): each kernel at
    the main-path shapes beside its plain version, a library call that
-   computes the same function (never called by the port) and its bound;
+   computes the same function (never called by the port; for dw_pw no
+   single call does, and the two-call depthwise + 1x1 ``F.conv2d`` pair
+   is timed as a labelled yardstick) and its bound;
 6. one ``{"kernels": [...]}`` line, then the device line last.
 
 Per-layer numbers are also written to ``build/chip_smoke.json``.
@@ -42,12 +48,22 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 IMAGE_SIZE = 224
 N_REQUESTS = 50
+MOBILENETS = ("mobilenet_v1", "mobilenet_v2")
+MB_BLOCKS = {"mobilenet_v1": 13, "mobilenet_v2": 17}   # dw_pw / dw nodes
 SEED = 0
 # the port's logits vs its plain CPU forward: the two sum in f32 in other
 # orders and may round a bf16 activation the other way, which the next
 # layers carry on; at random init max |logit| is ~1e-3 of an activation,
 # so the bar is relative to max |logit|
 LOGIT_RTOL = 1e-3
+# The MobileNets' end-to-end bar. At 224 px and random init their logits
+# are ~1e-11 (V1) and ~1e-7 (V2) and hang on few paths, so a bf16
+# activation rounded the other way by a sum taken in another order moves
+# them by ~1e-3 of max |logit|: on MobileNet-V1 the card lands 1.8e-3
+# from the CPU while every node, fed the card's own inputs, is within
+# 1 bf16 ulp of the CPU node. check_nodes holds each node to that; it
+# does not accumulate.
+MB_LOGIT_RTOL = 1e-2
 
 
 def bf16_tol(ref: torch.Tensor) -> torch.Tensor:
@@ -56,6 +72,11 @@ def bf16_tol(ref: torch.Tensor) -> torch.Tensor:
     scale = float(ref.abs().max())
     atol = 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 0.0
     return 2.0 ** -7 * ref.abs() + atol
+
+
+def logit_tol(ref: torch.Tensor) -> torch.Tensor:
+    """LOGIT_RTOL of max |logit|, for every logit."""
+    return torch.full_like(ref, LOGIT_RTOL * float(ref.abs().max()))
 
 
 def f32_tol(ref: torch.Tensor) -> torch.Tensor:
@@ -139,8 +160,11 @@ def main() -> int:
         return 1
     from repro_torch.configs import get_config
     from repro_torch.core.fusion import conv_part, fused_graph_for
+    from repro_torch.core.graph import INPUT, graph_for
     from repro_torch.core.sparsity import densify
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import depthwise_conv as dwk
+    from repro_torch.kernels import dw_pw_fused as dwpw
     from repro_torch.kernels import sparse_conv as sc
     from repro_torch.kernels import sparse_matmul as sm
     from repro_torch.launch.serve import ServeConfig, serve
@@ -229,40 +253,201 @@ def main() -> int:
     print(f"[check] sparse_matmul: {[c[0] for c in mm_cases]}, max |err| "
           f"{mm_err:.3e} within tolerance")
 
-    # -- 4. the main path -------------------------------------------------
+    # the MobileNet blocks: every fused dw_pw node (main path) and every
+    # standalone dw node of the unfused view, with their weights
+    mb_params, mb_blocks, mb_dws = {}, {}, {}
+    for name in MOBILENETS:
+        mb_params[name] = cnn.init_cnn(
+            get_config(name), torch.Generator().manual_seed(SEED),
+            device="cpu")
+        mb_blocks[name] = [n for n in fused_graph_for(name).nodes
+                           if n.kind == "dw_pw"]
+        mb_dws[name] = [n for n in graph_for(name).nodes if n.kind == "dw"]
+        if len(mb_blocks[name]) != MB_BLOCKS[name] or \
+                len(mb_dws[name]) != MB_BLOCKS[name]:
+            raise AssertionError(f"{name}: expected {MB_BLOCKS[name]} dw_pw "
+                                 f"and dw nodes")
+
+    def dw_pw_args(name, node):
+        """(x, dw_w, dw_b, pw_w, pw_b, residual, kwargs) on the card at
+        the node's shape: the node's weights, random x, biases, skip."""
+        dw_s, pw_s = node.parts[0], node.parts[1]
+        p = mb_params[name]
+        ho = node.conv_out_hw
+        x = randn((1, node.in_hw, node.in_hw, node.cin))
+        r = randn((1, ho, ho, node.cout)) if node.residual_from else None
+        return (x, p[dw_s.name]["w"].to(dev), randn((node.cin,)) * 0.1,
+                p[pw_s.name]["w"].to(dev), randn((node.cout,)) * 0.1, r,
+                dict(stride=node.stride, dw_relu=dw_s.relu, relu=node.relu))
+
+    dw_pw_err, dw_pw_seen = 0.0, set()
+    for name in MOBILENETS:
+        for node in mb_blocks[name]:
+            key = (node.cin, node.cout, node.in_hw, node.stride,
+                   bool(node.residual_from), node.relu)
+            if key in dw_pw_seen:
+                continue
+            dw_pw_seen.add(key)
+            *args, kw = dw_pw_args(name, node)
+            got = dwpw.dw_pw(*args, **kw)
+            want = dwpw.dw_pw_torch(*args, **kw)
+            torch.cuda.synchronize()
+            dw_pw_err = max(dw_pw_err, compare(got, want, bf16_tol,
+                                               f"dw_pw {key}"))
+    print(f"[check] dw_pw: {len(dw_pw_seen)} shapes (C, Cout, H, stride, "
+          f"residual, relu) of MobileNet-V1/V2, max |err| {dw_pw_err:.3e} "
+          f"within 1 bf16 ulp")
+
+    dw_err, dw_seen = 0.0, set()
+    for name in MOBILENETS:
+        for node in mb_dws[name]:
+            key = (node.cin, node.in_hw, node.stride)
+            if key in dw_seen:
+                continue
+            dw_seen.add(key)
+            x = randn((1, node.in_hw, node.in_hw, node.cin))
+            w = mb_params[name][node.name]["w"].to(dev)
+            got = dwk.depthwise_conv(x, w, stride=node.stride)
+            want = dwk.depthwise_conv_torch(x, w, stride=node.stride)
+            torch.cuda.synchronize()
+            dw_err = max(dw_err, compare(got, want, bf16_tol,
+                                         f"depthwise_conv {key}"))
+    print(f"[check] depthwise_conv: {len(dw_seen)} shapes (C, H, stride) of "
+          f"the unfused MobileNet-V1/V2, max |err| {dw_err:.3e} within 1 "
+          f"bf16 ulp")
+
+    # -- 4. the main paths ------------------------------------------------
+    def check_logits(logits, images, cfg_, params_, graph=None,
+                     rtol=LOGIT_RTOL) -> float:
+        """The card's logits of the first two requests against the plain
+        CPU forward: within ``rtol`` of max |logit|, top-1 equal.
+        Returns the larger max |err| / max |logit|."""
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{cfg_.name}: non-finite logits")
+        worst = 0.0
+        for i in range(min(2, logits.shape[0])):
+            ref = cnn.cnn_forward(cfg_, params_,
+                                  torch.from_numpy(images[i:i + 1]),
+                                  graph=graph, device="cpu")[0]
+            scale = float(ref.abs().max())
+            err = float((logits[i] - ref).abs().max())
+            if scale == 0 or err > rtol * scale or int(
+                    logits[i].argmax()) != int(ref.argmax()):
+                raise AssertionError(
+                    f"{cfg_.name} request {i}: card vs CPU logits max |err| "
+                    f"{err:.3e} > {rtol} * {scale:.3e}, or top-1 differs")
+            worst = max(worst, err / scale)
+        return worst
+
+    def check_launches(launches: dict, want: dict, what: str) -> None:
+        """Every counter by name: the kernels ``want`` names launched
+        exactly that often, and any counter it does not name not at all."""
+        unknown = set(want) - set(launches)
+        full = {k: want.get(k, 0) for k in launches}
+        if unknown or launches != full:
+            raise AssertionError(f"{what}: launches {launches} != {full}, "
+                                 f"counters missing: {unknown or 'none'}")
+
+    def check_nodes(cfg_, graph, params_dev, params_cpu_, image) -> float:
+        """Each node of ``graph`` on the card against the same node on
+        the CPU, fed the card's own input to that node: bf16 outputs
+        within 1 bf16 ulp, the f32 logits within LOGIT_RTOL of max
+        |logit|. Returns the worst error as a share of its bar."""
+        env = {INPUT: torch.from_numpy(image).to(dev).to(torch.bfloat16)}
+        worst = 0.0
+        with torch.inference_mode():
+            for node, srcs in zip(graph.nodes, graph.inputs):
+                args = [env[s] for s in srcs]
+                got = cnn.run_node(node, params_dev, *args)
+                want = cnn.run_node(node, params_cpu_,
+                                    *[a.cpu() for a in args])
+                env[node.name] = got
+                torch.cuda.synchronize()
+                tol = bf16_tol if want.dtype == torch.bfloat16 else logit_tol
+                compare(got.cpu(), want, tol, f"{cfg_.name} node {node.name}")
+                err = (got.cpu().float() - want.float()).abs()
+                share = err / tol(want.float()).clamp_min(1e-38)
+                worst = max(worst, float(share.max()))
+        return worst
+
+    n_runs = N_REQUESTS + 1                       # + the warm-up request
     ops.reset_launches()
     out = serve(ServeConfig(arch="resnet50", mode="latency",
                             image_size=IMAGE_SIZE, n_requests=N_REQUESTS,
                             seed=SEED, device="cuda"))
     launches = dict(ops.LAUNCHES)
-    n_runs = N_REQUESTS + 1                       # + the warm-up request
-    want_launches = {"sparse_conv": 47 * n_runs, "sparse_matmul": n_runs}
-    if launches != want_launches:
-        raise AssertionError(f"launches {launches} != {want_launches} "
-                             f"({n_runs} requests incl. warm-up)")
+    check_launches(launches, {"sparse_conv": 47 * n_runs,
+                              "sparse_matmul": n_runs, "dw_pw": 0,
+                              "depthwise_conv": 0},
+                   f"resnet50 ({n_runs} requests incl. warm-up)")
     logits = torch.from_numpy(out["logits"])
     if logits.shape != (N_REQUESTS, 1000) or not torch.isfinite(logits).all():
         raise AssertionError(f"logits {tuple(logits.shape)} not finite "
                              f"(N_REQUESTS, 1000)")
-    logit_err = 0.0
-    for i in range(2):
-        ref = cnn.cnn_forward(cfg, params_cpu,
-                              torch.from_numpy(out["request_images"][i:i + 1]),
-                              device="cpu")[0]
-        scale = float(ref.abs().max())
-        err = float((logits[i] - ref).abs().max())
-        if err > LOGIT_RTOL * scale or int(logits[i].argmax()) != int(
-                ref.argmax()):
-            raise AssertionError(
-                f"request {i}: card vs CPU logits max |err| {err:.3e} > "
-                f"{LOGIT_RTOL} * {scale:.3e}, or top-1 differs")
-        logit_err = max(logit_err, err / scale)
+    logit_err = check_logits(logits, out["request_images"], cfg, params_cpu)
     p50_ms = out["latency_p50_s"] * 1e3
     p99_ms = out["latency_p99_s"] * 1e3
     print(f"[main] {N_REQUESTS} requests at {IMAGE_SIZE}px: p50 {p50_ms:.4f}"
           f" ms, p99 {p99_ms:.4f} ms; launches {launches}; logits vs CPU "
           f"max |err| / max |logit| {logit_err:.3e} (bar {LOGIT_RTOL}), "
           f"top-1 equal")
+
+    mb_main = {}
+    all_launches = dict(launches)
+    for name in MOBILENETS:
+        mcfg = get_config(name)
+        ops.reset_launches()
+        mout = serve(ServeConfig(arch=name, mode="latency",
+                                 image_size=IMAGE_SIZE,
+                                 n_requests=N_REQUESTS, seed=SEED,
+                                 device="cuda"))
+        served = dict(ops.LAUNCHES)
+        check_launches(served, {"sparse_conv": 0, "sparse_matmul": 0,
+                                "dw_pw": MB_BLOCKS[name] * n_runs,
+                                "depthwise_conv": 0},
+                       f"{name} ({n_runs} requests incl. warm-up)")
+        mlogits = torch.from_numpy(mout["logits"])
+        if mlogits.shape != (N_REQUESTS, 1000):
+            raise AssertionError(f"{name}: logits {tuple(mlogits.shape)}")
+        err = check_logits(mlogits, mout["request_images"], mcfg,
+                           mb_params[name], rtol=MB_LOGIT_RTOL)
+        # the unfused view: every dw node through the depthwise kernel
+        img = mout["request_images"][:1]
+        params_dev = {k: {"w": v["w"].to(dev), "b": v["b"].to(dev)}
+                      for k, v in mb_params[name].items()}
+        ops.reset_launches()
+        unfused = cnn.cnn_forward(mcfg, params_dev, torch.from_numpy(img),
+                                  graph=graph_for(name), device="cuda").cpu()
+        unfused_launches = dict(ops.LAUNCHES)
+        check_launches(unfused_launches,
+                       {"sparse_conv": 0, "sparse_matmul": 0, "dw_pw": 0,
+                        "depthwise_conv": MB_BLOCKS[name]},
+                       f"{name} unfused view")
+        unfused_err = check_logits(unfused, img, mcfg, mb_params[name],
+                                   graph=graph_for(name), rtol=MB_LOGIT_RTOL)
+        node_err = {view: check_nodes(mcfg, g, params_dev, mb_params[name],
+                                      img)
+                    for view, g in (("fused", fused_graph_for(name)),
+                                    ("unfused", graph_for(name)))}
+        for counts in (served, unfused_launches):
+            for k, v in counts.items():
+                all_launches[k] = all_launches.get(k, 0) + v
+        mb_main[name] = {
+            "p50_ms": mout["latency_p50_s"] * 1e3,
+            "p99_ms": mout["latency_p99_s"] * 1e3,
+            "latencies_s": mout["request_latencies_s"],
+            "launches": served, "unfused_launches": unfused_launches,
+            "logit_err": err, "unfused_logit_err": unfused_err,
+            "node_err_share_of_bar": node_err}
+        print(f"[main] {name}: {N_REQUESTS} requests at {IMAGE_SIZE}px: p50 "
+              f"{mb_main[name]['p50_ms']:.4f} ms, p99 "
+              f"{mb_main[name]['p99_ms']:.4f} ms; launches {served}; logits "
+              f"vs CPU max |err| / max |logit| {err:.3e} (bar "
+              f"{MB_LOGIT_RTOL}), top-1 equal; unfused view launches "
+              f"{unfused_launches}, logits {unfused_err:.3e}, top-1 equal; "
+              f"every node on the card's own inputs within its bar (worst "
+              f"share: fused {node_err['fused']:.3f}, unfused "
+              f"{node_err['unfused']:.3f})")
 
     # -- 5. timings at the main-path shapes -------------------------------
     rows = []
@@ -330,20 +515,106 @@ def main() -> int:
           f"{p50_ms:.4f} ms: the rest is the dense convs, pools, launch "
           f"overhead, host time and H2D/D2H")
 
+    def add_sums(acc: dict, row: dict) -> None:
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+                    "ops_ms"):
+            acc[key] = acc.get(key, 0.0) + row[key]
+
+    dw_pw_rows, dw_pw_sums = [], {}
+    dw_rows, dw_sums = [], {}
+    for name in MOBILENETS:
+        per_req, dw_per_req = {}, {}
+        for node in mb_blocks[name]:
+            x, dw_w, dw_b, pw_w, pw_b, r, kw = dw_pw_args(name, node)
+            c, co, ho = node.cin, node.cout, node.conv_out_hw
+            m = ho * ho
+            x_cl = x.permute(0, 3, 1, 2)      # channels_last view, no copy
+            w_dw = dw_w.permute(2, 0, 1).unsqueeze(1).contiguous(
+                memory_format=torch.channels_last)           # (C, 1, 3, 3)
+            w_pw = pw_w.t().reshape(co, c, 1, 1).contiguous(
+                memory_format=torch.channels_last)
+            ms = time_ms(lambda: dwpw.dw_pw(x, dw_w, dw_b, pw_w, pw_b, r,
+                                            **kw))
+            plain = time_ms(lambda: dwpw.dw_pw_torch(x, dw_w, dw_b, pw_w,
+                                                     pw_b, r, **kw))
+            pair = time_ms(lambda: F.conv2d(
+                F.conv2d(x_cl, w_dw, dw_b, node.stride, 1, groups=c),
+                w_pw, pw_b))
+            nbytes = 2 * (x.numel() + dw_w.numel() + c + pw_w.numel() + co
+                          + m * co * (2 if r is not None else 1))
+            nops = 2 * m * c * (9 + co)
+            t_b, t_o = bound(nbytes, nops, torch.bfloat16)
+            row = {"arch": name, "layer": node.name, "C": c, "Cout": co,
+                   "H": node.in_hw, "stride": node.stride,
+                   "residual": r is not None, "relu": node.relu,
+                   "blocks": -(-m // 64) * -(-co // 64), "ms": ms,
+                   "plain_ms": plain, "library_ms": pair,
+                   "bound_ms": max(t_b, t_o), "bound_by": bound_by(t_b, t_o),
+                   "bytes": nbytes, "ops": nops, "bytes_ms": t_b,
+                   "ops_ms": t_o}
+            dw_pw_rows.append(row)
+            add_sums(per_req, row)
+            add_sums(dw_pw_sums, row)
+            print(f"[time] {name} {node.name:8s} dw_pw C{c:5d} Cout{co:5d} "
+                  f"H{node.in_hw:4d} s{node.stride} res={int(r is not None)}"
+                  f": kernel {ms * 1e3:9.3f} us, plain {plain * 1e3:9.3f} us,"
+                  f" F.conv2d dw+1x1 pair {pair * 1e3:9.3f} us, bound "
+                  f"{row['bound_ms'] * 1e3:7.3f} us ({row['bound_by']})")
+        for node in mb_dws[name]:
+            c, ho = node.cin, node.conv_out_hw
+            x = randn((1, node.in_hw, node.in_hw, c))
+            w = mb_params[name][node.name]["w"].to(dev)
+            x_cl = x.permute(0, 3, 1, 2)
+            w_dw = w.permute(2, 0, 1).unsqueeze(1).contiguous(
+                memory_format=torch.channels_last)
+            ms = time_ms(lambda: dwk.depthwise_conv(x, w, stride=node.stride))
+            plain = time_ms(lambda: dwk.depthwise_conv_torch(
+                x, w, stride=node.stride))
+            lib = time_ms(lambda: F.conv2d(x_cl, w_dw, None, node.stride, 1,
+                                           groups=c))
+            nbytes = 2 * (x.numel() + w.numel() + ho * ho * c)
+            nops = 2 * ho * ho * c * 9
+            t_b, t_o = bound(nbytes, nops, torch.bfloat16)
+            row = {"arch": name, "layer": node.name, "C": c,
+                   "H": node.in_hw, "stride": node.stride, "ms": ms,
+                   "plain_ms": plain, "library_ms": lib,
+                   "bound_ms": max(t_b, t_o), "bound_by": bound_by(t_b, t_o),
+                   "bytes": nbytes, "ops": nops, "bytes_ms": t_b,
+                   "ops_ms": t_o}
+            dw_rows.append(row)
+            add_sums(dw_per_req, row)
+            add_sums(dw_sums, row)
+            print(f"[time] {name} {node.name:8s} depthwise C{c:5d} "
+                  f"H{node.in_hw:4d} s{node.stride}: kernel "
+                  f"{ms * 1e3:9.3f} us, plain {plain * 1e3:9.3f} us, "
+                  f"F.conv2d(groups=C) {lib * 1e3:9.3f} us, bound "
+                  f"{row['bound_ms'] * 1e3:7.3f} us ({row['bound_by']})")
+        mb_main[name]["dw_pw_per_request"] = per_req
+        mb_main[name]["depthwise_per_request"] = dw_per_req
+        print(f"[time] {name} per request: dw_pw x{MB_BLOCKS[name]} "
+              f"{per_req['ms']:.4f} ms (plain {per_req['plain_ms']:.4f}, "
+              f"F.conv2d pairs {per_req['library_ms']:.4f}, bound "
+              f"{per_req['bound_ms']:.5f}) vs request p50 "
+              f"{mb_main[name]['p50_ms']:.4f} ms; unfused depthwise "
+              f"x{MB_BLOCKS[name]} {dw_per_req['ms']:.4f} ms (bound "
+              f"{dw_per_req['bound_ms']:.5f})")
+
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "build_s": build_s, "p50_ms": p50_ms,
         "p99_ms": p99_ms, "latencies_s": out["request_latencies_s"],
         "launches": launches, "conv_layers": rows,
         "fc": {"ms": fc_ms, "plain_ms": fc_plain, "library_ms": fc_lib,
-               "bound_ms": fc_bound, "bound_by": fc_by}}, indent=1))
+               "bound_ms": fc_bound, "bound_by": fc_by},
+        "mobilenet": mb_main, "dw_pw_layers": dw_pw_rows,
+        "depthwise_layers": dw_rows}, indent=1))
 
     # -- 6. the kernels line, then the device line ------------------------
     kernels = [
         {"name": "sparse_conv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sparse_conv.cu",
          "replaces": "src/repro/kernels/sparse_conv.py:203",
-         "launches": launches["sparse_conv"],
+         "launches": all_launches["sparse_conv"],
          "launches_per_request": 47,
          "max_abs_err": conv_err, "max_err": conv_err, "ok": True,
          "ms": sums["ms"], "plain_ms": sums["plain_ms"],
@@ -355,11 +626,45 @@ def main() -> int:
         {"name": "sparse_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sparse_matmul.cu",
          "replaces": "src/repro/kernels/sparse_matmul.py:68",
-         "launches": launches["sparse_matmul"],
+         "launches": all_launches["sparse_matmul"],
          "launches_per_request": 1,
          "max_abs_err": mm_err, "max_err": mm_err, "ok": True,
          "ms": fc_ms, "plain_ms": fc_plain, "bound_ms": fc_bound,
          "bound_by": fc_by, "library_ms": fc_lib},
+        {"name": "dw_pw", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/dw_pw.cu",
+         "replaces": "src/repro/kernels/dw_pw_fused.py:137",
+         "launches": all_launches["dw_pw"],
+         "launches_per_request": dict(MB_BLOCKS),
+         "max_abs_err": dw_pw_err, "max_err": dw_pw_err, "ok": True,
+         "ms": dw_pw_sums["ms"], "plain_ms": dw_pw_sums["plain_ms"],
+         "bound_ms": dw_pw_sums["bound_ms"],
+         "bound_by": bound_by(dw_pw_sums["bytes_ms"], dw_pw_sums["ops_ms"]),
+         "library_ms": None,
+         "library_pair_ms": dw_pw_sums["library_ms"],
+         "library_pair": "F.conv2d(groups=C) then 1x1 F.conv2d, channels-"
+                         "last bf16: two calls, no single call computes "
+                         "the fused function",
+         "ms_per_request": {n: mb_main[n]["dw_pw_per_request"]["ms"]
+                            for n in MOBILENETS},
+         "note": "ms, plain_ms, bound_ms, library_pair_ms: sums over one "
+                 "request of MobileNet-V1 (13 layers) and one of "
+                 "MobileNet-V2 (17 layers)"},
+        {"name": "depthwise_conv", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/depthwise_conv.cu",
+         "replaces": "src/repro/kernels/depthwise_conv.py:121",
+         "launches": all_launches["depthwise_conv"],
+         "launches_per_request": dict(MB_BLOCKS),
+         "max_abs_err": dw_err, "max_err": dw_err, "ok": True,
+         "ms": dw_sums["ms"], "plain_ms": dw_sums["plain_ms"],
+         "bound_ms": dw_sums["bound_ms"],
+         "bound_by": bound_by(dw_sums["bytes_ms"], dw_sums["ops_ms"]),
+         "library_ms": dw_sums["library_ms"],
+         "ms_per_request": {n: mb_main[n]["depthwise_per_request"]["ms"]
+                            for n in MOBILENETS},
+         "note": "ms, plain_ms, bound_ms, library_ms: sums over one "
+                 "unfused forward of MobileNet-V1 (13 dw nodes) and one of "
+                 "MobileNet-V2 (17); library: F.conv2d(groups=C)"},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

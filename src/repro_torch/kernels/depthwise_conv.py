@@ -1,0 +1,115 @@
+"""Depthwise 2D convolution: HPIPE's DepthwiseConv2D unit.
+
+``depthwise_conv`` launches the CUDA kernel in ``csrc/depthwise_conv.cu``,
+which replaces the reference's ``kernels/depthwise_conv.py::
+depthwise_conv_pallas``. ``depthwise_conv_torch`` is the plain PyTorch
+version of the same function: the CPU path and the check the kernel is
+held to on the card.
+
+Both follow the Pallas kernel's arithmetic, not the reference's XLA
+oracle (a bf16 grouped ``lax.conv``): for each kernel row ky the k taps
+of that row are summed from zero in f32 (:func:`shifted_row_mac`), that
+row sum is added to an f32 accumulator, and the result is rounded once
+to ``x.dtype``. No bias. The reference's VMEM budget and channel-tile
+choice (``pick_block_c``) are TPU-only and have no counterpart here.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.sparse_conv import same_pads
+
+
+def shifted_row_mac(rows, taps_ky, k: int, wo: int, stride: int):
+    """One ky step of the line-buffered depthwise unit: the k shifted,
+    strided (wo, C) windows of the input rows, times that kernel row's
+    taps, summed from zero in f32. ``rows``: (..., wp, C) padded input
+    rows; ``taps_ky``: (k, C). Returns (..., wo, C) f32. Shared by the
+    depthwise and the fused dw->pw plain versions, as the reference
+    shares its own (``depthwise_conv.py:42-55``)."""
+    acc = torch.zeros(rows.shape[:-2] + (wo, rows.shape[-1]),
+                      dtype=torch.float32, device=rows.device)
+    for kx in range(k):
+        win = rows[..., kx:kx + (wo - 1) * stride + 1:stride, :]
+        acc = acc + win.float() * taps_ky[kx].float()
+    return acc
+
+
+def depthwise_acc(xp, w, *, stride: int, ho: int, wo: int):
+    """The f32 depthwise sum over a SAME-padded NHWC slab ``xp`` for
+    ``ho`` output rows: per ky one :func:`shifted_row_mac` over the rows
+    ``ky, ky + stride, ...``, added into the accumulator in ky order."""
+    k = w.shape[0]
+    acc = None
+    for ky in range(k):
+        rows = xp[:, ky:ky + (ho - 1) * stride + 1:stride]
+        r = shifted_row_mac(rows, w[ky], k, wo, stride)
+        acc = r if acc is None else acc + r
+    return acc
+
+
+def pad_same_nhwc(x, k: int, stride: int):
+    """SAME-pad the H/W axes of NHWC ``x`` (lo = total // 2);
+    returns (xp, ho, wo)."""
+    _, h, w, _ = x.shape
+    ho, ph_lo, ph_hi = same_pads(h, k, stride)
+    wo, pw_lo, pw_hi = same_pads(w, k, stride)
+    return F.pad(x, (0, 0, pw_lo, pw_hi, ph_lo, ph_hi)), ho, wo
+
+
+def depthwise_conv_torch(x, w, *, stride: int = 1) -> torch.Tensor:
+    """x: (N, H, W, C) NHWC; w: (k, k, C). SAME padding, f32
+    accumulation, output (N, ceil(H/stride), ceil(W/stride), C) in
+    x.dtype."""
+    xp, ho, wo = pad_same_nhwc(x, w.shape[0], stride)
+    return depthwise_acc(xp, w, stride=stride, ho=ho, wo=wo).to(x.dtype)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    lib = _build.load("depthwise_conv")
+    fn = lib.depthwise_conv_bf16
+    fn.argtypes = [_P] * 3 + [_I] * 9 + [_P]
+    fn.restype = _I
+    return lib, fn
+
+
+def depthwise_conv(x, w, *, stride: int = 1) -> torch.Tensor:
+    """The CUDA kernel: same function and arguments as
+    :func:`depthwise_conv_torch`, on contiguous bf16 CUDA tensors with
+    a 3x3 kernel and an even C. Raises on anything the kernel does not take; it never
+    falls back to the plain version. The output is allocated here and
+    the kernel runs on the current stream without synchronising."""
+    for name, t in (("x", x), ("w", w)):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"depthwise_conv: {name} must be on {x.device} "
+                             f"(a CUDA device), got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"depthwise_conv: {name} must be contiguous")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"depthwise_conv: {name} must be bfloat16, "
+                             f"got {t.dtype}")
+    if x.dim() != 4 or tuple(w.shape) != (3, 3, x.shape[-1]) \
+            or x.shape[-1] % 2:
+        raise ValueError(f"depthwise_conv: needs x (N, H, W, C) with C even "
+                         f"and w (3, 3, C); got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    n, h, wd, c = x.shape
+    ho, ph, _ = same_pads(h, 3, stride)
+    wo, pw, _ = same_pads(wd, 3, stride)
+    out = torch.empty((n, ho, wo, c), dtype=torch.bfloat16, device=x.device)
+    lib, fn = _kernel()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, ho, wo,
+             stride, ph, pw, stream)
+    _build.check(lib, "depthwise_conv", err)
+    _build.LAUNCHES["depthwise_conv"] += 1
+    return out

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import depthwise_conv as _dw
+from repro_torch.kernels import dw_pw_fused as _dwpw
 from repro_torch.kernels import sparse_conv as _sc
 from repro_torch.kernels import sparse_matmul as _sm
 from repro_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
@@ -57,3 +59,27 @@ def sparse_conv(x, sw, bias, *, k: int, stride: int = 1, relu: bool = True,
         else _sc.sparse_conv_torch
     return fn(x, sw.vals, sw.idx, bias, residual, k=k, stride=stride,
               relu=relu)
+
+
+def depthwise_conv(x, w, *, stride: int = 1) -> torch.Tensor:
+    """NHWC depthwise conv (HPIPE's DepthwiseConv2D unit): x (N, H, W,
+    C), w (k, k, C), SAME padding, f32 sums, output in x.dtype, no
+    bias."""
+    fn = _dw.depthwise_conv if _route(x, "depthwise_conv") \
+        else _dw.depthwise_conv_torch
+    return fn(x, w, stride=stride)
+
+
+def dw_pw_conv(x, dw_w, dw_b, pw_w, pw_b, *, stride: int = 1,
+               dw_relu: bool = True, relu: bool = True,
+               residual=None) -> torch.Tensor:
+    """Fused depthwise -> pointwise MobileNet block body (the graph
+    fusion pass's ``dw_pw`` node): the depthwise intermediate never
+    reaches device memory on the card, and exists one row chunk at a
+    time on the CPU.
+
+    x: (N, H, W, C); dw_w: (k, k, C); dw_b: (C,); pw_w: (C, Cout) dense;
+    pw_b: (Cout,); residual: optional fused (N, Ho, Wo, Cout) skip."""
+    fn = _dwpw.dw_pw if _route(x, "dw_pw") else _dwpw.dw_pw_torch
+    return fn(x, dw_w, dw_b, pw_w, pw_b, residual, stride=stride,
+              dw_relu=dw_relu, relu=relu)

@@ -8,6 +8,9 @@ the ROADMAP item that ports them.
 
     python -m repro_torch.launch.serve --arch resnet50 --mode latency \\
         --requests 50 --image-size 224
+
+``--arch`` is any of the paper's CNNs: ``resnet50`` (sparse),
+``mobilenet_v1`` or ``mobilenet_v2`` (dense).
 """
 from __future__ import annotations
 

@@ -1,19 +1,24 @@
-"""The paper's own networks on the port: ResNet-50 V1 now; MobileNet-V1
-and MobileNet-V2 build their graphs but do not run yet.
+"""The paper's own networks on the port: sparse ResNet-50 V1 and the
+dense MobileNet-V1 and MobileNet-V2.
 
 Counterpart of the reference's ``src/repro/models/cnn.py``, with its
-layout (NHWC activations, HWIO-flattened (k*k*cin, cout) conv weights)
-and its dtype boundaries: images are cast to bf16 on entry, every conv
-accumulates in f32, adds its bias in f32 and rounds once to bf16, and
-the classifier runs in f32. Every pruned conv goes through the fused
-implicit-GEMM block-sparse conv (``kernels/ops.sparse_conv``) and the
-pruned classifier through ``kernels/ops.sparse_matmul``; the dense convs
-(the stem and five stage-0 1x1 convs too narrow to prune) run through
+layout (NHWC activations, HWIO-flattened (k*k*cin, cout) conv weights,
+(k, k, C) depthwise weights) and its dtype boundaries: images are cast
+to bf16 on entry, every conv accumulates in f32, adds its bias in f32
+and rounds once to bf16, and the classifier runs in f32. Every pruned
+conv goes through the fused implicit-GEMM block-sparse conv
+(``kernels/ops.sparse_conv``) and the pruned classifier through
+``kernels/ops.sparse_matmul``; every MobileNet dw->pw block goes
+through the fused dw->pw conv (``kernels/ops.dw_pw_conv``) and every
+standalone depthwise node through ``kernels/ops.depthwise_conv``. The
+dense convs (the stems, ResNet-50's five stage-0 1x1 convs too narrow
+to prune, MobileNet-V2's expansion convs and ``conv_last``) run through
 ``F.conv2d`` in full f32, as the reference leaves them to ``lax.conv``.
 
 ``cnn_forward`` is the graph interpreter over the FUSED layer graph
-(``core/fusion.py``): residual ``add``(+relu) tails, the stem's max-pool
-and the avgpool->fc head are epilogues of the node before them.
+(``core/fusion.py``): dw->pw pairs are one node, residual ``add``(+relu)
+tails, the stem's max-pool and the avgpool->fc head are epilogues of
+the node before them.
 """
 from __future__ import annotations
 
@@ -32,9 +37,6 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.sparse_conv import same_pads
 from repro_torch.models import layers as L
 from repro_torch.models.layers import SparseWeight
-
-_MOBILENET = "MobileNet path: ROADMAP Queue 1"
-
 
 # ---------------------------------------------------------------------------
 # layer spec builders (the "TensorFlow graph" the compiler walks)
@@ -164,8 +166,9 @@ def _to(p: dict, dev: torch.device) -> dict:
 
 def init_cnn(cfg, generator: torch.Generator, *, device="cuda") -> dict:
     """Random weights for ``cfg`` (the reference's ``init_cnn`` law:
-    uniform +-1/sqrt(fan_in) in f32 then bf16, zero biases, convs and
-    classifier pruned block-balanced where ``cfg.sparsity`` allows).
+    uniform +-1/sqrt(fan_in) in f32 then bf16, depthwise weights
+    (k, k, C) with fan_in k*k, zero biases, convs and classifier pruned
+    block-balanced where ``cfg.sparsity`` allows).
 
     Drawn in spec order from ``generator`` on the generator's device and
     then moved to ``device``, so one seed gives the same weights on the
@@ -173,9 +176,8 @@ def init_cnn(cfg, generator: torch.Generator, *, device="cuda") -> dict:
     hold the port against the reference, carry the reference's weights
     across with :func:`params_from_numpy` instead."""
     dev = resolve_device(device)
-    if cfg.name != "resnet50":
-        raise NotImplementedError(_MOBILENET)
-    specs = [s for s in specs_for(cfg.name) if s.kind in ("conv", "fc")]
+    specs = [s for s in specs_for(cfg.name)
+             if s.kind in ("conv", "dw", "fc")]
     sp = cfg.sparsity
     params = {}
     for s in specs:
@@ -183,6 +185,8 @@ def init_cnn(cfg, generator: torch.Generator, *, device="cuda") -> dict:
             fan_in = s.k * s.k * s.cin
             w = L.dense_init(generator, (fan_in, s.cout), fan_in)
             w = _maybe_sparse(w, sp, cin=s.cin)
+        elif s.kind == "dw":
+            w = L.dense_init(generator, (s.k, s.k, s.cin), s.k * s.k)
         else:
             w = _maybe_sparse(L.dense_init(generator, (s.cin, s.cout), s.cin),
                               sp)
@@ -272,6 +276,31 @@ def conv2d(x, p, s: ConvSpec, *, relu=True, residual=None):
     return y.contiguous()
 
 
+def depthwise(x, p, s: ConvSpec, *, relu=True):
+    """A standalone depthwise node: the depthwise kernel's bf16 output,
+    then bias and ReLU in bf16 (the reference's order, a second rounding
+    that the fused dw->pw node does not have)."""
+    y = kops.depthwise_conv(x, p["w"], stride=s.stride) + p["b"]
+    return torch.relu(y) if relu else y
+
+
+def _fused_dw_pw(x, params, node: ConvSpec, residual=None):
+    """A fused dw_pw node: the depthwise intermediate never reaches
+    device memory (``kernels/dw_pw_fused.py``). A pruned pointwise
+    weight takes the two-op sequence inside the node instead, as in the
+    reference: the fused kernel needs a dense (C, Cout) weight, and the
+    paper runs the MobileNets dense, so that branch is reached only with
+    a pruned pw weight."""
+    dw_s, pw_s = node.parts[0], node.parts[1]
+    dw_p, pw_p = params[dw_s.name], params[pw_s.name]
+    if isinstance(pw_p["w"], SparseWeight):
+        y = depthwise(x, dw_p, dw_s, relu=dw_s.relu)
+        return conv2d(y, pw_p, pw_s, relu=node.relu, residual=residual)
+    return kops.dw_pw_conv(x, dw_p["w"], dw_p["b"], pw_p["w"], pw_p["b"],
+                           stride=node.stride, dw_relu=dw_s.relu,
+                           relu=node.relu, residual=residual)
+
+
 def _maxpool_same(x, k: int, stride: int):
     """``lax.reduce_window(max, SAME)``: -inf padding with lo = total // 2
     (at 112 px, 3x3/2: (0, 1); ``F.max_pool2d(padding=1)`` would pad
@@ -311,8 +340,10 @@ def run_node(node: ConvSpec, params, *args):
         if node.pool_k:                  # fused pooling epilogue (R4)
             y = _maxpool_same(y, node.pool_k, node.pool_stride)
         return y
-    if node.kind in ("dw", "dw_pw"):
-        raise NotImplementedError(_MOBILENET)
+    if node.kind == "dw_pw":
+        return _fused_dw_pw(x, params, node, residual=res)
+    if node.kind == "dw":
+        return depthwise(x, params[node.name], node, relu=node.relu)
     if node.kind == "maxpool":
         return _maxpool_same(x, node.k, node.stride)
     if node.kind == "avgpool":

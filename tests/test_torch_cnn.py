@@ -209,8 +209,5 @@ def test_unported_modes_name_their_roadmap_item(kw):
 
 def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cnn.init_cnn(get_config("mobilenet_v1"), torch.Generator(),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         SparseWeight(torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, dtype=torch.int32),
                      16, scale=torch.ones(1, 4))

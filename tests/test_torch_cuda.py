@@ -15,7 +15,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import SparsityConfig, get_config  # noqa: E402
+from repro_torch.core.fusion import fused_graph_for  # noqa: E402
+from repro_torch.core.graph import graph_for  # noqa: E402
 from repro_torch.core.sparsity import to_block_balanced  # noqa: E402
+from repro_torch.kernels import depthwise_conv as dw  # noqa: E402
+from repro_torch.kernels import dw_pw_fused as dwpw  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import sparse_conv as sc  # noqa: E402
 from repro_torch.kernels import sparse_matmul as sm  # noqa: E402
@@ -37,6 +41,13 @@ def _bf16_close(got, want):
     scale = float(want.abs().max())
     atol = 2.0 ** (math.floor(math.log2(scale)) - 7)
     assert ((got - want).abs() <= 2.0 ** -7 * want.abs() + atol).all()
+
+
+def _assert_launches(want):
+    """Every launch counter by name: the kernels ``want`` names launched
+    exactly that often, every other kernel not at all."""
+    assert set(want) <= set(ops.LAUNCHES)
+    assert ops.LAUNCHES == {k: want.get(k, 0) for k in ops.LAUNCHES}
 
 
 def _weight(gen, d_in, d_out, bm, bn, sp, dev):
@@ -95,8 +106,86 @@ def test_forward_on_card_matches_cpu_and_uses_the_kernels(dev):
     x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(1))
     ops.reset_launches()
     got = cnn.cnn_forward(cfg, params, x, device=dev).cpu()
-    assert ops.LAUNCHES == {"sparse_conv": 47, "sparse_matmul": 1}
+    _assert_launches({"sparse_conv": 47, "sparse_matmul": 1, "dw_pw": 0,
+                      "depthwise_conv": 0})
     want = cnn.cnn_forward(cfg, cpu, x, device="cpu")
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-3 * scale
     assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+MOBILENETS = ("mobilenet_v1", "mobilenet_v2")
+# every distinct (C, Cout, H, stride, residual, relu) of the fused
+# MobileNet blocks at 224 px, and every distinct (C, H, stride) of the
+# unfused views' depthwise nodes; plus batch 2 at odd sizes
+DW_PW_SHAPES = sorted({(n.cin, n.cout, n.in_hw, n.stride,
+                        bool(n.residual_from), n.relu)
+                       for a in MOBILENETS for n in fused_graph_for(a).nodes
+                       if n.kind == "dw_pw"})
+DW_SHAPES = sorted({(n.cin, n.in_hw, n.stride)
+                    for a in MOBILENETS for n in graph_for(a).nodes
+                    if n.kind == "dw"})
+
+
+def _dw_pw_inputs(gen, n, c, co, h, stride, residual, dev):
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(
+            dev, torch.bfloat16)
+    ho = -(-h // stride)
+    return (rnd((n, h, h, c)), rnd((3, 3, c), 1 / 3), rnd((c,), 0.1),
+            rnd((c, co), c ** -0.5), rnd((co,), 0.1),
+            rnd((n, ho, ho, co)) if residual else None)
+
+
+@pytest.mark.parametrize("shape", DW_PW_SHAPES + [(24, 40, 9, 2, False, True),
+                                                  (48, 24, 7, 1, True, False)],
+                         ids=str)
+def test_dw_pw_kernel_matches_plain(dev, shape):
+    c, co, h, stride, residual, relu = shape
+    n = 1 if h > 9 else 2
+    gen = torch.Generator().manual_seed(c + co + h)
+    x, dw_w, dw_b, pw_w, pw_b, r = _dw_pw_inputs(gen, n, c, co, h, stride,
+                                                 residual, dev)
+    for dw_relu in (True, False):
+        kw = dict(stride=stride, dw_relu=dw_relu, relu=relu)
+        got = dwpw.dw_pw(x, dw_w, dw_b, pw_w, pw_b, r, **kw)
+        want = dwpw.dw_pw_torch(x, dw_w, dw_b, pw_w, pw_b, r, **kw)
+        torch.cuda.synchronize()
+        _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("shape", DW_SHAPES + [(24, 9, 2), (40, 8, 1)],
+                         ids=str)
+def test_depthwise_conv_kernel_matches_plain(dev, shape):
+    c, h, stride = shape
+    n = 1 if h > 9 else 2
+    gen = torch.Generator().manual_seed(c + h + stride)
+    x = torch.randn((n, h, h, c), generator=gen).to(dev, torch.bfloat16)
+    w = (torch.randn((3, 3, c), generator=gen) / 3).to(dev, torch.bfloat16)
+    got = dw.depthwise_conv(x, w, stride=stride)
+    want = dw.depthwise_conv_torch(x, w, stride=stride)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("name", MOBILENETS)
+def test_mobilenet_on_card_matches_cpu_and_uses_the_kernels(dev, name):
+    """Fused graph: one dw_pw launch per block; unfused view: one
+    depthwise_conv launch per dw node; nothing else launches."""
+    cfg = get_config(name)
+    params = cnn.init_cnn(cfg, torch.Generator().manual_seed(0), device=dev)
+    cpu = cnn.init_cnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    blocks = {"mobilenet_v1": 13, "mobilenet_v2": 17}[name]
+    for graph, key in ((None, "dw_pw"), (graph_for(name), "depthwise_conv")):
+        ops.reset_launches()
+        got = cnn.cnn_forward(cfg, params, x, graph=graph, device=dev).cpu()
+        want_launches = {"sparse_conv": 0, "sparse_matmul": 0, "dw_pw": 0,
+                         "depthwise_conv": 0}
+        want_launches[key] = blocks
+        _assert_launches(want_launches)
+        want = cnn.cnn_forward(cfg, cpu, x, graph=graph, device="cpu")
+        scale = float(want.abs().max())
+        assert scale > 0
+        assert float((got - want).abs().max()) <= 1e-3 * scale
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
