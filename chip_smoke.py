@@ -10,18 +10,29 @@ Phases, in order; any failure raises and exits nonzero:
 3. kernel checks: each kernel against its plain PyTorch version on the
    card, at every distinct shape its main paths give it: sparse_conv and
    sparse_matmul at the ResNet-50 shapes, dw_pw at every MobileNet-V1/V2
-   block shape, depthwise_conv at every dw shape of the unfused views;
+   block shape, depthwise_conv at every dw shape of the unfused views,
+   flash_attention at SmolLM-360M's prefill shapes (T 2048 and a length
+   that is no tile multiple) and on the reference's test grid, and
+   sparse_matmul at SmolLM-360M's 64 x 64 FFN blocks at M 4 and 2048;
 4. main paths, each with the launch counters reset just before and read
    just after, every counter checked by name: ``serve(ServeConfig(arch=
    "resnet50" | "mobilenet_v1" | "mobilenet_v2", mode="latency",
    image_size=224))``, then one ``cnn_forward`` per MobileNet on the
    unfused view (``graph_for(name)``); the card's logits are held against
-   the port's plain CPU forward on the same weights and images;
+   the port's plain CPU forward on the same weights and images. Then
+   SmolLM-360M at full width and depth: ``make_prefill_step`` on 2048
+   random tokens (32 flash_attention + 96 sparse_matmul launches), a
+   prefill at T 256 held against the port's CPU forward, and
+   ``serve_lm(batch=4, prompt_len=32, gen_tokens=16)`` ((32 + 16) x 96
+   sparse_matmul launches, no flash_attention), replayed teacher-forced
+   on the CPU;
 5. timings (CUDA events over CUDA-graph replays, L2-warm): each kernel at
    the main-path shapes beside its plain version, a library call that
    computes the same function (never called by the port; for dw_pw no
    single call does, and the two-call depthwise + 1x1 ``F.conv2d`` pair
-   is timed as a labelled yardstick) and its bound;
+   is timed as a labelled yardstick; for flash_attention
+   ``F.scaled_dot_product_attention`` on the same expanded tensors) and
+   its bound; SmolLM-360M's prefill latency and ``serve_lm``'s times;
 6. one ``{"kernels": [...]}`` line, then the device line last.
 
 Per-layer numbers are also written to ``build/chip_smoke.json``.
@@ -38,6 +49,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -64,6 +76,20 @@ LOGIT_RTOL = 1e-3
 # 1 bf16 ulp of the CPU node. check_nodes holds each node to that; it
 # does not accumulate.
 MB_LOGIT_RTOL = 1e-2
+# SmolLM-360M: the card's logits vs the port's CPU path on the same
+# weights, relative to max |logit|. 32 layers of bf16 activations whose
+# f32 sums the two devices take in other orders: at random init the CPU
+# alone moves the logits by 7e-3 (prefill) to 1.2e-2 (a serve_lm step)
+# of max |logit| when fdot sums in f64 instead of f32 (measured in every
+# run: "sum-order floor"), so the serve_lm steps are held to 3e-2, and
+# every layer, fed the card's own input, to 1 bf16 ulp of the CPU layer
+# (check_lm_layers), which does not accumulate.
+LM = "smollm-360m"
+LM_LOGIT_RTOL = 1e-2
+LM_SERVE_RTOL = 3e-2
+PREFILL_T = 2048
+CHECK_T = 256
+SERVE = dict(batch=4, prompt_len=32, gen_tokens=16, max_seq=128)
 
 
 def bf16_tol(ref: torch.Tensor) -> torch.Tensor:
@@ -165,11 +191,14 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import depthwise_conv as dwk
     from repro_torch.kernels import dw_pw_fused as dwpw
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import sparse_conv as sc
     from repro_torch.kernels import sparse_matmul as sm
-    from repro_torch.launch.serve import ServeConfig, serve
-    from repro_torch.models import cnn
-    from repro_torch.models.layers import SparseWeight
+    from repro_torch.launch.serve import ServeConfig, serve, serve_lm
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import cnn, lm
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models.layers import SparseWeight, _repeat_kv
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -316,6 +345,64 @@ def main() -> int:
           f"the unfused MobileNet-V1/V2, max |err| {dw_err:.3e} within 1 "
           f"bf16 ulp")
 
+    # SmolLM-360M: its weights (on the card, from the seed), the flash
+    # kernel at its prefill shapes (k, v from 5 KV heads expanded to 15)
+    # and on the reference's test grid (tests/test_kernels.py), the
+    # sparse matmul at its 64 x 64 FFN blocks
+    lm_cfg = get_config(LM)
+    n_l, n_h, n_kv, d_h = (lm_cfg.n_layers, lm_cfg.n_heads, lm_cfg.kv_heads,
+                           lm_cfg.head_dim)
+    lm_params = lm.init_params(lm_cfg,
+                               torch.Generator(device=dev).manual_seed(SEED))
+
+    def qkv(b, tq, tk, h, d, dtype, kv_heads):
+        q = randn((b, tq, h, d), dtype)
+        k, v = (_repeat_kv(randn((b, tk, kv_heads, d), dtype), h // kv_heads)
+                for _ in range(2))
+        return q, k, v
+
+    flash_cases = [(f"{LM} T={t}", (1, t, t, n_h, d_h, torch.bfloat16, n_kv),
+                    dict(causal=True)) for t in (PREFILL_T, 1000)]
+    for tq, tk, causal, window in ((128, 128, True, 0), (128, 128, False, 0),
+                                   (64, 256, True, 0), (128, 128, True, 48)):
+        for dtype in (torch.float32, torch.bfloat16):
+            flash_cases.append((
+                f"grid {tq}x{tk} causal={causal} window={window} {dtype}",
+                (2, tq, tk, 3, 32, dtype, 3),
+                dict(causal=causal, window=window,
+                     q_offset=tk - tq if tq != tk else 0)))
+    flash_err = 0.0
+    for what, shape, kw in flash_cases:
+        q, k, v = qkv(*shape)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_torch(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = bf16_tol if q.dtype == torch.bfloat16 else f32_tol
+        flash_err = max(flash_err, compare(got, want, tol,
+                                           f"flash_attention {what}"))
+    print(f"[check] flash_attention: {len(flash_cases)} cases ({LM} T="
+          f"{PREFILL_T} and 1000; the reference's grid in f32 and bf16), "
+          f"max |err| {flash_err:.3e} within 1 bf16 ulp / 1e-5 relative")
+
+    lm_ffn = {name: lm_params["blocks"]["ffn"][name] for name in
+              ("w1", "w2")}                           # w3 has w1's shape
+    lm_mm = {}
+    for name, sw in lm_ffn.items():
+        sw0 = SparseWeight(sw.vals[0].contiguous(), sw.idx[0].contiguous(),
+                           sw.d_in)
+        for m in (SERVE["batch"], PREFILL_T):
+            x = randn((m, sw0.d_in))
+            got = sm.sparse_matmul(x, sw0.vals, sw0.idx)
+            want = sm.sparse_matmul_torch(x, sw0.vals, sw0.idx)
+            torch.cuda.synchronize()
+            mm_err = max(mm_err, compare(got, want, bf16_tol,
+                                         f"sparse_matmul {LM} {name} M={m}"))
+            lm_mm[(name, m)] = (x, sw0)
+    print(f"[check] sparse_matmul: {LM} FFN blocks "
+          f"{[tuple(s.vals.shape[1:]) for s in lm_ffn.values()]} at M="
+          f"{SERVE['batch']} and {PREFILL_T} bf16, max |err| (all cases) "
+          f"{mm_err:.3e} within tolerance")
+
     # -- 4. the main paths ------------------------------------------------
     def check_logits(logits, images, cfg_, params_, graph=None,
                      rtol=LOGIT_RTOL) -> float:
@@ -448,6 +535,146 @@ def main() -> int:
               f"every node on the card's own inputs within its bar (worst "
               f"share: fused {node_err['fused']:.3f}, unfused "
               f"{node_err['unfused']:.3f})")
+
+    # SmolLM-360M prefill: the whole prompt in one forward, attention
+    # through the flash kernel, the FFN through the sparse matmul
+    prefill = make_prefill_step(lm_cfg)
+    lm_gen = torch.Generator().manual_seed(SEED + 11)
+    toks = torch.randint(0, lm_cfg.vocab_size, (1, PREFILL_T),
+                         generator=lm_gen).to(dev)
+    per_prefill = {"flash_attention": n_l, "sparse_matmul": 3 * n_l}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    last = prefill(lm_params, toks)
+    torch.cuda.synchronize()
+    prefill_first_s = time.perf_counter() - t0
+    prefill_launches = dict(ops.LAUNCHES)
+    check_launches(prefill_launches, per_prefill,
+                   f"{LM} prefill T={PREFILL_T}")
+    if last.shape != (1, lm_cfg.vocab_size) or not torch.isfinite(last).all():
+        raise AssertionError(f"{LM} prefill: logits {tuple(last.shape)} not "
+                             f"finite (1, {lm_cfg.vocab_size})")
+    lm_cpu = lm.params_to(lm_params, "cpu")
+    toks_check = torch.randint(0, lm_cfg.vocab_size, (1, CHECK_T),
+                               generator=lm_gen)
+    ops.reset_launches()
+    card = prefill(lm_params, toks_check.to(dev)).cpu()
+    check_launches(dict(ops.LAUNCHES), per_prefill,
+                   f"{LM} prefill T={CHECK_T}")
+    ref = prefill(lm_cpu, toks_check)
+    scale = float(ref.abs().max())
+    prefill_err = float((card - ref).abs().max()) / scale
+    if not prefill_err <= LM_LOGIT_RTOL or not torch.equal(
+            card.argmax(-1), ref.argmax(-1)):
+        raise AssertionError(f"{LM} prefill T={CHECK_T}: card vs CPU logits "
+                             f"max |err| / max |logit| {prefill_err:.3e} > "
+                             f"{LM_LOGIT_RTOL}, or top-1 differs")
+    def check_lm_layers(tokens: torch.Tensor, decode: bool) -> float:
+        """Each layer on the card against the same layer on the CPU, fed
+        the card's own input: the bf16 output within 1 bf16 ulp. A
+        prefill over ``tokens`` (B, T), or decode step 0 of ``tokens``
+        (B, 1) into fresh caches. Returns the worst error as a share of
+        its bar."""
+        worst = 0.0
+        b, t = tokens.shape
+        pos = torch.arange(t)[None].expand(b, t)
+        caches = {d: lm.init_cache(lm_cfg, b, 8, device=d)["kv"]
+                  for d in (dev, "cpu")} if decode else None
+        blocks = {d: lm.make_block_fn(lm_cfg, pos.to(d))
+                  for d in (dev, "cpu")}
+        with torch.inference_mode(), lm_layers.full_f32():
+            h = lm._embed(lm_cfg, lm_params, tokens.to(dev))
+            for l in range(n_l):
+                outs = []
+                for d, params_ in ((dev, lm_params), ("cpu", lm_cpu)):
+                    p = lm._layer(params_["blocks"], l)
+                    x = h.to(d)
+                    outs.append(lm.decode_block(lm_cfg, p, x, caches[d][l],
+                                                pos.to(d), 0) if decode
+                                else blocks[d](x, p)[0])
+                torch.cuda.synchronize()
+                got, want = outs[0].cpu(), outs[1]
+                what = "decode step 0" if decode else f"prefill T={t}"
+                compare(got, want, bf16_tol, f"{LM} {what} layer {l}")
+                err = (got.float() - want.float()).abs()
+                share = err / bf16_tol(want.float()).clamp_min(1e-38)
+                worst = max(worst, float(share.max()))
+                h = outs[0]
+        return worst
+
+    layer_err = {"prefill": check_lm_layers(toks_check, decode=False)}
+    prefill_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(lm_params, toks)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    prefill_ms = sorted(prefill_s)[1] * 1e3
+    print(f"[main] {LM} prefill T={PREFILL_T}: launches {prefill_launches}; "
+          f"{prefill_ms:.3f} ms (median of 3, first {prefill_first_s:.3f} s)"
+          f"; T={CHECK_T} logits vs CPU max |err| / max |logit| "
+          f"{prefill_err:.3e} (bar {LM_LOGIT_RTOL}), top-1 equal; every "
+          f"layer on the card's own input within 1 bf16 ulp of the CPU "
+          f"layer (worst share {layer_err['prefill']:.3f})")
+
+    # SmolLM-360M serving: the prompts stepped through the decode path,
+    # then greedy decoding; replayed on the CPU, teacher-forced
+    ops.reset_launches()
+    sout = serve_lm(LM, use_reduced=False, params=lm_params,
+                    generator=torch.Generator(device=dev).manual_seed(SEED),
+                    record_logits=True, device="cuda", **SERVE)
+    serve_launches = dict(ops.LAUNCHES)
+    n_steps = SERVE["prompt_len"] + SERVE["gen_tokens"]
+    check_launches(serve_launches, {"sparse_matmul": n_steps * 3 * n_l,
+                                    "flash_attention": 0},
+                   f"{LM} serve_lm ({n_steps} decode steps)")
+    seq = torch.from_numpy(np.concatenate([sout["prompts"], sout["tokens"]],
+                                          axis=1))
+    layer_err["decode"] = check_lm_layers(seq[:, :1], decode=True)
+    caches = [lm.init_cache(lm_cfg, SERVE["batch"], SERVE["max_seq"],
+                            device="cpu") for _ in range(2)]
+    serve_errs, floors, gap_checked = [], [], 0
+    for i in range(n_steps):
+        ref, _ = lm.decode_step(lm_cfg, lm_cpu, caches[0], seq[:, i:i + 1], i)
+        with lm_layers.accum_dtype(torch.float64):
+            ref64, _ = lm.decode_step(lm_cfg, lm_cpu, caches[1],
+                                      seq[:, i:i + 1], i)
+        ref, got = ref[:, 0], sout["logits"][:, i]
+        scale = float(ref.abs().max())
+        floors.append(float((ref64[:, 0] - ref).abs().max()) / scale)
+        serve_errs.append(float((got - ref).abs().max()) / scale)
+        bar = LM_SERVE_RTOL * scale
+        if not serve_errs[-1] <= LM_SERVE_RTOL:
+            raise AssertionError(f"{LM} serve_lm step {i}: card vs CPU logits "
+                                 f"max |err| / max |logit| {serve_errs[-1]:.3e}"
+                                 f" > {LM_SERVE_RTOL} (the CPU's sum-order "
+                                 f"floor at this step: {floors[-1]:.3e})")
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > bar
+        if not torch.equal(ref.argmax(-1)[clear], got.argmax(-1)[clear]):
+            raise AssertionError(f"{LM} serve_lm step {i}: the card's token "
+                                 f"differs from the CPU's where the CPU's "
+                                 f"top-2 gap exceeds {bar:.3e}")
+        gap_checked += int(clear.sum())
+    for counts in (prefill_launches, serve_launches):
+        for k, v in counts.items():
+            all_launches[k] = all_launches.get(k, 0) + v
+    serve_err = max(serve_errs)
+    print(f"[main] {LM} serve_lm batch {SERVE['batch']}, prompt "
+          f"{SERVE['prompt_len']}, {SERVE['gen_tokens']} tokens: launches "
+          f"{serve_launches}; prefill {sout['prefill_s']:.4f} s, decode "
+          f"{sout['decode_s']:.4f} s, {sout['tokens_per_s']:.2f} tok/s; "
+          f"teacher-forced CPU replay: every step within {LM_SERVE_RTOL} of "
+          f"max |logit| (worst {serve_err:.3e}, median "
+          f"{sorted(serve_errs)[n_steps // 2]:.3e}, steps within "
+          f"{LM_LOGIT_RTOL}: {sum(e <= LM_LOGIT_RTOL for e in serve_errs)} of "
+          f"{n_steps}; the CPU's sum-order floor (f64 vs f32 fdot sums): "
+          f"worst {max(floors):.3e}, median "
+          f"{sorted(floors)[n_steps // 2]:.3e}), tokens equal at "
+          f"{gap_checked} of {n_steps * SERVE['batch']} positions whose "
+          f"CPU top-2 gap exceeds the bar; decode step 0 layer by layer on "
+          f"the card's own inputs within 1 bf16 ulp (worst share "
+          f"{layer_err['decode']:.3f})")
 
     # -- 5. timings at the main-path shapes -------------------------------
     rows = []
@@ -599,6 +826,72 @@ def main() -> int:
               f"x{MB_BLOCKS[name]} {dw_per_req['ms']:.4f} ms (bound "
               f"{dw_per_req['bound_ms']:.5f})")
 
+    # SmolLM-360M: the flash kernel per layer of a T=2048 prefill, beside
+    # its plain version and SDPA on the same expanded tensors; the sparse
+    # matmul at its FFN shapes beside torch.matmul on the densified weight
+    q, k, v = qkv(1, PREFILL_T, PREFILL_T, n_h, d_h, torch.bfloat16, n_kv)
+    qt, kt, vt = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    flash_ms = time_ms(lambda: fa.flash_attention(q, k, v))
+    flash_plain = time_ms(lambda: fa.flash_attention_torch(q, k, v), reps=2,
+                          rounds=2)
+    flash_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    t_b, t_o = bound(4 * q.numel() * q.element_size(),
+                     2 * n_h * PREFILL_T ** 2 * d_h, torch.bfloat16)
+    flash_bound, flash_by = max(t_b, t_o), bound_by(t_b, t_o)
+    print(f"[time] flash_attention {LM} layer B=1 T={PREFILL_T} H={n_h} "
+          f"D={d_h} bf16 causal: kernel {flash_ms * 1e3:.3f} us, plain "
+          f"{flash_plain * 1e3:.3f} us, SDPA {flash_lib * 1e3:.3f} us, bound "
+          f"{flash_bound * 1e3:.3f} us ({flash_by}); x{n_l} per prefill: "
+          f"{flash_ms * n_l:.4f} ms")
+    lm_mm_rows = []
+    for (name, m), (x, sw0) in lm_mm.items():
+        ob, n_k, bm, bn = sw0.vals.shape
+        w_dense = densify(sw0)
+        ms = time_ms(lambda: sm.sparse_matmul(x, sw0.vals, sw0.idx))
+        plain = time_ms(lambda: sm.sparse_matmul_torch(x, sw0.vals, sw0.idx))
+        lib = time_ms(lambda: torch.matmul(x, w_dense))
+        x_elems = m * int(sw0.idx.unique().numel()) * bm
+        nbytes = (x_elems * 2 + sw0.vals.numel() * 2 + sw0.idx.numel() * 4
+                  + m * ob * bn * 2)
+        t_b, t_o = bound(nbytes, 2 * m * ob * n_k * bm * bn, torch.bfloat16)
+        lm_mm_rows.append({"weight": name, "M": m,
+                           "vals": list(sw0.vals.shape), "ms": ms,
+                           "plain_ms": plain, "library_ms": lib,
+                           "bound_ms": max(t_b, t_o),
+                           "bound_by": bound_by(t_b, t_o)})
+        print(f"[time] sparse_matmul {LM} {name} M={m} vals "
+              f"{tuple(sw0.vals.shape)} bf16: kernel {ms * 1e3:.3f} us, plain "
+              f"{plain * 1e3:.3f} us, torch.matmul (dense bf16) "
+              f"{lib * 1e3:.3f} us, bound {max(t_b, t_o) * 1e3:.3f} us "
+              f"({bound_by(t_b, t_o)})")
+    mm_t = {(r["weight"], r["M"]): r for r in lm_mm_rows}
+    ffn_prefill = {key: n_l * (2 * mm_t[("w1", PREFILL_T)][key]
+                               + mm_t[("w2", PREFILL_T)][key])
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"[time] {LM} prefill T={PREFILL_T}: {prefill_ms:.3f} ms; kernels: "
+          f"flash_attention x{n_l} {flash_ms * n_l:.3f} ms, sparse_matmul "
+          f"x{3 * n_l} {ffn_prefill['ms']:.3f} ms (torch.matmul on the "
+          f"densified weights {ffn_prefill['library_ms']:.3f} ms); serve_lm "
+          f"prefill_s {sout['prefill_s']:.4f}, decode_s "
+          f"{sout['decode_s']:.4f}, {sout['tokens_per_s']:.2f} tok/s")
+    lm_main = {"prefill_T": PREFILL_T, "prefill_ms": prefill_ms,
+               "prefill_s_runs": prefill_s, "prefill_launches":
+               prefill_launches, "check_T": CHECK_T,
+               "prefill_logit_err": prefill_err, "serve": SERVE,
+               "serve_launches": serve_launches,
+               "serve_prefill_s": sout["prefill_s"],
+               "serve_decode_s": sout["decode_s"],
+               "serve_tokens_per_s": sout["tokens_per_s"],
+               "serve_logit_err": serve_errs,
+               "serve_sum_order_floor": floors,
+               "layer_err_share_of_bar": layer_err,
+               "flash": {"ms": flash_ms, "plain_ms": flash_plain,
+                         "library_ms": flash_lib, "bound_ms": flash_bound,
+                         "bound_by": flash_by},
+               "sparse_matmul": lm_mm_rows,
+               "ffn_per_prefill": ffn_prefill}
+
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "build_s": build_s, "p50_ms": p50_ms,
@@ -607,7 +900,7 @@ def main() -> int:
         "fc": {"ms": fc_ms, "plain_ms": fc_plain, "library_ms": fc_lib,
                "bound_ms": fc_bound, "bound_by": fc_by},
         "mobilenet": mb_main, "dw_pw_layers": dw_pw_rows,
-        "depthwise_layers": dw_rows}, indent=1))
+        "depthwise_layers": dw_rows, "smollm": lm_main}, indent=1))
 
     # -- 6. the kernels line, then the device line ------------------------
     kernels = [
@@ -628,9 +921,15 @@ def main() -> int:
          "replaces": "src/repro/kernels/sparse_matmul.py:68",
          "launches": all_launches["sparse_matmul"],
          "launches_per_request": 1,
+         "launches_per_prefill": 3 * n_l,
          "max_abs_err": mm_err, "max_err": mm_err, "ok": True,
          "ms": fc_ms, "plain_ms": fc_plain, "bound_ms": fc_bound,
-         "bound_by": fc_by, "library_ms": fc_lib},
+         "bound_by": fc_by, "library_ms": fc_lib,
+         "smollm": lm_mm_rows,
+         "note": "ms, plain_ms, bound_ms, library_ms: the ResNet-50 "
+                 "classifier (M=1 f32); smollm: per call at SmolLM-360M's "
+                 "FFN shapes, library torch.matmul on the densified bf16 "
+                 "weight"},
         {"name": "dw_pw", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dw_pw.cu",
          "replaces": "src/repro/kernels/dw_pw_fused.py:137",
@@ -665,6 +964,18 @@ def main() -> int:
          "note": "ms, plain_ms, bound_ms, library_ms: sums over one "
                  "unfused forward of MobileNet-V1 (13 dw nodes) and one of "
                  "MobileNet-V2 (17); library: F.conv2d(groups=C)"},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:92",
+         "launches": all_launches["flash_attention"],
+         "launches_per_prefill": n_l,
+         "max_abs_err": flash_err, "max_err": flash_err, "ok": True,
+         "ms": flash_ms, "plain_ms": flash_plain, "bound_ms": flash_bound,
+         "bound_by": flash_by, "library_ms": flash_lib,
+         "note": f"ms, plain_ms, bound_ms, library_ms: one layer of a "
+                 f"{LM} prefill (B=1, T={PREFILL_T}, H={n_h}, D={d_h}, "
+                 f"bf16, causal); library: F.scaled_dot_product_attention "
+                 f"on the same expanded tensors"},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

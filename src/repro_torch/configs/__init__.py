@@ -1,3 +1,3 @@
 from repro_torch.configs.base import (
-    LM_ARCHS, ModelConfig, SparsityConfig, get_config, register,
+    ModelConfig, SparsityConfig, get_config, reduced, register,
 )

@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("sparse_conv", "sparse_matmul", "dw_pw", "depthwise_conv")
+SOURCES = ("sparse_conv", "sparse_matmul", "dw_pw", "depthwise_conv",
+           "flash_attention")
 
 LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
 

@@ -1,0 +1,140 @@
+"""Blockwise causal attention (flash style): the LM prefill's attention.
+
+``flash_attention`` launches the CUDA kernel in
+``csrc/flash_attention.cu``, which replaces the reference's
+``kernels/flash_attention.py::flash_attention_pallas``.
+``flash_attention_torch`` is the plain PyTorch version of the same
+function: the CPU path and the check the kernel is held to on the card.
+
+Both compute what the Pallas kernel computes: scores in f32 scaled by
+1/sqrt(D) after the product, masked scores at ``NEG_INF``, an online
+softmax over key tiles with (m, l, acc) in f32, p kept in f32 (the
+reference's XLA ``blockwise_attention`` rounds it to bf16 before the PV
+product; the Pallas kernel does not), ``l`` floored at 1e-20, the
+output in q's dtype. Unlike the Pallas kernel they take any lengths:
+the tail of the last tile is masked, not asserted away.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+BLOCK_Q = 64        # the CUDA kernel's query tile
+BLOCK_K = 64        # and key tile
+HEAD_DIMS = (32, 64)  # SmolLM-360M's 64; the reference kernel tests' 32
+
+
+def kv_tile_range(q_first: int, q_last: int, tk: int, *, causal: bool,
+                  window: int) -> tuple[int, int]:
+    """[begin, end) of the key tiles that some query at absolute
+    position q_first..q_last can see; the others hold only masked keys
+    and are skipped (for those, the Pallas kernel's masked steps leave
+    (m, l, acc) as they were)."""
+    kv_end = min(tk, q_last + 1) if causal else tk
+    kv_begin = max(0, q_first - window + 1) if window > 0 else 0
+    begin = kv_begin // BLOCK_K
+    end = -(-kv_end // BLOCK_K) if kv_begin < kv_end else begin
+    return begin, end
+
+
+def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
+                          q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Tq, H, D); k, v: (B, Tk, H, D), GQA already expanded; any
+    Tq, Tk, any D. Query t sits at absolute position ``q_offset + t``.
+    Works on one (BLOCK_Q x BLOCK_K) score tile at a time, in the
+    kernel's tiling: no (Tq, Tk) tensor."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qf = q.permute(0, 2, 1, 3).float()                     # (B, H, Tq, D)
+    kf = k.permute(0, 2, 1, 3).float()
+    vf = v.permute(0, 2, 1, 3).float()
+    out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
+    for q0 in range(0, tq, BLOCK_Q):
+        qi = qf[:, :, q0:q0 + BLOCK_Q]
+        n = qi.shape[2]
+        qpos = q_offset + torch.arange(q0, q0 + n, device=q.device)
+        m = torch.full((b, h, n), NEG_INF, device=q.device)
+        l = torch.zeros((b, h, n), device=q.device)
+        acc = torch.zeros((b, h, n, d), device=q.device)
+        t_begin, t_end = kv_tile_range(q_offset + q0, q_offset + q0 + n - 1,
+                                       tk, causal=causal, window=window)
+        for k0 in range(t_begin * BLOCK_K, t_end * BLOCK_K, BLOCK_K):
+            kpos = torch.arange(k0, min(k0 + BLOCK_K, tk), device=q.device)
+            s = (qi @ kf[:, :, kpos].transpose(-1, -2)) * scale
+            mask = torch.ones((n, kpos.numel()), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask &= kpos[None, :] <= qpos[:, None]
+            if window:
+                mask &= kpos[None, :] > qpos[:, None] - window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + p @ vf[:, :, kpos]
+            m = m_new
+        out[:, :, q0:q0 + n] = (acc / l.clamp_min(1e-20)[..., None]).to(
+            q.dtype)
+    return out.permute(0, 2, 1, 3).contiguous()
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    lib = _build.load("flash_attention")
+    fns = {}
+    for dtype, fn in ((torch.float32, lib.flash_attention_f32),
+                      (torch.bfloat16, lib.flash_attention_bf16)):
+        fn.argtypes = [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]
+        fn.restype = _I
+        fns[dtype] = fn
+    return lib, fns
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """The CUDA kernel: same function and arguments as
+    :func:`flash_attention_torch`, with q, k, v of one dtype (f32 or
+    bf16), contiguous on one CUDA device, D in ``HEAD_DIMS``. Raises on
+    anything the kernel does not take; it never falls back to the plain
+    version."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} must be on "
+                             f"{q.device} (a CUDA device), got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+        if t.dtype != q.dtype or t.dtype not in (torch.float32,
+                                                 torch.bfloat16):
+            raise ValueError(f"flash_attention: q, k, v must all be f32 or "
+                             f"all bf16; got {q.dtype}, {k.dtype}, "
+                             f"{v.dtype}")
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if k.shape != (b, tk, h, d) or v.shape != k.shape or d not in HEAD_DIMS \
+            or tq < 1 or tk < 1 or b * h > 65535:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}: needs "
+                         f"(B, T, H, D) with D in {HEAD_DIMS}, T >= 1")
+    if window < 0 or q_offset < 0:
+        raise ValueError(f"flash_attention: window={window}, q_offset="
+                         f"{q_offset} must be >= 0")
+    lib, fns = _kernel()
+    out = torch.empty_like(q)
+    err = fns[q.dtype](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), b, h, tq, tk, d, int(bool(causal)),
+                       window, q_offset, 1.0 / math.sqrt(d),
+                       torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "flash_attention", err)
+    _build.LAUNCHES["flash_attention"] += 1
+    return out

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels import depthwise_conv as _dw
 from repro_torch.kernels import dw_pw_fused as _dwpw
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import sparse_conv as _sc
 from repro_torch.kernels import sparse_matmul as _sm
 from repro_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
@@ -83,3 +84,14 @@ def dw_pw_conv(x, dw_w, dw_b, pw_w, pw_b, *, stride: int = 1,
     fn = _dwpw.dw_pw if _route(x, "dw_pw") else _dwpw.dw_pw_torch
     return fn(x, dw_w, dw_b, pw_w, pw_b, residual, stride=stride,
               dw_relu=dw_relu, relu=relu)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Causal or sliding-window attention with an online softmax in f32
+    (the LM prefill's attention): q (B, Tq, H, D), k and v (B, Tk, H, D)
+    with GQA already expanded; query t sits at ``q_offset + t``. The
+    output has q's layout and dtype."""
+    fn = _fa.flash_attention if _route(q, "flash_attention") \
+        else _fa.flash_attention_torch
+    return fn(q, k, v, causal=causal, window=window, q_offset=q_offset)

@@ -1,4 +1,5 @@
-"""Gathered block-sparse matmul: the pruned classifier of ResNet-50.
+"""Gathered block-sparse matmul: the pruned classifier of ResNet-50 and
+the pruned FFN of the LMs (64 x 64 blocks for SmolLM-360M).
 
 ``sparse_matmul`` launches the CUDA kernel in ``csrc/sparse_matmul.cu``,
 which replaces the reference's ``kernels/sparse_matmul.py::
@@ -66,7 +67,7 @@ def sparse_matmul(x, vals, idx) -> torch.Tensor:
     ob, n_k, bm, bn = vals.shape
     lib, fns, max_bm, max_bn = _kernel()
     if d_in % bm or bm > max_bm or bn > max_bn \
-            or tuple(idx.shape) != (ob, n_k):
+            or tuple(idx.shape) != (ob, n_k) or m * d_in >= 2 ** 31:
         raise ValueError(f"sparse_matmul: vals {tuple(vals.shape)} / idx "
                          f"{tuple(idx.shape)} do not fit x {tuple(x.shape)} "
                          f"(bm <= {max_bm}, bn <= {max_bn})")

@@ -1,16 +1,21 @@
-"""Image serving on the port: ``serve(ServeConfig(...)) -> dict``.
+"""Serving on the port: ``serve(ServeConfig(...)) -> dict`` and
+``serve_lm(arch, ...)``.
 
-Counterpart of the reference's ``src/repro/launch/serve.py``. This slice
-runs the paper's headline regime, batch-1 latency mode for a CNN: one
-image in flight, the next request admitted only after this one's logits
-are on the host. The other modes raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+Counterpart of the reference's ``src/repro/launch/serve.py``. For a CNN
+it runs the paper's headline regime, batch-1 latency mode: one image in
+flight, the next request admitted only after this one's logits are on
+the host. The other CNN modes raise ``NotImplementedError`` naming the
+ROADMAP item that ports them. An LM arch (``smollm-360m``) runs
+``serve_lm``: the prompts stepped through the decode path, then greedy
+decoding.
 
     python -m repro_torch.launch.serve --arch resnet50 --mode latency \\
         --requests 50 --image-size 224
+    python -m repro_torch.launch.serve --arch smollm-360m --full-size \\
+        --batch 4 --prompt-len 32 --gen 16
 
 ``--arch`` is any of the paper's CNNs: ``resnet50`` (sparse),
-``mobilenet_v1`` or ``mobilenet_v2`` (dense).
+``mobilenet_v1`` or ``mobilenet_v2`` (dense), or ``smollm-360m``.
 """
 from __future__ import annotations
 
@@ -21,9 +26,9 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, reduced
 from repro_torch.core.device import resolve_device
-from repro_torch.models import cnn
+from repro_torch.models import cnn, lm
 from repro_torch.models.layers import SparseWeight
 
 
@@ -41,6 +46,7 @@ class ServeConfig:
     procs: int = 0
     hosts: int = 0
     quantize: str = "native"
+    batch: int = 16                     # LM archs: sequences per batch
     n_requests: int = 4
     n_stages: int = 1
     image_size: int = 224
@@ -82,10 +88,90 @@ def _check_ported(cfg: ServeConfig) -> None:
 
 def serve(cfg: ServeConfig) -> dict:
     """THE serving entry point. Runs on ``cfg.device`` (the card by
-    default; raises ``RuntimeError`` without one)."""
-    get_config(cfg.arch)       # an LM arch raises NotImplementedError
+    default; raises ``RuntimeError`` without one). An LM arch runs
+    ``serve_lm`` (reduced size, as the reference's dispatch does); an
+    LM arch that is not ported raises ``NotImplementedError``."""
+    if get_config(cfg.arch).family != "cnn":
+        return serve_lm(cfg.arch, batch=cfg.batch, seed=cfg.seed,
+                        verbose=cfg.verbose, device=cfg.device)
     _check_ported(cfg)
     return _serve_cnn_latency(cfg)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_lm(arch: str, *, batch: int = 4, prompt_len: int = 32,
+             gen_tokens: int = 16, max_seq: int = 128,
+             use_reduced: bool = True, seed: int = 0, verbose: bool = True,
+             prompts=None, params=None, generator=None,
+             record_logits: bool = False, device="cuda") -> dict:
+    """Step a batch of prompts through the decode path (filling the KV
+    cache), then decode ``gen_tokens`` greedily. Returns tokens and
+    timings.
+
+    ``params``: the model's parameters (on ``device``); by default drawn
+    from ``generator`` (by default ``torch.Generator(device)`` seeded
+    with ``seed``). ``prompts``: (B, T) token ids; by default drawn from
+    the same generator, (batch, prompt_len). ``record_logits`` also
+    returns every step's logits, (B, T + gen_tokens, V) f32, kept on the
+    device until the end. Times end in a device synchronisation."""
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if use_reduced:
+        cfg = reduced(cfg)
+    gen = generator if generator is not None else \
+        torch.Generator(device=dev).manual_seed(seed)
+    if params is None:
+        params = lm.init_params(cfg, gen)
+    if prompts is None:
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                generator=gen, device=dev)
+    prompts = torch.as_tensor(prompts).to(dev, torch.long)
+    batch, prompt_len = prompts.shape
+    if prompt_len < 1 or gen_tokens < 1 or prompt_len + gen_tokens > max_seq:
+        raise ValueError(f"prompt_len {prompt_len}, gen_tokens {gen_tokens}: "
+                         f"need >= 1 each, and their sum <= max_seq "
+                         f"{max_seq}")
+    cache = lm.init_cache(cfg, batch, max_seq, device=dev)
+    steps = []
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits = None
+    for i in range(prompt_len):
+        logits, cache = lm.decode_step(cfg, params, cache,
+                                       prompts[:, i:i + 1], i)
+        if record_logits:
+            steps.append(logits[:, 0])
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+
+    out_tokens = []
+    t0 = time.perf_counter()
+    tok = logits[:, -1].argmax(dim=-1)[:, None]
+    for i in range(gen_tokens):
+        out_tokens.append(tok[:, 0].cpu().numpy())
+        logits, cache = lm.decode_step(cfg, params, cache, tok,
+                                       prompt_len + i)
+        if record_logits:
+            steps.append(logits[:, 0])
+        tok = logits[:, -1].argmax(dim=-1)[:, None]
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    toks_per_s = batch * gen_tokens / max(decode_s, 1e-9)
+    if verbose:
+        print(f"{arch}: prefill {prompt_len} toks in {prefill_s:.2f}s, "
+              f"decode {gen_tokens} toks/seq at {toks_per_s:.1f} tok/s "
+              f"(batch={batch}, {dev})")
+    out = {"tokens": np.stack(out_tokens, 1), "prompts": prompts.cpu().numpy(),
+           "prefill_s": prefill_s, "decode_s": decode_s,
+           "tokens_per_s": toks_per_s, "device": str(dev)}
+    if record_logits:
+        out["logits"] = torch.stack(steps, 1).cpu()
+    return out
 
 
 def _param_bytes(params: dict) -> int:
@@ -151,7 +237,20 @@ def main(argv=None):
     ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    lm_args = ap.add_argument_group("LM archs")
+    lm_args.add_argument("--batch", type=int, default=4)
+    lm_args.add_argument("--prompt-len", type=int, default=32)
+    lm_args.add_argument("--gen", type=int, default=16)
+    lm_args.add_argument("--max-seq", type=int, default=128)
+    lm_args.add_argument("--full-size", action="store_true",
+                         help="the config as published, not reduced()")
     args = ap.parse_args(argv)
+    if get_config(args.arch).family != "cnn":
+        serve_lm(args.arch, batch=args.batch, prompt_len=args.prompt_len,
+                 gen_tokens=args.gen, max_seq=args.max_seq,
+                 use_reduced=not args.full_size, seed=args.seed,
+                 device=args.device)
+        return
     serve(ServeConfig(arch=args.arch, mode=args.mode,
                       n_requests=args.requests, image_size=args.image_size,
                       seed=args.seed, device=args.device))

@@ -22,11 +22,9 @@ the node before them.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -36,7 +34,7 @@ from repro_torch.core.graph import INPUT, ConvSpec, LayerGraph
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.sparse_conv import same_pads
 from repro_torch.models import layers as L
-from repro_torch.models.layers import SparseWeight
+from repro_torch.models.layers import SparseWeight, tensor_from_numpy
 
 # ---------------------------------------------------------------------------
 # layer spec builders (the "TensorFlow graph" the compiler walks)
@@ -195,15 +193,6 @@ def init_cnn(cfg, generator: torch.Generator, *, device="cuda") -> dict:
     return _to(params, dev)
 
 
-def tensor_from_numpy(a) -> torch.Tensor:
-    """numpy -> torch, bit-exact; bf16 (numpy dtype name ``bfloat16``,
-    what ``np.asarray`` of a JAX bf16 array gives) goes through int16."""
-    a = np.ascontiguousarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
-
-
 def params_from_numpy(tree: dict, *, device="cuda") -> dict:
     """The reference's CNN params, given as numpy, as the port's:
     ``{name: {"w": ndarray | {"vals", "idx", "d_in"}, "b": ndarray}}``
@@ -227,19 +216,6 @@ def params_from_numpy(tree: dict, *, device="cuda") -> dict:
 # node executors
 # ---------------------------------------------------------------------------
 
-@contextlib.contextmanager
-def _full_f32():
-    """cuDNN may run f32 convolutions in TF32 (its default); switched off
-    in scope so the dense convs do IEEE f32 arithmetic, the reference's
-    ``preferred_element_type=f32``, whatever values reach them."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
-
-
 def _pad_same_nchw(x, k: int, stride: int, value: float = 0.0):
     """SAME padding of an NCHW tensor, lo = total // 2 as in lax (the
     stem's 7x7/2 conv at 224 px pads (2, 3); ``F.conv2d(padding=)``
@@ -262,7 +238,7 @@ def conv2d(x, p, s: ConvSpec, *, relu=True, residual=None):
     # sums are f32 as in the reference's preferred_element_type=f32
     xn = _pad_same_nchw(x.float().permute(0, 3, 1, 2), s.k, s.stride)
     w4 = w.float().reshape(s.k, s.k, s.cin, s.cout).permute(3, 2, 0, 1)
-    with _full_f32():
+    with L.full_f32():
         y = F.conv2d(xn, w4, stride=s.stride)
     y = y.permute(0, 2, 3, 1) + p["b"].float()
     if residual is not None:

@@ -1,12 +1,27 @@
-"""Weight containers and initializers the CNN path reads
-(counterpart of the reference's ``src/repro/models/layers.py``)."""
+"""Weight containers, initializers and the dense LM's layers
+(counterpart of the reference's ``src/repro/models/layers.py``).
+
+The LM layers keep the reference's dtype boundaries: ``fdot`` upcasts
+both operands to f32, ``rms_norm`` and ``rope`` work in f32 and round
+to x's dtype, the q/k/v projections round to bf16, decode attention
+rounds the softmax to bf16 before the PV product, and the FFN's sparse
+products go through ``kernels/ops.sparse_matmul``. The prefill
+attention goes through ``kernels/ops.flash_attention``, which computes
+what the reference's Pallas flash kernel computes (p kept in f32), not
+what its XLA ``blockwise_attention`` computes (p rounded to bf16).
+"""
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
 
 
 @dataclass
@@ -56,3 +71,189 @@ def dense_init(generator: torch.Generator, shape, in_axis_size: int,
     scale = 1.0 / math.sqrt(max(in_axis_size, 1))
     w = torch.empty(shape, dtype=torch.float32, device=generator.device)
     return w.uniform_(-scale, scale, generator=generator).to(dtype)
+
+
+def tensor_from_numpy(a) -> torch.Tensor:
+    """numpy -> torch, bit-exact; bf16 (numpy dtype name ``bfloat16``,
+    what ``np.asarray`` of a JAX bf16 array gives) goes through int16."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+# ---------------------------------------------------------------------------
+# f32 products, norms, rope
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def full_f32():
+    """f32 products and convolutions in IEEE f32 on the card: TF32 off
+    for cuBLAS and cuDNN (cuDNN's default is on) in scope, the
+    reference's ``preferred_element_type=f32``, whatever values reach
+    them."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+_ACCUM = {"dtype": torch.float32}
+
+
+@contextlib.contextmanager
+def accum_dtype(dtype):
+    """Scope the dtype ``fdot`` sums in: f32 (the reference's default),
+    or f64, to measure how far the order of f32 sums alone moves a
+    result (the floor under any bar between two devices)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"accum_dtype: f32 or f64, not {dtype}")
+    prev = _ACCUM["dtype"]
+    _ACCUM["dtype"] = dtype
+    try:
+        yield
+    finally:
+        _ACCUM["dtype"] = prev
+
+
+def fdot(expr: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum with both operands upcast to the accumulation dtype (f32:
+    the reference's ``fdot`` at its default); an f32 result."""
+    ad = _ACCUM["dtype"]
+    return torch.einsum(expr, a.to(ad), b.to(ad)).float()
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * gamma.float()).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: (..., T, H, Dh), positions: (..., T) integer."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].float() * freq                # (..., T, half)
+    ang = ang[..., None, :]                                  # (..., T, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def linear(x: torch.Tensor, w) -> torch.Tensor:
+    """x: (..., d_in) @ w, where w is a dense tensor or a SparseWeight."""
+    if isinstance(w, SparseWeight):
+        return kops.sparse_matmul(x, w)
+    return fdot("...i,io->...o", x, w).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA + optional qk-norm + optional sliding window)
+# ---------------------------------------------------------------------------
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def init_attention(generator: torch.Generator, cfg,
+                   dtype=torch.bfloat16) -> dict:
+    """3D projection weights (d, heads, dh), as in the reference."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(generator, (d, h, dh), d, dtype),
+        "wk": dense_init(generator, (d, kv, dh), d, dtype),
+        "wv": dense_init(generator, (d, kv, dh), d, dtype),
+        "wo": dense_init(generator, (h, dh, d), h * dh, dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((dh,), dtype=dtype, device=generator.device)
+        p["k_norm"] = torch.ones((dh,), dtype=dtype, device=generator.device)
+    return p
+
+
+def attention(p: dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
+              causal: bool = True, window: int = 0, kv_cache=None,
+              cache_pos: Optional[int] = None):
+    """GQA attention. Returns (out, new_kv): the (k, v) pair of this call
+    (prefill) or the cache (decode).
+
+    Without a cache (prefill) the whole sequence goes through
+    ``ops.flash_attention``. With a cache, one token (t == 1) is written
+    into it at ``cache_pos`` IN PLACE (the reference returns a new
+    cache; the port saves the copy) and attends by a grouped einsum over
+    the cache, in plain torch: the reference has no kernel there."""
+    b, t, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    q = fdot("btd,dhk->bthk", x, p["wq"]).to(x.dtype)
+    k = fdot("btd,dhk->bthk", x, p["wk"]).to(x.dtype)
+    v = fdot("btd,dhk->bthk", x, p["wv"]).to(x.dtype)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if kv_cache is None:
+        o = kops.flash_attention(q, _repeat_kv(k, h // kv),
+                                 _repeat_kv(v, h // kv), causal=causal,
+                                 window=window)
+        new_cache = (k, v)
+    else:
+        if t != 1:
+            raise NotImplementedError(
+                "a multi-token step into a KV cache (the reference's "
+                "kv_len branch of blockwise_attention): ROADMAP Queue 1 "
+                "item 11 (chunked prefill)")
+        ck, cv = kv_cache                      # (B, S, KV, Dh)
+        ck[:, cache_pos] = k[:, 0].to(ck.dtype)
+        cv[:, cache_pos] = v[:, 0].to(cv.dtype)
+        kv_len = cache_pos + 1
+        g = h // kv
+        s = fdot("bqkgd,bskd->bkgqs", q.reshape(b, t, kv, g, dh),
+                 ck) / math.sqrt(dh)
+        kpos = torch.arange(ck.shape[1], device=x.device)
+        mask = kpos < kv_len
+        if window:
+            mask &= kpos > (kv_len - 1 - window)
+        s = s.masked_fill(~mask, -math.inf)
+        o = fdot("bkgqs,bskd->bqkgd", torch.softmax(s, dim=-1).to(cv.dtype),
+                 cv)
+        o = o.reshape(b, t, h, dh).to(x.dtype)
+        new_cache = (ck, cv)
+    out = fdot("bthk,hkd->btd", o, p["wo"]).to(x.dtype)
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# FFN (gated SiLU) — dense or HPIPE-sparse
+# ---------------------------------------------------------------------------
+
+def init_ffn(generator: torch.Generator, d_model: int, d_ff: int,
+             sparsity=None, dtype=torch.bfloat16) -> dict:
+    from repro_torch.core.sparsity import to_block_balanced
+    w1 = dense_init(generator, (d_model, d_ff), d_model, dtype)
+    w3 = dense_init(generator, (d_model, d_ff), d_model, dtype)
+    w2 = dense_init(generator, (d_ff, d_model), d_ff, dtype)
+    if sparsity is not None and sparsity.enabled and sparsity.prune_ffn:
+        w1, w3, w2 = (to_block_balanced(w, sparsity) for w in (w1, w3, w2))
+    return {"w1": w1, "w2": w2, "w3": w3}
+
+
+def ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(linear(x, p["w1"]).float()).to(x.dtype)
+    h = h * linear(x, p["w3"])
+    return linear(h, p["w2"])

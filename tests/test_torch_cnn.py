@@ -199,7 +199,7 @@ def test_entry_points_default_to_the_card(entry):
     {"mode": "throughput", "tier": True},
     {"mode": "latency", "quantize": "int8"},
     {"mode": "latency", "n_stages": 2},
-    {"arch": "smollm-360m", "mode": "latency"},
+    {"arch": "mistral-nemo-12b", "mode": "latency"},
 ], ids=["throughput", "continuous", "tier", "int8", "stages", "lm"])
 def test_unported_modes_name_their_roadmap_item(kw):
     kw = {"arch": "resnet50", "device": "cpu", **kw}

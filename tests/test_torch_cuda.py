@@ -14,16 +14,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import SparsityConfig, get_config  # noqa: E402
+from repro_torch.configs import SparsityConfig, get_config, reduced  # noqa: E402
 from repro_torch.core.fusion import fused_graph_for  # noqa: E402
 from repro_torch.core.graph import graph_for  # noqa: E402
 from repro_torch.core.sparsity import to_block_balanced  # noqa: E402
 from repro_torch.kernels import depthwise_conv as dw  # noqa: E402
 from repro_torch.kernels import dw_pw_fused as dwpw  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import sparse_conv as sc  # noqa: E402
 from repro_torch.kernels import sparse_matmul as sm  # noqa: E402
-from repro_torch.models import cnn  # noqa: E402
+from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.models import cnn, lm  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -189,3 +191,96 @@ def test_mobilenet_on_card_matches_cpu_and_uses_the_kernels(dev, name):
         assert scale > 0
         assert float((got - want).abs().max()) <= 1e-3 * scale
         assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+# (B, Tq, Tk, H, D, causal, window, q_offset): the reference's test grid
+# (tests/test_kernels.py), its padded case, SmolLM-360M's prefill shape
+# and lengths that are not tile multiples, both head sizes the kernel
+# takes
+FLASH_CASES = [
+    (2, 128, 128, 3, 32, True, 0, 0),
+    (2, 128, 128, 3, 32, False, 0, 0),
+    (2, 64, 256, 3, 32, True, 0, 192),
+    (2, 128, 128, 3, 32, True, 48, 0),
+    (1, 100, 100, 2, 32, True, 0, 0),
+    (1, 2048, 2048, 15, 64, True, 0, 0),
+    (1, 1000, 1000, 15, 64, True, 0, 0),
+    (2, 77, 77, 4, 64, False, 0, 0),
+    (1, 65, 300, 2, 64, True, 100, 235),
+    (1, 200, 200, 2, 64, True, 0, 0),
+    (3, 1, 129, 2, 64, True, 0, 128),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_kernel_matches_plain(dev, case, dtype):
+    b, tq, tk, h, d, causal, window, q_offset = case
+    gen = torch.Generator().manual_seed(tq + tk + d)
+    q, k, v = (torch.randn((b, t, h, d), generator=gen).to(dev, dtype)
+               for t in (tq, tk, tk))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_torch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    else:
+        _bf16_close(got, want)
+
+
+def test_flash_attention_refuses_what_it_does_not_take(dev):
+    q = torch.zeros((1, 8, 2, 48), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D in"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="all bf16"):
+        fa.flash_attention(q, q, q.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2), q.transpose(1, 2), q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 9, 2048])
+@pytest.mark.parametrize("d_in,d_out", [(960, 2560), (2560, 960)],
+                         ids=["w1", "w2"])
+def test_sparse_matmul_kernel_64x64_blocks(dev, d_in, d_out, m, dtype):
+    """SmolLM-360M's FFN blocks: 64 x 64, K 2 (w1/w3) and 6 (w2), at the
+    decode (M = B) and prefill (M = B*T) row counts."""
+    gen = torch.Generator().manual_seed(d_in + m)
+    sw = _weight(gen, d_in, d_out, 64, 64, 0.85, dev)
+    assert sw.vals.shape[1] == {960: 2, 2560: 6}[d_in]
+    x = torch.randn((m, d_in), generator=gen).to(dev, dtype)
+    got = sm.sparse_matmul(x, sw.vals, sw.idx)
+    want = sm.sparse_matmul_torch(x, sw.vals, sw.idx)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    else:
+        _bf16_close(got, want)
+
+
+def test_lm_on_card_matches_cpu_and_uses_the_kernels(dev):
+    """reduced(smollm-360m): a prefill launches one flash_attention and
+    three sparse_matmul per layer, a decode step three sparse_matmul per
+    layer; the card's logits are within 1e-2 of max |logit| of the
+    CPU's on the same weights."""
+    cfg = reduced(get_config("smollm-360m"))
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    cpu = lm.params_to(params, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    ops.reset_launches()
+    got = make_prefill_step(cfg)(params, toks.to(dev)).cpu()
+    n = cfg.n_layers
+    _assert_launches({"flash_attention": n, "sparse_matmul": 3 * n})
+    want = make_prefill_step(cfg)(cpu, toks)
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+    cache = lm.init_cache(cfg, 2, 8, device=dev)
+    ops.reset_launches()
+    lg, _ = lm.decode_step(cfg, params, cache, toks[:, :1].to(dev), 0)
+    _assert_launches({"sparse_matmul": 3 * n})
+    assert lg.shape == (2, 1, cfg.vocab_size) and torch.isfinite(lg).all()

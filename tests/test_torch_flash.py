@@ -1,0 +1,197 @@
+"""The port's plain flash attention and its 64 x 64 block-sparse matmul
+against the JAX reference on the CPU: ``flash_attention_torch`` against
+``flash_attention_pallas`` (interpret mode, its default here) and the
+XLA ``blockwise_attention`` on the reference's own test grid and
+tolerances (tests/test_kernels.py), at padded and odd lengths; and
+``sparse_matmul_torch`` at SmolLM-360M's 64 x 64 FFN blocks against the
+reference's XLA path and Pallas kernel. The CUDA kernels themselves
+are held to these plain versions on the card (tests/test_torch_cuda.py).
+"""
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+
+from repro.configs.base import SparsityConfig as RefSparsityConfig  # noqa: E402
+from repro.core import sparsity as ref_sparsity  # noqa: E402
+from repro.kernels import ops as ref_ops  # noqa: E402
+from repro.kernels import ref as ref_oracles  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
+from repro.kernels.sparse_matmul import sparse_matmul_pallas  # noqa: E402
+from repro.models.layers import blockwise_attention  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import sparse_matmul as sm  # noqa: E402
+from repro_torch.models.layers import tensor_from_numpy as _t  # noqa: E402
+from repro_torch.models.lm import params_from_numpy  # noqa: E402
+
+# the reference's own bars for its flash kernel (tests/test_kernels.py)
+TOL = {"float32": 2e-5, "bfloat16": 4e-2}
+
+
+def _cast(a, dtype):
+    """numpy f32 -> numpy ``dtype`` with JAX's rounding."""
+    return np.asarray(jnp.asarray(np.asarray(a, np.float32)).astype(
+        getattr(jnp, dtype)))
+
+
+def _qkv(seed, b, tq, tk, h, d, dtype):
+    rng = np.random.default_rng(seed)
+    return [_cast(rng.normal(size=(b, t, h, d)), dtype)
+            for t in (tq, tk, tk)]
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("tq,tk,causal,window", [
+    (128, 128, True, 0),
+    (128, 128, False, 0),
+    (64, 256, True, 0),     # cross-length
+    (128, 128, True, 48),   # sliding window
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_reference(tq, tk, causal, window, dtype):
+    q, k, v = _qkv([tq, tk, window], 2, tq, tk, 3, 32, dtype)
+    offset = tk - tq if tq != tk else 0
+    kw = dict(causal=causal, window=window, q_offset=offset)
+    got = fa.flash_attention_torch(_t(q), _t(k), _t(v), **kw)
+    assert got.dtype == getattr(torch, dtype) and got.shape == q.shape
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    _close(got, flash_attention_pallas(jq, jk, jv, block_q=32, block_k=64,
+                                       **kw), TOL[dtype])
+    _close(got, blockwise_attention(jq, jk, jv, block_q=32, block_k=64,
+                                    **kw), TOL[dtype])
+
+
+def test_flash_attention_padded_lengths():
+    """Lengths that are no multiple of the tiles: the tail is masked
+    (the reference's XLA path pads; its Pallas kernel asserts)."""
+    q, k, v = _qkv(2, 1, 100, 100, 2, 16, "float32")
+    got = fa.flash_attention_torch(_t(q), _t(k), _t(v), causal=True)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    _close(got, blockwise_attention(jq, jk, jv, causal=True, block_q=32,
+                                    block_k=32), TOL["float32"])
+    _close(got, ref_oracles.attention_ref(jq, jk, jv, causal=True),
+           TOL["float32"])
+
+
+@pytest.mark.parametrize("case", [
+    (1, 37, 101, 2, 32, True, 20, 64),
+    (2, 70, 70, 3, 64, False, 0, 0),
+    (1, 1, 130, 2, 64, True, 0, 129),      # one query at the end
+    (1, 130, 130, 1, 16, False, 40, 0),    # window without causality
+], ids=str)
+def test_flash_attention_odd_lengths_windows_offsets(case):
+    b, tq, tk, h, d, causal, window, q_offset = case
+    q, k, v = _qkv(list(case[:5]), b, tq, tk, h, d, "float32")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = fa.flash_attention_torch(_t(q), _t(k), _t(v), **kw)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    _close(got, ref_oracles.attention_ref(jq, jk, jv, **kw), TOL["float32"])
+    _close(got, blockwise_attention(jq, jk, jv, block_q=32, block_k=64,
+                                    **kw), TOL["float32"])
+
+
+class _Sizes(TorchDispatchMode):
+    """Records the element count of every tensor an op returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.numel = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if isinstance(t, torch.Tensor):
+                self.numel.append(t.numel())
+        return out
+
+
+def test_flash_attention_plain_never_builds_the_score_matrix():
+    """One (64 x 64) score tile at a time: no tensor of the call is as
+    large as the (Tq, Tk) scores."""
+    q, k, v = _qkv(3, 1, 256, 256, 1, 8, "float32")
+    with _Sizes() as sizes:
+        fa.flash_attention_torch(_t(q), _t(k), _t(v), causal=False)
+    assert max(sizes.numel) <= fa.BLOCK_Q * fa.BLOCK_K < 256 * 256
+
+
+def test_kv_tile_range_skips_only_masked_tiles():
+    # causal: the tiles up to the tile of the last query's position
+    assert fa.kv_tile_range(0, 63, 2048, causal=True, window=0) == (0, 1)
+    assert fa.kv_tile_range(192, 255, 256, causal=True, window=0) == (0, 4)
+    # window 48 from position 128: keys 81.. -> tiles 1..
+    assert fa.kv_tile_range(128, 191, 256, causal=True, window=48) == (1, 3)
+    assert fa.kv_tile_range(0, 63, 100, causal=False, window=0) == (0, 2)
+
+
+def test_cpu_tensors_take_the_plain_flash_attention():
+    q, k, v = map(_t, _qkv(4, 1, 50, 50, 2, 32, "bfloat16"))
+    ops.reset_launches()
+    assert torch.equal(ops.flash_attention(q, k, v, causal=True),
+                       fa.flash_attention_torch(q, k, v, causal=True))
+    assert set(ops.LAUNCHES) == set(_build.SOURCES)
+    assert "flash_attention" in ops.LAUNCHES
+    assert not any(ops.LAUNCHES.values())
+
+
+def test_flash_wrapper_refuses_cpu_tensors(monkeypatch):
+    """No fallback: the kernel wrapper raises on a CPU tensor instead of
+    running the plain version, before building anything."""
+    built = []
+    monkeypatch.setattr(_build, "load", built.append)
+    fa._kernel.cache_clear()
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.flash_attention(q, q, q)
+    assert built == []
+
+
+def _bf16_tol(want):
+    scale = float(np.abs(want).max())
+    return 2.0 ** -7 * np.abs(want) + 2.0 ** (math.floor(math.log2(scale))
+                                              - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [4, 40])
+@pytest.mark.parametrize("d_in,d_out", [(960, 2560), (2560, 960)],
+                         ids=["w1", "w2"])
+def test_sparse_matmul_64x64_blocks_match_reference(d_in, d_out, m, dtype):
+    """SmolLM-360M's FFN weights: 64 x 64 blocks at 85% sparsity, K 2
+    (w1/w3) and 6 (w2), pruned by the reference, carried across with
+    the LM weight bridge."""
+    rng = np.random.default_rng([d_in, m])
+    w = _cast(rng.uniform(-1, 1, (d_in, d_out)) / math.sqrt(d_in),
+              "bfloat16")
+    rsw = ref_sparsity.to_block_balanced(
+        jnp.asarray(w), RefSparsityConfig(enabled=True, sparsity=0.85,
+                                          block_m=64, block_n=64))
+    sw = params_from_numpy({"w": {"vals": np.asarray(rsw.vals),
+                                  "idx": np.asarray(rsw.idx),
+                                  "d_in": rsw.d_in}}, device="cpu")["w"]
+    assert tuple(sw.vals.shape) == (d_out // 64, {960: 2, 2560: 6}[d_in],
+                                    64, 64)
+    x = _cast(rng.normal(size=(m, d_in)), dtype)
+    got = ops.sparse_matmul(_t(x), sw)
+    assert got.dtype == getattr(torch, dtype)
+    if dtype == "float32":
+        tol = lambda r: 1e-5 * np.abs(r) + 1e-5 * float(np.abs(r).max())  # noqa: E731
+    else:
+        tol = _bf16_tol
+    with ref_ops.config(impl="xla"):
+        want_xla = ref_ops.sparse_matmul(jnp.asarray(x), rsw)
+    for want in (sparse_matmul_pallas(jnp.asarray(x), rsw.vals, rsw.idx,
+                                      block_m_x=4), want_xla):
+        want = np.asarray(want, np.float32)
+        assert (np.abs(got.float().numpy() - want) <= tol(want)).all()
+    assert torch.equal(got, sm.sparse_matmul_torch(_t(x), sw.vals, sw.idx))
