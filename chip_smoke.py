@@ -6,26 +6,32 @@ Phases, in order; any failure raises and exits nonzero:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
-   with nvcc for sm_90a;
+   with nvcc for sm_90a; print ptxas's registers, shared memory and
+   spills per kernel function, and the HMMA (tensor-core) instructions
+   in each one's SASS (``cuobjdump -sass``);
 3. kernel checks: each kernel against its plain PyTorch version on the
    card, at every distinct shape its main paths give it: sparse_conv and
    sparse_matmul at the ResNet-50 shapes, dw_pw at every MobileNet-V1/V2
    block shape, depthwise_conv at every dw shape of the unfused views,
    flash_attention at SmolLM-360M's prefill shapes (T 2048 and a length
-   that is no tile multiple) and on the reference's test grid, and
-   sparse_matmul at SmolLM-360M's 64 x 64 FFN blocks at M 4 and 2048;
+   that is no tile multiple), at short and odd lengths, windows and
+   offsets, and on the reference's test grid, and sparse_matmul at
+   SmolLM-360M's 64 x 64 FFN blocks and at 32 x 32 blocks, at M 4 to
+   2048; each check also asserts the variant ("mma": tensor cores,
+   "simt": CUDA cores) that ``variant()`` names was the one launched;
 4. main paths, each with the launch counters reset just before and read
-   just after, every counter checked by name: ``serve(ServeConfig(arch=
+   just after, every counter checked by name, and the variant counters
+   of sparse_matmul and flash_attention with them: ``serve(ServeConfig(arch=
    "resnet50" | "mobilenet_v1" | "mobilenet_v2", mode="latency",
    image_size=224))``, then one ``cnn_forward`` per MobileNet on the
    unfused view (``graph_for(name)``); the card's logits are held against
    the port's plain CPU forward on the same weights and images. Then
    SmolLM-360M at full width and depth: ``make_prefill_step`` on 2048
-   random tokens (32 flash_attention + 96 sparse_matmul launches), a
-   prefill at T 256 held against the port's CPU forward, and
+   random tokens (32 flash_attention + 96 sparse_matmul launches, all
+   "mma"), a prefill at T 256 held against the port's CPU forward, and
    ``serve_lm(batch=4, prompt_len=32, gen_tokens=16)`` ((32 + 16) x 96
-   sparse_matmul launches, no flash_attention), replayed teacher-forced
-   on the CPU;
+   sparse_matmul launches, all "simt", no flash_attention), replayed
+   teacher-forced on the CPU;
 5. timings (CUDA events over CUDA-graph replays, L2-warm): each kernel at
    the main-path shapes beside its plain version, a library call that
    computes the same function (never called by the port; for dw_pw no
@@ -41,6 +47,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -157,6 +166,67 @@ def bound_by(t_bytes: float, t_ops: float) -> str:
     return "bytes" if t_bytes >= t_ops else "operations"
 
 
+def variant_str(variants: dict) -> str:
+    """The nonzero (kernel, variant) counters as ``kernel/variant: n``."""
+    return ", ".join(f"{n}/{v}: {c}" for (n, v), c in variants.items()
+                     if c) or "none"
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_attention_mma<64>`` for a mangled kernel symbol (c++filt,
+    where the toolkit's host has it; else the symbol)."""
+    filt = shutil.which("c++filt")
+    if not filt:
+        return mangled
+    name = subprocess.run([filt, mangled], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    name = name.replace("(anonymous namespace)::", "")
+    return name.removeprefix("void ").split("(")[0]
+
+
+def ptxas_resources(log: str) -> dict:
+    """ptxas's report per entry function of one ``nvcc -Xptxas -v`` log:
+    registers, shared memory bytes, spill stores and loads."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn]["spill_stores"], out[fn]["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[fn]["smem_bytes"] = int(m.group(1)) if m else 0
+    return out
+
+
+def sass_hmma(lib: Path) -> dict | None:
+    """HMMA (tensor-core) instructions per kernel function in the SASS of
+    ``lib``, or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = kernel_name(line.split("Function :")[1].strip())
+            out[fn] = 0
+        elif fn is not None and re.search(r"\bHMMA\b", line):
+            out[fn] += 1
+    return out
+
+
 def conv_input_elems(x_shape, idx, k: int, stride: int, bm: int) -> int:
     """Elements of the NHWC input that the surviving blocks read: the
     union, over the distinct (ky, kx, channel block) of ``idx``, of the
@@ -213,10 +283,23 @@ def main() -> int:
     # -- 2. build ---------------------------------------------------------
     build_s = _build.build_all()
     print(f"[build] {len(_build.SOURCES)} kernels in {build_s:.1f}s")
-    for name, log in _build.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+    resources, hmma = {}, {}
+    for name in _build.SOURCES:
+        resources[name] = ptxas_resources(_build.BUILD_LOG.get(name, ""))
+        hmma[name] = sass_hmma(_build._build_dir() / f"lib{name}.so")
+        for fn in sorted(set(resources[name]) | set(hmma[name] or {})):
+            r = resources[name].get(fn)
+            ptxas = (f"{r['registers']} registers, {r['smem_bytes']} B "
+                     f"static smem, spills {r['spill_stores']} B stored / "
+                     f"{r['spill_loads']} B loaded" if r else
+                     "ptxas: not built in this process")
+            n_hmma = "no cuobjdump" if hmma[name] is None else \
+                hmma[name].get(fn, 0)
+            print(f"[build] {name}: {fn}: {ptxas}; HMMA {n_hmma}")
+    for name in ("flash_attention", "sparse_matmul"):
+        if hmma[name] is not None and not any(
+                n for fn, n in hmma[name].items() if "_mma" in fn):
+            raise AssertionError(f"{name}: no HMMA in the mma variant's SASS")
 
     # -- 3. kernel checks at the main-path shapes -------------------------
     cfg = get_config("resnet50")
@@ -264,6 +347,28 @@ def main() -> int:
     print(f"[check] sparse_conv: {len(seen)} shapes (k, stride, C, Cout, K, "
           f"H) x residual on/off, max |err| {conv_err:.3e} within 1 bf16 ulp")
 
+    checked_variants = {}          # (kernel, variant) -> checks run
+
+    def launch_checked(name: str, want_variant: str, launch, what: str):
+        """``launch()`` launches kernel ``name`` once, in the variant
+        ``want_variant`` that its ``variant()`` names for these inputs."""
+        key = (name, want_variant)
+        before = ops.VARIANT_LAUNCHES[key]
+        out = launch()
+        if ops.VARIANT_LAUNCHES[key] != before + 1:
+            raise AssertionError(f"{name} {what}: the {want_variant} variant "
+                                 f"did not launch: {ops.VARIANT_LAUNCHES}")
+        checked_variants[key] = checked_variants.get(key, 0) + 1
+        return out
+
+    def check_mm(what: str, x, sw, tol) -> float:
+        v = sm.variant(x.dtype, x.shape[0], *sw.vals.shape[2:])
+        got = launch_checked("sparse_matmul", v, lambda: sm.sparse_matmul(
+            x, sw.vals, sw.idx), what)
+        want = sm.sparse_matmul_torch(x, sw.vals, sw.idx)
+        torch.cuda.synchronize()
+        return compare(got, want, tol, f"sparse_matmul {what} ({v})")
+
     fc_w = params_cpu["fc"]["w"].to(dev)
     mm_cases = [("fc M=1 f32", randn((1, 2048), torch.float32), fc_w,
                  f32_tol)]
@@ -272,13 +377,12 @@ def main() -> int:
                                                     device=dev)[:4].sort()
                                      .values for _ in range(16)])
                         .to(torch.int32).contiguous(), 1024)
-    mm_cases.append(("M=64 bf16", randn((64, 1024)), w_bf, bf16_tol))
+    for m in (9, 16, 64, 100, 129, 2048):
+        mm_cases.append((f"32x32 M={m} bf16", randn((m, 1024)), w_bf,
+                         bf16_tol))
     mm_err = 0.0
     for what, x, sw, tol in mm_cases:
-        got = sm.sparse_matmul(x, sw.vals, sw.idx)
-        want = sm.sparse_matmul_torch(x, sw.vals, sw.idx)
-        torch.cuda.synchronize()
-        mm_err = max(mm_err, compare(got, want, tol, f"sparse_matmul {what}"))
+        mm_err = max(mm_err, check_mm(what, x, sw, tol))
     print(f"[check] sparse_matmul: {[c[0] for c in mm_cases]}, max |err| "
           f"{mm_err:.3e} within tolerance")
 
@@ -363,6 +467,25 @@ def main() -> int:
 
     flash_cases = [(f"{LM} T={t}", (1, t, t, n_h, d_h, torch.bfloat16, n_kv),
                     dict(causal=True)) for t in (PREFILL_T, 1000)]
+    # the tensor-core variant at lengths 1, under a tile, a tile, a tile
+    # + 1 and two tiles - 1, both head sizes, causal or not; windows and
+    # query offsets
+    for t in (1, 17, 64, 65, 127):
+        for d in (32, 64):
+            for causal in (True, False):
+                flash_cases.append((f"T={t} D={d} causal={causal}",
+                                    (2, t, t, 3, d, torch.bfloat16, 3),
+                                    dict(causal=causal)))
+    for b, tq, tk, h, d, causal, window, q_offset in (
+            (2, 127, 127, 3, 32, True, 48, 0),
+            (2, 1000, 1000, 2, 64, False, 200, 0),
+            (1, 65, 300, 2, 64, True, 100, 235),
+            (3, 17, 1000, 2, 64, True, 0, 983)):
+        flash_cases.append((f"{tq}x{tk} D={d} causal={causal} window="
+                            f"{window} q_offset={q_offset}",
+                            (b, tq, tk, h, d, torch.bfloat16, h),
+                            dict(causal=causal, window=window,
+                                 q_offset=q_offset)))
     for tq, tk, causal, window in ((128, 128, True, 0), (128, 128, False, 0),
                                    (64, 256, True, 0), (128, 128, True, 48)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -374,15 +497,18 @@ def main() -> int:
     flash_err = 0.0
     for what, shape, kw in flash_cases:
         q, k, v = qkv(*shape)
-        got = fa.flash_attention(q, k, v, **kw)
+        var = fa.variant(q.dtype, q.shape[-1])
+        got = launch_checked("flash_attention", var,
+                             lambda: fa.flash_attention(q, k, v, **kw), what)
         want = fa.flash_attention_torch(q, k, v, **kw)
         torch.cuda.synchronize()
         tol = bf16_tol if q.dtype == torch.bfloat16 else f32_tol
         flash_err = max(flash_err, compare(got, want, tol,
-                                           f"flash_attention {what}"))
+                                           f"flash_attention {what} ({var})"))
     print(f"[check] flash_attention: {len(flash_cases)} cases ({LM} T="
-          f"{PREFILL_T} and 1000; the reference's grid in f32 and bf16), "
-          f"max |err| {flash_err:.3e} within 1 bf16 ulp / 1e-5 relative")
+          f"{PREFILL_T} and 1000; T 1 to 127, D 32 and 64, windows and "
+          f"offsets in bf16; the reference's grid in f32 and bf16), max "
+          f"|err| {flash_err:.3e} within 1 bf16 ulp / 1e-5 relative")
 
     lm_ffn = {name: lm_params["blocks"]["ffn"][name] for name in
               ("w1", "w2")}                           # w3 has w1's shape
@@ -390,18 +516,17 @@ def main() -> int:
     for name, sw in lm_ffn.items():
         sw0 = SparseWeight(sw.vals[0].contiguous(), sw.idx[0].contiguous(),
                            sw.d_in)
-        for m in (SERVE["batch"], PREFILL_T):
+        for m in (SERVE["batch"], 9, 16, 100, 129, PREFILL_T):
             x = randn((m, sw0.d_in))
-            got = sm.sparse_matmul(x, sw0.vals, sw0.idx)
-            want = sm.sparse_matmul_torch(x, sw0.vals, sw0.idx)
-            torch.cuda.synchronize()
-            mm_err = max(mm_err, compare(got, want, bf16_tol,
-                                         f"sparse_matmul {LM} {name} M={m}"))
-            lm_mm[(name, m)] = (x, sw0)
+            mm_err = max(mm_err, check_mm(f"{LM} {name} M={m}", x, sw0,
+                                          bf16_tol))
+            if m in (SERVE["batch"], PREFILL_T):
+                lm_mm[(name, m)] = (x, sw0)
     print(f"[check] sparse_matmul: {LM} FFN blocks "
           f"{[tuple(s.vals.shape[1:]) for s in lm_ffn.values()]} at M="
-          f"{SERVE['batch']} and {PREFILL_T} bf16, max |err| (all cases) "
-          f"{mm_err:.3e} within tolerance")
+          f"{SERVE['batch']}, 9, 16, 100, 129 and {PREFILL_T} bf16, max |err| "
+          f"(all cases) {mm_err:.3e} within tolerance; checks by variant "
+          f"{ {f'{n}/{v}': c for (n, v), c in checked_variants.items()} }")
 
     # -- 4. the main paths ------------------------------------------------
     def check_logits(logits, images, cfg_, params_, graph=None,
@@ -435,6 +560,20 @@ def main() -> int:
             raise AssertionError(f"{what}: launches {launches} != {full}, "
                                  f"counters missing: {unknown or 'none'}")
 
+    def check_variants(variants: dict, want: dict, what: str) -> None:
+        """Every (kernel, variant) counter: those ``want`` names launched
+        exactly that often, the others not at all."""
+        full = {k: want.get(k, 0) for k in variants}
+        if set(want) - set(variants) or variants != full:
+            raise AssertionError(f"{what}: variant launches {variants} != "
+                                 f"{full}")
+
+    all_variants = {k: 0 for k in ops.VARIANT_LAUNCHES}
+
+    def add_variants(variants: dict) -> None:
+        for k, v in variants.items():
+            all_variants[k] += v
+
     def check_nodes(cfg_, graph, params_dev, params_cpu_, image) -> float:
         """Each node of ``graph`` on the card against the same node on
         the CPU, fed the card's own input to that node: bf16 outputs
@@ -463,10 +602,15 @@ def main() -> int:
                             image_size=IMAGE_SIZE, n_requests=N_REQUESTS,
                             seed=SEED, device="cuda"))
     launches = dict(ops.LAUNCHES)
+    resnet_variants = dict(ops.VARIANT_LAUNCHES)
     check_launches(launches, {"sparse_conv": 47 * n_runs,
                               "sparse_matmul": n_runs, "dw_pw": 0,
                               "depthwise_conv": 0},
                    f"resnet50 ({n_runs} requests incl. warm-up)")
+    # the classifier: M 1, f32 x, 32 x 25 blocks
+    check_variants(resnet_variants, {("sparse_matmul", "simt"): n_runs},
+                   "resnet50")
+    add_variants(resnet_variants)
     logits = torch.from_numpy(out["logits"])
     if logits.shape != (N_REQUESTS, 1000) or not torch.isfinite(logits).all():
         raise AssertionError(f"logits {tuple(logits.shape)} not finite "
@@ -475,7 +619,8 @@ def main() -> int:
     p50_ms = out["latency_p50_s"] * 1e3
     p99_ms = out["latency_p99_s"] * 1e3
     print(f"[main] {N_REQUESTS} requests at {IMAGE_SIZE}px: p50 {p50_ms:.4f}"
-          f" ms, p99 {p99_ms:.4f} ms; launches {launches}; logits vs CPU "
+          f" ms, p99 {p99_ms:.4f} ms; launches {launches}, by variant "
+          f"{variant_str(resnet_variants)}; logits vs CPU "
           f"max |err| / max |logit| {logit_err:.3e} (bar {LOGIT_RTOL}), "
           f"top-1 equal")
 
@@ -493,6 +638,7 @@ def main() -> int:
                                 "dw_pw": MB_BLOCKS[name] * n_runs,
                                 "depthwise_conv": 0},
                        f"{name} ({n_runs} requests incl. warm-up)")
+        check_variants(dict(ops.VARIANT_LAUNCHES), {}, name)
         mlogits = torch.from_numpy(mout["logits"])
         if mlogits.shape != (N_REQUESTS, 1000):
             raise AssertionError(f"{name}: logits {tuple(mlogits.shape)}")
@@ -510,6 +656,7 @@ def main() -> int:
                        {"sparse_conv": 0, "sparse_matmul": 0, "dw_pw": 0,
                         "depthwise_conv": MB_BLOCKS[name]},
                        f"{name} unfused view")
+        check_variants(dict(ops.VARIANT_LAUNCHES), {}, f"{name} unfused")
         unfused_err = check_logits(unfused, img, mcfg, mb_params[name],
                                    graph=graph_for(name), rtol=MB_LOGIT_RTOL)
         node_err = {view: check_nodes(mcfg, g, params_dev, mb_params[name],
@@ -543,14 +690,21 @@ def main() -> int:
     toks = torch.randint(0, lm_cfg.vocab_size, (1, PREFILL_T),
                          generator=lm_gen).to(dev)
     per_prefill = {"flash_attention": n_l, "sparse_matmul": 3 * n_l}
+    # bf16 attention; bf16 FFN inputs of B*T rows in 64 x 64 blocks
+    prefill_want_variants = {("flash_attention", "mma"): n_l,
+                             ("sparse_matmul", "mma"): 3 * n_l}
     ops.reset_launches()
     t0 = time.perf_counter()
     last = prefill(lm_params, toks)
     torch.cuda.synchronize()
     prefill_first_s = time.perf_counter() - t0
     prefill_launches = dict(ops.LAUNCHES)
+    prefill_variants = dict(ops.VARIANT_LAUNCHES)
     check_launches(prefill_launches, per_prefill,
                    f"{LM} prefill T={PREFILL_T}")
+    check_variants(prefill_variants, prefill_want_variants,
+                   f"{LM} prefill T={PREFILL_T}")
+    add_variants(prefill_variants)
     if last.shape != (1, lm_cfg.vocab_size) or not torch.isfinite(last).all():
         raise AssertionError(f"{LM} prefill: logits {tuple(last.shape)} not "
                              f"finite (1, {lm_cfg.vocab_size})")
@@ -560,6 +714,8 @@ def main() -> int:
     ops.reset_launches()
     card = prefill(lm_params, toks_check.to(dev)).cpu()
     check_launches(dict(ops.LAUNCHES), per_prefill,
+                   f"{LM} prefill T={CHECK_T}")
+    check_variants(dict(ops.VARIANT_LAUNCHES), prefill_want_variants,
                    f"{LM} prefill T={CHECK_T}")
     ref = prefill(lm_cpu, toks_check)
     scale = float(ref.abs().max())
@@ -610,7 +766,8 @@ def main() -> int:
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
     prefill_ms = sorted(prefill_s)[1] * 1e3
-    print(f"[main] {LM} prefill T={PREFILL_T}: launches {prefill_launches}; "
+    print(f"[main] {LM} prefill T={PREFILL_T}: launches {prefill_launches}, "
+          f"by variant {variant_str(prefill_variants)}; "
           f"{prefill_ms:.3f} ms (median of 3, first {prefill_first_s:.3f} s)"
           f"; T={CHECK_T} logits vs CPU max |err| / max |logit| "
           f"{prefill_err:.3e} (bar {LM_LOGIT_RTOL}), top-1 equal; every "
@@ -624,10 +781,16 @@ def main() -> int:
                     generator=torch.Generator(device=dev).manual_seed(SEED),
                     record_logits=True, device="cuda", **SERVE)
     serve_launches = dict(ops.LAUNCHES)
+    serve_variants = dict(ops.VARIANT_LAUNCHES)
     n_steps = SERVE["prompt_len"] + SERVE["gen_tokens"]
     check_launches(serve_launches, {"sparse_matmul": n_steps * 3 * n_l,
                                     "flash_attention": 0},
                    f"{LM} serve_lm ({n_steps} decode steps)")
+    # decode: M = batch 4 rows, the CUDA-core variant
+    check_variants(serve_variants,
+                   {("sparse_matmul", "simt"): n_steps * 3 * n_l},
+                   f"{LM} serve_lm")
+    add_variants(serve_variants)
     seq = torch.from_numpy(np.concatenate([sout["prompts"], sout["tokens"]],
                                           axis=1))
     layer_err["decode"] = check_lm_layers(seq[:, :1], decode=True)
@@ -662,7 +825,8 @@ def main() -> int:
     serve_err = max(serve_errs)
     print(f"[main] {LM} serve_lm batch {SERVE['batch']}, prompt "
           f"{SERVE['prompt_len']}, {SERVE['gen_tokens']} tokens: launches "
-          f"{serve_launches}; prefill {sout['prefill_s']:.4f} s, decode "
+          f"{serve_launches}, by variant {variant_str(serve_variants)}; "
+          f"prefill {sout['prefill_s']:.4f} s, decode "
           f"{sout['decode_s']:.4f} s, {sout['tokens_per_s']:.2f} tok/s; "
           f"teacher-forced CPU replay: every step within {LM_SERVE_RTOL} of "
           f"max |logit| (worst {serve_err:.3e}, median "
@@ -840,7 +1004,8 @@ def main() -> int:
                      2 * n_h * PREFILL_T ** 2 * d_h, torch.bfloat16)
     flash_bound, flash_by = max(t_b, t_o), bound_by(t_b, t_o)
     print(f"[time] flash_attention {LM} layer B=1 T={PREFILL_T} H={n_h} "
-          f"D={d_h} bf16 causal: kernel {flash_ms * 1e3:.3f} us, plain "
+          f"D={d_h} bf16 causal ({fa.variant(q.dtype, d_h)}): kernel "
+          f"{flash_ms * 1e3:.3f} us, plain "
           f"{flash_plain * 1e3:.3f} us, SDPA {flash_lib * 1e3:.3f} us, bound "
           f"{flash_bound * 1e3:.3f} us ({flash_by}); x{n_l} per prefill: "
           f"{flash_ms * n_l:.4f} ms")
@@ -856,12 +1021,15 @@ def main() -> int:
                   + m * ob * bn * 2)
         t_b, t_o = bound(nbytes, 2 * m * ob * n_k * bm * bn, torch.bfloat16)
         lm_mm_rows.append({"weight": name, "M": m,
-                           "vals": list(sw0.vals.shape), "ms": ms,
+                           "vals": list(sw0.vals.shape),
+                           "variant": sm.variant(x.dtype, m, bm, bn),
+                           "ms": ms,
                            "plain_ms": plain, "library_ms": lib,
                            "bound_ms": max(t_b, t_o),
                            "bound_by": bound_by(t_b, t_o)})
         print(f"[time] sparse_matmul {LM} {name} M={m} vals "
-              f"{tuple(sw0.vals.shape)} bf16: kernel {ms * 1e3:.3f} us, plain "
+              f"{tuple(sw0.vals.shape)} bf16 ({lm_mm_rows[-1]['variant']}): "
+              f"kernel {ms * 1e3:.3f} us, plain "
               f"{plain * 1e3:.3f} us, torch.matmul (dense bf16) "
               f"{lib * 1e3:.3f} us, bound {max(t_b, t_o) * 1e3:.3f} us "
               f"({bound_by(t_b, t_o)})")
@@ -900,7 +1068,10 @@ def main() -> int:
         "fc": {"ms": fc_ms, "plain_ms": fc_plain, "library_ms": fc_lib,
                "bound_ms": fc_bound, "bound_by": fc_by},
         "mobilenet": mb_main, "dw_pw_layers": dw_pw_rows,
-        "depthwise_layers": dw_rows, "smollm": lm_main}, indent=1))
+        "depthwise_layers": dw_rows, "smollm": lm_main,
+        "variant_launches": {f"{n}/{v}": c for (n, v), c in
+                             all_variants.items()},
+        "ptxas": resources, "hmma": hmma}, indent=1))
 
     # -- 6. the kernels line, then the device line ------------------------
     kernels = [
@@ -927,9 +1098,11 @@ def main() -> int:
          "bound_by": fc_by, "library_ms": fc_lib,
          "smollm": lm_mm_rows,
          "note": "ms, plain_ms, bound_ms, library_ms: the ResNet-50 "
-                 "classifier (M=1 f32); smollm: per call at SmolLM-360M's "
-                 "FFN shapes, library torch.matmul on the densified bf16 "
-                 "weight"},
+                 "classifier (M=1 f32, simt); smollm: per call at "
+                 "SmolLM-360M's FFN shapes (M=4 simt, M=2048 mma), library "
+                 "torch.matmul on the densified bf16 weight; variants: "
+                 "launches by variant over the main paths; ptxas, hmma: "
+                 "per kernel function"},
         {"name": "dw_pw", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dw_pw.cu",
          "replaces": "src/repro/kernels/dw_pw_fused.py:137",
@@ -974,9 +1147,18 @@ def main() -> int:
          "bound_by": flash_by, "library_ms": flash_lib,
          "note": f"ms, plain_ms, bound_ms, library_ms: one layer of a "
                  f"{LM} prefill (B=1, T={PREFILL_T}, H={n_h}, D={d_h}, "
-                 f"bf16, causal); library: F.scaled_dot_product_attention "
-                 f"on the same expanded tensors"},
+                 f"bf16, causal; the mma variant); library: "
+                 f"F.scaled_dot_product_attention on the same expanded "
+                 f"tensors; variants: launches by variant over the main "
+                 f"paths; ptxas, hmma: per kernel function"},
     ]
+    for entry in kernels:
+        name = entry["name"]
+        entry["ptxas"] = resources[name]
+        entry["hmma"] = hmma[name]
+        if (name, "mma") in all_variants:
+            entry["variants"] = {v: all_variants[(name, v)]
+                                 for v in _build.VARIANT_CODES}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

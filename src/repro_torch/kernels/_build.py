@@ -10,7 +10,10 @@ an unchanged one is loaded as it is.
 
 ``LAUNCHES`` counts kernel launches: each wrapper adds one where it
 launches its kernel, and nowhere else, so a run can show that its
-main path went through the kernels.
+main path went through the kernels. ``VARIANT_LAUNCHES`` counts the
+same launches by (kernel, variant) for the kernels with two variants:
+"mma" (tensor cores) and "simt" (CUDA cores), which the wrapper's
+``variant()`` picks by dtype and shape.
 """
 from __future__ import annotations
 
@@ -31,6 +34,12 @@ SOURCES = ("sparse_conv", "sparse_matmul", "dw_pw", "depthwise_conv",
 
 LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
 
+#: the argument that selects a variant at the C entry points
+VARIANT_CODES = {"simt": 0, "mma": 1}
+VARIANT_LAUNCHES: dict[tuple[str, str], int] = {
+    (name, v): 0 for name in ("sparse_matmul", "flash_attention")
+    for v in VARIANT_CODES}
+
 #: ptxas's report (registers, shared memory, spills) of the last build
 BUILD_LOG: dict[str, str] = {}
 
@@ -38,8 +47,15 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def aligned16(t):
+    """``t``, or a copy of it if its data does not start on a 16-byte
+    boundary: the mma variants copy 16-byte vectors."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _nvcc() -> str:

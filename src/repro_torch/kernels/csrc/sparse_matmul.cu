@@ -7,32 +7,57 @@
 //
 // with an f32 accumulator and the output in x's dtype; no epilogue.
 //
-// Design. The TPU kernel runs K as the innermost sequential grid axis
-// with a VMEM accumulator; here the grid is (ceil(M/TM), ob) and the K
-// loop runs inside the block, the accumulators in registers. Blocks are
-// up to 64 x 64 (SmolLM-360M's FFN; the ResNet-50 classifier has
-// 32 x 25). 256 threads as 8 row groups x 32 lanes: a thread owns RPT
+// Two variants, chosen in Python (sparse_matmul.variant) and passed in.
+// Both run the TPU kernel's sequential K grid axis as a loop inside the
+// block, with the accumulators in registers; the grid is (ceil(M/TM),
+// ob).
+//
+// "simt": f32 x (the ResNet-50 classifier), M <= 8 (decode) and bf16
+// block shapes the mma variant does not take (bn = 25). Blocks up to
+// 64 x 64. 256 threads as 8 row groups x 32 lanes: a thread owns RPT
 // rows of x (TM = 8 * RPT rows a block) and the output columns lane and
 // lane + 32. Each step stages one bm x bn weight block and the TM x bm
 // gathered slice of x (transposed, so a thread reads its rows as
-// float4) in shared memory; a step's loads go to registers first, all
-// issued together, and step l+1's are issued before step l's FMAs.
-// RPT is 1 for M <= 8 (decode, the classifier) and 8 otherwise
-// (prefill, M = B*T). bn need not be a power of two: columns >= bn
-// only help load, and every column index is checked against bn.
+// float4) in shared memory as f32; a step's loads go to registers
+// first, all issued together, and step l+1's are issued before step l's
+// FMAs. RPT is 1 for M <= 8 and 8 otherwise. bn need not be a power of
+// two: columns >= bn only help load, and every column index is checked
+// against bn.
+//
+// "mma": bf16 x with M > 8 (the LM prefill, M = B*T), bm a multiple of
+// 16 and bn of 8, both <= 64. A block of 4 warps owns TM = 64 rows (16 a
+// warp) and one output block column j. For each surviving block l, a
+// 2-stage cp.async ring copies the gathered x slice (TM rows of bm
+// contiguous bf16 at column idx[j,l]*bm; rows >= M zero-filled) and
+// vals[j,l] (bm x bn, contiguous) into shared memory, rows padded by 8
+// elements; step l+1's copies (and its idx) are issued before step l's
+// products. A fragments of x come from ldmatrix, B fragments of the
+// weight from ldmatrix.trans, and mma.sync.m16n8k16 sums in f32 (bf16 x
+// bf16 products are exact in f32: the Pallas kernel's f32 dot of
+// upcast operands, up to sum order). The epilogue rounds to bf16, stages
+// the tile in shared memory and writes rows < M as 16-byte stores.
 //
 // What bounds it. At M = 1..8 every weight byte is used once, so the
 // bound is the surviving blocks' bytes over the memory rate, and the
-// kernel is limited by launch latency and one global-load latency per
-// K step. At prefill (M = 2048) the bound is the multiply-adds on the
-// tensor cores; this kernel does them in f32 on the CUDA cores, with
-// two shared-memory reads of x (float4) and two of w per 16 FMAs.
-// Tensor cores and split-K are later work.
+// simt variant is limited by launch latency and one global-load
+// latency per K step. At SmolLM-360M's prefill (M 2048; w1, w3 vals
+// (40, 2, 64, 64), w2 (15, 6, 64, 64)) the bound is bytes too: 4.5 /
+// 4.3 us for x, the surviving blocks and y at the memory rate, against
+// 0.67 / 0.75 us of multiply-adds on the tensor cores. The mma variant's
+// grid there is 32 x 40 = 1280 blocks (w1, w3) and 32 x 15 = 480 (w2):
+// TM 128 would leave w2 240 blocks, under two waves of 132 SMs. Each
+// block column re-reads its gathered x slices (from L2: x is 3.9 MB), so
+// the traffic that moves is L2 -> SM, ob * K * M * bm * 2 bytes a call.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
+
+constexpr int VARIANT_SIMT = 0;   // sparse_matmul.VARIANT_CODES
+constexpr int VARIANT_MMA = 1;
 
 constexpr int BM_MAX = 64;
 constexpr int BN_MAX = 64;
@@ -145,6 +170,117 @@ sparse_matmul_kernel(const T* __restrict__ x,
   }
 }
 
+// ---- mma: bf16 x, M > 8, tensor cores ----------------------------------
+
+constexpr int MMA_TM = 64;               // rows a block, 16 a warp
+constexpr int MMA_THREADS = 128;
+constexpr int XLD = BM_MAX + 8;          // row strides (elements) in
+constexpr int WLD = BN_MAX + 8;          // shared memory
+
+__global__ void __launch_bounds__(MMA_THREADS)
+sparse_matmul_mma(const __nv_bfloat16* __restrict__ x,
+                  const __nv_bfloat16* __restrict__ vals,
+                  const int32_t* __restrict__ idx,
+                  __nv_bfloat16* __restrict__ out, int M, int d_in, int ob,
+                  int K, int bm, int bn) {
+  // stage st: the x slice at xs + st * XS, the weight block at ws + st * WS
+  constexpr int XS = MMA_TM * XLD, WS = BM_MAX * WLD;
+  __shared__ __align__(128) __nv_bfloat16 xs[2 * XS];
+  __shared__ __align__(128) __nv_bfloat16 ws[2 * WS];
+  const int j = blockIdx.y;
+  const int m0 = blockIdx.x * MMA_TM;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int x_chunks = bm / 8, w_chunks = bn / 8;   // 16 B each, a row
+  const int n_tiles = bn / 8;
+
+  auto load = [&](int l, int st) {
+    const int c0 = idx[j * K + l] * bm;
+    const __nv_bfloat16* wb = vals + ((size_t)j * K + l) * bm * bn;
+    for (int e = tid; e < MMA_TM * x_chunks; e += MMA_THREADS) {
+      const int r = e / x_chunks, c = (e % x_chunks) * 8;
+      const bool in = m0 + r < M;
+      tc::cp_async16(&xs[st * XS + r * XLD + c],
+                     in ? x + (size_t)(m0 + r) * d_in + c0 + c : x, in);
+    }
+    for (int e = tid; e < bm * w_chunks; e += MMA_THREADS) {
+      const int r = e / w_chunks, c = (e % w_chunks) * 8;
+      tc::cp_async16(&ws[st * WS + r * WLD + c], wb + r * bn + c, true);
+    }
+  };
+
+  float acc[BN_MAX / 8][4];
+#pragma unroll
+  for (int n = 0; n < BN_MAX / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  if (K > 0) {
+    load(0, 0);
+    tc::cp_async_commit();
+  }
+  for (int l = 0; l < K; ++l) {
+    const int st = l & 1;
+    if (l + 1 < K) {
+      load(l + 1, st ^ 1);             // in flight during this step's math
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* xt = xs + st * XS;
+    const __nv_bfloat16* wt = ws + st * WS;
+#pragma unroll
+    for (int kc = 0; kc < BM_MAX / 16; ++kc) {
+      if (kc * 16 >= bm) break;
+      uint32_t a[4];
+      tc::ldmatrix_x4(a, &xt[(warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8) *
+                                 XLD + kc * 16 + (lane / 16) * 8]);
+      const __nv_bfloat16* wrow =
+          &wt[(kc * 16 + ((lane / 8) % 2) * 8 + (lane % 8)) * WLD];
+#pragma unroll
+      for (int np = 0; np < BN_MAX / 16; ++np) {
+        if (2 * np + 1 < n_tiles) {      // column tiles 2np and 2np+1
+          uint32_t b[4];
+          tc::ldmatrix_x4_trans(b, wrow + np * 16 + (lane / 16) * 8);
+          tc::mma_bf16(acc[2 * np], a, b[0], b[1]);
+          tc::mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        } else if (2 * np < n_tiles) {   // the last, odd column tile
+          uint32_t b[2];
+          tc::ldmatrix_x2_trans(b, wrow + np * 16);
+          tc::mma_bf16(acc[2 * np], a, b[0], b[1]);
+        }
+      }
+    }
+    __syncthreads();   // stage st is consumed before it is refilled
+  }
+
+  // the bf16 tile goes out through shared memory (stage 0's x slice, no
+  // longer read) so that each row leaves as whole 16-byte stores
+  __nv_bfloat16* tile = xs;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + r * 8;
+#pragma unroll
+    for (int n = 0; n < BN_MAX / 8; ++n)
+      if (n < n_tiles)
+        *reinterpret_cast<__nv_bfloat162*>(
+            &tile[row * XLD + n * 8 + 2 * tg]) =
+            __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+  __syncthreads();
+  for (int e = tid; e < MMA_TM * w_chunks; e += MMA_THREADS) {
+    const int r = e / w_chunks, c = (e % w_chunks) * 8;
+    if (m0 + r < M)
+      *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * ob * bn +
+                                (size_t)j * bn + c) =
+          *reinterpret_cast<const uint4*>(&tile[r * XLD + c]);
+  }
+}
+
+// ---- launch --------------------------------------------------------------
+
 template <typename T, int RPT>
 int launch_rpt(const void* x, const void* vals, const void* idx, void* out,
                int M, int d_in, int ob, int K, int bm, int bn,
@@ -158,12 +294,24 @@ int launch_rpt(const void* x, const void* vals, const void* idx, void* out,
 }
 
 template <typename T>
-int launch(const void* x, const void* vals, const void* idx, void* out,
-           int M, int d_in, int ob, int K, int bm, int bn, void* stream) {
+int launch_simt(const void* x, const void* vals, const void* idx, void* out,
+                int M, int d_in, int ob, int K, int bm, int bn,
+                void* stream) {
   if (M <= GROUPS)
     return launch_rpt<T, 1>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
                             stream);
   return launch_rpt<T, 8>(x, vals, idx, out, M, d_in, ob, K, bm, bn, stream);
+}
+
+int launch_mma(const void* x, const void* vals, const void* idx, void* out,
+               int M, int d_in, int ob, int K, int bm, int bn, void* stream) {
+  if (bm % 16 || bn % 8 || bm > BM_MAX || bn > BN_MAX)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((M + MMA_TM - 1) / MMA_TM, ob);
+  sparse_matmul_mma<<<grid, MMA_THREADS, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)vals,
+      (const int32_t*)idx, (__nv_bfloat16*)out, M, d_in, ob, K, bm, bn);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -175,19 +323,28 @@ int sparse_matmul_max_bn() { return BN_MAX; }
 
 // x (M, d_in) f32 or bf16, M * d_in < 2^31; vals (ob,K,bm,bn) bf16,
 // bm, bn <= 64; idx (ob,K) int32; out (M, ob*bn) in x's dtype; all
-// contiguous on the device. Returns
+// contiguous on the device (16-byte aligned for mma). variant: 0 simt,
+// 1 mma (bf16 only; bm % 16 == 0, bn % 8 == 0). Returns
 // cudaGetLastError() after the launch.
 int sparse_matmul_f32(const void* x, const void* vals, const void* idx,
                       void* out, int M, int d_in, int ob, int K, int bm,
-                      int bn, void* stream) {
-  return launch<float>(x, vals, idx, out, M, d_in, ob, K, bm, bn, stream);
+                      int bn, int variant, void* stream) {
+  if (variant != VARIANT_SIMT) return (int)cudaErrorInvalidValue;
+  return launch_simt<float>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
+                            stream);
 }
 
 int sparse_matmul_bf16(const void* x, const void* vals, const void* idx,
                        void* out, int M, int d_in, int ob, int K, int bm,
-                       int bn, void* stream) {
-  return launch<__nv_bfloat16>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
-                               stream);
+                       int bn, int variant, void* stream) {
+  switch (variant) {
+    case VARIANT_SIMT:
+      return launch_simt<__nv_bfloat16>(x, vals, idx, out, M, d_in, ob, K,
+                                        bm, bn, stream);
+    case VARIANT_MMA:
+      return launch_mma(x, vals, idx, out, M, d_in, ob, K, bm, bn, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* sparse_matmul_error_string(int err) {

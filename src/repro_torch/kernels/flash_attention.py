@@ -2,9 +2,11 @@
 
 ``flash_attention`` launches the CUDA kernel in
 ``csrc/flash_attention.cu``, which replaces the reference's
-``kernels/flash_attention.py::flash_attention_pallas``.
-``flash_attention_torch`` is the plain PyTorch version of the same
-function: the CPU path and the check the kernel is held to on the card.
+``kernels/flash_attention.py::flash_attention_pallas``, in the variant
+that :func:`variant` names: "mma" (tensor cores) for bf16, "simt" (f32
+FMAs on the CUDA cores) for f32. ``flash_attention_torch`` is the plain
+PyTorch version of the same function: the CPU path and the check both
+variants are held to on the card.
 
 Both compute what the Pallas kernel computes: scores in f32 scaled by
 1/sqrt(D) after the product, masked scores at ``NEG_INF``, an online
@@ -12,7 +14,10 @@ softmax over key tiles with (m, l, acc) in f32, p kept in f32 (the
 reference's XLA ``blockwise_attention`` rounds it to bf16 before the PV
 product; the Pallas kernel does not), ``l`` floored at 1e-20, the
 output in q's dtype. Unlike the Pallas kernel they take any lengths:
-the tail of the last tile is masked, not asserted away.
+the tail of the last tile is masked, not asserted away. The mma
+variant's P V product keeps p's f32 value as two bf16 terms, p_hi =
+bf16(p) and p_lo = bf16(p - p_hi) (p to ~2^-17 relative), so it
+computes the same function to far below the output's bf16 rounding.
 """
 from __future__ import annotations
 
@@ -28,6 +33,12 @@ NEG_INF = -1e30
 BLOCK_Q = 64        # the CUDA kernel's query tile
 BLOCK_K = 64        # and key tile
 HEAD_DIMS = (32, 64)  # SmolLM-360M's 64; the reference kernel tests' 32
+
+
+def variant(dtype: torch.dtype, d: int) -> str:
+    """The kernel variant for q, k, v of ``dtype`` and head size ``d``:
+    "mma" (tensor cores) for bf16 with d in HEAD_DIMS, else "simt"."""
+    return "mma" if dtype == torch.bfloat16 and d in HEAD_DIMS else "simt"
 
 
 def kv_tile_range(q_first: int, q_last: int, tk: int, *, causal: bool,
@@ -95,7 +106,7 @@ def _kernel():
     fns = {}
     for dtype, fn in ((torch.float32, lib.flash_attention_f32),
                       (torch.bfloat16, lib.flash_attention_bf16)):
-        fn.argtypes = [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]
+        fn.argtypes = [_P] * 4 + [_I] * 8 + [ctypes.c_float, _I, _P]
         fn.restype = _I
         fns[dtype] = fn
     return lib, fns
@@ -105,9 +116,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
     """The CUDA kernel: same function and arguments as
     :func:`flash_attention_torch`, with q, k, v of one dtype (f32 or
-    bf16), contiguous on one CUDA device, D in ``HEAD_DIMS``. Raises on
-    anything the kernel does not take; it never falls back to the plain
-    version."""
+    bf16), contiguous on one CUDA device, D in ``HEAD_DIMS``, in the
+    variant :func:`variant` names. Raises on anything the kernel does
+    not take, and if the launch fails; it never falls back to the plain
+    version or to the other variant."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"flash_attention: {name} must be on "
@@ -122,7 +134,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if k.shape != (b, tk, h, d) or v.shape != k.shape or d not in HEAD_DIMS \
-            or tq < 1 or tk < 1 or b * h > 65535:
+            or tq < 1 or tk < 1 or -(-tq // BLOCK_Q) > 65535:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}: needs "
                          f"(B, T, H, D) with D in {HEAD_DIMS}, T >= 1")
@@ -130,11 +142,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention: window={window}, q_offset="
                          f"{q_offset} must be >= 0")
     lib, fns = _kernel()
+    var = variant(q.dtype, d)
+    if var == "mma":
+        q, k, v = (_build.aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
     err = fns[q.dtype](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), b, h, tq, tk, d, int(bool(causal)),
                        window, q_offset, 1.0 / math.sqrt(d),
+                       _build.VARIANT_CODES[var],
                        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_attention", err)
     _build.LAUNCHES["flash_attention"] += 1
+    _build.VARIANT_LAUNCHES[("flash_attention", var)] += 1
     return out

@@ -8,6 +8,8 @@ switch that sends a CUDA tensor down the plain path.
 ``LAUNCHES`` counts kernel launches by name (a plain int each, reset
 with ``reset_launches``): the CUDA wrappers add one per launch, so a
 run can show that its main path went through the kernels.
+``VARIANT_LAUNCHES`` counts the launches of ``sparse_matmul`` and
+``flash_attention`` by (name, "mma" | "simt").
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from repro_torch.kernels import dw_pw_fused as _dwpw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import sparse_conv as _sc
 from repro_torch.kernels import sparse_matmul as _sm
-from repro_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
+from repro_torch.kernels._build import (  # noqa: F401
+    LAUNCHES, VARIANT_LAUNCHES, reset_launches)
 
 
 def _route(x: torch.Tensor, op: str) -> bool:

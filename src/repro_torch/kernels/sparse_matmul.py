@@ -3,9 +3,12 @@ the pruned FFN of the LMs (64 x 64 blocks for SmolLM-360M).
 
 ``sparse_matmul`` launches the CUDA kernel in ``csrc/sparse_matmul.cu``,
 which replaces the reference's ``kernels/sparse_matmul.py::
-sparse_matmul_pallas``. ``sparse_matmul_torch`` is the plain PyTorch
-version of the same function: the CPU path and the check the kernel is
-held to on the card.
+sparse_matmul_pallas``, in the variant that :func:`variant` names:
+"mma" (tensor cores) for bf16 x with more than ``SIMT_MAX_M`` rows and
+blocks the tensor-core tiles divide (the LM prefill), "simt" (CUDA
+cores) otherwise (the f32 classifier, decode). ``sparse_matmul_torch``
+is the plain PyTorch version of the same function: the CPU path and
+the check both variants are held to on the card.
 """
 from __future__ import annotations
 
@@ -33,6 +36,19 @@ def sparse_matmul_torch(x, vals, idx) -> torch.Tensor:
     return acc.reshape(m, ob * bn).to(x.dtype)
 
 
+SIMT_MAX_M = 8     # rows up to which the CUDA-core variant runs (decode)
+
+
+def variant(dtype: torch.dtype, m: int, bm: int, bn: int) -> str:
+    """The kernel variant for x of ``dtype`` with ``m`` rows and (bm, bn)
+    weight blocks: "mma" for bf16 x, m > SIMT_MAX_M, bm a multiple of 16
+    and bn of 8, both <= 64 (the mma.m16n8k16 tiles); else "simt"."""
+    if dtype == torch.bfloat16 and m > SIMT_MAX_M and bm % 16 == 0 \
+            and bn % 8 == 0 and 0 < bm <= 64 and 0 < bn <= 64:
+        return "mma"
+    return "simt"
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -42,7 +58,7 @@ def _kernel():
     fns = {}
     for dtype, fn in ((torch.float32, lib.sparse_matmul_f32),
                       (torch.bfloat16, lib.sparse_matmul_bf16)):
-        fn.argtypes = [_P] * 4 + [_I] * 6 + [_P]
+        fn.argtypes = [_P] * 4 + [_I] * 7 + [_P]
         fn.restype = _I
         fns[dtype] = fn
     return lib, fns, lib.sparse_matmul_max_bm(), lib.sparse_matmul_max_bn()
@@ -51,8 +67,9 @@ def _kernel():
 def sparse_matmul(x, vals, idx) -> torch.Tensor:
     """The CUDA kernel: same function and arguments as
     :func:`sparse_matmul_torch`, with x f32 or bf16 and vals bf16 on a
-    CUDA device. Raises on anything the kernel does not take; it never
-    falls back to the plain version."""
+    CUDA device, in the variant :func:`variant` names. Raises on
+    anything the kernel does not take, and if the launch fails; it never
+    falls back to the plain version or to the other variant."""
     for name, t in (("x", x), ("vals", vals), ("idx", idx)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"sparse_matmul: {name} must be on {x.device} "
@@ -71,10 +88,15 @@ def sparse_matmul(x, vals, idx) -> torch.Tensor:
         raise ValueError(f"sparse_matmul: vals {tuple(vals.shape)} / idx "
                          f"{tuple(idx.shape)} do not fit x {tuple(x.shape)} "
                          f"(bm <= {max_bm}, bn <= {max_bn})")
+    v = variant(x.dtype, m, bm, bn)
+    if v == "mma":
+        x, vals = _build.aligned16(x), _build.aligned16(vals)
     out = torch.empty((m, ob * bn), dtype=x.dtype, device=x.device)
     err = fns[x.dtype](x.data_ptr(), vals.data_ptr(), idx.data_ptr(),
                        out.data_ptr(), m, d_in, ob, n_k, bm, bn,
+                       _build.VARIANT_CODES[v],
                        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, "sparse_matmul", err)
     _build.LAUNCHES["sparse_matmul"] += 1
+    _build.VARIANT_LAUNCHES[("sparse_matmul", v)] += 1
     return out

@@ -52,6 +52,14 @@ def _assert_launches(want):
     assert ops.LAUNCHES == {k: want.get(k, 0) for k in ops.LAUNCHES}
 
 
+def _assert_variant(name, variant, n=1):
+    """``n`` launches of ``name`` since the last reset, all of
+    ``variant``."""
+    other = {"mma": "simt", "simt": "mma"}[variant]
+    assert ops.VARIANT_LAUNCHES[(name, variant)] == n
+    assert ops.VARIANT_LAUNCHES[(name, other)] == 0
+
+
 def _weight(gen, d_in, d_out, bm, bn, sp, dev):
     w = (torch.rand((d_in, d_out), generator=gen) * 2 - 1) / math.sqrt(d_in)
     return to_block_balanced(w.to(torch.bfloat16),
@@ -263,6 +271,112 @@ def test_sparse_matmul_kernel_64x64_blocks(dev, d_in, d_out, m, dtype):
         _bf16_close(got, want)
 
 
+# bf16 through the tensor-core variant: lengths 1, under a tile, a tile,
+# a tile + 1, two tiles - 1, long and odd, SmolLM-360M's 2048; both head
+# sizes; causal or not; B*H > 1 (B 1, H 15 at 2048)
+FLASH_MMA_CASES = [
+    (1, t, t, 15, d, causal, 0, 0) if t == 2048 else
+    (2, t, t, 3, d, causal, 0, 0)
+    for t in (1, 17, 64, 65, 127, 1000, 2048) for d in (32, 64)
+    for causal in (True, False)
+] + [
+    (2, 127, 127, 3, 32, True, 48, 0),       # sliding window
+    (2, 1000, 1000, 2, 64, False, 200, 0),   # window without causality
+    (1, 65, 300, 2, 64, True, 100, 235),     # window and q_offset
+    (3, 17, 1000, 2, 64, True, 0, 983),      # q_offset: the last 17 rows
+]
+
+
+@pytest.mark.parametrize("case", FLASH_MMA_CASES, ids=str)
+def test_flash_attention_mma_variant_matches_plain(dev, case):
+    b, tq, tk, h, d, causal, window, q_offset = case
+    gen = torch.Generator().manual_seed(tq * 7 + tk + d + window)
+    q, k, v = (torch.randn((b, t, h, d), generator=gen).to(dev,
+                                                           torch.bfloat16)
+               for t in (tq, tk, tk))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    assert fa.variant(q.dtype, d) == "mma"
+    ops.reset_launches()
+    got = fa.flash_attention(q, k, v, **kw)
+    _assert_variant("flash_attention", "mma")
+    want = fa.flash_attention_torch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _bf16_close(got, want)
+
+
+def test_flash_attention_f32_takes_the_simt_variant(dev):
+    q = torch.randn((1, 65, 2, 64), device=dev)
+    ops.reset_launches()
+    got = fa.flash_attention(q, q, q)
+    _assert_variant("flash_attention", "simt")
+    torch.testing.assert_close(got, fa.flash_attention_torch(q, q, q),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("m", [9, 16, 100, 129, 2048])
+@pytest.mark.parametrize("d_in,d_out,bm,bn,sp", [
+    (256, 128, 32, 32, 0.75),
+    (960, 2560, 64, 64, 0.85),        # SmolLM-360M's w1 / w3
+    (2560, 960, 64, 64, 0.85),        # and w2
+    (256, 96, 16, 24, 0.5),           # an odd number of 8-column tiles
+], ids=["32x32", "w1_64x64", "w2_64x64", "16x24"])
+def test_sparse_matmul_mma_variant_matches_plain(dev, d_in, d_out, bm, bn,
+                                                 sp, m):
+    gen = torch.Generator().manual_seed(d_in + d_out + m)
+    sw = _weight(gen, d_in, d_out, bm, bn, sp, dev)
+    x = torch.randn((m, d_in), generator=gen).to(dev, torch.bfloat16)
+    assert sm.variant(x.dtype, m, bm, bn) == "mma"
+    ops.reset_launches()
+    got = sm.sparse_matmul(x, sw.vals, sw.idx)
+    _assert_variant("sparse_matmul", "mma")
+    want = sm.sparse_matmul_torch(x, sw.vals, sw.idx)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("m,bn,dtype,variant", [
+    (8, 32, torch.bfloat16, "simt"),    # decode rows
+    (9, 32, torch.bfloat16, "mma"),
+    (17, 25, torch.bfloat16, "simt"),   # bn no multiple of 8
+    (17, 32, torch.float32, "simt"),
+])
+def test_sparse_matmul_launches_the_variant_it_names(dev, m, bn, dtype,
+                                                     variant):
+    gen = torch.Generator().manual_seed(m + bn)
+    sw = _weight(gen, 256, 4 * bn, 32, bn, 0.75, dev)
+    x = torch.randn((m, 256), generator=gen).to(dev, dtype)
+    assert sm.variant(dtype, m, 32, bn) == variant
+    ops.reset_launches()
+    got = sm.sparse_matmul(x, sw.vals, sw.idx)
+    _assert_variant("sparse_matmul", variant)
+    want = sm.sparse_matmul_torch(x, sw.vals, sw.idx)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    else:
+        _bf16_close(got, want)
+
+
+def test_mma_variants_take_unaligned_tensors(dev):
+    """A contiguous tensor whose data does not start on 16 bytes is
+    copied before the mma variant reads it in 16-byte vectors."""
+    gen = torch.Generator().manual_seed(5)
+    sw = _weight(gen, 256, 128, 32, 32, 0.75, dev)
+    x = torch.randn((33 * 256 + 1,), generator=gen).to(dev, torch.bfloat16)
+    x = x[1:].view(33, 256)
+    assert x.data_ptr() % 16
+    _bf16_close(sm.sparse_matmul(x, sw.vals, sw.idx),
+                sm.sparse_matmul_torch(x, sw.vals, sw.idx))
+    qkv = torch.randn((3 * 40 * 2 * 32 + 1,), generator=gen).to(
+        dev, torch.bfloat16)[1:].view(3, 1, 40, 2, 32)
+    q, k, v = qkv.unbind(0)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    _bf16_close(fa.flash_attention(q, k, v), fa.flash_attention_torch(q, k, v))
+
+
 def test_lm_on_card_matches_cpu_and_uses_the_kernels(dev):
     """reduced(smollm-360m): a prefill launches one flash_attention and
     three sparse_matmul per layer, a decode step three sparse_matmul per
@@ -277,10 +391,13 @@ def test_lm_on_card_matches_cpu_and_uses_the_kernels(dev):
     got = make_prefill_step(cfg)(params, toks.to(dev)).cpu()
     n = cfg.n_layers
     _assert_launches({"flash_attention": n, "sparse_matmul": 3 * n})
+    _assert_variant("flash_attention", "mma", n)      # bf16
+    _assert_variant("sparse_matmul", "mma", 3 * n)    # M = 80, 16x16 blocks
     want = make_prefill_step(cfg)(cpu, toks)
     assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
     cache = lm.init_cache(cfg, 2, 8, device=dev)
     ops.reset_launches()
     lg, _ = lm.decode_step(cfg, params, cache, toks[:, :1].to(dev), 0)
     _assert_launches({"sparse_matmul": 3 * n})
+    _assert_variant("sparse_matmul", "simt", 3 * n)   # M = 2
     assert lg.shape == (2, 1, cfg.vocab_size) and torch.isfinite(lg).all()

@@ -156,6 +156,104 @@ def test_flash_wrapper_refuses_cpu_tensors(monkeypatch):
     assert built == []
 
 
+def _flash_split_p(q, k, v, *, causal, window, q_offset):
+    """A torch emulation of the CUDA kernel's mma variant: S from the
+    bf16 q, k with f32 sums (exact products), the online softmax over
+    64-key tiles in f32, and O += P V as two bf16 products, p_hi =
+    bf16(p) and p_lo = bf16(p - p_hi), summed in f32. Returns the f32
+    output before its final rounding to q's dtype."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    qf, kf, vf = (t.permute(0, 2, 1, 3).float() for t in (q, k, v))
+    qpos = q_offset + torch.arange(tq)
+    m = torch.full((b, h, tq), fa.NEG_INF)
+    l = torch.zeros((b, h, tq))
+    acc = torch.zeros((b, h, tq, d))
+    for k0 in range(0, tk, fa.BLOCK_K):
+        kpos = torch.arange(k0, min(k0 + fa.BLOCK_K, tk))
+        s = (qf @ kf[:, :, kpos].transpose(-1, -2)) / math.sqrt(d)
+        mask = torch.ones((tq, kpos.numel()), dtype=torch.bool)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        s = torch.where(mask, s, fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        p_hi = p.to(torch.bfloat16).float()
+        p_lo = (p - p_hi).to(torch.bfloat16).float()
+        l = l * corr + p.sum(dim=-1)
+        acc = (acc * corr[..., None] + p_hi @ vf[:, :, kpos]
+               + p_lo @ vf[:, :, kpos])
+        m = m_new
+    return (acc / l.clamp_min(1e-20)[..., None]).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("tq,tk,causal,window", [
+    (128, 128, True, 0),
+    (128, 128, False, 0),
+    (64, 256, True, 0),
+    (128, 128, True, 48),
+])
+def test_split_p_product_computes_the_plain_function(tq, tk, causal, window):
+    """The mma variant rounds nothing the plain version keeps: its split
+    p lands within the reference's bf16 bar of the Pallas kernel and
+    within 2^-16 of max |o| of the plain version's f32 output, far
+    below the output's bf16 ulp (2^-8 relative), so the kernel can stay
+    held to the unchanged plain version at 1 bf16 ulp."""
+    q, k, v = _qkv([tq, tk, window, 1], 2, tq, tk, 3, 32, "bfloat16")
+    kw = dict(causal=causal, window=window,
+              q_offset=tk - tq if tq != tk else 0)
+    got = _flash_split_p(_t(q), _t(k), _t(v), **kw)
+    plain = fa.flash_attention_torch(*(_t(a).float() for a in (q, k, v)),
+                                     **kw)
+    scale = float(plain.abs().max())
+    assert float((got - plain).abs().max()) <= 2.0 ** -16 * scale
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    _close(got.to(torch.bfloat16), flash_attention_pallas(
+        jq, jk, jv, block_q=32, block_k=64, **kw), TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "mma"),
+    (torch.bfloat16, 32, "mma"),
+    (torch.float32, 64, "simt"),
+    (torch.float32, 32, "simt"),
+    (torch.bfloat16, 48, "simt"),     # no head size the kernel takes
+])
+def test_flash_attention_variant_choice(dtype, d, want):
+    assert fa.variant(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype,m,bm,bn,want", [
+    (torch.bfloat16, 8, 64, 64, "simt"),     # decode rows
+    (torch.bfloat16, 9, 64, 64, "mma"),
+    (torch.bfloat16, 2048, 64, 64, "mma"),   # SmolLM-360M's prefill
+    (torch.bfloat16, 1, 32, 25, "simt"),
+    (torch.bfloat16, 9, 32, 25, "simt"),     # bn no multiple of 8
+    (torch.bfloat16, 9, 32, 24, "mma"),
+    (torch.bfloat16, 9, 16, 8, "mma"),       # the smallest mma tiles
+    (torch.bfloat16, 9, 8, 8, "simt"),       # bm no multiple of 16
+    (torch.bfloat16, 9, 48, 64, "mma"),
+    (torch.bfloat16, 9, 80, 64, "simt"),     # bm > 64
+    (torch.bfloat16, 9, 64, 72, "simt"),     # bn > 64
+    (torch.float32, 9, 64, 64, "simt"),      # f32 x
+    (torch.float32, 1, 32, 25, "simt"),      # the ResNet-50 classifier
+])
+def test_sparse_matmul_variant_choice(dtype, m, bm, bn, want):
+    assert sm.variant(dtype, m, bm, bn) == want
+
+
+def test_variant_counters_reset_with_the_launch_counters():
+    assert set(ops.VARIANT_LAUNCHES) == {
+        (n, v) for n in ("sparse_matmul", "flash_attention")
+        for v in ("mma", "simt")}
+    ops.VARIANT_LAUNCHES[("sparse_matmul", "mma")] += 3
+    ops.reset_launches()
+    assert not any(ops.VARIANT_LAUNCHES.values())
+
+
 def _bf16_tol(want):
     scale = float(np.abs(want).max())
     return 2.0 ** -7 * np.abs(want) + 2.0 ** (math.floor(math.log2(scale))
