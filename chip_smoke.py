@@ -10,18 +10,23 @@ Phases, in order; any failure raises and exits nonzero:
    spills per kernel function, and the HMMA (tensor-core) instructions
    in each one's SASS (``cuobjdump -sass``);
 3. kernel checks: each kernel against its plain PyTorch version on the
-   card, at every distinct shape its main paths give it: sparse_conv and
-   sparse_matmul at the ResNet-50 shapes, dw_pw at every MobileNet-V1/V2
+   card, at every distinct shape its main paths give it: sparse_conv at
+   every ResNet-50 layer shape (residual on and off, the "mma" variant,
+   each layer's ``plan()`` printed) and at a block shape only "simt"
+   takes, sparse_matmul at the classifier and at SmolLM-360M's decode
+   shapes ("gemv", M 1 to 8) and at f32 M = 9 ("simt"), dw_pw at every MobileNet-V1/V2
    block shape, depthwise_conv at every dw shape of the unfused views,
    flash_attention at SmolLM-360M's prefill shapes (T 2048 and a length
    that is no tile multiple), at short and odd lengths, windows and
    offsets, and on the reference's test grid, and sparse_matmul at
    SmolLM-360M's 64 x 64 FFN blocks and at 32 x 32 blocks, at M 4 to
    2048; each check also asserts the variant ("mma": tensor cores,
-   "simt": CUDA cores) that ``variant()`` names was the one launched;
+   "simt": CUDA cores, "gemv": M <= 8) that ``variant()`` names was the
+   one launched;
 4. main paths, each with the launch counters reset just before and read
    just after, every counter checked by name, and the variant counters
-   of sparse_matmul and flash_attention with them: ``serve(ServeConfig(arch=
+   of sparse_conv, sparse_matmul and flash_attention with them:
+   ``serve(ServeConfig(arch=
    "resnet50" | "mobilenet_v1" | "mobilenet_v2", mode="latency",
    image_size=224))``, then one ``cnn_forward`` per MobileNet on the
    unfused view (``graph_for(name)``); the card's logits are held against
@@ -30,7 +35,7 @@ Phases, in order; any failure raises and exits nonzero:
    random tokens (32 flash_attention + 96 sparse_matmul launches, all
    "mma"), a prefill at T 256 held against the port's CPU forward, and
    ``serve_lm(batch=4, prompt_len=32, gen_tokens=16)`` ((32 + 16) x 96
-   sparse_matmul launches, all "simt", no flash_attention), replayed
+   sparse_matmul launches, all "gemv", no flash_attention), replayed
    teacher-forced on the CPU;
 5. timings (CUDA events over CUDA-graph replays, L2-warm): each kernel at
    the main-path shapes beside its plain version, a library call that
@@ -38,7 +43,8 @@ Phases, in order; any failure raises and exits nonzero:
    single call does, and the two-call depthwise + 1x1 ``F.conv2d`` pair
    is timed as a labelled yardstick; for flash_attention
    ``F.scaled_dot_product_attention`` on the same expanded tensors) and
-   its bound; SmolLM-360M's prefill latency and ``serve_lm``'s times;
+   its bound (sparse_conv per layer with its plan, and summed by K);
+   SmolLM-360M's prefill latency and ``serve_lm``'s times;
 6. one ``{"kernels": [...]}`` line, then the device line last.
 
 Per-layer numbers are also written to ``build/chip_smoke.json``.
@@ -254,10 +260,10 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on the "
               "card", file=sys.stderr)
         return 1
-    from repro_torch.configs import get_config
+    from repro_torch.configs import SparsityConfig, get_config
     from repro_torch.core.fusion import conv_part, fused_graph_for
     from repro_torch.core.graph import INPUT, graph_for
-    from repro_torch.core.sparsity import densify
+    from repro_torch.core.sparsity import densify, to_block_balanced
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import depthwise_conv as dwk
     from repro_torch.kernels import dw_pw_fused as dwpw
@@ -296,7 +302,7 @@ def main() -> int:
             n_hmma = "no cuobjdump" if hmma[name] is None else \
                 hmma[name].get(fn, 0)
             print(f"[build] {name}: {fn}: {ptxas}; HMMA {n_hmma}")
-    for name in ("flash_attention", "sparse_matmul"):
+    for name in ("flash_attention", "sparse_matmul", "sparse_conv"):
         if hmma[name] is not None and not any(
                 n for fn, n in hmma[name].items() if "_mma" in fn):
             raise AssertionError(f"{name}: no HMMA in the mma variant's SASS")
@@ -323,30 +329,6 @@ def main() -> int:
     def randn(shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    conv_err = 0.0
-    seen = set()
-    for node in layers:
-        sw, _ = conv_part_params(node)
-        key = (node.k, node.stride, node.cin, node.cout, sw.vals.shape[1],
-               node.in_hw)
-        if key in seen:
-            continue
-        seen.add(key)
-        ho = node.conv_out_hw
-        x = randn((1, node.in_hw, node.in_hw, node.cin))
-        b = randn((node.cout,)) * 0.1
-        res = randn((1, ho, ho, node.cout))
-        for r, relu in ((None, node.relu), (res, True)):
-            got = sc.sparse_conv(x, sw.vals, sw.idx, b, r, k=node.k,
-                                 stride=node.stride, relu=relu)
-            want = sc.sparse_conv_torch(x, sw.vals, sw.idx, b, r, k=node.k,
-                                        stride=node.stride, relu=relu)
-            torch.cuda.synchronize()
-            conv_err = max(conv_err, compare(
-                got, want, bf16_tol, f"sparse_conv {key} res={r is not None}"))
-    print(f"[check] sparse_conv: {len(seen)} shapes (k, stride, C, Cout, K, "
-          f"H) x residual on/off, max |err| {conv_err:.3e} within 1 bf16 ulp")
-
     checked_variants = {}          # (kernel, variant) -> checks run
 
     def launch_checked(name: str, want_variant: str, launch, what: str):
@@ -361,6 +343,53 @@ def main() -> int:
         checked_variants[key] = checked_variants.get(key, 0) + 1
         return out
 
+    def check_conv(what, x, sw, b, r, relu, **kw) -> float:
+        v = sc.variant(*sw.vals.shape[2:])
+        got = launch_checked("sparse_conv", v, lambda: sc.sparse_conv(
+            x, sw.vals, sw.idx, b, r, relu=relu, **kw), what)
+        want = sc.sparse_conv_torch(x, sw.vals, sw.idx, b, r, relu=relu,
+                                    **kw)
+        torch.cuda.synchronize()
+        return compare(got, want, bf16_tol, f"sparse_conv {what} ({v})")
+
+    conv_err = 0.0
+    seen = set()
+    for node in layers:
+        sw, _ = conv_part_params(node)
+        key = (node.k, node.stride, node.cin, node.cout, sw.vals.shape[1],
+               node.in_hw)
+        if key in seen:
+            continue
+        seen.add(key)
+        ho = node.conv_out_hw
+        if sc.variant(*sw.vals.shape[2:]) != "mma":
+            raise AssertionError(f"sparse_conv {node.name}: blocks "
+                                 f"{tuple(sw.vals.shape[2:])} not mma")
+        x = randn((1, node.in_hw, node.in_hw, node.cin))
+        b = randn((node.cout,)) * 0.1
+        res = randn((1, ho, ho, node.cout))
+        for r, relu in ((None, node.relu), (res, True)):
+            conv_err = max(conv_err, check_conv(
+                f"{key} res={r is not None}", x, sw, b, r, relu, k=node.k,
+                stride=node.stride))
+        tm, split = sc.plan(ho * ho, sw.vals.shape[0], sw.vals.shape[1])
+        print(f"[plan] sparse_conv {node.name:9s} M {ho * ho:5d} ob "
+              f"{sw.vals.shape[0]:3d} K {sw.vals.shape[1]:3d}: tm {tm}, split "
+              f"{split}, {-(-ho * ho // tm) * sw.vals.shape[0] * split} "
+              f"blocks")
+    # the CUDA-core variant: blocks the tensor-core tiles do not take
+    w_simt = to_block_balanced(
+        randn((9 * 64, 48)).cpu() / 24,
+        SparsityConfig(True, 0.5, 8, 8)).to(dev)
+    x = randn((2, 9, 9, 64))
+    for r in (None, randn((2, 9, 9, 48))):
+        conv_err = max(conv_err, check_conv(
+            f"8x8 blocks batch 2 res={r is not None}", x, w_simt,
+            randn((48,)) * 0.1, r, True, k=3, stride=1))
+    print(f"[check] sparse_conv: {len(seen)} shapes (k, stride, C, Cout, K, "
+          f"H) x residual on/off (mma) + 8x8 blocks (simt), max |err| "
+          f"{conv_err:.3e} within 1 bf16 ulp")
+
     def check_mm(what: str, x, sw, tol) -> float:
         v = sm.variant(x.dtype, x.shape[0], *sw.vals.shape[2:])
         got = launch_checked("sparse_matmul", v, lambda: sm.sparse_matmul(
@@ -370,7 +399,12 @@ def main() -> int:
         return compare(got, want, tol, f"sparse_matmul {what} ({v})")
 
     fc_w = params_cpu["fc"]["w"].to(dev)
+    # the classifier (gemv, f32), its 32 x 25 blocks with bf16 x (gemv)
+    # and f32 x past the decode rows (simt)
     mm_cases = [("fc M=1 f32", randn((1, 2048), torch.float32), fc_w,
+                 f32_tol),
+                ("fc blocks M=4 bf16", randn((4, 2048)), fc_w, bf16_tol),
+                ("fc blocks M=9 f32", randn((9, 2048), torch.float32), fc_w,
                  f32_tol)]
     w_bf = SparseWeight(randn((16, 4, 32, 32)),
                         torch.stack([torch.randperm(32, generator=gen,
@@ -516,15 +550,15 @@ def main() -> int:
     for name, sw in lm_ffn.items():
         sw0 = SparseWeight(sw.vals[0].contiguous(), sw.idx[0].contiguous(),
                            sw.d_in)
-        for m in (SERVE["batch"], 9, 16, 100, 129, PREFILL_T):
+        for m in (1, SERVE["batch"], 8, 9, 16, 100, 129, PREFILL_T):
             x = randn((m, sw0.d_in))
             mm_err = max(mm_err, check_mm(f"{LM} {name} M={m}", x, sw0,
                                           bf16_tol))
             if m in (SERVE["batch"], PREFILL_T):
                 lm_mm[(name, m)] = (x, sw0)
     print(f"[check] sparse_matmul: {LM} FFN blocks "
-          f"{[tuple(s.vals.shape[1:]) for s in lm_ffn.values()]} at M="
-          f"{SERVE['batch']}, 9, 16, 100, 129 and {PREFILL_T} bf16, max |err| "
+          f"{[tuple(s.vals.shape[1:]) for s in lm_ffn.values()]} at M=1, "
+          f"{SERVE['batch']}, 8, 9, 16, 100, 129 and {PREFILL_T} bf16, max |err| "
           f"(all cases) {mm_err:.3e} within tolerance; checks by variant "
           f"{ {f'{n}/{v}': c for (n, v), c in checked_variants.items()} }")
 
@@ -607,8 +641,9 @@ def main() -> int:
                               "sparse_matmul": n_runs, "dw_pw": 0,
                               "depthwise_conv": 0},
                    f"resnet50 ({n_runs} requests incl. warm-up)")
-    # the classifier: M 1, f32 x, 32 x 25 blocks
-    check_variants(resnet_variants, {("sparse_matmul", "simt"): n_runs},
+    # the 47 convs in 32 x 32 blocks; the classifier: M 1, f32 x
+    check_variants(resnet_variants, {("sparse_conv", "mma"): 47 * n_runs,
+                                     ("sparse_matmul", "gemv"): n_runs},
                    "resnet50")
     add_variants(resnet_variants)
     logits = torch.from_numpy(out["logits"])
@@ -786,9 +821,9 @@ def main() -> int:
     check_launches(serve_launches, {"sparse_matmul": n_steps * 3 * n_l,
                                     "flash_attention": 0},
                    f"{LM} serve_lm ({n_steps} decode steps)")
-    # decode: M = batch 4 rows, the CUDA-core variant
+    # decode: M = batch 4 rows, the skinny product
     check_variants(serve_variants,
-                   {("sparse_matmul", "simt"): n_steps * 3 * n_l},
+                   {("sparse_matmul", "gemv"): n_steps * 3 * n_l},
                    f"{LM} serve_lm")
     add_variants(serve_variants)
     seq = torch.from_numpy(np.concatenate([sout["prompts"], sout["tokens"]],
@@ -867,9 +902,12 @@ def main() -> int:
         nops = 2 * m * ob * n_k * bm * bn
         t_b, t_o = bound(nbytes, nops, torch.bfloat16)
         bms, by = max(t_b, t_o), bound_by(t_b, t_o)
+        tm, split = sc.plan(m, ob, n_k)
         rows.append({"layer": node.name, "k": node.k, "stride": node.stride,
                      "C": node.cin, "Cout": node.cout, "K": n_k,
-                     "H": node.in_hw, "residual": r is not None, "ms": ms,
+                     "H": node.in_hw, "residual": r is not None,
+                     "variant": sc.variant(bm, bn), "tm": tm, "split": split,
+                     "ms": ms,
                      "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
                      "bound_by": by, "bytes": nbytes, "ops": nops,
                      "input_read": x_elems / x.numel()})
@@ -880,7 +918,19 @@ def main() -> int:
               f" Cout{node.cout:5d} K{n_k:3d} H{node.in_hw:4d} "
               f"res={int(r is not None)}: kernel {ms * 1e3:9.3f} us, plain "
               f"{plain * 1e3:9.3f} us, F.conv2d {lib * 1e3:9.3f} us, bound "
-              f"{bms * 1e3:7.3f} us ({by})")
+              f"{bms * 1e3:7.3f} us ({by}); tm {tm} split {split}")
+    for what, keep in (("K >= 10", lambda k: k >= 10),
+                       ("K 5", lambda k: k == 5),
+                       ("K <= 3", lambda k: k <= 3)):
+        sel = [r for r in rows if keep(r["K"])]
+        print(f"[time] sparse_conv {what}: {len(sel)} layers, kernel "
+              f"{sum(r['ms'] for r in sel) * 1e3:.3f} us (each "
+              f"{min(r['ms'] for r in sel) * 1e3:.3f}-"
+              f"{max(r['ms'] for r in sel) * 1e3:.3f}), F.conv2d "
+              f"{sum(r['library_ms'] for r in sel) * 1e3:.3f} us, bound "
+              f"{sum(r['bound_ms'] for r in sel) * 1e3:.3f} us")
+    print(f"[time] sparse_conv x47: kernel {sums['ms']:.4f} ms, F.conv2d "
+          f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.5f} ms")
 
     x_fc = randn((1, 2048), torch.float32)
     w_fc_dense = densify(fc_w).float()
@@ -896,7 +946,10 @@ def main() -> int:
     fc_ops = 2 * ob * n_k * bm * bn
     t_b, t_o = bound(fc_bytes, fc_ops, torch.float32)
     fc_bound, fc_by = max(t_b, t_o), bound_by(t_b, t_o)
-    print(f"[time] fc        M=1 f32 vals {tuple(fc_w.vals.shape)}: kernel "
+    print(f"[time] fc        M=1 f32 vals {tuple(fc_w.vals.shape)} "
+          f"({sm.variant(x_fc.dtype, 1, bm, bn)}, grid "
+          f"{sm.gemv_grid(ob, bn)} x {sm.gemv_threads(n_k * bm, bn)} "
+          f"threads): kernel "
           f"{fc_ms * 1e3:.3f} us, plain {fc_plain * 1e3:.3f} us, torch.matmul"
           f" (dense f32) {fc_lib * 1e3:.3f} us, bound {fc_bound * 1e3:.3f} us"
           f" ({fc_by})")
@@ -1009,6 +1062,10 @@ def main() -> int:
           f"{flash_plain * 1e3:.3f} us, SDPA {flash_lib * 1e3:.3f} us, bound "
           f"{flash_bound * 1e3:.3f} us ({flash_by}); x{n_l} per prefill: "
           f"{flash_ms * n_l:.4f} ms")
+    def gemv_shape(ob, n_k, bm, bn) -> str:
+        return (f", grid {sm.gemv_grid(ob, bn)} x "
+                f"{sm.gemv_threads(n_k * bm, bn)} threads")
+
     lm_mm_rows = []
     for (name, m), (x, sw0) in lm_mm.items():
         ob, n_k, bm, bn = sw0.vals.shape
@@ -1028,7 +1085,8 @@ def main() -> int:
                            "bound_ms": max(t_b, t_o),
                            "bound_by": bound_by(t_b, t_o)})
         print(f"[time] sparse_matmul {LM} {name} M={m} vals "
-              f"{tuple(sw0.vals.shape)} bf16 ({lm_mm_rows[-1]['variant']}): "
+              f"{tuple(sw0.vals.shape)} bf16 ({lm_mm_rows[-1]['variant']}"
+              f"{gemv_shape(ob, n_k, bm, bn) if m <= 8 else ''}): "
               f"kernel {ms * 1e3:.3f} us, plain "
               f"{plain * 1e3:.3f} us, torch.matmul (dense bf16) "
               f"{lib * 1e3:.3f} us, bound {max(t_b, t_o) * 1e3:.3f} us "
@@ -1086,7 +1144,9 @@ def main() -> int:
          "bound_by": bound_by(sums["bytes_ms"], sums["ops_ms"]),
          "library_ms": sums["library_ms"],
          "note": "ms, plain_ms, bound_ms, library_ms: sums over the 47 "
-                 "main-path layers of one request"},
+                 "main-path layers of one request (all mma); variants: "
+                 "launches by variant over the main paths; ptxas, hmma: per "
+                 "kernel function"},
         {"name": "sparse_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sparse_matmul.cu",
          "replaces": "src/repro/kernels/sparse_matmul.py:68",
@@ -1098,8 +1158,8 @@ def main() -> int:
          "bound_by": fc_by, "library_ms": fc_lib,
          "smollm": lm_mm_rows,
          "note": "ms, plain_ms, bound_ms, library_ms: the ResNet-50 "
-                 "classifier (M=1 f32, simt); smollm: per call at "
-                 "SmolLM-360M's FFN shapes (M=4 simt, M=2048 mma), library "
+                 "classifier (M=1 f32, gemv); smollm: per call at "
+                 "SmolLM-360M's FFN shapes (M=4 gemv, M=2048 mma), library "
                  "torch.matmul on the densified bf16 weight; variants: "
                  "launches by variant over the main paths; ptxas, hmma: "
                  "per kernel function"},
@@ -1156,9 +1216,9 @@ def main() -> int:
         name = entry["name"]
         entry["ptxas"] = resources[name]
         entry["hmma"] = hmma[name]
-        if (name, "mma") in all_variants:
+        if name in _build.VARIANTS:
             entry["variants"] = {v: all_variants[(name, v)]
-                                 for v in _build.VARIANT_CODES}
+                                 for v in _build.VARIANTS[name]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -11,9 +11,10 @@ an unchanged one is loaded as it is.
 ``LAUNCHES`` counts kernel launches: each wrapper adds one where it
 launches its kernel, and nowhere else, so a run can show that its
 main path went through the kernels. ``VARIANT_LAUNCHES`` counts the
-same launches by (kernel, variant) for the kernels with two variants:
-"mma" (tensor cores) and "simt" (CUDA cores), which the wrapper's
-``variant()`` picks by dtype and shape.
+same launches by (kernel, variant) for the kernels with variants
+(``VARIANTS``): "mma" (tensor cores), "simt" (CUDA cores) and, for
+``sparse_matmul`` at M <= 8, "gemv", which the wrapper's ``variant()``
+picks by dtype and shape.
 """
 from __future__ import annotations
 
@@ -35,10 +36,13 @@ SOURCES = ("sparse_conv", "sparse_matmul", "dw_pw", "depthwise_conv",
 LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
 
 #: the argument that selects a variant at the C entry points
-VARIANT_CODES = {"simt": 0, "mma": 1}
+VARIANT_CODES = {"simt": 0, "mma": 1, "gemv": 2}
+#: the variants of each kernel that has more than one
+VARIANTS = {"sparse_conv": ("simt", "mma"),
+            "sparse_matmul": ("simt", "mma", "gemv"),
+            "flash_attention": ("simt", "mma")}
 VARIANT_LAUNCHES: dict[tuple[str, str], int] = {
-    (name, v): 0 for name in ("sparse_matmul", "flash_attention")
-    for v in VARIANT_CODES}
+    (name, v): 0 for name, vs in VARIANTS.items() for v in vs}
 
 #: ptxas's report (registers, shared memory, spills) of the last build
 BUILD_LOG: dict[str, str] = {}

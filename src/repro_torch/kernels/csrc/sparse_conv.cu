@@ -10,39 +10,72 @@
 // epilogue of bias, optional residual and optional ReLU in f32 followed
 // by one round to bf16: the order of sparse_conv.py:116-130.
 //
-// Design. The TPU kernel walks K as the innermost, sequential grid axis
-// and carries a VMEM accumulator between grid steps. Here the grid is
-// (ceil(N*Ho*Wo / TM), ob): one block owns TM output pixels of one
-// output block column, and the K loop runs inside the block with the
-// accumulator in registers. Each step stages one bm x bn weight block
-// and the gathered TM x bm input tile in shared memory. The gather
-// reads the unpadded NHWC input and writes zero where the tap falls in
-// the SAME halo, so neither a padded copy nor an im2col tensor exists.
-// The flat block id is decoded into (ky, kx, cb) here, as
-// conv_block_coords does. A step's loads go to registers first, all
-// issued together, and step l+1's are issued before step l's FMAs.
+// The TPU kernel walks K as the innermost, sequential grid axis and
+// carries a VMEM accumulator between grid steps. Here one block owns TM
+// output pixels of one output block column and runs (its share of) the
+// K loop inside, the accumulator in registers. The gather reads the
+// unpadded NHWC input and puts zero where a tap falls in the SAME halo,
+// so neither a padded copy nor an im2col tensor exists; the flat block
+// id is decoded into (ky, kx, cb) here, as conv_block_coords does. Two
+// variants, chosen in Python (sparse_conv.variant) and passed in:
 //
-// What bounds it. At batch 1 a ResNet-50 layer does about 2*M*ob*K*bm*bn
-// operations on bf16 inputs while moving the activation, the surviving
-// blocks and the output once each; the operations per byte stay far
-// below the card's ridge point, so the bound is bytes over the memory
-// rate (chip_smoke.py computes it per layer, and PERF.md holds it).
-// This kernel multiplies in f32 on the CUDA cores (no tensor cores, no
-// wgmma, no TMA): each K step still waits on one global-load latency
-// and two barriers, so it is limited by latency per step, not by that
-// bound. Known weakness: at 7x7 (stage 3) M = 49 fits one TM tile, so a
-// stage-3 conv launches only ob blocks (16 for the 3x3 s3b*_c2) on 132
-// SMs. Split-K over the K loop and wgmma tiles are later work.
+// "mma" (bm a multiple of 16, bn of 8, both <= 32: every ResNet-50
+// layer). 4 warps; TM (16 or 32, from sparse_conv.plan) pixels x 32
+// columns, the warps laid out as TM/16 along the pixels and 64/TM along
+// the columns. A 4-stage cp.async ring brings each surviving
+// block's gathered TM x bm tile (one pixel's bm channels are bm*2
+// contiguous bytes: 16-byte copies, zero-filled by the source-size-0
+// form in the halo and past the last pixel) and its bm x bn weight
+// block into shared memory, 3 steps ahead of the products. A fragments
+// come from ldmatrix, B fragments from ldmatrix.trans, and
+// mma.sync.m16n8k16 sums in f32 (bf16 x bf16 products are exact in
+// f32). The block's idx entries come in before the loop, 32 a warp in
+// registers, handed out by shuffles, so no gather waits on an idx load.
+// Split-K: the grid's third axis is a thread-block cluster of S <= 8
+// blocks (no cluster at S = 1); block (rank r) walks steps [r*K/S,
+// (r+1)*K/S) and owns rows [r*TM/S, (r+1)*TM/S) of the tile. Each block
+// writes each f32 partial row into its owner's shared memory (slot =
+// the writer's rank) through distributed shared memory; after one
+// cluster barrier each block sums its slots in rank order, applies the
+// epilogue (bias and residual were loaded before the K loop) and writes
+// 16-byte rows. Deterministic, one launch, no workspace, and no block
+// touches a peer after the barrier, so none waits for another to exit.
+//
+// "simt" (any other blocks up to 32 x 32): f32 FMAs on the CUDA cores,
+// grid (ceil(M/64), ob), 256 threads, the whole K loop in each block; a
+// step's loads are issued together into registers, and the next step's
+// before this step's FMAs.
+//
+// What bounds it. At batch 1 a ResNet-50 layer does about
+// 2*M*ob*K*bm*bn operations on bf16 inputs while moving the activation,
+// the surviving blocks and the output once each; operations per byte
+// stay far below the card's ridge point, so the bound is bytes over the
+// memory rate (chip_smoke.py computes it per layer; PERF.md holds it),
+// 0.1-0.6 us a layer. What sets the time is latency: a launch, then K
+// dependent rounds of gather and product. The mma variant overlaps 3
+// rounds and cuts the chain to at most 3 steps a block through split-K
+// (the plan), where the simt kernel walked all K.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int TM = 64;        // output pixels per block
+constexpr int VARIANT_SIMT = 0;   // the codes of _build.VARIANT_CODES
+constexpr int VARIANT_MMA = 1;
+
 constexpr int BM_MAX = 32;    // weight block rows (input channels)
 constexpr int BN_MAX = 32;    // weight block columns (output channels)
+
+// ---- simt: CUDA cores, any blocks up to 32 x 32 ---------------------------
+
+constexpr int TM = 64;        // output pixels per block
 constexpr int THREADS = 256;
 constexpr int ROW_STEP = THREADS / BN_MAX;   // 8 pixel rows per pass
 constexpr int ROWS = TM / ROW_STEP;          // 8 accumulators per thread
@@ -50,7 +83,7 @@ constexpr int W_LOADS = BM_MAX * BN_MAX / THREADS;   // 4 per thread per step
 constexpr int X_LOADS = TM * BM_MAX / THREADS;       // 8 per thread per step
 
 __global__ void __launch_bounds__(THREADS)
-sparse_conv_kernel(const __nv_bfloat16* __restrict__ x,
+sparse_conv_simt(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ vals,
                    const int32_t* __restrict__ idx,
                    const __nv_bfloat16* __restrict__ bias,
@@ -163,6 +196,278 @@ sparse_conv_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ---- mma: tensor cores, cluster split-K ----------------------------------
+
+constexpr int MMA_THREADS = 128;
+constexpr int STAGES = 4;                // the cp.async ring
+constexpr int XLD = BM_MAX + 8;          // row strides (elements) of the
+constexpr int WLD = BN_MAX + 8;          // staged tiles: 80 B, 16-aligned
+constexpr int PLD = BN_MAX + 4;          // row stride (floats) of a partial
+constexpr int MAX_SPLIT = 8;             // the portable cluster size
+
+template <int TM_>
+__global__ void __launch_bounds__(MMA_THREADS)
+sparse_conv_mma(const __nv_bfloat16* __restrict__ x,
+                const __nv_bfloat16* __restrict__ vals,
+                const int32_t* __restrict__ idx,
+                const __nv_bfloat16* __restrict__ bias,
+                const __nv_bfloat16* __restrict__ res,
+                __nv_bfloat16* __restrict__ out, int N, int H, int W, int C,
+                int Ho, int Wo, int k, int stride, int pad_h, int pad_w,
+                int ob, int K, int bm, int bn, int relu) {
+  constexpr int WM = TM_ / 16;           // warps along the pixels
+  constexpr int NT = TM_ / 16;           // 8-column tiles a warp owns
+  constexpr int XS = TM_ * XLD, WS = BM_MAX * WLD;
+  constexpr int X_LOADS = (TM_ * (BM_MAX / 8) + MMA_THREADS - 1) /
+                          MMA_THREADS;
+  // epilogue items (a row's 8 columns) a thread at most, at split 1
+  constexpr int E_ITEMS = (TM_ * (BN_MAX / 8) + MMA_THREADS - 1) /
+                          MMA_THREADS;
+  // stage st: the gathered x tile at ring + st * (XS + WS), then the
+  // weight block
+  __shared__ __align__(128) __nv_bfloat16 ring[STAGES * (XS + WS)];
+  // the partials of this block's rows: slot q (rank q's), ceil(TM/S)
+  // rows of PLD floats each
+  __shared__ __align__(16) float red[(TM_ + MAX_SPLIT - 1) * PLD];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int j = blockIdx.y;
+  const int m0 = blockIdx.x * TM_;
+  const int M = N * Ho * Wo;
+  const int lo = rank * K / split;
+  const int n = (rank + 1) * K / split - lo;   // this block's K steps
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = warp % WM, wn = warp / WM;
+  const int g = lane / 4, tg = lane % 4;
+  const int cpb = C / bm;                  // channel blocks a tap
+  const int xc = bm / 8, wc = bn / 8;      // 16-byte chunks a row
+  const int n_tiles = bn / 8;
+  const int cout = ob * bn;
+  // this block's output rows [r0, r1) of the tile, summed over the
+  // cluster; each (row, 8 columns) item's bias and residual are loaded
+  // now, so the epilogue waits on no global load
+  const int r0 = rank * TM_ / split, r1 = (rank + 1) * TM_ / split;
+  if (split > 1) tc::cluster_arrive_relaxed();   // this block runs
+  uint4 e_bias[E_ITEMS], e_res[E_ITEMS];
+#pragma unroll
+  for (int i = 0; i < E_ITEMS; ++i) {
+    const int e = tid + i * MMA_THREADS;
+    const int row = r0 + e / wc, c = (e % wc) * 8, p = m0 + row;
+    e_bias[i] = e_res[i] = make_uint4(0, 0, 0, 0);
+    if (row < r1 && p < M) {
+      e_bias[i] = *reinterpret_cast<const uint4*>(bias + j * bn + c);
+      if (res != nullptr)
+        e_res[i] = *reinterpret_cast<const uint4*>(
+            res + (size_t)p * cout + j * bn + c);
+    }
+  }
+
+  // This thread's x chunks, the same at every step but for the tap and
+  // channel block: shared-memory slot (-1: none), image row base, the
+  // pixel's input origin (INT_MIN/2: past the last pixel) and channel.
+  int x_dst[X_LOADS], x_img[X_LOADS], x_iy[X_LOADS], x_ix[X_LOADS],
+      x_c[X_LOADS];
+#pragma unroll
+  for (int u = 0; u < X_LOADS; ++u) {
+    const int e = tid + u * MMA_THREADS;
+    const int r = e / xc, p = m0 + r;
+    x_dst[u] = e < TM_ * xc ? r * XLD + (e % xc) * 8 : -1;
+    x_c[u] = (e % xc) * 8;
+    x_img[u] = 0;
+    x_iy[u] = INT_MIN / 2;
+    x_ix[u] = 0;
+    if (e < TM_ * xc && p < M) {
+      const int ox = p % Wo, t = p / Wo;
+      x_img[u] = (t / Ho) * H;
+      x_iy[u] = (t % Ho) * stride - pad_h;
+      x_ix[u] = ox * stride - pad_w;
+    }
+  }
+
+  // idx[j, lo + s] for s in this window of 32 steps (iw0) and the next
+  // (iw1), lane s % 32 holding step s; steps are asked for in order
+  const int32_t* irow = idx + (size_t)j * K + lo;
+  int iw0 = lane < n ? irow[lane] : 0;
+  int iw1 = 32 + lane < n ? irow[32 + lane] : 0;
+
+  auto load = [&](int s, int st) {
+    if (s > 0 && s % 32 == 0) {
+      iw0 = iw1;
+      iw1 = s + 32 + lane < n ? irow[s + 32 + lane] : 0;
+    }
+    const int blk = __shfl_sync(0xffffffffu, iw0, s % 32);
+    const int pos = blk / cpb;
+    const int ky = pos / k, kx = pos % k;
+    const int c0 = (blk % cpb) * bm;
+    __nv_bfloat16* xs = ring + st * (XS + WS);
+    __nv_bfloat16* ws = xs + XS;
+#pragma unroll
+    for (int u = 0; u < X_LOADS; ++u) {
+      if (x_dst[u] < 0) continue;
+      const int iy = x_iy[u] + ky, ix = x_ix[u] + kx;
+      const bool in = iy >= 0 && iy < H && ix >= 0 && ix < W;
+      tc::cp_async16(xs + x_dst[u],
+                     in ? x + ((size_t)(x_img[u] + iy) * W + ix) * C + c0 +
+                              x_c[u]
+                        : x,
+                     in);   // the SAME halo, or a pixel past the last
+    }
+    const __nv_bfloat16* wb = vals + ((size_t)j * K + lo + s) * bm * bn;
+    for (int e = tid; e < bm * wc; e += MMA_THREADS) {
+      const int r = e / wc, c = (e % wc) * 8;
+      tc::cp_async16(ws + r * WLD + c, wb + r * bn + c, true);
+    }
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n) load(s, s);
+    tc::cp_async_commit();                 // empty groups keep the count
+  }
+  for (int s = 0; s < n; ++s) {
+    tc::cp_async_wait<STAGES - 2>();       // step s has landed
+    __syncthreads();                       // and step s - 1 is consumed
+    if (s + STAGES - 1 < n) load(s + STAGES - 1, (s + STAGES - 1) % STAGES);
+    tc::cp_async_commit();
+    const __nv_bfloat16* xt = ring + (s % STAGES) * (XS + WS);
+    const __nv_bfloat16* wt = xt + XS;
+#pragma unroll
+    for (int kc = 0; kc < BM_MAX / 16; ++kc) {
+      if (kc * 16 >= bm) break;
+      uint32_t a[4];
+      tc::ldmatrix_x4(a, &xt[(wm * 16 + (lane % 8) + ((lane / 8) % 2) * 8) *
+                                 XLD + kc * 16 + (lane / 16) * 8]);
+      const __nv_bfloat16* wrow =
+          &wt[(kc * 16 + ((lane / 8) % 2) * 8 + (lane % 8)) * WLD +
+              wn * NT * 8];
+#pragma unroll
+      for (int np = 0; np < (NT + 1) / 2; ++np) {
+        const int t0 = wn * NT + 2 * np;   // this pair's first column tile
+        if (NT > 1 && t0 + 1 < n_tiles) {
+          uint32_t b[4];
+          tc::ldmatrix_x4_trans(b, wrow + np * 16 + (lane / 16) * 8);
+          tc::mma_bf16(acc[2 * np], a, b[0], b[1]);
+          tc::mma_bf16(acc[(2 * np + 1) % NT], a, b[2], b[3]);
+        } else if (t0 < n_tiles) {
+          uint32_t b[2];
+          tc::ldmatrix_x2_trans(b, wrow + np * 16);
+          tc::mma_bf16(acc[2 * np], a, b[0], b[1]);
+        }
+      }
+    }
+  }
+  // each partial row goes to the rank that owns it (rank q's into slot
+  // q), so that one barrier suffices and no block reads a peer after it
+  const int rs = (TM_ + split - 1) / split;   // rows a slot
+  if (split > 1) tc::cluster_wait();         // every peer runs
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wm * 16 + g + 8 * h;
+    const int owner = ((row + 1) * split - 1) / TM_;
+    float* slot = split > 1 ? cluster.map_shared_rank(red, owner) : red;
+    slot += (rank * rs + row - owner * TM_ / split) * PLD;
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+      *reinterpret_cast<float2*>(&slot[(wn * NT + t) * 8 + 2 * tg]) =
+          make_float2(acc[t][2 * h], acc[t][2 * h + 1]);
+  }
+  if (split > 1) {
+    tc::cluster_arrive();                    // the partials are written
+    tc::cluster_wait();
+  } else {
+    __syncthreads();
+  }
+
+  // rows [r0, r1): the slots summed in rank order, then bias, residual
+  // and ReLU in f32, one round to bf16, 16-byte stores
+#pragma unroll
+  for (int i = 0; i < E_ITEMS; ++i) {
+    const int e = tid + i * MMA_THREADS;
+    const int row = r0 + e / wc, c = (e % wc) * 8, p = m0 + row;
+    if (row >= r1 || p >= M) continue;
+    float v[8];
+#pragma unroll
+    for (int k8 = 0; k8 < 8; ++k8) v[k8] = 0.f;
+    for (int q = 0; q < split; ++q) {
+      const float* pq = &red[(q * rs + row - r0) * PLD + c];
+      const float4 a = *reinterpret_cast<const float4*>(pq);
+      const float4 b = *reinterpret_cast<const float4*>(pq + 4);
+      v[0] += a.x; v[1] += a.y; v[2] += a.z; v[3] += a.w;
+      v[4] += b.x; v[5] += b.y; v[6] += b.z; v[7] += b.w;
+    }
+    const __nv_bfloat162* b2 =
+        reinterpret_cast<const __nv_bfloat162*>(&e_bias[i]);
+    const __nv_bfloat162* r2 =
+        reinterpret_cast<const __nv_bfloat162*>(&e_res[i]);
+    uint4 ov;
+    uint32_t* o32 = reinterpret_cast<uint32_t*>(&ov);
+#pragma unroll
+    for (int k2 = 0; k2 < 4; ++k2) {
+      const float2 bf = __bfloat1622float2(b2[k2]);
+      float y0 = v[2 * k2] + bf.x, y1 = v[2 * k2 + 1] + bf.y;
+      if (res != nullptr) {
+        const float2 rf = __bfloat1622float2(r2[k2]);
+        y0 += rf.x;
+        y1 += rf.y;
+      }
+      if (relu) {
+        y0 = fmaxf(y0, 0.f);
+        y1 = fmaxf(y1, 0.f);
+      }
+      o32[k2] = tc::pack_bf16(y0, y1);
+    }
+    *reinterpret_cast<uint4*>(out + (size_t)p * cout + j * bn + c) = ov;
+  }
+}
+
+// ---- launch ----------------------------------------------------------------
+
+struct ConvArgs {
+  const __nv_bfloat16 *x, *vals;
+  const int32_t* idx;
+  const __nv_bfloat16 *bias, *res;
+  __nv_bfloat16* out;
+  int N, H, W, C, Ho, Wo, k, stride, pad_h, pad_w, ob, K, bm, bn, relu;
+};
+
+template <int TM_>
+int launch_mma(const ConvArgs& a, int split, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.N * a.Ho * a.Wo + TM_ - 1) / TM_, a.ob, split);
+  cfg.blockDim = dim3(MMA_THREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1;              // split 1: no cluster, no barrier
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, sparse_conv_mma<TM_>, a.x, a.vals, a.idx, a.bias, a.res, a.out,
+      a.N, a.H, a.W, a.C, a.Ho, a.Wo, a.k, a.stride, a.pad_h, a.pad_w, a.ob,
+      a.K, a.bm, a.bn, a.relu);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+int launch_simt(const ConvArgs& a, cudaStream_t stream) {
+  dim3 grid((a.N * a.Ho * a.Wo + TM - 1) / TM, a.ob);
+  sparse_conv_simt<<<grid, THREADS, 0, stream>>>(
+      a.x, a.vals, a.idx, a.bias, a.res, a.out, a.N, a.H, a.W, a.C, a.Ho,
+      a.Wo, a.k, a.stride, a.pad_h, a.pad_w, a.ob, a.K, a.bm, a.bn, a.relu);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -172,21 +477,35 @@ int sparse_conv_max_bn() { return BN_MAX; }
 
 // All tensors contiguous on the device: x (N,H,W,C) bf16; vals
 // (ob,K,bm,bn) bf16; idx (ob,K) int32 flat HWIO block ids; bias
-// (ob*bn,) bf16; res (N,Ho,Wo,ob*bn) bf16 or null; out like res.
-// Returns cudaGetLastError() after the launch.
+// (ob*bn,) bf16; res (N,Ho,Wo,ob*bn) bf16 or null; out like res;
+// N*H*W*C and N*Ho*Wo*ob*bn < 2^31. variant: 0 simt (tm 64, split 1),
+// 1 mma (bm % 16 == 0, bn % 8 == 0; tm 16 or 32; split 1..8 <= K;
+// x, vals, bias, res and out 16-byte aligned). Anything else returns
+// cudaErrorInvalidValue; else cudaGetLastError() after the launch.
 int sparse_conv_bf16(const void* x, const void* vals, const void* idx,
                      const void* bias, const void* res, void* out, int N,
                      int H, int W, int C, int Ho, int Wo, int k, int stride,
                      int pad_h, int pad_w, int ob, int K, int bm, int bn,
-                     int relu, void* stream) {
-  const int M = N * Ho * Wo;
-  dim3 grid((M + TM - 1) / TM, ob);
-  sparse_conv_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)vals,
-      (const int32_t*)idx, (const __nv_bfloat16*)bias,
-      (const __nv_bfloat16*)res, (__nv_bfloat16*)out, N, H, W, C, Ho, Wo,
-      k, stride, pad_h, pad_w, ob, K, bm, bn, relu);
-  return (int)cudaGetLastError();
+                     int relu, int variant, int tm, int split,
+                     void* stream) {
+  const ConvArgs a = {(const __nv_bfloat16*)x, (const __nv_bfloat16*)vals,
+                      (const int32_t*)idx, (const __nv_bfloat16*)bias,
+                      (const __nv_bfloat16*)res, (__nv_bfloat16*)out, N, H,
+                      W, C, Ho, Wo, k, stride, pad_h, pad_w, ob, K, bm, bn,
+                      relu};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (bm < 1 || bn < 1 || bm > BM_MAX || bn > BN_MAX || C % bm || ob > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (variant == VARIANT_SIMT && tm == TM && split == 1)
+    return launch_simt(a, s);
+  if (variant != VARIANT_MMA || bm % 16 || bn % 8 || split < 1 ||
+      split > MAX_SPLIT || split > (K > 0 ? K : 1))
+    return (int)cudaErrorInvalidValue;
+  switch (tm) {
+    case 16: return launch_mma<16>(a, split, s);
+    case 32: return launch_mma<32>(a, split, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* sparse_conv_error_string(int err) {

@@ -7,22 +7,34 @@
 //
 // with an f32 accumulator and the output in x's dtype; no epilogue.
 //
-// Two variants, chosen in Python (sparse_matmul.variant) and passed in.
-// Both run the TPU kernel's sequential K grid axis as a loop inside the
-// block, with the accumulators in registers; the grid is (ceil(M/TM),
-// ob).
+// Three variants, chosen in Python (sparse_matmul.variant) and passed in.
+// The TPU kernel's sequential K grid axis becomes a loop inside a block
+// (simt, mma) or rows spread over a block's threads (gemv).
 //
-// "simt": f32 x (the ResNet-50 classifier), M <= 8 (decode) and bf16
-// block shapes the mma variant does not take (bn = 25). Blocks up to
-// 64 x 64. 256 threads as 8 row groups x 32 lanes: a thread owns RPT
-// rows of x (TM = 8 * RPT rows a block) and the output columns lane and
-// lane + 32. Each step stages one bm x bn weight block and the TM x bm
-// gathered slice of x (transposed, so a thread reads its rows as
-// float4) in shared memory as f32; a step's loads go to registers
-// first, all issued together, and step l+1's are issued before step l's
-// FMAs. RPT is 1 for M <= 8 and 8 otherwise. bn need not be a power of
-// two: columns >= bn only help load, and every column index is checked
-// against bn.
+// "gemv": M <= 8 (the ResNet-50 classifier in f32, the LM decode in
+// bf16), any blocks up to 64 x 64. Column j's surviving blocks, vals[j],
+// are one contiguous (K*bm) x bn matrix. A block of 64, 128 or 256
+// threads (about one per two rows) owns 8 of its output columns (grid
+// (ceil(bn/8), ob): 160 blocks for the classifier, 320 and 120 for
+// SmolLM-360M's w1 and w2) and every row: thread t takes rows t,
+// t + THREADS, ..., loading each row's 8 columns as
+// one 16-byte vector (bn % 8 == 0; element by element otherwise, as for
+// the classifier's bn = 25) and the gathered x values (idx, then x)
+// into registers, every load issued before the first FMA; M rounded up
+// to 1, 2, 4 or 8 is a template argument, so a thread holds that many x
+// 8 sums. The f32 partials are summed over each warp's lanes by an xor
+// butterfly, then over the warps in order: one barrier, no reduction
+// across blocks, deterministic.
+//
+// "simt": M > 8 with f32 x or bf16 block shapes the mma variant does not
+// take. Blocks up to 64 x 64. 256 threads as 8 row groups x 32 lanes: a
+// thread owns RPT = 8 rows of x (TM = 64 rows a block) and the output
+// columns lane and lane + 32; grid (ceil(M/64), ob). Each step stages
+// one bm x bn weight block and the TM x bm gathered slice of x
+// (transposed, so a thread reads its rows as float4) in shared memory as
+// f32; a step's loads go to registers first, all issued together, and
+// step l+1's are issued before step l's FMAs. bn need not be a power of
+// two: every column index is checked against bn.
 //
 // "mma": bf16 x with M > 8 (the LM prefill, M = B*T), bm a multiple of
 // 16 and bn of 8, both <= 64. A block of 4 warps owns TM = 64 rows (16 a
@@ -38,16 +50,17 @@
 // the tile in shared memory and writes rows < M as 16-byte stores.
 //
 // What bounds it. At M = 1..8 every weight byte is used once, so the
-// bound is the surviving blocks' bytes over the memory rate, and the
-// simt variant is limited by launch latency and one global-load
-// latency per K step. At SmolLM-360M's prefill (M 2048; w1, w3 vals
-// (40, 2, 64, 64), w2 (15, 6, 64, 64)) the bound is bytes too: 4.5 /
-// 4.3 us for x, the surviving blocks and y at the memory rate, against
-// 0.67 / 0.75 us of multiply-adds on the tensor cores. The mma variant's
-// grid there is 32 x 40 = 1280 blocks (w1, w3) and 32 x 15 = 480 (w2):
-// TM 128 would leave w2 240 blocks, under two waves of 132 SMs. Each
-// block column re-reads its gathered x slices (from L2: x is 3.9 MB), so
-// the traffic that moves is L2 -> SM, ob * K * M * bm * 2 bytes a call.
+// bound is the surviving blocks' bytes over the memory rate (0.2 us at
+// the classifier's and SmolLM-360M's decode shapes); what costs is
+// latency: a launch, a dependent idx -> x load, one reduction. At
+// SmolLM-360M's prefill (M 2048; w1, w3 vals (40, 2, 64, 64), w2 (15, 6,
+// 64, 64)) the bound is bytes too: 4.5 / 4.3 us for x, the surviving
+// blocks and y at the memory rate, against 0.67 / 0.75 us of
+// multiply-adds on the tensor cores. The mma variant's grid there is 32
+// x 40 = 1280 blocks (w1, w3) and 32 x 15 = 480 (w2): TM 128 would
+// leave w2 240 blocks, under two waves of 132 SMs. Each block column
+// re-reads its gathered x slices (from L2: x is 3.9 MB), so the traffic
+// that moves is L2 -> SM, ob * K * M * bm * 2 bytes a call.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,8 +69,9 @@
 
 namespace {
 
-constexpr int VARIANT_SIMT = 0;   // sparse_matmul.VARIANT_CODES
+constexpr int VARIANT_SIMT = 0;   // the codes of _build.VARIANT_CODES
 constexpr int VARIANT_MMA = 1;
+constexpr int VARIANT_GEMV = 2;
 
 constexpr int BM_MAX = 64;
 constexpr int BN_MAX = 64;
@@ -75,12 +89,13 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <typename T, int RPT>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-sparse_matmul_kernel(const T* __restrict__ x,
+sparse_matmul_simt(const T* __restrict__ x,
                      const __nv_bfloat16* __restrict__ vals,
                      const int32_t* __restrict__ idx, T* __restrict__ out,
                      int M, int d_in, int ob, int K, int bm, int bn) {
+  constexpr int RPT = 8;                // rows a thread
   constexpr int TM = GROUPS * RPT;
   constexpr int XS = TM + 4;            // row stride of xs (floats)
   constexpr int X_LOADS = (TM * BM_MAX + THREADS - 1) / THREADS;
@@ -140,16 +155,11 @@ sparse_matmul_kernel(const T* __restrict__ x,
 #pragma unroll 8
     for (int c = 0; c < bm; ++c) {
       float xr[RPT];
-      if constexpr (RPT % 4 == 0) {
 #pragma unroll
-        for (int r = 0; r < RPT; r += 4) {
-          const float4 t =
-              *reinterpret_cast<const float4*>(&xs[c * XS + grp * RPT + r]);
-          xr[r] = t.x; xr[r + 1] = t.y; xr[r + 2] = t.z; xr[r + 3] = t.w;
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) xr[r] = xs[c * XS + grp * RPT + r];
+      for (int r = 0; r < RPT; r += 4) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(&xs[c * XS + grp * RPT + r]);
+        xr[r] = t.x; xr[r + 1] = t.y; xr[r + 2] = t.z; xr[r + 3] = t.w;
       }
       const float w0 = ws[c * BN_MAX + lane];
       const float w1 = ws[c * BN_MAX + lane + LANES];
@@ -279,36 +289,174 @@ sparse_matmul_mma(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ---- gemv: M <= 8, every load in flight, no cross-block reduction -------
+
+constexpr int GEMV_COLS = 8;            // output columns a block
+
+// MT: M rounded up to 1, 2, 4 or 8 (x rows >= M load nothing);
+// THREADS: 64, 128 or 256, about one thread per two weight rows
+template <typename T, int MT, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+sparse_matmul_gemv(const T* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ vals,
+                   const int32_t* __restrict__ idx, T* __restrict__ out,
+                   int M, int d_in, int ob, int K, int bm, int bn,
+                   int vec) {
+  constexpr int RB = THREADS >= 256 ? 2 : 4;   // rows a thread a round
+  __shared__ float red[THREADS / 32][MT * GEMV_COLS];
+  const int j = blockIdx.y;
+  const int c0 = blockIdx.x * GEMV_COLS;
+  const int nc = min(GEMV_COLS, bn - c0);  // this block's columns
+  const int rows = K * bm;                  // column j's weight rows
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const __nv_bfloat16* wj = vals + (size_t)j * rows * bn + c0;
+  const int32_t* ij = idx + (size_t)j * K;
+
+  float acc[MT][GEMV_COLS];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < GEMV_COLS; ++c) acc[m][c] = 0.f;
+  // thread t takes rows t, t + THREADS, ...: a round's loads (its rows'
+  // 8 weight columns, then idx and the gathered x) are all issued before
+  // its first FMA; at the classifier's and SmolLM-360M's shapes one
+  // round holds every row
+  for (int r0 = 0; r0 < rows; r0 += THREADS * RB) {
+    uint4 wv[RB];
+    float xv[RB][MT];
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+      const int R = r0 + tid + u * THREADS;
+      wv[u] = make_uint4(0, 0, 0, 0);
+      if (R >= rows) continue;
+      const __nv_bfloat16* wr = wj + (size_t)R * bn;
+      if (vec) {
+        wv[u] = *reinterpret_cast<const uint4*>(wr);
+      } else {
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&wv[u]);
+#pragma unroll
+        for (int c = 0; c < GEMV_COLS; ++c)
+          if (c < nc) e[c] = wr[c];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+      const int R = r0 + tid + u * THREADS;
+      const int col = R < rows ? ij[R / bm] * bm + R % bm : 0;
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        xv[u][m] = R < rows && m < M ? to_f32(x[(size_t)m * d_in + col])
+                                     : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+      const __nv_bfloat162* w2 =
+          reinterpret_cast<const __nv_bfloat162*>(&wv[u]);
+#pragma unroll
+      for (int c2 = 0; c2 < GEMV_COLS / 2; ++c2) {
+        const float2 w = __bfloat1622float2(w2[c2]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          acc[m][2 * c2] = fmaf(xv[u][m], w.x, acc[m][2 * c2]);
+          acc[m][2 * c2 + 1] = fmaf(xv[u][m], w.y, acc[m][2 * c2 + 1]);
+        }
+      }
+    }
+  }
+
+  // the threads' partials, summed in a fixed order: over a warp's lanes
+  // by an xor butterfly (lane 0's sums are used), then over the warps in
+  // order
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < GEMV_COLS; ++c) {
+      float v = acc[m][c];
+#pragma unroll
+      for (int o = 16; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) red[warp][m * GEMV_COLS + c] = v;
+    }
+  __syncthreads();
+  if (tid < M * GEMV_COLS && tid % GEMV_COLS < nc) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) s += red[w][tid];
+    store(&out[(size_t)(tid / GEMV_COLS) * ob * bn + (size_t)j * bn + c0 +
+               tid % GEMV_COLS],
+          s);
+  }
+}
+
 // ---- launch --------------------------------------------------------------
 
-template <typename T, int RPT>
-int launch_rpt(const void* x, const void* vals, const void* idx, void* out,
-               int M, int d_in, int ob, int K, int bm, int bn,
-               void* stream) {
-  constexpr int TM = GROUPS * RPT;
-  dim3 grid((M + TM - 1) / TM, ob);
-  sparse_matmul_kernel<T, RPT><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+template <typename T>
+int launch_simt(const void* x, const void* vals, const void* idx, void* out,
+                int M, int d_in, int ob, int K, int bm, int bn,
+                cudaStream_t stream) {
+  dim3 grid((M + GROUPS * 8 - 1) / (GROUPS * 8), ob);
+  sparse_matmul_simt<T><<<grid, THREADS, 0, stream>>>(
       (const T*)x, (const __nv_bfloat16*)vals, (const int32_t*)idx, (T*)out,
       M, d_in, ob, K, bm, bn);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int MT, int THREADS>
+int launch_gemv_mt(const void* x, const void* vals, const void* idx,
+                   void* out, int M, int d_in, int ob, int K, int bm, int bn,
+                   int vec, cudaStream_t stream) {
+  dim3 grid((bn + GEMV_COLS - 1) / GEMV_COLS, ob);
+  sparse_matmul_gemv<T, MT, THREADS><<<grid, THREADS, 0, stream>>>(
+      (const T*)x, (const __nv_bfloat16*)vals, (const int32_t*)idx, (T*)out,
+      M, d_in, ob, K, bm, bn, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int THREADS>
+int launch_gemv_t(const void* x, const void* vals, const void* idx,
+                  void* out, int M, int d_in, int ob, int K, int bm, int bn,
+                  int vec, cudaStream_t stream) {
+  if (M <= 1)
+    return launch_gemv_mt<T, 1, THREADS>(x, vals, idx, out, M, d_in, ob, K,
+                                         bm, bn, vec, stream);
+  if (M <= 2)
+    return launch_gemv_mt<T, 2, THREADS>(x, vals, idx, out, M, d_in, ob, K,
+                                         bm, bn, vec, stream);
+  if (M <= 4)
+    return launch_gemv_mt<T, 4, THREADS>(x, vals, idx, out, M, d_in, ob, K,
+                                         bm, bn, vec, stream);
+  return launch_gemv_mt<T, 8, THREADS>(x, vals, idx, out, M, d_in, ob, K,
+                                       bm, bn, vec, stream);
+}
+
+// The block size follows the rows: about two weight rows a thread with
+// 16-byte loads, one with element loads (the fastest of 64, 128 and 256
+// threads at the classifier's and SmolLM-360M's shapes on the H100;
+// PERF.md).
 template <typename T>
-int launch_simt(const void* x, const void* vals, const void* idx, void* out,
+int launch_gemv(const void* x, const void* vals, const void* idx, void* out,
                 int M, int d_in, int ob, int K, int bm, int bn,
-                void* stream) {
-  if (M <= GROUPS)
-    return launch_rpt<T, 1>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
-                            stream);
-  return launch_rpt<T, 8>(x, vals, idx, out, M, d_in, ob, K, bm, bn, stream);
+                cudaStream_t stream) {
+  if (M < 1 || M > 8 || ob > 65535) return (int)cudaErrorInvalidValue;
+  const int vec =
+      bn % 8 == 0 && reinterpret_cast<uintptr_t>(vals) % 16 == 0;
+  const int want = vec ? (K * bm + 1) / 2 : K * bm;   // threads wanted
+  if (want <= 64)
+    return launch_gemv_t<T, 64>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
+                                vec, stream);
+  if (want <= 128)
+    return launch_gemv_t<T, 128>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
+                                 vec, stream);
+  return launch_gemv_t<T, 256>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
+                               vec, stream);
 }
 
 int launch_mma(const void* x, const void* vals, const void* idx, void* out,
-               int M, int d_in, int ob, int K, int bm, int bn, void* stream) {
+               int M, int d_in, int ob, int K, int bm, int bn,
+               cudaStream_t stream) {
   if (bm % 16 || bn % 8 || bm > BM_MAX || bn > BN_MAX)
     return (int)cudaErrorInvalidValue;
   dim3 grid((M + MMA_TM - 1) / MMA_TM, ob);
-  sparse_matmul_mma<<<grid, MMA_THREADS, 0, (cudaStream_t)stream>>>(
+  sparse_matmul_mma<<<grid, MMA_THREADS, 0, stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)vals,
       (const int32_t*)idx, (__nv_bfloat16*)out, M, d_in, ob, K, bm, bn);
   return (int)cudaGetLastError();
@@ -324,25 +472,37 @@ int sparse_matmul_max_bn() { return BN_MAX; }
 // x (M, d_in) f32 or bf16, M * d_in < 2^31; vals (ob,K,bm,bn) bf16,
 // bm, bn <= 64; idx (ob,K) int32; out (M, ob*bn) in x's dtype; all
 // contiguous on the device (16-byte aligned for mma). variant: 0 simt,
-// 1 mma (bf16 only; bm % 16 == 0, bn % 8 == 0). Returns
+// 1 mma (bf16 only; bm % 16 == 0, bn % 8 == 0), 2 gemv (M <= 8).
+// Returns cudaErrorInvalidValue for a combination the kernels lack, else
 // cudaGetLastError() after the launch.
 int sparse_matmul_f32(const void* x, const void* vals, const void* idx,
                       void* out, int M, int d_in, int ob, int K, int bm,
                       int bn, int variant, void* stream) {
-  if (variant != VARIANT_SIMT) return (int)cudaErrorInvalidValue;
-  return launch_simt<float>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
-                            stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (variant) {
+    case VARIANT_SIMT:
+      return launch_simt<float>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
+                                s);
+    case VARIANT_GEMV:
+      return launch_gemv<float>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
+                                s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int sparse_matmul_bf16(const void* x, const void* vals, const void* idx,
                        void* out, int M, int d_in, int ob, int K, int bm,
                        int bn, int variant, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
   switch (variant) {
     case VARIANT_SIMT:
       return launch_simt<__nv_bfloat16>(x, vals, idx, out, M, d_in, ob, K,
-                                        bm, bn, stream);
+                                        bm, bn, s);
     case VARIANT_MMA:
-      return launch_mma(x, vals, idx, out, M, d_in, ob, K, bm, bn, stream);
+      return launch_mma(x, vals, idx, out, M, d_in, ob, K, bm, bn, s);
+    case VARIANT_GEMV:
+      return launch_gemv<__nv_bfloat16>(x, vals, idx, out, M, d_in, ob, K,
+                                        bm, bn, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,8 @@
 // Tensor-core building blocks for the port's kernels (sm_90a), as inline
-// PTX: cp.async copies into shared memory, ldmatrix fragment loads and
-// the warp-level mma.sync.m16n8k16 product on bf16 operands with f32
-// accumulators.
+// PTX: cp.async copies into shared memory, ldmatrix fragment loads, the
+// warp-level mma.sync.m16n8k16 product on bf16 operands with f32
+// accumulators, and the split arrive / wait of a thread-block cluster's
+// barrier.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, tg = lane % 4):
 //   A (16 x 16, row-major), 4 registers of two bf16 each:
@@ -99,6 +100,24 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = bits(h);
   lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// The cluster barrier in two halves, so that a block can arrive early and
+// wait only where it needs its peers. Every thread of every block of the
+// cluster alternates arrive and wait. arrive_relaxed orders nothing (the
+// first round only proves that every block runs, so that its shared
+// memory may be written); arrive releases this thread's writes, shared
+// memory of peers included, and wait acquires them.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 }  // namespace tc

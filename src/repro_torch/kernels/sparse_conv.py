@@ -2,9 +2,11 @@
 
 ``sparse_conv`` launches the CUDA kernel in ``csrc/sparse_conv.cu``,
 which replaces the reference's ``kernels/sparse_conv.py::
-sparse_conv_pallas``. ``sparse_conv_torch`` is the plain PyTorch
-version of the same function: the CPU path and the check the kernel is
-held to on the card. Neither builds an im2col tensor: the plain
+sparse_conv_pallas``, in the variant that :func:`variant` names: "mma"
+(tensor cores, with the tile and cluster split-K that :func:`plan`
+picks) or "simt" (CUDA cores). ``sparse_conv_torch`` is the plain
+PyTorch version of the same function: the CPU path and the check both
+variants are held to on the card. Neither builds an im2col tensor: the plain
 version gathers one shifted (ky, kx, channel-block) window per
 surviving block, as the reference's XLA path does (``ops.py:228-276``).
 
@@ -76,6 +78,42 @@ def sparse_conv_torch(x, vals, idx, bias, residual=None, *, k: int,
     return y.to(x.dtype)
 
 
+def variant(bm: int, bn: int) -> str:
+    """The kernel variant for (bm, bn) weight blocks: "mma" when bm is a
+    multiple of 16 and bn of 8, both <= 32 (the mma.m16n8k16 tiles;
+    every ResNet-50 layer, 32 x 32), else "simt"."""
+    if bm % 16 == 0 and bn % 8 == 0 and 0 < bm <= 32 and 0 < bn <= 32:
+        return "mma"
+    return "simt"
+
+
+TILES = (32, 16)       # output pixels a block (the kernel's instances)
+MAX_SPLIT = 8          # the portable thread-block cluster size
+STEPS_PER_SLICE = 3    # K steps a block walks at most, where S allows
+
+
+def plan(m: int, ob: int, k_steps: int) -> tuple[int, int]:
+    """(tm, split) of the mma variant for m output pixels, ob output
+    block columns and k_steps surviving blocks a column.
+
+    The grid is (ceil(m / tm), ob, split), split along a cluster. At
+    batch 1 the time is latency: a chain of gathers and products per
+    block, then (split > 1) one cluster barrier, ~0.5 us. So the K chain
+    is cut into slices of at most STEPS_PER_SLICE steps (up to
+    MAX_SPLIT), and the tile is 32 pixels, 16 where m fits in one: the
+    best or within 0.15 us of the best tile and split at every
+    ResNet-50 shape in a sweep on the H100 (PERF.md)."""
+    split = min(MAX_SPLIT, max(1, -(-k_steps // STEPS_PER_SLICE)))
+    return (16 if m <= 16 else 32), split
+
+
+def k_slices(k_steps: int, split: int) -> list[tuple[int, int]]:
+    """The K steps [lo, hi) that each cluster rank walks, in rank order:
+    rank r takes [r*K//S, (r+1)*K//S), as the kernel does."""
+    return [(r * k_steps // split, (r + 1) * k_steps // split)
+            for r in range(split)]
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -83,7 +121,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _kernel():
     lib = _build.load("sparse_conv")
     fn = lib.sparse_conv_bf16
-    fn.argtypes = [_P] * 6 + [_I] * 15 + [_P]
+    fn.argtypes = [_P] * 6 + [_I] * 18 + [_P]
     fn.restype = _I
     return lib, fn, lib.sparse_conv_max_bm(), lib.sparse_conv_max_bn()
 
@@ -91,8 +129,10 @@ def _kernel():
 def sparse_conv(x, vals, idx, bias, residual=None, scale=None, *, k: int,
                 stride: int = 1, relu: bool = True) -> torch.Tensor:
     """The CUDA kernel: same function and arguments as
-    :func:`sparse_conv_torch`, on bf16 CUDA tensors. Raises on anything
-    the kernel does not take; it never falls back to the plain version.
+    :func:`sparse_conv_torch`, on bf16 CUDA tensors, in the variant
+    :func:`variant` names. Raises on anything the kernel does not take,
+    and if the launch fails (a cluster launch included); it never falls
+    back to the plain version or to the other variant.
     The output is allocated here and the kernel runs on the current
     stream without synchronising."""
     if scale is not None:
@@ -128,10 +168,20 @@ def sparse_conv(x, vals, idx, bias, residual=None, scale=None, *, k: int,
     if residual is not None and residual.shape != out.shape:
         raise ValueError(f"sparse_conv: residual {tuple(residual.shape)} != "
                          f"output {tuple(out.shape)}")
+    if x.numel() >= 2 ** 31 or out.numel() >= 2 ** 31:
+        raise ValueError("sparse_conv: x and the output need < 2^31 elements")
+    v = variant(bm, bn)
+    tm, split = plan(n * ho * wo, ob, n_k) if v == "mma" else (64, 1)
+    if v == "mma":
+        x, vals, bias = (_build.aligned16(t) for t in (x, vals, bias))
+        if residual is not None:
+            residual = _build.aligned16(residual)
     err = fn(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), bias.data_ptr(),
              None if residual is None else residual.data_ptr(),
              out.data_ptr(), n, h, w, c, ho, wo, k, stride, ph, pw, ob, n_k,
-             bm, bn, int(relu), torch.cuda.current_stream(x.device).cuda_stream)
+             bm, bn, int(relu), _build.VARIANT_CODES[v], tm, split,
+             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, "sparse_conv", err)
     _build.LAUNCHES["sparse_conv"] += 1
+    _build.VARIANT_LAUNCHES[("sparse_conv", v)] += 1
     return out

@@ -4,11 +4,12 @@ the pruned FFN of the LMs (64 x 64 blocks for SmolLM-360M).
 ``sparse_matmul`` launches the CUDA kernel in ``csrc/sparse_matmul.cu``,
 which replaces the reference's ``kernels/sparse_matmul.py::
 sparse_matmul_pallas``, in the variant that :func:`variant` names:
-"mma" (tensor cores) for bf16 x with more than ``SIMT_MAX_M`` rows and
-blocks the tensor-core tiles divide (the LM prefill), "simt" (CUDA
-cores) otherwise (the f32 classifier, decode). ``sparse_matmul_torch``
-is the plain PyTorch version of the same function: the CPU path and
-the check both variants are held to on the card.
+"gemv" for at most ``SIMT_MAX_M`` rows (the f32 classifier, the LM
+decode; one block per 8 output columns), "mma" (tensor
+cores) for more bf16 rows with blocks the tensor-core tiles divide (the
+LM prefill), "simt" (CUDA cores) otherwise. ``sparse_matmul_torch`` is
+the plain PyTorch version of the same function: the CPU path and the
+check every variant is held to on the card.
 """
 from __future__ import annotations
 
@@ -36,17 +37,38 @@ def sparse_matmul_torch(x, vals, idx) -> torch.Tensor:
     return acc.reshape(m, ob * bn).to(x.dtype)
 
 
-SIMT_MAX_M = 8     # rows up to which the CUDA-core variant runs (decode)
+SIMT_MAX_M = 8     # rows up to which the gemv variant runs (decode)
 
 
 def variant(dtype: torch.dtype, m: int, bm: int, bn: int) -> str:
     """The kernel variant for x of ``dtype`` with ``m`` rows and (bm, bn)
-    weight blocks: "mma" for bf16 x, m > SIMT_MAX_M, bm a multiple of 16
-    and bn of 8, both <= 64 (the mma.m16n8k16 tiles); else "simt"."""
-    if dtype == torch.bfloat16 and m > SIMT_MAX_M and bm % 16 == 0 \
-            and bn % 8 == 0 and 0 < bm <= 64 and 0 < bn <= 64:
+    weight blocks: "gemv" for m <= SIMT_MAX_M (f32 or bf16, any blocks
+    up to 64 x 64); "mma" for bf16 x, bm a multiple of 16 and bn of 8,
+    both <= 64 (the mma.m16n8k16 tiles); else "simt"."""
+    if m <= SIMT_MAX_M:
+        return "gemv"
+    if dtype == torch.bfloat16 and bm % 16 == 0 and bn % 8 == 0 \
+            and 0 < bm <= 64 and 0 < bn <= 64:
         return "mma"
     return "simt"
+
+
+GEMV_COLS = 8          # output columns a gemv block owns (csrc)
+
+
+def gemv_grid(ob: int, bn: int) -> tuple[int, int]:
+    """The gemv variant's grid: one block per GEMV_COLS output columns of
+    each of the ob block columns, every weight row in each block."""
+    return -(-bn // GEMV_COLS), ob
+
+
+def gemv_threads(rows: int, bn: int) -> int:
+    """The gemv block's threads for ``rows`` = K * bm weight rows, as the
+    kernel picks them: about two rows a thread where a row's 8 columns
+    are one 16-byte load (bn % 8 == 0), one row a thread otherwise; 64,
+    128 or 256. Thread t sums rows t, t + threads, ..."""
+    want = -(-rows // 2) if bn % 8 == 0 else rows
+    return 64 if want <= 64 else 128 if want <= 128 else 256
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -69,7 +91,7 @@ def sparse_matmul(x, vals, idx) -> torch.Tensor:
     :func:`sparse_matmul_torch`, with x f32 or bf16 and vals bf16 on a
     CUDA device, in the variant :func:`variant` names. Raises on
     anything the kernel does not take, and if the launch fails; it never
-    falls back to the plain version or to the other variant."""
+    falls back to the plain version or to another variant."""
     for name, t in (("x", x), ("vals", vals), ("idx", idx)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"sparse_matmul: {name} must be on {x.device} "
@@ -91,6 +113,8 @@ def sparse_matmul(x, vals, idx) -> torch.Tensor:
     v = variant(x.dtype, m, bm, bn)
     if v == "mma":
         x, vals = _build.aligned16(x), _build.aligned16(vals)
+    elif v == "gemv":               # 16-byte weight loads where bn % 8 == 0
+        vals = _build.aligned16(vals)
     out = torch.empty((m, ob * bn), dtype=x.dtype, device=x.device)
     err = fns[x.dtype](x.data_ptr(), vals.data_ptr(), idx.data_ptr(),
                        out.data_ptr(), m, d_in, ob, n_k, bm, bn,

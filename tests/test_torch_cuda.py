@@ -18,6 +18,7 @@ from repro_torch.configs import SparsityConfig, get_config, reduced  # noqa: E40
 from repro_torch.core.fusion import fused_graph_for  # noqa: E402
 from repro_torch.core.graph import graph_for  # noqa: E402
 from repro_torch.core.sparsity import to_block_balanced  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import depthwise_conv as dw  # noqa: E402
 from repro_torch.kernels import dw_pw_fused as dwpw  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -55,9 +56,8 @@ def _assert_launches(want):
 def _assert_variant(name, variant, n=1):
     """``n`` launches of ``name`` since the last reset, all of
     ``variant``."""
-    other = {"mma": "simt", "simt": "mma"}[variant]
-    assert ops.VARIANT_LAUNCHES[(name, variant)] == n
-    assert ops.VARIANT_LAUNCHES[(name, other)] == 0
+    for v in _build.VARIANTS[name]:
+        assert ops.VARIANT_LAUNCHES[(name, v)] == (n if v == variant else 0)
 
 
 def _weight(gen, d_in, d_out, bm, bn, sp, dev):
@@ -83,12 +83,84 @@ def test_sparse_conv_kernel_matches_plain(dev, case, k, stride, residual,
     ho = -(-h // stride)
     r = (torch.randn((n, ho, ho, cout), generator=gen)
          .to(dev, torch.bfloat16) if residual else None)
+    ops.reset_launches()
     got = sc.sparse_conv(x, sw.vals, sw.idx, b, r, k=k, stride=stride,
                          relu=relu)
+    _assert_variant("sparse_conv", sc.variant(bm, bn))
     want = sc.sparse_conv_torch(x, sw.vals, sw.idx, b, r, k=k,
                                 stride=stride, relu=relu)
     torch.cuda.synchronize()
     _bf16_close(got, want)
+
+
+# (N, H, cin, cout, bm, bn, k, stride, sparsity): the mma variant where
+# K is no multiple of the split, K = 1, batch 2, M no tile multiple, and
+# bn < 32; the simt variant at a block shape mma does not take (bm 8)
+CONV_SPLIT_CASES = [
+    (1, 7, 512, 512, 32, 32, 3, 1, 0.85),    # s3b*_c2: K 22, split 8
+    (1, 7, 2048, 512, 32, 32, 1, 1, 0.85),   # s3b*_c1: K 10, split 4
+    (1, 14, 256, 256, 32, 32, 3, 1, 0.85),   # s2b*_c2: K 11, split 4
+    (1, 7, 96, 64, 32, 32, 3, 1, 0.5),       # K 14 over 2 columns
+    (2, 7, 128, 64, 32, 32, 3, 1, 0.7),      # batch 2, M 98
+    (1, 11, 64, 96, 32, 32, 1, 1, 0.5),      # K 1, M 121
+    (1, 9, 64, 48, 16, 16, 3, 2, 0.6),       # 16 x 16 blocks, M 25
+    (1, 10, 64, 48, 32, 24, 3, 1, 0.6),      # three 8-column tiles
+    (1, 9, 32, 32, 8, 8, 3, 1, 0.5),         # simt: bm 8
+    (2, 13, 16, 24, 8, 8, 1, 2, 0.5),        # simt: bm 8, batch 2
+]
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("case", CONV_SPLIT_CASES, ids=str)
+def test_sparse_conv_variants_and_splits_match_plain(dev, case, residual):
+    n, h, cin, cout, bm, bn, k, stride, sp = case
+    gen = torch.Generator().manual_seed(cin + cout + h)
+    sw = _weight(gen, k * k * cin, cout, bm, bn, sp, dev)
+    x = torch.randn((n, h, h, cin), generator=gen).to(dev, torch.bfloat16)
+    b = (torch.randn((cout,), generator=gen) * 0.1).to(dev, torch.bfloat16)
+    ho = -(-h // stride)
+    r = (torch.randn((n, ho, ho, cout), generator=gen)
+         .to(dev, torch.bfloat16) if residual else None)
+    v = sc.variant(bm, bn)
+    assert v == ("simt" if bm == 8 else "mma")
+    n_k = sw.vals.shape[1]
+    if v == "mma" and n_k > sc.STEPS_PER_SLICE:
+        assert sc.plan(n * ho * ho, cout // bn, n_k)[1] > 1
+    ops.reset_launches()
+    got = sc.sparse_conv(x, sw.vals, sw.idx, b, r, k=k, stride=stride,
+                         relu=not residual)
+    _assert_variant("sparse_conv", v)
+    want = sc.sparse_conv_torch(x, sw.vals, sw.idx, b, r, k=k,
+                                stride=stride, relu=not residual)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", range(1, 9))
+@pytest.mark.parametrize("d_in,d_out,bm,bn,sp", [
+    (2048, 1000, 32, 25, 0.85),       # the ResNet-50 classifier
+    (960, 2560, 64, 64, 0.85),        # SmolLM-360M's w1 / w3
+    (2560, 960, 64, 64, 0.85),        # and w2
+    (80, 75, 16, 25, 0.5),            # rows no multiple of 8 a column
+], ids=["fc", "w1", "w2", "odd"])
+def test_sparse_matmul_gemv_matches_plain(dev, d_in, d_out, bm, bn, sp, m,
+                                          dtype):
+    gen = torch.Generator().manual_seed(d_in + d_out + m)
+    sw = _weight(gen, d_in, d_out, bm, bn, sp, dev)
+    x = torch.randn((m, d_in), generator=gen).to(dev, dtype)
+    assert sm.variant(dtype, m, bm, bn) == "gemv"
+    ops.reset_launches()
+    got = sm.sparse_matmul(x, sw.vals, sw.idx)
+    _assert_variant("sparse_matmul", "gemv")
+    want = sm.sparse_matmul_torch(x, sw.vals, sw.idx)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    else:
+        _bf16_close(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -118,6 +190,8 @@ def test_forward_on_card_matches_cpu_and_uses_the_kernels(dev):
     got = cnn.cnn_forward(cfg, params, x, device=dev).cpu()
     _assert_launches({"sparse_conv": 47, "sparse_matmul": 1, "dw_pw": 0,
                       "depthwise_conv": 0})
+    _assert_variant("sparse_conv", "mma", 47)
+    _assert_variant("sparse_matmul", "gemv", 1)     # batch 2: M = 2
     want = cnn.cnn_forward(cfg, cpu, x, device="cpu")
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-3 * scale
@@ -337,7 +411,7 @@ def test_sparse_matmul_mma_variant_matches_plain(dev, d_in, d_out, bm, bn,
 
 
 @pytest.mark.parametrize("m,bn,dtype,variant", [
-    (8, 32, torch.bfloat16, "simt"),    # decode rows
+    (8, 32, torch.bfloat16, "gemv"),    # decode rows
     (9, 32, torch.bfloat16, "mma"),
     (17, 25, torch.bfloat16, "simt"),   # bn no multiple of 8
     (17, 32, torch.float32, "simt"),
@@ -399,5 +473,5 @@ def test_lm_on_card_matches_cpu_and_uses_the_kernels(dev):
     ops.reset_launches()
     lg, _ = lm.decode_step(cfg, params, cache, toks[:, :1].to(dev), 0)
     _assert_launches({"sparse_matmul": 3 * n})
-    _assert_variant("sparse_matmul", "simt", 3 * n)   # M = 2
+    _assert_variant("sparse_matmul", "gemv", 3 * n)   # M = 2
     assert lg.shape == (2, 1, cfg.vocab_size) and torch.isfinite(lg).all()

@@ -227,10 +227,10 @@ def test_flash_attention_variant_choice(dtype, d, want):
 
 
 @pytest.mark.parametrize("dtype,m,bm,bn,want", [
-    (torch.bfloat16, 8, 64, 64, "simt"),     # decode rows
+    (torch.bfloat16, 8, 64, 64, "gemv"),     # decode rows
     (torch.bfloat16, 9, 64, 64, "mma"),
     (torch.bfloat16, 2048, 64, 64, "mma"),   # SmolLM-360M's prefill
-    (torch.bfloat16, 1, 32, 25, "simt"),
+    (torch.bfloat16, 1, 32, 25, "gemv"),
     (torch.bfloat16, 9, 32, 25, "simt"),     # bn no multiple of 8
     (torch.bfloat16, 9, 32, 24, "mma"),
     (torch.bfloat16, 9, 16, 8, "mma"),       # the smallest mma tiles
@@ -239,7 +239,7 @@ def test_flash_attention_variant_choice(dtype, d, want):
     (torch.bfloat16, 9, 80, 64, "simt"),     # bm > 64
     (torch.bfloat16, 9, 64, 72, "simt"),     # bn > 64
     (torch.float32, 9, 64, 64, "simt"),      # f32 x
-    (torch.float32, 1, 32, 25, "simt"),      # the ResNet-50 classifier
+    (torch.float32, 1, 32, 25, "gemv"),      # the ResNet-50 classifier
 ])
 def test_sparse_matmul_variant_choice(dtype, m, bm, bn, want):
     assert sm.variant(dtype, m, bm, bn) == want
@@ -247,8 +247,10 @@ def test_sparse_matmul_variant_choice(dtype, m, bm, bn, want):
 
 def test_variant_counters_reset_with_the_launch_counters():
     assert set(ops.VARIANT_LAUNCHES) == {
-        (n, v) for n in ("sparse_matmul", "flash_attention")
-        for v in ("mma", "simt")}
+        ("sparse_conv", "simt"), ("sparse_conv", "mma"),
+        ("sparse_matmul", "simt"), ("sparse_matmul", "mma"),
+        ("sparse_matmul", "gemv"), ("flash_attention", "simt"),
+        ("flash_attention", "mma")}
     ops.VARIANT_LAUNCHES[("sparse_matmul", "mma")] += 3
     ops.reset_launches()
     assert not any(ops.VARIANT_LAUNCHES.values())
