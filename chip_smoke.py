@@ -14,8 +14,11 @@ Phases, in order; any failure raises and exits nonzero:
    every ResNet-50 layer shape (residual on and off, the "mma" variant,
    each layer's ``plan()`` printed) and at a block shape only "simt"
    takes, sparse_matmul at the classifier and at SmolLM-360M's decode
-   shapes ("gemv", M 1 to 8) and at f32 M = 9 ("simt"), dw_pw at every MobileNet-V1/V2
-   block shape, depthwise_conv at every dw shape of the unfused views,
+   shapes ("gemv", M 1 to 8) and at f32 M = 9 ("simt"), dw_pw at every
+   MobileNet-V1/V2 block shape ("mma", each block's ``plan()`` printed),
+   at k = 5 and 7 and at a C that is no multiple of 8 ("simt"),
+   depthwise_conv at every dw shape of the unfused views, at odd C and at
+   k = 5,
    flash_attention at SmolLM-360M's prefill shapes (T 2048 and a length
    that is no tile multiple), at short and odd lengths, windows and
    offsets, and on the reference's test grid, and sparse_matmul at
@@ -25,7 +28,8 @@ Phases, in order; any failure raises and exits nonzero:
    one launched;
 4. main paths, each with the launch counters reset just before and read
    just after, every counter checked by name, and the variant counters
-   of sparse_conv, sparse_matmul and flash_attention with them:
+   of sparse_conv, sparse_matmul, dw_pw and flash_attention with them
+   (a MobileNet request: 13 / 17 dw_pw "mma", no "simt"):
    ``serve(ServeConfig(arch=
    "resnet50" | "mobilenet_v1" | "mobilenet_v2", mode="latency",
    image_size=224))``, then one ``cnn_forward`` per MobileNet on the
@@ -302,7 +306,7 @@ def main() -> int:
             n_hmma = "no cuobjdump" if hmma[name] is None else \
                 hmma[name].get(fn, 0)
             print(f"[build] {name}: {fn}: {ptxas}; HMMA {n_hmma}")
-    for name in ("flash_attention", "sparse_matmul", "sparse_conv"):
+    for name in ("flash_attention", "sparse_matmul", "sparse_conv", "dw_pw"):
         if hmma[name] is not None and not any(
                 n for fn, n in hmma[name].items() if "_mma" in fn):
             raise AssertionError(f"{name}: no HMMA in the mma variant's SASS")
@@ -447,6 +451,16 @@ def main() -> int:
                 p[pw_s.name]["w"].to(dev), randn((node.cout,)) * 0.1, r,
                 dict(stride=node.stride, dw_relu=dw_s.relu, relu=node.relu))
 
+    def check_dw_pw(what, args, kw) -> float:
+        x, dw_w, pw_w = args[0], args[1], args[3]
+        v = dwpw.variant(x.shape[-1], pw_w.shape[1], dw_w.shape[0],
+                         kw["stride"])
+        got = launch_checked("dw_pw", v, lambda: dwpw.dw_pw(*args, **kw),
+                             what)
+        want = dwpw.dw_pw_torch(*args, **kw)
+        torch.cuda.synchronize()
+        return compare(got, want, bf16_tol, f"dw_pw {what} ({v})")
+
     dw_pw_err, dw_pw_seen = 0.0, set()
     for name in MOBILENETS:
         for node in mb_blocks[name]:
@@ -455,15 +469,42 @@ def main() -> int:
             if key in dw_pw_seen:
                 continue
             dw_pw_seen.add(key)
+            ho = node.conv_out_hw
+            if dwpw.variant(node.cin, node.cout, node.k, node.stride) != \
+                    "mma":
+                raise AssertionError(f"dw_pw {name} {node.name}: not mma")
             *args, kw = dw_pw_args(name, node)
-            got = dwpw.dw_pw(*args, **kw)
-            want = dwpw.dw_pw_torch(*args, **kw)
-            torch.cuda.synchronize()
-            dw_pw_err = max(dw_pw_err, compare(got, want, bf16_tol,
-                                               f"dw_pw {key}"))
+            dw_pw_err = max(dw_pw_err, check_dw_pw(str(key), args, kw))
+            pl = dwpw.plan(1, ho, ho, node.cin, node.cout, node.k,
+                           node.stride)
+            print(f"[plan] dw_pw {name} {node.name:8s} C {node.cin:4d} Cout "
+                  f"{node.cout:4d} out {ho:3d}x{ho:3d} s{node.stride}: {pl}")
+
+    def dw_pw_rand(n, h, c, co, k, stride, residual):
+        ho = -(-h // stride)
+        return ((randn((n, h, h, c)), randn((k, k, c)) / k,
+                 randn((c,)) * 0.1, randn((c, co)) * c ** -0.5,
+                 randn((co,)) * 0.1,
+                 randn((n, ho, ho, co)) if residual else None),
+                dict(stride=stride, dw_relu=True, relu=not residual))
+
+    # other kernel sizes through mma (at V2's 14x14 and 7x7 widths), and
+    # the CUDA-core variant at a C that is no multiple of 8
+    dw_pw_extra = [(1, 14, 384, 96, 5, 1, True), (1, 7, 960, 160, 7, 1, True),
+                   (1, 28, 192, 64, 7, 2, False), (2, 9, 36, 24, 3, 1, True)]
+    for n_, h, c, co, k, stride, residual in dw_pw_extra:
+        args, kw = dw_pw_rand(n_, h, c, co, k, stride, residual)
+        dw_pw_err = max(dw_pw_err, check_dw_pw(
+            f"k={k} C={c} Cout={co} H={h} s{stride}", args, kw))
     print(f"[check] dw_pw: {len(dw_pw_seen)} shapes (C, Cout, H, stride, "
-          f"residual, relu) of MobileNet-V1/V2, max |err| {dw_pw_err:.3e} "
-          f"within 1 bf16 ulp")
+          f"residual, relu) of MobileNet-V1/V2 (mma) + k 5 and 7 (mma) + C "
+          f"36 (simt), max |err| {dw_pw_err:.3e} within 1 bf16 ulp")
+
+    def check_dw(what, x, w, stride) -> float:
+        got = dwk.depthwise_conv(x, w, stride=stride)
+        want = dwk.depthwise_conv_torch(x, w, stride=stride)
+        torch.cuda.synchronize()
+        return compare(got, want, bf16_tol, f"depthwise_conv {what}")
 
     dw_err, dw_seen = 0.0, set()
     for name in MOBILENETS:
@@ -474,14 +515,16 @@ def main() -> int:
             dw_seen.add(key)
             x = randn((1, node.in_hw, node.in_hw, node.cin))
             w = mb_params[name][node.name]["w"].to(dev)
-            got = dwk.depthwise_conv(x, w, stride=node.stride)
-            want = dwk.depthwise_conv_torch(x, w, stride=node.stride)
-            torch.cuda.synchronize()
-            dw_err = max(dw_err, compare(got, want, bf16_tol,
-                                         f"depthwise_conv {key}"))
+            dw_err = max(dw_err, check_dw(str(key), x, w, node.stride))
+    # odd C (the masked scalar tail) and k = 5
+    for n_, h, c, k, stride in ((1, 14, 1001, 3, 1), (2, 15, 37, 3, 2),
+                                (1, 14, 576, 5, 1), (1, 28, 96, 5, 2)):
+        dw_err = max(dw_err, check_dw(
+            f"k={k} C={c} H={h} s{stride}", randn((n_, h, h, c)),
+            randn((k, k, c)) / k, stride))
     print(f"[check] depthwise_conv: {len(dw_seen)} shapes (C, H, stride) of "
-          f"the unfused MobileNet-V1/V2, max |err| {dw_err:.3e} within 1 "
-          f"bf16 ulp")
+          f"the unfused MobileNet-V1/V2 + odd C + k 5, max |err| "
+          f"{dw_err:.3e} within 1 bf16 ulp")
 
     # SmolLM-360M: its weights (on the card, from the seed), the flash
     # kernel at its prefill shapes (k, v from 5 KV heads expanded to 15)
@@ -673,7 +716,11 @@ def main() -> int:
                                 "dw_pw": MB_BLOCKS[name] * n_runs,
                                 "depthwise_conv": 0},
                        f"{name} ({n_runs} requests incl. warm-up)")
-        check_variants(dict(ops.VARIANT_LAUNCHES), {}, name)
+        served_variants = dict(ops.VARIANT_LAUNCHES)
+        # every block on the tensor cores, none on the CUDA-core variant
+        check_variants(served_variants,
+                       {("dw_pw", "mma"): MB_BLOCKS[name] * n_runs}, name)
+        add_variants(served_variants)
         mlogits = torch.from_numpy(mout["logits"])
         if mlogits.shape != (N_REQUESTS, 1000):
             raise AssertionError(f"{name}: logits {tuple(mlogits.shape)}")
@@ -710,7 +757,8 @@ def main() -> int:
             "node_err_share_of_bar": node_err}
         print(f"[main] {name}: {N_REQUESTS} requests at {IMAGE_SIZE}px: p50 "
               f"{mb_main[name]['p50_ms']:.4f} ms, p99 "
-              f"{mb_main[name]['p99_ms']:.4f} ms; launches {served}; logits "
+              f"{mb_main[name]['p99_ms']:.4f} ms; launches {served}, by "
+              f"variant {variant_str(served_variants)}; logits "
               f"vs CPU max |err| / max |logit| {err:.3e} (bar "
               f"{MB_LOGIT_RTOL}), top-1 equal; unfused view launches "
               f"{unfused_launches}, logits {unfused_err:.3e}, top-1 equal; "
@@ -988,10 +1036,12 @@ def main() -> int:
                           + m * co * (2 if r is not None else 1))
             nops = 2 * m * c * (9 + co)
             t_b, t_o = bound(nbytes, nops, torch.bfloat16)
+            pl = dwpw.plan(1, ho, ho, c, co, node.k, node.stride)
             row = {"arch": name, "layer": node.name, "C": c, "Cout": co,
                    "H": node.in_hw, "stride": node.stride,
                    "residual": r is not None, "relu": node.relu,
-                   "blocks": -(-m // 64) * -(-co // 64), "ms": ms,
+                   "variant": dwpw.variant(c, co, node.k, node.stride),
+                   "plan": pl._asdict(), "ms": ms,
                    "plain_ms": plain, "library_ms": pair,
                    "bound_ms": max(t_b, t_o), "bound_by": bound_by(t_b, t_o),
                    "bytes": nbytes, "ops": nops, "bytes_ms": t_b,
@@ -1003,7 +1053,9 @@ def main() -> int:
                   f"H{node.in_hw:4d} s{node.stride} res={int(r is not None)}"
                   f": kernel {ms * 1e3:9.3f} us, plain {plain * 1e3:9.3f} us,"
                   f" F.conv2d dw+1x1 pair {pair * 1e3:9.3f} us, bound "
-                  f"{row['bound_ms'] * 1e3:7.3f} us ({row['bound_by']})")
+                  f"{row['bound_ms'] * 1e3:7.3f} us ({row['bound_by']}); tm "
+                  f"{pl.tm} ({pl.tr}x{pl.tw}) ck {pl.ck} split {pl.split}, "
+                  f"{pl.blocks} blocks, {pl.steps} steps")
         for node in mb_dws[name]:
             c, ho = node.cin, node.conv_out_hw
             x = randn((1, node.in_hw, node.in_hw, c))
@@ -1019,8 +1071,10 @@ def main() -> int:
             nbytes = 2 * (x.numel() + w.numel() + ho * ho * c)
             nops = 2 * ho * ho * c * 9
             t_b, t_o = bound(nbytes, nops, torch.bfloat16)
+            r_px, threads = dwk.plan(1, ho, ho, c, node.k, node.stride)
             row = {"arch": name, "layer": node.name, "C": c,
-                   "H": node.in_hw, "stride": node.stride, "ms": ms,
+                   "H": node.in_hw, "stride": node.stride, "r": r_px,
+                   "threads": threads, "ms": ms,
                    "plain_ms": plain, "library_ms": lib,
                    "bound_ms": max(t_b, t_o), "bound_by": bound_by(t_b, t_o),
                    "bytes": nbytes, "ops": nops, "bytes_ms": t_b,
@@ -1032,7 +1086,8 @@ def main() -> int:
                   f"H{node.in_hw:4d} s{node.stride}: kernel "
                   f"{ms * 1e3:9.3f} us, plain {plain * 1e3:9.3f} us, "
                   f"F.conv2d(groups=C) {lib * 1e3:9.3f} us, bound "
-                  f"{row['bound_ms'] * 1e3:7.3f} us ({row['bound_by']})")
+                  f"{row['bound_ms'] * 1e3:7.3f} us ({row['bound_by']}); "
+                  f"{r_px} px x {threads} threads")
         mb_main[name]["dw_pw_per_request"] = per_req
         mb_main[name]["depthwise_per_request"] = dw_per_req
         print(f"[time] {name} per request: dw_pw x{MB_BLOCKS[name]} "
@@ -1040,7 +1095,9 @@ def main() -> int:
               f"F.conv2d pairs {per_req['library_ms']:.4f}, bound "
               f"{per_req['bound_ms']:.5f}) vs request p50 "
               f"{mb_main[name]['p50_ms']:.4f} ms; unfused depthwise "
-              f"x{MB_BLOCKS[name]} {dw_per_req['ms']:.4f} ms (bound "
+              f"x{MB_BLOCKS[name]} {dw_per_req['ms']:.4f} ms (plain "
+              f"{dw_per_req['plain_ms']:.4f}, F.conv2d(groups=C) "
+              f"{dw_per_req['library_ms']:.4f}, bound "
               f"{dw_per_req['bound_ms']:.5f})")
 
     # SmolLM-360M: the flash kernel per layer of a T=2048 prefill, beside
@@ -1181,7 +1238,9 @@ def main() -> int:
                             for n in MOBILENETS},
          "note": "ms, plain_ms, bound_ms, library_pair_ms: sums over one "
                  "request of MobileNet-V1 (13 layers) and one of "
-                 "MobileNet-V2 (17 layers)"},
+                 "MobileNet-V2 (17 layers), all mma; variants: launches "
+                 "by variant over the main paths; ptxas, hmma: per kernel "
+                 "function"},
         {"name": "depthwise_conv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/depthwise_conv.cu",
          "replaces": "src/repro/kernels/depthwise_conv.py:121",

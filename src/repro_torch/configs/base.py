@@ -4,8 +4,9 @@
 
 The LM fields are those of the dense family (GQA attention, gated FFN,
 RoPE). The MoE, SSM, hybrid, encoder-decoder and VLM fields are not
-ported with their families (ROADMAP Queue 1 item 11); asking for one of
-those archs says so instead of failing as an unknown name."""
+ported with their families (ROADMAP Queue 1, the rest of the LM side);
+asking for one of those archs says so instead of failing as an unknown
+name."""
 from __future__ import annotations
 
 import dataclasses
@@ -71,17 +72,18 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
 
 
 #: the reference's LM architectures not ported yet, with the ROADMAP
-#: item that ports each
+#: item that ports each, named by its title
+_LM_SIDE = "Queue 1, the rest of the LM side"
 UNPORTED_LM_ARCHS = {
-    "mistral-nemo-12b": "Queue 1 item 11 (dense LMs beyond smollm-360m)",
-    "qwen3-32b": "Queue 1 item 11 (dense LMs beyond smollm-360m)",
-    "granite-20b": "Queue 1 item 11 (dense LMs beyond smollm-360m)",
-    "granite-moe-3b-a800m": "Queue 1 item 11 (MoE)",
-    "moonshot-v1-16b-a3b": "Queue 1 item 11 (MoE)",
-    "whisper-large-v3": "Queue 1 item 11 (whisper, encoder-decoder)",
-    "zamba2-7b": "Queue 1 item 11 (zamba2, hybrid)",
-    "llava-next-mistral-7b": "Queue 1 item 11 (llava, VLM)",
-    "rwkv6-1.6b": "Queue 1 item 11 (rwkv6, SSM)",
+    "mistral-nemo-12b": f"{_LM_SIDE} (dense LMs beyond smollm-360m)",
+    "qwen3-32b": f"{_LM_SIDE} (dense LMs beyond smollm-360m)",
+    "granite-20b": f"{_LM_SIDE} (dense LMs beyond smollm-360m)",
+    "granite-moe-3b-a800m": f"{_LM_SIDE} (MoE)",
+    "moonshot-v1-16b-a3b": f"{_LM_SIDE} (MoE)",
+    "whisper-large-v3": f"{_LM_SIDE} (whisper, encoder-decoder)",
+    "zamba2-7b": f"{_LM_SIDE} (zamba2, hybrid)",
+    "llava-next-mistral-7b": f"{_LM_SIDE} (llava, VLM)",
+    "rwkv6-1.6b": f"{_LM_SIDE} (rwkv6, SSM)",
 }
 
 _REGISTRY: dict[str, ModelConfig] = {}

@@ -40,6 +40,7 @@ VARIANT_CODES = {"simt": 0, "mma": 1, "gemv": 2}
 #: the variants of each kernel that has more than one
 VARIANTS = {"sparse_conv": ("simt", "mma"),
             "sparse_matmul": ("simt", "mma", "gemv"),
+            "dw_pw": ("simt", "mma"),
             "flash_attention": ("simt", "mma")}
 VARIANT_LAUNCHES: dict[tuple[str, str], int] = {
     (name, v): 0 for name, vs in VARIANTS.items() for v in vs}

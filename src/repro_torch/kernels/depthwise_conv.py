@@ -70,6 +70,27 @@ def depthwise_conv_torch(x, w, *, stride: int = 1) -> torch.Tensor:
     return depthwise_acc(xp, w, stride=stride, ho=ho, wo=wo).to(x.dtype)
 
 
+MAX_K = 7              # the kernel sizes the kernel is built for: 1..MAX_K
+MIN_BLOCKS = 132       # one block for each SM of the H100
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, ho: int, wo: int, c: int, k: int,
+         stride: int) -> tuple[int, int]:
+    """(r, threads): output pixels a thread and threads a block. A
+    thread owns 8 channels of r neighbouring pixels of a row and reads
+    each input column of its window once per kernel row; r is 2 at
+    stride 1 where C is a multiple of 8, else 1 (the best of 1, 2 and 4
+    at every MobileNet shape in a sweep on the H100). A block is the
+    largest of 256, 128 and 64 threads that leaves MIN_BLOCKS blocks,
+    else 32: the small 7x7 and 14x14 layers still fill the card."""
+    r = 2 if stride == 1 and c % 8 == 0 else 1
+    items = n * ho * -(-wo // r) * -(-c // 8)
+    threads = next((t for t in (256, 128, 64)
+                    if -(-items // t) >= MIN_BLOCKS), 32)
+    return r, threads
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -77,17 +98,22 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _kernel():
     lib = _build.load("depthwise_conv")
     fn = lib.depthwise_conv_bf16
-    fn.argtypes = [_P] * 3 + [_I] * 9 + [_P]
+    fn.argtypes = [_P] * 3 + [_I] * 12 + [_P]
     fn.restype = _I
     return lib, fn
 
 
 def depthwise_conv(x, w, *, stride: int = 1) -> torch.Tensor:
     """The CUDA kernel: same function and arguments as
-    :func:`depthwise_conv_torch`, on contiguous bf16 CUDA tensors with
-    a 3x3 kernel and an even C. Raises on anything the kernel does not take; it never
-    falls back to the plain version. The output is allocated here and
-    the kernel runs on the current stream without synchronising."""
+    :func:`depthwise_conv_torch`, on contiguous bf16 CUDA tensors with a
+    k x k kernel, 1 <= k <= MAX_K, and any C (C not a multiple of 8 takes
+    masked scalar loads). Raises on anything the kernel does not take; it
+    never falls back to the plain version. The output is allocated here
+    and the kernel runs on the current stream without synchronising."""
+    k = w.shape[0]
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"depthwise_conv: a {k}x{k} kernel; the kernel is "
+                         f"built for k from 1 to {MAX_K}")
     for name, t in (("x", x), ("w", w)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"depthwise_conv: {name} must be on {x.device} "
@@ -97,19 +123,26 @@ def depthwise_conv(x, w, *, stride: int = 1) -> torch.Tensor:
         if t.dtype != torch.bfloat16:
             raise ValueError(f"depthwise_conv: {name} must be bfloat16, "
                              f"got {t.dtype}")
-    if x.dim() != 4 or tuple(w.shape) != (3, 3, x.shape[-1]) \
-            or x.shape[-1] % 2:
-        raise ValueError(f"depthwise_conv: needs x (N, H, W, C) with C even "
-                         f"and w (3, 3, C); got {tuple(x.shape)} and "
-                         f"{tuple(w.shape)}")
+    if x.dim() != 4 or w.dim() != 3 or tuple(w.shape) != (
+            w.shape[0], w.shape[0], x.shape[-1]):
+        raise ValueError(f"depthwise_conv: needs x (N, H, W, C) and w (k, "
+                         f"k, C); got {tuple(x.shape)} and {tuple(w.shape)}")
+    if stride < 1:
+        raise ValueError(f"depthwise_conv: stride {stride} < 1")
     n, h, wd, c = x.shape
-    ho, ph, _ = same_pads(h, 3, stride)
-    wo, pw, _ = same_pads(wd, 3, stride)
+    ho, ph, _ = same_pads(h, k, stride)
+    wo, pw, _ = same_pads(wd, k, stride)
     out = torch.empty((n, ho, wo, c), dtype=torch.bfloat16, device=x.device)
+    if x.numel() >= 2 ** 31 or out.numel() >= 2 ** 31:
+        raise ValueError("depthwise_conv: x and the output need < 2^31 "
+                         "elements")
+    if c % 8 == 0:                    # 16-byte vectors of 8 channels
+        x, w = _build.aligned16(x), _build.aligned16(w)
+    r, threads = plan(n, ho, wo, c, k, stride)
     lib, fn = _kernel()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, ho, wo,
-             stride, ph, pw, stream)
+             k, stride, ph, pw, r, threads, stream)
     _build.check(lib, "depthwise_conv", err)
     _build.LAUNCHES["depthwise_conv"] += 1
     return out

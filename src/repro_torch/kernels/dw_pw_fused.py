@@ -2,9 +2,12 @@
 body as one memory pass.
 
 ``dw_pw`` launches the CUDA kernel in ``csrc/dw_pw.cu``, which replaces
-the reference's ``kernels/dw_pw_fused.py::dw_pw_pallas``.
-``dw_pw_torch`` is the plain PyTorch version of the same function: the
-CPU path and the check the kernel is held to on the card.
+the reference's ``kernels/dw_pw_fused.py::dw_pw_pallas``, in the variant
+that :func:`variant` names: "mma" (tensor cores, the input halo in shared
+memory, C split over a thread-block cluster as :func:`plan` picks) or
+"simt" (CUDA cores). ``dw_pw_torch`` is the plain PyTorch version of the
+same function: the CPU path and the check both variants are held to on
+the card.
 
 The order is the Pallas kernel's (``_kernel``): the depthwise sum as in
 :mod:`repro_torch.kernels.depthwise_conv`, ``+ dw_b`` in f32, optional
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -39,8 +43,7 @@ def _row_chunk(ho: int, cap: int = 16) -> int:
 def _refuse_scale(pw_scale) -> None:
     if pw_scale is not None:
         raise NotImplementedError(
-            "int8 pw_scale in dw_pw: ROADMAP Queue 1 item 6, int8/bf16 "
-            "storage")
+            "int8 pw_scale in dw_pw: ROADMAP Queue 1, int8/bf16 storage")
 
 
 def dw_pw_torch(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
@@ -78,6 +81,121 @@ def dw_pw_torch(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
     return out
 
 
+MAX_K = 7              # the kernel sizes the kernel is built for: 1..MAX_K
+TILES = (64, 32, 16)   # output pixels a block (the mma instances)
+MAX_SPLIT = 8          # the portable thread-block cluster size
+STEPS_PER_SLICE = 3    # channel chunks a block walks at most, where S allows
+STAGES = 3             # the cp.async ring
+MIN_BLOCKS = 128       # a grid this large fills the card (a sweep)
+SMEM_MAX = 232448      # the shared memory one block may hold on sm_90
+MAX_MMA_STRIDE = 4     # beyond it the halo of a 16-pixel tile may not fit
+
+
+def variant(c: int, cout: int, k: int, stride: int = 1) -> str:
+    """The kernel variant for C input and Cout output channels, a k x k
+    depthwise and ``stride``: "mma" when C and Cout are multiples of 8
+    (16-byte copies of 8 channels; every MobileNet block) and the stride
+    is at most MAX_MMA_STRIDE, else "simt"."""
+    if c % 8 == 0 and cout % 8 == 0 and 1 <= k <= MAX_K and \
+            1 <= stride <= MAX_MMA_STRIDE:
+        return "mma"
+    return "simt"
+
+
+def smem_bytes(k: int, tm: int, tn: int, hr: int, hc: int, ck: int,
+               split: int) -> int:
+    """Dynamic shared memory of one mma block: STAGES x (input halo of
+    hr x hc pixels x ck channels, the taps, dw_b, the ck x tn pw_w tile
+    with rows padded by 8), the tm x (ck + 8) A tile and the split slots
+    of f32 partial rows (``MmaSmem`` in ``csrc/dw_pw.cu``)."""
+    def r16(b):
+        return -(-b // 16) * 16
+    stage = (r16(hr * hc * ck * 2) + r16(k * k * ck * 2) + r16(ck * 2)
+             + ck * (tn + 8) * 2)
+    return (STAGES * stage + tm * (ck + 8) * 2
+            + split * -(-tm // split) * (tn + 4) * 4)
+
+
+class Plan(NamedTuple):
+    tm: int        # the A tile's rows: output pixels a block at most
+    tn: int        # output channels a block (on 2 * tn threads)
+    tr: int        # output rows of a pixel tile
+    tw: int        # output columns of a pixel tile (tr * tw <= tm)
+    ck: int        # channels a chunk
+    split: int     # cluster size: the blocks that share one output tile
+    blocks: int    # the grid's blocks
+    steps: int     # chunks the busiest block walks
+    smem: int      # dynamic shared memory a block, bytes
+
+
+def tile_shape(tm: int, ho: int, wo: int) -> tuple[int, int]:
+    """(tr, tw): whole output rows of one image where a row fits in tm
+    pixels (so the halo is a rectangle), else tm columns of one row."""
+    if wo >= tm:
+        return 1, tm
+    return min(tm // wo, ho), wo
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, ho: int, wo: int, c: int, cout: int, k: int,
+         stride: int) -> Plan:
+    """The mma variant's tiles and split for an (n, ho, wo) output.
+
+    At batch 1 a block's time is a chain: a launch, then one dependent
+    step (loads, depthwise, product) per chunk of channels, and (split >
+    1) one cluster barrier, ~0.5 us on the H100. So C goes in chunks of
+    64 channels (32 where C < 64, or where 64 do not fit), and the chunks
+    are split over a cluster of the least power of two S <= MAX_SPLIT
+    that leaves each block at most STEPS_PER_SLICE of them: for C <= 1536
+    no block walks more than 3 chunks. A block takes 128 output channels
+    on 256 threads where Cout > 64 (the depthwise, which each Cout tile
+    recomputes, is then done half as often and by twice the threads),
+    else 64 on 128. The pixel tile is the largest of
+    TILES whose grid still has MIN_BLOCKS blocks, within the shared
+    memory a block may hold; where even the smallest leaves SMs idle, S
+    doubles (up to MAX_SPLIT and one chunk a block) until the grid has
+    MIN_BLOCKS. Against a sweep of every tile, Cout tile, chunk and split
+    that fits, at the 21 MobileNet block shapes on the H100, the plan is
+    within 0.5 us of the best at 19 and within 0.8 us at all of them
+    (tools/sweep_dw_pw.py; PERF.md)."""
+    tn = 128 if cout > 64 else 64
+    for ck in ((64, 32) if c >= 64 else (32,)):
+        chunks = -(-c // ck)
+        split = 1
+        while split < MAX_SPLIT and split * STEPS_PER_SLICE < chunks:
+            split *= 2
+        fits = []
+        for tm in TILES:
+            tr, tw = tile_shape(tm, ho, wo)
+            hr, hc = (tr - 1) * stride + k, (tw - 1) * stride + k
+            smem = smem_bytes(k, tm, tn, hr, hc, ck, split)
+            if smem > SMEM_MAX:
+                continue
+            blocks = (n * -(-ho // tr) * -(-wo // tw) * -(-cout // tn)
+                      * split)
+            fits.append(Plan(tm, tn, tr, tw, ck, split, blocks,
+                             -(-chunks // split), smem))
+        for p in fits:
+            if p.blocks >= MIN_BLOCKS:
+                return p
+        while fits:
+            # the smallest tile still leaves SMs idle: split C further,
+            # which also shortens each block's chain
+            p = fits[-1]
+            if (p.blocks >= MIN_BLOCKS or p.split == MAX_SPLIT
+                    or 2 * p.split > chunks):
+                return p
+            hr, hc = (p.tr - 1) * stride + k, (p.tw - 1) * stride + k
+            smem = smem_bytes(k, p.tm, tn, hr, hc, ck, 2 * p.split)
+            if smem > SMEM_MAX:
+                return p
+            fits[-1] = p._replace(split=2 * p.split, blocks=2 * p.blocks,
+                                  steps=-(-chunks // (2 * p.split)),
+                                  smem=smem)
+    raise ValueError(f"dw_pw: no mma tile fits k={k}, stride={stride}, "
+                     f"W_out={wo} in {SMEM_MAX} bytes of shared memory")
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -85,7 +203,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _kernel():
     lib = _build.load("dw_pw")
     fn = lib.dw_pw_bf16
-    fn.argtypes = [_P] * 7 + [_I] * 12 + [_P]
+    fn.argtypes = [_P] * 7 + [_I] * 20 + [_P]
     fn.restype = _I
     return lib, fn
 
@@ -94,12 +212,17 @@ def dw_pw(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
           stride: int = 1, dw_relu: bool = True,
           relu: bool = True) -> torch.Tensor:
     """The CUDA kernel: same function and arguments as
-    :func:`dw_pw_torch`, on contiguous bf16 CUDA tensors with a 3x3
-    depthwise (every MobileNet block). Raises on
-    anything the kernel does not take; it never falls back to the plain
-    version. The output is allocated here and the kernel runs on the
-    current stream without synchronising."""
+    :func:`dw_pw_torch`, on contiguous bf16 CUDA tensors with a k x k
+    depthwise, 1 <= k <= MAX_K, in the variant :func:`variant` names.
+    Raises on anything the kernel does not take, and if the launch fails
+    (a cluster launch included); it never falls back to the plain version
+    or to the other variant. The output is allocated here and the kernel
+    runs on the current stream without synchronising."""
     _refuse_scale(pw_scale)
+    k = dw_w.shape[0]
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"dw_pw: a {k}x{k} depthwise; the kernel is built "
+                         f"for k from 1 to {MAX_K}")
     tensors = {"x": x, "dw_w": dw_w, "dw_b": dw_b, "pw_w": pw_w,
                "pw_b": pw_b}
     if residual is not None:
@@ -118,28 +241,39 @@ def dw_pw(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
                          f"pw_w (C, Cout); got {tuple(x.shape)}, "
                          f"{tuple(dw_w.shape)}, {tuple(pw_w.shape)}")
     n, h, w, c = x.shape
-    k = dw_w.shape[0]
     co = pw_w.shape[1]
-    if (k != 3 or tuple(dw_w.shape) != (k, k, c)
-            or tuple(dw_b.shape) != (c,) or pw_w.shape[0] != c
-            or tuple(pw_b.shape) != (co,)):
+    if (tuple(dw_w.shape) != (k, k, c) or tuple(dw_b.shape) != (c,)
+            or pw_w.shape[0] != c or tuple(pw_b.shape) != (co,)):
         raise ValueError(f"dw_pw: dw_w {tuple(dw_w.shape)}, dw_b "
                          f"{tuple(dw_b.shape)}, pw_w {tuple(pw_w.shape)}, "
-                         f"pw_b {tuple(pw_b.shape)} do not fit C={c} "
-                         f"with a 3x3 depthwise")
+                         f"pw_b {tuple(pw_b.shape)} do not fit C={c}")
+    if stride < 1:
+        raise ValueError(f"dw_pw: stride {stride} < 1")
     ho, ph, _ = same_pads(h, k, stride)
     wo, pw, _ = same_pads(w, k, stride)
     out = torch.empty((n, ho, wo, co), dtype=torch.bfloat16, device=x.device)
     if residual is not None and residual.shape != out.shape:
         raise ValueError(f"dw_pw: residual {tuple(residual.shape)} != "
                          f"output {tuple(out.shape)}")
+    if x.numel() >= 2 ** 31 or out.numel() >= 2 ** 31:
+        raise ValueError("dw_pw: x and the output need < 2^31 elements")
+    v = variant(c, co, k, stride)
+    p = plan(n, ho, wo, c, co, k, stride) if v == "mma" else None
+    if v == "mma":
+        x, dw_w, dw_b, pw_w, pw_b = (_build.aligned16(t) for t in
+                                     (x, dw_w, dw_b, pw_w, pw_b))
+        if residual is not None:
+            residual = _build.aligned16(residual)
     lib, fn = _kernel()
     err = fn(x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
              pw_b.data_ptr(),
              None if residual is None else residual.data_ptr(),
-             out.data_ptr(), n, h, w, c, ho, wo, stride, ph, pw, co,
-             int(dw_relu), int(relu),
+             out.data_ptr(), n, h, w, c, ho, wo, k, stride, ph, pw, co,
+             int(dw_relu), int(relu), _build.VARIANT_CODES[v],
+             *((p.tm, p.tn, p.tr, p.tw, p.ck, p.split) if p else
+               (0, 0, 0, 0, 0, 1)),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, "dw_pw", err)
     _build.LAUNCHES["dw_pw"] += 1
+    _build.VARIANT_LAUNCHES[("dw_pw", v)] += 1
     return out

@@ -9,8 +9,8 @@ switch that sends a CUDA tensor down the plain path.
 with ``reset_launches``): the CUDA wrappers add one per launch, so a
 run can show that its main path went through the kernels.
 ``VARIANT_LAUNCHES`` counts the launches of ``sparse_conv``,
-``sparse_matmul`` and ``flash_attention`` by (name, variant), the
-variants of each in ``_build.VARIANTS``.
+``sparse_matmul``, ``dw_pw`` and ``flash_attention`` by (name, variant),
+the variants of each in ``_build.VARIANTS``.
 """
 from __future__ import annotations
 

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.device import resolve_device
+from repro_torch.core.quant import STORE_DTYPES
 from repro_torch.models import cnn, lm
 from repro_torch.models.layers import SparseWeight
 
@@ -35,10 +36,12 @@ from repro_torch.models.layers import SparseWeight
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Everything ``serve()`` needs, in one frozen value; the reference's
-    field names, plus ``device``. ``n_stages`` defaults to 1 here: the
-    stage pipeline is not ported yet, and in latency mode the reference's
-    composed stages equal the sequential forward bitwise, so one chain
-    is the same function."""
+    field names, defaults and validation, plus ``device``. ``image_size``
+    is the reference's 64: ``main()``'s ``--image-size`` and
+    ``chip_smoke.py`` ask for the paper's 224 explicitly. ``n_stages``
+    defaults to 1 here: the stage pipeline is not ported yet, and in
+    latency mode the reference's composed stages equal the sequential
+    forward bitwise, so one chain is the same function."""
     arch: str
     mode: str = "throughput"            # "latency" | "throughput"
     continuous: bool = False
@@ -49,7 +52,7 @@ class ServeConfig:
     batch: int = 16                     # LM archs: sequences per batch
     n_requests: int = 4
     n_stages: int = 1
-    image_size: int = 224
+    image_size: int = 64
     seed: int = 0
     verbose: bool = True
     device: str = "cuda"
@@ -58,11 +61,17 @@ class ServeConfig:
         if self.mode not in ("latency", "throughput"):
             raise ValueError(f"mode={self.mode!r}: expected 'latency' "
                              "or 'throughput'")
+        if self.quantize not in STORE_DTYPES:
+            raise ValueError(f"quantize={self.quantize!r}: expected one "
+                             f"of {STORE_DTYPES}")
         if self.mode == "latency" and (self.continuous or self.tier or
                                        self.procs or self.hosts):
             raise ValueError("mode='latency' serves one image at a time "
                              "— continuous/tier/procs/hosts are "
                              "throughput-mode knobs")
+        if self.procs and self.hosts:
+            raise ValueError("procs and hosts are exclusive: same-host "
+                             "socketpair workers OR TCP dial-in workers")
         if self.n_requests < 1:
             raise ValueError(f"n_requests={self.n_requests}: need >= 1")
 

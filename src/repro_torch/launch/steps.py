@@ -1,6 +1,6 @@
 """LM step functions for serving (counterpart of the reference's
 ``src/repro/launch/steps.py``, prefill and decode; training is not
-ported, ROADMAP Queue 1 item 11).
+ported, ROADMAP Queue 1, the rest of the LM side).
 
 The reference's ``remat`` and ``unroll`` knobs shape a traced program;
 the port runs eagerly and has neither."""

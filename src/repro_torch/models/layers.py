@@ -216,8 +216,8 @@ def attention(p: dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
         if t != 1:
             raise NotImplementedError(
                 "a multi-token step into a KV cache (the reference's "
-                "kv_len branch of blockwise_attention): ROADMAP Queue 1 "
-                "item 11 (chunked prefill)")
+                "kv_len branch of blockwise_attention): ROADMAP Queue 1, "
+                "the rest of the LM side (chunked prefill)")
         ck, cv = kv_cache                      # (B, S, KV, Dh)
         ck[:, cache_pos] = k[:, 0].to(ck.dtype)
         cv[:, cache_pos] = v[:, 0].to(cv.dtype)

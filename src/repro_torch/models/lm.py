@@ -14,7 +14,7 @@ tied. The layer loop is a Python loop over views of layer l.
 
 ``forward`` and ``decode_step`` run where the parameters are. The MoE,
 SSM, hybrid, encoder-decoder and VLM families, ``loss_fn`` and remat
-are not ported (ROADMAP Queue 1 item 11).
+are not ported (ROADMAP Queue 1, the rest of the LM side).
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ def _check_family(cfg) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet: ROADMAP "
-            "Queue 1 item 11")
+            "Queue 1, the rest of the LM side")
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's slice as a whole vs the JAX reference: sparse ResNet-50 at
 full width and 32 px, on the reference's own weights carried across with
 ``params_from_numpy``; the port's serving path; and the entry points'
-refusal to run anywhere but the card unless asked."""
+refusal to run anywhere but the card unless asked; ``ServeConfig``
+refusing what the reference's refuses."""
 import numpy as np
 import pytest
 
@@ -11,6 +12,7 @@ import jax  # noqa: E402
 
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
+from repro.launch.serve import ServeConfig as RefServeConfig  # noqa: E402
 from repro.models import cnn as ref_cnn  # noqa: E402
 from repro.models.layers import SparseWeight as RefSparseWeight  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -211,3 +213,42 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SparseWeight(torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, dtype=torch.int32),
                      16, scale=torch.ones(1, 4))
+
+
+# keyword sets that both ServeConfigs take (the port's extra ``device``
+# aside): each is refused by both or accepted by both
+_SERVE_CONFIG_KW = [
+    {}, {"mode": "latency"}, {"mode": "bogus"},
+    {"quantize": "bogus"}, {"quantize": "int8"}, {"quantize": "bf16"},
+    {"quantize": "f32"}, {"mode": "latency", "quantize": "bogus"},
+    {"procs": 1, "hosts": 1}, {"procs": 2}, {"hosts": 2},
+    {"mode": "latency", "procs": 1}, {"mode": "latency", "hosts": 1},
+    {"mode": "latency", "continuous": True}, {"mode": "latency", "tier": True},
+    {"continuous": True, "tier": True}, {"image_size": 224},
+]
+
+
+@pytest.mark.parametrize("kw", _SERVE_CONFIG_KW, ids=str)
+def test_serve_config_refuses_what_the_reference_refuses(kw):
+    """The port's ServeConfig and the reference's, side by side on the
+    same keywords: both raise ValueError or neither does, and the
+    accepted ones agree on every shared field's value."""
+    def build(cls):
+        try:
+            return cls(arch="resnet50", **kw)
+        except ValueError:
+            return None
+    ref, port = build(RefServeConfig), build(ServeConfig)
+    assert (ref is None) == (port is None), (ref, port)
+    if port is not None:
+        for field in ("mode", "quantize", "procs", "hosts", "image_size",
+                      "seed", "n_requests", "batch"):
+            assert getattr(port, field) == getattr(ref, field), field
+
+
+def test_serve_config_defaults_and_refusals():
+    assert ServeConfig(arch="resnet50").image_size == 64
+    with pytest.raises(ValueError, match="quantize"):
+        ServeConfig(arch="resnet50", quantize="bogus")
+    with pytest.raises(ValueError, match="exclusive"):
+        ServeConfig(arch="resnet50", procs=1, hosts=1)

@@ -211,31 +211,65 @@ DW_SHAPES = sorted({(n.cin, n.in_hw, n.stride)
                     if n.kind == "dw"})
 
 
-def _dw_pw_inputs(gen, n, c, co, h, stride, residual, dev):
+def _dw_pw_inputs(gen, n, c, co, h, stride, residual, dev, k=3):
     def rnd(shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(
             dev, torch.bfloat16)
     ho = -(-h // stride)
-    return (rnd((n, h, h, c)), rnd((3, 3, c), 1 / 3), rnd((c,), 0.1),
+    return (rnd((n, h, h, c)), rnd((k, k, c), 1 / k), rnd((c,), 0.1),
             rnd((c, co), c ** -0.5), rnd((co,), 0.1),
             rnd((n, ho, ho, co)) if residual else None)
+
+
+def _check_dw_pw(dev, shape, k=3):
+    """Both ReLU settings of the depthwise at one shape, each launch in
+    the variant ``variant()`` names, within 1 bf16 ulp of the plain
+    version."""
+    c, co, h, stride, residual, relu = shape
+    n = 1 if h > 9 else 2
+    gen = torch.Generator().manual_seed(c + co + h + k)
+    x, dw_w, dw_b, pw_w, pw_b, r = _dw_pw_inputs(gen, n, c, co, h, stride,
+                                                 residual, dev, k)
+    v = dwpw.variant(c, co, k, stride)
+    for dw_relu in (True, False):
+        kw = dict(stride=stride, dw_relu=dw_relu, relu=relu)
+        ops.reset_launches()
+        got = dwpw.dw_pw(x, dw_w, dw_b, pw_w, pw_b, r, **kw)
+        _assert_variant("dw_pw", v)
+        want = dwpw.dw_pw_torch(x, dw_w, dw_b, pw_w, pw_b, r, **kw)
+        torch.cuda.synchronize()
+        _bf16_close(got, want)
+    return v
 
 
 @pytest.mark.parametrize("shape", DW_PW_SHAPES + [(24, 40, 9, 2, False, True),
                                                   (48, 24, 7, 1, True, False)],
                          ids=str)
 def test_dw_pw_kernel_matches_plain(dev, shape):
-    c, co, h, stride, residual, relu = shape
-    n = 1 if h > 9 else 2
-    gen = torch.Generator().manual_seed(c + co + h)
-    x, dw_w, dw_b, pw_w, pw_b, r = _dw_pw_inputs(gen, n, c, co, h, stride,
-                                                 residual, dev)
-    for dw_relu in (True, False):
-        kw = dict(stride=stride, dw_relu=dw_relu, relu=relu)
-        got = dwpw.dw_pw(x, dw_w, dw_b, pw_w, pw_b, r, **kw)
-        want = dwpw.dw_pw_torch(x, dw_w, dw_b, pw_w, pw_b, r, **kw)
-        torch.cuda.synchronize()
-        _bf16_close(got, want)
+    """Every MobileNet block shape (and two at batch 2) takes mma."""
+    assert _check_dw_pw(dev, shape) == "mma"
+
+
+# (k, C, Cout, H, stride, residual, relu): k 1 to 7 through the mma
+# variant, at one and two image rows a tile, stride 1 and 2, C over a
+# cluster; C or Cout not a multiple of 8 takes simt, at k 3 and 5
+DW_PW_K_CASES = [
+    (5, 96, 64, 14, 1, True, False), (5, 576, 160, 7, 2, False, True),
+    (7, 128, 128, 28, 1, False, True), (7, 384, 64, 14, 2, True, False),
+    (1, 64, 32, 12, 1, False, True), (1, 512, 96, 7, 2, True, True),
+    (2, 32, 48, 10, 1, False, True), (4, 64, 24, 9, 2, True, False),
+    (6, 256, 40, 11, 1, False, True),
+    (3, 36, 24, 9, 1, True, True), (5, 44, 20, 8, 2, False, True),
+    (3, 64, 20, 7, 1, True, False),
+]
+
+
+@pytest.mark.parametrize("case", DW_PW_K_CASES, ids=str)
+def test_dw_pw_kernel_sizes_and_simt_match_plain(dev, case):
+    k, *shape = case
+    c, co = shape[0], shape[1]
+    want = "mma" if c % 8 == 0 and co % 8 == 0 else "simt"
+    assert _check_dw_pw(dev, tuple(shape), k) == want
 
 
 @pytest.mark.parametrize("shape", DW_SHAPES + [(24, 9, 2), (40, 8, 1)],
@@ -247,6 +281,30 @@ def test_depthwise_conv_kernel_matches_plain(dev, shape):
     x = torch.randn((n, h, h, c), generator=gen).to(dev, torch.bfloat16)
     w = (torch.randn((3, 3, c), generator=gen) / 3).to(dev, torch.bfloat16)
     got = dw.depthwise_conv(x, w, stride=stride)
+    want = dw.depthwise_conv_torch(x, w, stride=stride)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+
+
+# (k, C, H, stride, N): odd C and C not a multiple of 8 (the masked
+# tail), k 1 to 7, stride 1, 2 and 3 (one pixel a thread)
+DW_K_CASES = [
+    (3, 3, 9, 1, 2), (3, 37, 14, 2, 1), (3, 1001, 7, 1, 1),
+    (5, 96, 14, 1, 1), (5, 33, 12, 2, 2), (7, 64, 13, 1, 1),
+    (7, 20, 15, 2, 1), (1, 24, 9, 1, 2), (2, 16, 8, 2, 1),
+    (4, 8, 10, 1, 1), (6, 40, 9, 1, 1), (3, 32, 13, 3, 1),
+]
+
+
+@pytest.mark.parametrize("case", DW_K_CASES, ids=str)
+def test_depthwise_conv_odd_c_and_kernel_sizes_match_plain(dev, case):
+    k, c, h, stride, n = case
+    gen = torch.Generator().manual_seed(k * 100 + c + h)
+    x = torch.randn((n, h, h, c), generator=gen).to(dev, torch.bfloat16)
+    w = (torch.randn((k, k, c), generator=gen) / k).to(dev, torch.bfloat16)
+    ops.reset_launches()
+    got = dw.depthwise_conv(x, w, stride=stride)
+    _assert_launches({"depthwise_conv": 1})
     want = dw.depthwise_conv_torch(x, w, stride=stride)
     torch.cuda.synchronize()
     _bf16_close(got, want)
@@ -268,6 +326,8 @@ def test_mobilenet_on_card_matches_cpu_and_uses_the_kernels(dev, name):
                          "depthwise_conv": 0}
         want_launches[key] = blocks
         _assert_launches(want_launches)
+        if key == "dw_pw":                    # every block on the mma
+            _assert_variant("dw_pw", "mma", blocks)
         want = cnn.cnn_forward(cfg, cpu, x, graph=graph, device="cpu")
         scale = float(want.abs().max())
         assert scale > 0

@@ -163,6 +163,7 @@ def test_cuda_wrappers_refuse_cpu_tensors(monkeypatch):
     with pytest.raises(ValueError):
         dwpw.dw_pw(x, dw_w, dw_b, pw_w, pw_b)
     for fn in (dwpw.dw_pw, dwpw.dw_pw_torch):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1, int8/bf16 storage"):
             fn(x, dw_w, dw_b, pw_w, pw_b, pw_scale=torch.ones(16))
     assert built == []

@@ -249,8 +249,8 @@ def test_variant_counters_reset_with_the_launch_counters():
     assert set(ops.VARIANT_LAUNCHES) == {
         ("sparse_conv", "simt"), ("sparse_conv", "mma"),
         ("sparse_matmul", "simt"), ("sparse_matmul", "mma"),
-        ("sparse_matmul", "gemv"), ("flash_attention", "simt"),
-        ("flash_attention", "mma")}
+        ("sparse_matmul", "gemv"), ("dw_pw", "simt"), ("dw_pw", "mma"),
+        ("flash_attention", "simt"), ("flash_attention", "mma")}
     ops.VARIANT_LAUNCHES[("sparse_matmul", "mma")] += 3
     ops.reset_launches()
     assert not any(ops.VARIANT_LAUNCHES.values())

@@ -111,7 +111,8 @@ def test_config_matches_reference_field_for_field(size):
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "rwkv6-1.6b",
                                   "granite-moe-3b-a800m", "whisper-large-v3"])
 def test_unported_lm_archs_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1, the rest of the LM side"):
         get_config(arch)
 
 
@@ -245,7 +246,8 @@ def test_multi_token_step_into_a_cache_raises():
     _, cfg, _, params = _model()
     p = lm._layer(params["blocks"], 0)
     cache = lm.init_cache(cfg, 1, 8, device="cpu")["kv"][0]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1, the rest of the LM side"):
         L.attention(p["attn"], cfg, torch.zeros(1, 2, cfg.d_model,
                                                 dtype=torch.bfloat16),
                     positions=torch.zeros(1, 2, dtype=torch.long),
