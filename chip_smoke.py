@@ -23,18 +23,28 @@ Phases, in order; any failure raises and exits nonzero:
    that is no tile multiple), at short and odd lengths, windows and
    offsets, and on the reference's test grid, and sparse_matmul at
    SmolLM-360M's 64 x 64 FFN blocks and at 32 x 32 blocks, at M 4 to
-   2048; each check also asserts the variant ("mma": tensor cores,
-   "simt": CUDA cores, "gemv": M <= 8) that ``variant()`` names was the
-   one launched;
+   2048; then the stored weights: int8 codes with their scales through
+   sparse_conv "mma" at every ResNet-50 layer shape (residual on and
+   off), the int8 classifier through "gemv", int8 dw_pw "mma" at every
+   MobileNet block shape, and one "simt" shape each in int8 and in f32
+   (sparse_conv, sparse_matmul, dw_pw); each check also asserts the
+   variant ("mma": tensor cores, "simt": CUDA cores, "gemv": M <= 8) that
+   ``variant()`` names was the one launched;
 4. main paths, each with the launch counters reset just before and read
    just after, every counter checked by name, and the variant counters
    of sparse_conv, sparse_matmul, dw_pw and flash_attention with them
    (a MobileNet request: 13 / 17 dw_pw "mma", no "simt"):
    ``serve(ServeConfig(arch=
    "resnet50" | "mobilenet_v1" | "mobilenet_v2", mode="latency",
-   image_size=224))``, then one ``cnn_forward`` per MobileNet on the
-   unfused view (``graph_for(name)``); the card's logits are held against
-   the port's plain CPU forward on the same weights and images. Then
+   image_size=224, quantize=q))`` at q native and int8 (ResNet-50 also
+   bf16 and f32), each request a replay of one CUDA graph, and the same
+   requests eagerly (``_serve_cnn_latency(cfg, capture=False)``): the
+   launches captured in the graph are one request's, checked by name and
+   variant (the counters count the warm-up and the capture: a replay
+   runs no Python), the graph's logits equal the eager ones bit for bit,
+   and both are held against the port's plain CPU forward on the same
+   stored weights and images; then one ``cnn_forward`` per MobileNet on
+   the unfused view (``graph_for(name)``). Then
    SmolLM-360M at full width and depth: ``make_prefill_step`` on 2048
    random tokens (32 flash_attention + 96 sparse_matmul launches, all
    "mma"), a prefill at T 256 held against the port's CPU forward, and
@@ -47,11 +57,27 @@ Phases, in order; any failure raises and exits nonzero:
    single call does, and the two-call depthwise + 1x1 ``F.conv2d`` pair
    is timed as a labelled yardstick; for flash_attention
    ``F.scaled_dot_product_attention`` on the same expanded tensors) and
-   its bound (sparse_conv per layer with its plan, and summed by K);
+   its bound (sparse_conv per layer with its plan, and summed by K); the
+   int8 kernels beside the bf16 ones at the same shapes, their bound
+   counting a byte a weight; eager and graph p50/p99 of every serving run
+   above and the stored bytes of each CNN at each store dtype;
    SmolLM-360M's prefill latency and ``serve_lm``'s times;
 6. one ``{"kernels": [...]}`` line, then the device line last.
 
 Per-layer numbers are also written to ``build/chip_smoke.json``.
+
+The first build compiles five sources, one nvcc each, in parallel; the
+stored weight type is a template argument: sparse_conv's mma and simt
+for bf16 and int8 (simt also f32), sparse_matmul's gemv for bf16 and
+int8 x f32 and bf16 inputs at 4 row counts x 3 block sizes (48) and simt
+for all three, dw_pw's mma at k 1-7 for bf16 (42) and at k 3 for int8
+(6), its simt at k 1-7 for bf16 and at k 3 for int8 and f32.
+
+Serving alone, on the card's machine from the root of a checkout:
+``PYTHONPATH=src python -m repro_torch.launch.serve --arch mobilenet_v2
+--quantize int8`` (50 requests at 224 px, each a CUDA graph replay;
+``--quantize`` native, f32, bf16 or int8); add ``--device cpu
+--image-size 32`` for the CPU's plain path.
 """
 from __future__ import annotations
 
@@ -267,6 +293,8 @@ def main() -> int:
     from repro_torch.configs import SparsityConfig, get_config
     from repro_torch.core.fusion import conv_part, fused_graph_for
     from repro_torch.core.graph import INPUT, graph_for
+    from repro_torch.core.quant import (STORE_DTYPES, pytree_param_bytes,
+                                        quantize_tree)
     from repro_torch.core.sparsity import densify, to_block_balanced
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import depthwise_conv as dwk
@@ -274,7 +302,8 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import sparse_conv as sc
     from repro_torch.kernels import sparse_matmul as sm
-    from repro_torch.launch.serve import ServeConfig, serve, serve_lm
+    from repro_torch.launch.serve import (ServeConfig, _serve_cnn_latency,
+                                          serve, serve_lm)
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import cnn, lm
     from repro_torch.models import layers as lm_layers
@@ -292,7 +321,9 @@ def main() -> int:
 
     # -- 2. build ---------------------------------------------------------
     build_s = _build.build_all()
-    print(f"[build] {len(_build.SOURCES)} kernels in {build_s:.1f}s")
+    print(f"[build] {len(_build.SOURCES)} kernels in {build_s:.1f}s (each "
+          f"source's nvcc, in parallel: "
+          f"{ {n: round(t, 1) for n, t in _build.BUILD_SECONDS.items()} })")
     resources, hmma = {}, {}
     for name in _build.SOURCES:
         resources[name] = ptxas_resources(_build.BUILD_LOG.get(name, ""))
@@ -348,11 +379,11 @@ def main() -> int:
         return out
 
     def check_conv(what, x, sw, b, r, relu, **kw) -> float:
-        v = sc.variant(*sw.vals.shape[2:])
+        v = sc.variant(*sw.vals.shape[2:], sw.vals.dtype)
         got = launch_checked("sparse_conv", v, lambda: sc.sparse_conv(
-            x, sw.vals, sw.idx, b, r, relu=relu, **kw), what)
-        want = sc.sparse_conv_torch(x, sw.vals, sw.idx, b, r, relu=relu,
-                                    **kw)
+            x, sw.vals, sw.idx, b, r, sw.scale, relu=relu, **kw), what)
+        want = sc.sparse_conv_torch(x, sw.vals, sw.idx, b, r, sw.scale,
+                                    relu=relu, **kw)
         torch.cuda.synchronize()
         return compare(got, want, bf16_tol, f"sparse_conv {what} ({v})")
 
@@ -395,7 +426,8 @@ def main() -> int:
           f"{conv_err:.3e} within 1 bf16 ulp")
 
     def check_mm(what: str, x, sw, tol) -> float:
-        v = sm.variant(x.dtype, x.shape[0], *sw.vals.shape[2:])
+        v = sm.variant(x.dtype, x.shape[0], *sw.vals.shape[2:],
+                       sw.vals.dtype)
         got = launch_checked("sparse_matmul", v, lambda: sm.sparse_matmul(
             x, sw.vals, sw.idx), what)
         want = sm.sparse_matmul_torch(x, sw.vals, sw.idx)
@@ -454,7 +486,7 @@ def main() -> int:
     def check_dw_pw(what, args, kw) -> float:
         x, dw_w, pw_w = args[0], args[1], args[3]
         v = dwpw.variant(x.shape[-1], pw_w.shape[1], dw_w.shape[0],
-                         kw["stride"])
+                         kw["stride"], pw_w.dtype)
         got = launch_checked("dw_pw", v, lambda: dwpw.dw_pw(*args, **kw),
                              what)
         want = dwpw.dw_pw_torch(*args, **kw)
@@ -605,16 +637,100 @@ def main() -> int:
           f"(all cases) {mm_err:.3e} within tolerance; checks by variant "
           f"{ {f'{n}/{v}': c for (n, v), c in checked_variants.items()} }")
 
+    # stored weights: int8 codes with their scale (the int8 store) at every
+    # main-path shape through the tensor-core variants, the classifier
+    # through gemv; int8 and f32 (the f32 store) once each through simt
+    params_q = {"int8": quantize_tree(params_cpu, "int8"),
+                "f32": quantize_tree(params_cpu, "f32")}
+    q_err = {"sparse_conv": 0.0, "sparse_matmul": 0.0, "dw_pw": 0.0}
+    conv_shapes = set()
+    for node in layers:
+        sw = params_q["int8"][conv_part(node).name]["w"].to(dev)
+        key = (node.k, node.stride, node.cin, node.cout, sw.vals.shape[1],
+               node.in_hw)
+        if key in conv_shapes:
+            continue
+        conv_shapes.add(key)
+        if sc.variant(*sw.vals.shape[2:], sw.vals.dtype) != "mma":
+            raise AssertionError(f"int8 sparse_conv {node.name}: not mma")
+        ho = node.conv_out_hw
+        x = randn((1, node.in_hw, node.in_hw, node.cin))
+        b = randn((node.cout,)) * 0.1
+        res = randn((1, ho, ho, node.cout))
+        for r, relu in ((None, node.relu), (res, True)):
+            q_err["sparse_conv"] = max(q_err["sparse_conv"], check_conv(
+                f"int8 {key} res={r is not None}", x, sw, b, r, relu,
+                k=node.k, stride=node.stride))
+    # simt: int8 8x8 blocks; f32 32x32 blocks (a ResNet-50 layer's)
+    w8_simt = quantize_tree({"l": {"w": w_simt.to("cpu")}},
+                            "int8")["l"]["w"].to(dev)
+    q_err["sparse_conv"] = max(q_err["sparse_conv"], check_conv(
+        "int8 8x8 blocks batch 2", randn((2, 9, 9, 64)), w8_simt,
+        randn((48,)) * 0.1, randn((2, 9, 9, 48)), True, k=3, stride=1))
+    node = layers[4]
+    sw32 = params_q["f32"][conv_part(node).name]["w"].to(dev)
+    q_err["sparse_conv"] = max(q_err["sparse_conv"], check_conv(
+        f"f32 {node.name}", randn((1, node.in_hw, node.in_hw, node.cin)),
+        sw32, (randn((node.cout,)) * 0.1).float(), None, node.relu,
+        k=node.k, stride=node.stride))
+    fc8 = params_q["int8"]["fc"]["w"].to(dev)
+    fc32 = params_q["f32"]["fc"]["w"].to(dev)
+    for what, x, sw in (("fc M=1 f32 x int8", randn((1, 2048), torch.float32),
+                         fc8),
+                        ("fc blocks M=9 f32 x int8",
+                         randn((9, 2048), torch.float32), fc8),
+                        ("fc M=1 f32 x f32", randn((1, 2048), torch.float32),
+                         fc32)):
+        q_err["sparse_matmul"] = max(q_err["sparse_matmul"],
+                                     check_mm(what, x, sw, f32_tol))
+    mb_q = {name: quantize_tree(mb_params[name], "int8")
+            for name in MOBILENETS}
+    for name in MOBILENETS:
+        seen = set()
+        for node in mb_blocks[name]:
+            key = (node.cin, node.cout, node.in_hw, node.stride,
+                   bool(node.residual_from), node.relu)
+            if key in seen:
+                continue
+            seen.add(key)
+            x, dw_w, dw_b, _, pw_b, r, kw = dw_pw_args(name, node)
+            pw = mb_q[name][node.parts[1].name]["w"].to(dev)
+            if dwpw.variant(node.cin, node.cout, node.k, node.stride,
+                            pw.codes.dtype) != "mma":
+                raise AssertionError(f"int8 dw_pw {name} {node.name}: "
+                                     f"not mma")
+            q_err["dw_pw"] = max(q_err["dw_pw"], check_dw_pw(
+                f"int8 {key}", (x, dw_w, dw_b, pw.codes, pw_b, r,
+                                pw.scale), kw))
+    (x, dw_w, dw_b, pw_w, pw_b, r), kw = dw_pw_rand(2, 9, 36, 24, 3, 1, True)
+    pw8 = quantize_tree({"l": {"w": pw_w.cpu()}}, "int8")["l"]["w"].to(dev)
+    q_err["dw_pw"] = max(q_err["dw_pw"], check_dw_pw(
+        "int8 C=36 Cout=24", (x, dw_w, dw_b, pw8.codes, pw_b, r, pw8.scale),
+        kw))
+    node = mb_blocks["mobilenet_v2"][5]
+    x, dw_w, dw_b, pw_w, pw_b, r, kw = dw_pw_args("mobilenet_v2", node)
+    q_err["dw_pw"] = max(q_err["dw_pw"], check_dw_pw(
+        f"f32 mobilenet_v2 {node.name}", (x, dw_w.float(), dw_b.float(),
+                                          pw_w.float(), pw_b.float(), r,
+                                          None), kw))
+    print(f"[check] stored weights: int8 sparse_conv at the {len(conv_shapes)} "
+          f"ResNet-50 shapes x residual on/off (mma) and 8x8 blocks (simt), "
+          f"f32 sparse_conv (simt); int8 classifier (gemv, and simt at M=9),"
+          f" f32 classifier (simt); int8 dw_pw at every MobileNet block shape"
+          f" (mma) and C 36 (simt), f32 dw_pw (simt): max |err| "
+          f"{q_err} within 1 bf16 ulp / 1e-5 relative; checks by variant "
+          f"{ {f'{n}/{v}': c for (n, v), c in checked_variants.items()} }")
+
     # -- 4. the main paths ------------------------------------------------
     def check_logits(logits, images, cfg_, params_, graph=None,
-                     rtol=LOGIT_RTOL) -> float:
-        """The card's logits of the first two requests against the plain
+                     rtol=LOGIT_RTOL, n=2) -> float:
+        """The card's logits of the first ``n`` requests against the plain
         CPU forward: within ``rtol`` of max |logit|, top-1 equal.
         Returns the larger max |err| / max |logit|."""
         if not torch.isfinite(logits).all():
             raise AssertionError(f"{cfg_.name}: non-finite logits")
         worst = 0.0
-        for i in range(min(2, logits.shape[0])):
+        for i in range(min(n, logits.shape[0])):
             ref = cnn.cnn_forward(cfg_, params_,
                                   torch.from_numpy(images[i:i + 1]),
                                   graph=graph, device="cpu")[0]
@@ -673,59 +789,113 @@ def main() -> int:
                 worst = max(worst, float(share.max()))
         return worst
 
-    n_runs = N_REQUESTS + 1                       # + the warm-up request
-    ops.reset_launches()
-    out = serve(ServeConfig(arch="resnet50", mode="latency",
-                            image_size=IMAGE_SIZE, n_requests=N_REQUESTS,
-                            seed=SEED, device="cuda"))
-    launches = dict(ops.LAUNCHES)
-    resnet_variants = dict(ops.VARIANT_LAUNCHES)
-    check_launches(launches, {"sparse_conv": 47 * n_runs,
-                              "sparse_matmul": n_runs, "dw_pw": 0,
-                              "depthwise_conv": 0},
-                   f"resnet50 ({n_runs} requests incl. warm-up)")
-    # the 47 convs in 32 x 32 blocks; the classifier: M 1, f32 x
-    check_variants(resnet_variants, {("sparse_conv", "mma"): 47 * n_runs,
-                                     ("sparse_matmul", "gemv"): n_runs},
-                   "resnet50")
+    # Serving: every request after the warm-up replays one CUDA graph, so
+    # the wrappers count the warm-up's launches and the capture's, and the
+    # capture's are the launches of every replayed request. Each CNN runs
+    # through serve() (the graph) and through the eager path at each store
+    # dtype of STORE_RUNS; the graph's logits must equal the eager ones bit
+    # for bit, and both the CPU forward on the same stored weights.
+    def per_request_want(arch: str, q: str) -> tuple[dict, dict]:
+        if arch == "resnet50":
+            # f32 weights go to the CUDA-core variants
+            conv_v, mm_v = ("simt", "simt") if q == "f32" else ("mma", "gemv")
+            return ({"sparse_conv": 47, "sparse_matmul": 1},
+                    {("sparse_conv", conv_v): 47, ("sparse_matmul", mm_v): 1})
+        return ({"dw_pw": MB_BLOCKS[arch]}, {("dw_pw", "mma"): MB_BLOCKS[arch]})
+
+    def serve_run(arch: str, q: str, capture: bool):
+        """One ``serve`` at store dtype ``q`` (capture: the graph, as a
+        user calls it; else the eager reference), its counters reset just
+        before and read just after, each checked by name and variant."""
+        what = f"{arch} {q} {'graph' if capture else 'eager'}"
+        cfg_ = ServeConfig(arch=arch, mode="latency", image_size=IMAGE_SIZE,
+                           n_requests=N_REQUESTS, seed=SEED, quantize=q,
+                           device="cuda")
+        ops.reset_launches()
+        res = serve(cfg_) if capture else _serve_cnn_latency(cfg_,
+                                                              capture=False)
+        counted, variants = dict(ops.LAUNCHES), dict(ops.VARIANT_LAUNCHES)
+        if res["captured"] != capture:
+            raise AssertionError(f"{what}: captured {res['captured']}")
+        want, want_v = per_request_want(arch, q)
+        check_launches(res["launches_per_request"], want,
+                       f"{what}: one request")
+        check_variants(res["variant_launches_per_request"], want_v,
+                       f"{what}: one request")
+        # the warm-up and the capture, or the warm-up and every request
+        runs = 2 if capture else N_REQUESTS + 1
+        check_launches(counted, {k: v * runs for k, v in want.items()},
+                       f"{what}: {runs} forwards")
+        check_variants(variants, {k: v * runs for k, v in want_v.items()},
+                       f"{what}: {runs} forwards")
+        logits = torch.from_numpy(res["logits"])
+        if logits.shape != (N_REQUESTS, 1000) or not torch.isfinite(
+                logits).all():
+            raise AssertionError(f"{what}: logits {tuple(logits.shape)} not "
+                                 f"finite (N_REQUESTS, 1000)")
+        return res, counted, variants
+
+    cnn_params = {"resnet50": params_cpu, **mb_params}
+    STORE_RUNS = {"resnet50": ("native", "int8", "bf16", "f32"),
+                  "mobilenet_v1": ("native", "int8"),
+                  "mobilenet_v2": ("native", "int8")}
+    serving, main_runs = {}, {}
+    for arch, qs in STORE_RUNS.items():
+        mcfg = get_config(arch)
+        rtol = LOGIT_RTOL if arch == "resnet50" else MB_LOGIT_RTOL
+        for q in qs:
+            graph_out, counted, variants = serve_run(arch, q, True)
+            eager_out, _, _ = serve_run(arch, q, False)
+            g_bits = graph_out["logits"].view(np.uint32)
+            if not np.array_equal(g_bits, eager_out["logits"].view(np.uint32)):
+                raise AssertionError(f"{arch} {q}: the graph's logits differ "
+                                     f"from the eager requests'")
+            stored = quantize_tree(cnn_params[arch], q)
+            err = check_logits(torch.from_numpy(graph_out["logits"]),
+                               graph_out["request_images"], mcfg, stored,
+                               rtol=rtol, n=2 if q == "native" else 1)
+            serving[(arch, q)] = {
+                "graph_p50_ms": graph_out["latency_p50_s"] * 1e3,
+                "graph_p99_ms": graph_out["latency_p99_s"] * 1e3,
+                "eager_p50_ms": eager_out["latency_p50_s"] * 1e3,
+                "eager_p99_ms": eager_out["latency_p99_s"] * 1e3,
+                "param_bytes_stored": graph_out["param_bytes_stored"],
+                "launches_per_request": graph_out["launches_per_request"],
+                "logit_err": err}
+            if q == "native":
+                main_runs[arch] = (graph_out, counted, variants)
+            row = serving[(arch, q)]
+            print(f"[main] {arch} quantize={q}: {N_REQUESTS} requests at "
+                  f"{IMAGE_SIZE}px: graph p50 {row['graph_p50_ms']:.4f} ms, "
+                  f"p99 {row['graph_p99_ms']:.4f} ms; eager p50 "
+                  f"{row['eager_p50_ms']:.4f} ms, p99 "
+                  f"{row['eager_p99_ms']:.4f} ms; graph == eager bitwise; "
+                  f"per request "
+                  f"{variant_str(graph_out['variant_launches_per_request'])}"
+                  f" (counted {variant_str(variants)}); logits vs CPU max "
+                  f"|err| / max |logit| {err:.3e} (bar {rtol}), top-1 equal; "
+                  f"stored {row['param_bytes_stored']} B")
+
+    out, launches, resnet_variants = main_runs["resnet50"]
     add_variants(resnet_variants)
-    logits = torch.from_numpy(out["logits"])
-    if logits.shape != (N_REQUESTS, 1000) or not torch.isfinite(logits).all():
-        raise AssertionError(f"logits {tuple(logits.shape)} not finite "
-                             f"(N_REQUESTS, 1000)")
-    logit_err = check_logits(logits, out["request_images"], cfg, params_cpu)
     p50_ms = out["latency_p50_s"] * 1e3
     p99_ms = out["latency_p99_s"] * 1e3
-    print(f"[main] {N_REQUESTS} requests at {IMAGE_SIZE}px: p50 {p50_ms:.4f}"
-          f" ms, p99 {p99_ms:.4f} ms; launches {launches}, by variant "
-          f"{variant_str(resnet_variants)}; logits vs CPU "
-          f"max |err| / max |logit| {logit_err:.3e} (bar {LOGIT_RTOL}), "
-          f"top-1 equal")
+    param_bytes = {arch: {q: pytree_param_bytes(cnn_params[arch], q)
+                          for q in STORE_DTYPES} for arch in STORE_RUNS}
+    for arch, row in param_bytes.items():
+        for q, n in row.items():
+            if (arch, q) in serving and serving[(arch, q)][
+                    "param_bytes_stored"] != n:
+                raise AssertionError(f"{arch} {q}: param_bytes_stored")
+        print(f"[main] {arch} param_bytes_stored: {row}")
 
     mb_main = {}
     all_launches = dict(launches)
     for name in MOBILENETS:
         mcfg = get_config(name)
-        ops.reset_launches()
-        mout = serve(ServeConfig(arch=name, mode="latency",
-                                 image_size=IMAGE_SIZE,
-                                 n_requests=N_REQUESTS, seed=SEED,
-                                 device="cuda"))
-        served = dict(ops.LAUNCHES)
-        check_launches(served, {"sparse_conv": 0, "sparse_matmul": 0,
-                                "dw_pw": MB_BLOCKS[name] * n_runs,
-                                "depthwise_conv": 0},
-                       f"{name} ({n_runs} requests incl. warm-up)")
-        served_variants = dict(ops.VARIANT_LAUNCHES)
-        # every block on the tensor cores, none on the CUDA-core variant
-        check_variants(served_variants,
-                       {("dw_pw", "mma"): MB_BLOCKS[name] * n_runs}, name)
+        mout, served, served_variants = main_runs[name]
         add_variants(served_variants)
-        mlogits = torch.from_numpy(mout["logits"])
-        if mlogits.shape != (N_REQUESTS, 1000):
-            raise AssertionError(f"{name}: logits {tuple(mlogits.shape)}")
-        err = check_logits(mlogits, mout["request_images"], mcfg,
-                           mb_params[name], rtol=MB_LOGIT_RTOL)
+        err = serving[(name, "native")]["logit_err"]
         # the unfused view: every dw node through the depthwise kernel
         img = mout["request_images"][:1]
         params_dev = {k: {"w": v["w"].to(dev), "b": v["b"].to(dev)}
@@ -757,7 +927,8 @@ def main() -> int:
             "node_err_share_of_bar": node_err}
         print(f"[main] {name}: {N_REQUESTS} requests at {IMAGE_SIZE}px: p50 "
               f"{mb_main[name]['p50_ms']:.4f} ms, p99 "
-              f"{mb_main[name]['p99_ms']:.4f} ms; launches {served}, by "
+              f"{mb_main[name]['p99_ms']:.4f} ms; counted launches (warm-up"
+              f" and capture) {served}, by "
               f"variant {variant_str(served_variants)}; logits "
               f"vs CPU max |err| / max |logit| {err:.3e} (bar "
               f"{MB_LOGIT_RTOL}), top-1 equal; unfused view launches "
@@ -938,6 +1109,11 @@ def main() -> int:
             .permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         x_nchw = x.permute(0, 3, 1, 2)        # channels_last view, no copy
         ms = time_ms(lambda: sc.sparse_conv(x, sw.vals, sw.idx, b, r, **kw))
+        sw8 = params_q["int8"][conv_part(node).name]["w"].to(dev)
+        ms8 = time_ms(lambda: sc.sparse_conv(x, sw8.vals, sw8.idx, b, r,
+                                             sw8.scale, **kw))
+        plain8 = time_ms(lambda: sc.sparse_conv_torch(
+            x, sw8.vals, sw8.idx, b, r, sw8.scale, **kw))
         plain = time_ms(lambda: sc.sparse_conv_torch(x, sw.vals, sw.idx, b,
                                                      r, **kw))
         lib = time_ms(lambda: F.conv2d(x_nchw, w_lib, b, node.stride,
@@ -950,6 +1126,9 @@ def main() -> int:
         nops = 2 * m * ob * n_k * bm * bn
         t_b, t_o = bound(nbytes, nops, torch.bfloat16)
         bms, by = max(t_b, t_o), bound_by(t_b, t_o)
+        # int8: a byte a weight, plus the (ob, bn) f32 scales
+        nbytes8 = nbytes - sw.vals.numel() + 4 * ob * bn
+        t_b8, t_o8 = bound(nbytes8, nops, torch.bfloat16)
         tm, split = sc.plan(m, ob, n_k)
         rows.append({"layer": node.name, "k": node.k, "stride": node.stride,
                      "C": node.cin, "Cout": node.cout, "K": n_k,
@@ -958,15 +1137,24 @@ def main() -> int:
                      "ms": ms,
                      "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
                      "bound_by": by, "bytes": nbytes, "ops": nops,
-                     "input_read": x_elems / x.numel()})
+                     "input_read": x_elems / x.numel(),
+                     "int8": {"ms": ms8, "plain_ms": plain8,
+                              "bound_ms": max(t_b8, t_o8),
+                              "bound_by": bound_by(t_b8, t_o8),
+                              "bytes": nbytes8}})
         for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                       ("bound_ms", bms), ("bytes_ms", t_b), ("ops_ms", t_o)):
-            sums[key] += v
+                       ("bound_ms", bms), ("bytes_ms", t_b), ("ops_ms", t_o),
+                       ("int8_ms", ms8), ("int8_plain_ms", plain8),
+                       ("int8_bound_ms", max(t_b8, t_o8)),
+                       ("int8_bytes_ms", t_b8)):
+            sums[key] = sums.get(key, 0.0) + v
         print(f"[time] {node.name:9s} k{node.k} s{node.stride} C{node.cin:5d}"
               f" Cout{node.cout:5d} K{n_k:3d} H{node.in_hw:4d} "
               f"res={int(r is not None)}: kernel {ms * 1e3:9.3f} us, plain "
               f"{plain * 1e3:9.3f} us, F.conv2d {lib * 1e3:9.3f} us, bound "
-              f"{bms * 1e3:7.3f} us ({by}); tm {tm} split {split}")
+              f"{bms * 1e3:7.3f} us ({by}); int8 kernel {ms8 * 1e3:9.3f} us,"
+              f" bound {max(t_b8, t_o8) * 1e3:7.3f} us; tm {tm} split "
+              f"{split}")
     for what, keep in (("K >= 10", lambda k: k >= 10),
                        ("K 5", lambda k: k == 5),
                        ("K <= 3", lambda k: k <= 3)):
@@ -978,7 +1166,9 @@ def main() -> int:
               f"{sum(r['library_ms'] for r in sel) * 1e3:.3f} us, bound "
               f"{sum(r['bound_ms'] for r in sel) * 1e3:.3f} us")
     print(f"[time] sparse_conv x47: kernel {sums['ms']:.4f} ms, F.conv2d "
-          f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.5f} ms")
+          f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.5f} ms; "
+          f"int8 kernel {sums['int8_ms']:.4f} ms, bound "
+          f"{sums['int8_bound_ms']:.5f} ms")
 
     x_fc = randn((1, 2048), torch.float32)
     w_fc_dense = densify(fc_w).float()
@@ -1001,6 +1191,18 @@ def main() -> int:
           f"{fc_ms * 1e3:.3f} us, plain {fc_plain * 1e3:.3f} us, torch.matmul"
           f" (dense f32) {fc_lib * 1e3:.3f} us, bound {fc_bound * 1e3:.3f} us"
           f" ({fc_by})")
+    fc8_w = params_q["int8"]["fc"]["w"].to(dev)
+    fc8_ms = time_ms(lambda: sm.sparse_matmul(x_fc, fc8_w.vals, fc8_w.idx))
+    fc8_plain = time_ms(lambda: sm.sparse_matmul_torch(x_fc, fc8_w.vals,
+                                                       fc8_w.idx))
+    t_b, t_o = bound(fc_bytes - fc_w.vals.numel(), fc_ops, torch.float32)
+    fc8 = {"ms": fc8_ms, "plain_ms": fc8_plain, "bound_ms": max(t_b, t_o),
+           "bound_by": bound_by(t_b, t_o)}
+    print(f"[time] fc        M=1 f32 x, int8 codes "
+          f"({sm.variant(x_fc.dtype, 1, bm, bn, torch.int8)}): kernel "
+          f"{fc8_ms * 1e3:.3f} us, plain {fc8_plain * 1e3:.3f} us, bound "
+          f"{fc8['bound_ms'] * 1e3:.3f} us ({fc8['bound_by']}); the scale "
+          f"is applied after it, as in the reference")
     per_req = sums["ms"] + fc_ms
     print(f"[time] per request: kernels {per_req:.4f} ms (sparse_conv x47 "
           f"{sums['ms']:.4f} + sparse_matmul {fc_ms:.4f}) vs request p50 "
@@ -1009,8 +1211,10 @@ def main() -> int:
 
     def add_sums(acc: dict, row: dict) -> None:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
-                    "ops_ms"):
-            acc[key] = acc.get(key, 0.0) + row[key]
+                    "ops_ms", "int8_ms", "int8_plain_ms", "int8_bound_ms",
+                    "int8_bytes_ms"):
+            if key in row:
+                acc[key] = acc.get(key, 0.0) + row[key]
 
     dw_pw_rows, dw_pw_sums = [], {}
     dw_rows, dw_sums = [], {}
@@ -1027,6 +1231,11 @@ def main() -> int:
                 memory_format=torch.channels_last)
             ms = time_ms(lambda: dwpw.dw_pw(x, dw_w, dw_b, pw_w, pw_b, r,
                                             **kw))
+            pw8 = mb_q[name][node.parts[1].name]["w"].to(dev)
+            ms8 = time_ms(lambda: dwpw.dw_pw(x, dw_w, dw_b, pw8.codes, pw_b,
+                                             r, pw8.scale, **kw))
+            plain8 = time_ms(lambda: dwpw.dw_pw_torch(
+                x, dw_w, dw_b, pw8.codes, pw_b, r, pw8.scale, **kw))
             plain = time_ms(lambda: dwpw.dw_pw_torch(x, dw_w, dw_b, pw_w,
                                                      pw_b, r, **kw))
             pair = time_ms(lambda: F.conv2d(
@@ -1036,6 +1245,8 @@ def main() -> int:
                           + m * co * (2 if r is not None else 1))
             nops = 2 * m * c * (9 + co)
             t_b, t_o = bound(nbytes, nops, torch.bfloat16)
+            nbytes8 = nbytes - pw_w.numel() + 4 * co     # codes + scales
+            t_b8, t_o8 = bound(nbytes8, nops, torch.bfloat16)
             pl = dwpw.plan(1, ho, ho, c, co, node.k, node.stride)
             row = {"arch": name, "layer": node.name, "C": c, "Cout": co,
                    "H": node.in_hw, "stride": node.stride,
@@ -1045,7 +1256,9 @@ def main() -> int:
                    "plain_ms": plain, "library_ms": pair,
                    "bound_ms": max(t_b, t_o), "bound_by": bound_by(t_b, t_o),
                    "bytes": nbytes, "ops": nops, "bytes_ms": t_b,
-                   "ops_ms": t_o}
+                   "ops_ms": t_o, "int8_ms": ms8, "int8_plain_ms": plain8,
+                   "int8_bound_ms": max(t_b8, t_o8), "int8_bytes_ms": t_b8,
+                   "int8_bytes": nbytes8}
             dw_pw_rows.append(row)
             add_sums(per_req, row)
             add_sums(dw_pw_sums, row)
@@ -1053,7 +1266,9 @@ def main() -> int:
                   f"H{node.in_hw:4d} s{node.stride} res={int(r is not None)}"
                   f": kernel {ms * 1e3:9.3f} us, plain {plain * 1e3:9.3f} us,"
                   f" F.conv2d dw+1x1 pair {pair * 1e3:9.3f} us, bound "
-                  f"{row['bound_ms'] * 1e3:7.3f} us ({row['bound_by']}); tm "
+                  f"{row['bound_ms'] * 1e3:7.3f} us ({row['bound_by']}); int8"
+                  f" kernel {ms8 * 1e3:9.3f} us, bound "
+                  f"{max(t_b8, t_o8) * 1e3:7.3f} us; tm "
                   f"{pl.tm} ({pl.tr}x{pl.tw}) ck {pl.ck} split {pl.split}, "
                   f"{pl.blocks} blocks, {pl.steps} steps")
         for node in mb_dws[name]:
@@ -1093,12 +1308,29 @@ def main() -> int:
         print(f"[time] {name} per request: dw_pw x{MB_BLOCKS[name]} "
               f"{per_req['ms']:.4f} ms (plain {per_req['plain_ms']:.4f}, "
               f"F.conv2d pairs {per_req['library_ms']:.4f}, bound "
-              f"{per_req['bound_ms']:.5f}) vs request p50 "
+              f"{per_req['bound_ms']:.5f}; int8 {per_req['int8_ms']:.4f}, "
+              f"bound {per_req['int8_bound_ms']:.5f}) vs request p50 "
               f"{mb_main[name]['p50_ms']:.4f} ms; unfused depthwise "
               f"x{MB_BLOCKS[name]} {dw_per_req['ms']:.4f} ms (plain "
               f"{dw_per_req['plain_ms']:.4f}, F.conv2d(groups=C) "
               f"{dw_per_req['library_ms']:.4f}, bound "
               f"{dw_per_req['bound_ms']:.5f})")
+
+    # batch-1 serving, eager beside the graph (both above, same requests),
+    # and the device time of one forward (no copies, no host) at each
+    # store dtype: what a graph request costs on the card
+    for (arch, q), row in serving.items():
+        mcfg = get_config(arch)
+        p_dev = cnn.params_to(quantize_tree(cnn_params[arch], q), dev)
+        img = torch.zeros((1, IMAGE_SIZE, IMAGE_SIZE, 3), device=dev)
+        row["forward_ms"] = time_ms(lambda: cnn.cnn_forward(
+            mcfg, p_dev, img, device=dev))
+        print(f"[time] serve {arch:12s} {q:6s}: eager p50 "
+              f"{row['eager_p50_ms']:.4f} / p99 {row['eager_p99_ms']:.4f} ms,"
+              f" graph p50 {row['graph_p50_ms']:.4f} / p99 "
+              f"{row['graph_p99_ms']:.4f} ms; one forward on the device "
+              f"{row['forward_ms']:.4f} ms; stored "
+              f"{row['param_bytes_stored']} B")
 
     # SmolLM-360M: the flash kernel per layer of a T=2048 prefill, beside
     # its plain version and SDPA on the same expanded tensors; the sparse
@@ -1177,12 +1409,15 @@ def main() -> int:
 
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps({
-        "device": smi, "build_s": build_s, "p50_ms": p50_ms,
+        "device": smi, "build_s": build_s,
+        "build_s_by_source": _build.BUILD_SECONDS, "p50_ms": p50_ms,
         "p99_ms": p99_ms, "latencies_s": out["request_latencies_s"],
         "launches": launches, "conv_layers": rows,
         "fc": {"ms": fc_ms, "plain_ms": fc_plain, "library_ms": fc_lib,
                "bound_ms": fc_bound, "bound_by": fc_by},
         "mobilenet": mb_main, "dw_pw_layers": dw_pw_rows,
+        "serving": {f"{a}/{q}": row for (a, q), row in serving.items()},
+        "param_bytes_stored": param_bytes, "fc_int8": fc8,
         "depthwise_layers": dw_rows, "smollm": lm_main,
         "variant_launches": {f"{n}/{v}": c for (n, v), c in
                              all_variants.items()},
@@ -1200,8 +1435,16 @@ def main() -> int:
          "bound_ms": sums["bound_ms"],
          "bound_by": bound_by(sums["bytes_ms"], sums["ops_ms"]),
          "library_ms": sums["library_ms"],
+         "int8": {"ms": sums["int8_ms"], "plain_ms": sums["int8_plain_ms"],
+                  "bound_ms": sums["int8_bound_ms"],
+                  "bound_by": bound_by(sums["int8_bytes_ms"],
+                                       sums["ops_ms"])},
          "note": "ms, plain_ms, bound_ms, library_ms: sums over the 47 "
-                 "main-path layers of one request (all mma); variants: "
+                 "main-path layers of one request (all mma); int8: the "
+                 "same with the int8 store's codes and scales; launches: "
+                 "counted by the wrappers (warm-up and capture of each "
+                 "graph, every request of the eager runs excluded); "
+                 "variants: "
                  "launches by variant over the main paths; ptxas, hmma: per "
                  "kernel function"},
         {"name": "sparse_matmul", "route": "cuda",
@@ -1213,6 +1456,7 @@ def main() -> int:
          "max_abs_err": mm_err, "max_err": mm_err, "ok": True,
          "ms": fc_ms, "plain_ms": fc_plain, "bound_ms": fc_bound,
          "bound_by": fc_by, "library_ms": fc_lib,
+         "int8": fc8,
          "smollm": lm_mm_rows,
          "note": "ms, plain_ms, bound_ms, library_ms: the ResNet-50 "
                  "classifier (M=1 f32, gemv); smollm: per call at "
@@ -1234,6 +1478,11 @@ def main() -> int:
          "library_pair": "F.conv2d(groups=C) then 1x1 F.conv2d, channels-"
                          "last bf16: two calls, no single call computes "
                          "the fused function",
+         "int8": {"ms": dw_pw_sums["int8_ms"],
+                  "plain_ms": dw_pw_sums["int8_plain_ms"],
+                  "bound_ms": dw_pw_sums["int8_bound_ms"],
+                  "bound_by": bound_by(dw_pw_sums["int8_bytes_ms"],
+                                       dw_pw_sums["ops_ms"])},
          "ms_per_request": {n: mb_main[n]["dw_pw_per_request"]["ms"]
                             for n in MOBILENETS},
          "note": "ms, plain_ms, bound_ms, library_pair_ms: sums over one "

@@ -30,6 +30,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: sources whose kernels nvcc optimizes on all cores (--split-compile):
+#: dw_pw.cu, the longest build (57 instances), builds in about half the
+#: time with every instance's registers and shared memory unchanged
+#: (ptxas, on the H100); for flash_attention.cu it changed register
+#: allocation (flash_attention_mma<64> spilled), so the others build as
+#: they are
+SPLIT_COMPILE = ("dw_pw",)
 SOURCES = ("sparse_conv", "sparse_matmul", "dw_pw", "depthwise_conv",
            "flash_attention")
 
@@ -45,8 +52,19 @@ VARIANTS = {"sparse_conv": ("simt", "mma"),
 VARIANT_LAUNCHES: dict[tuple[str, str], int] = {
     (name, v): 0 for name, vs in VARIANTS.items() for v in vs}
 
+#: the argument that names the stored weight type at the C entry points
+#: of sparse_conv, sparse_matmul and dw_pw (a template argument inside)
+WEIGHT_CODES = {"bfloat16": 0, "int8": 1, "float32": 2}
+
+
+def weight_code(dtype) -> int:
+    """The C entry points' code for a weight tensor's torch dtype."""
+    return WEIGHT_CODES[str(dtype).removeprefix("torch.")]
+
 #: ptxas's report (registers, shared memory, spills) of the last build
 BUILD_LOG: dict[str, str] = {}
+#: seconds each source of the last build took (its own nvcc, in parallel)
+BUILD_SECONDS: dict[str, float] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -72,7 +90,7 @@ def _nvcc() -> str:
 
 
 def _build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + SPLIT_COMPILE).encode())
     for path in sorted(CSRC.iterdir()):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -91,13 +109,25 @@ def build_all() -> float:
         if lib.exists():
             continue
         tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, lib)
+        log = out_dir / f"{name}.{os.getpid()}.log"
+        split = ("--split-compile=0",) if name in SPLIT_COMPILE else ()
+        cmd = [_nvcc(), *NVCC_FLAGS, *split, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        with open(log, "w") as f:
+            procs[name] = (subprocess.Popen(cmd, stdout=f,
+                                            stderr=subprocess.STDOUT),
+                           tmp, lib, log)
+    pending = set(procs)
+    while pending:                        # note when each one finishes
+        for name in sorted(pending):
+            if procs[name][0].poll() is not None:
+                BUILD_SECONDS[name] = time.perf_counter() - t0
+                pending.discard(name)
+        time.sleep(0.05)
     failed = []
-    for name, (proc, tmp, lib) in procs.items():
-        log, _ = proc.communicate()
+    for name, (proc, tmp, lib, log_path) in procs.items():
+        log = log_path.read_text()
+        log_path.unlink()
         BUILD_LOG[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")

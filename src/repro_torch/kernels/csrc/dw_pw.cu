@@ -13,10 +13,20 @@
 // (depthwise.cuh), the bias, ReLU and residual in f32, and the dw->pw
 // boundary rounded to bf16 exactly where the unfused graph rounds it. The
 // depthwise result d never reaches device memory: that is the TPU
-// kernel's contract and this kernel's point. Two variants, chosen in
-// Python (dw_pw_fused.variant) and passed in:
+// kernel's contract and this kernel's point.
 //
-// "mma" (C and Cout multiples of 8: every MobileNet block). A block owns
+// Stored weights (a template argument, weights.cuh): all bf16; int8
+// pointwise codes, whose (Cout,) f32 scale multiplies the f32 product in
+// the epilogue before pw_b (the Pallas flush, dw_pw_fused.py:83-86; under
+// the C split, the full sum after the rank-ordered reduction), with the
+// depthwise weight and the biases bf16; or all weights and biases f32
+// (simt only). The int8 and f32 instances exist for k = 3 only (the
+// MobileNets' depthwise; dw_pw_fused.QUANT_KS), to keep the build short.
+//
+// Two variants, chosen in Python (dw_pw_fused.variant) and passed in:
+//
+// "mma" (bf16 or int8 pw_w; C and Cout multiples of 8: every MobileNet
+// block). A block owns
 // a pixel tile of TR whole output rows x TW columns of one image (TR*TW
 // <= TM, TM = 16, 32 or 64), TN = 64 or 128 output channels on 2 * TN
 // threads, and one slice of C, all from dw_pw_fused.plan. Per chunk of CK
@@ -39,8 +49,15 @@
 // plan keeps each block's chain at <= 3 chunks and the grid near or above
 // 128 blocks; each Cout tile recomputes the depthwise of its C slice, the
 // reason for 128-channel Cout tiles where Cout > 64.
+// int8 pw_w: cp.async copies bytes and cannot widen, so the ring holds the
+// chunk's ck x TN codes (8-byte copies) and, while the depthwise fills the
+// A tile, the threads widen them into one bf16 B tile outside the ring
+// (exact: |code| <= 127); the barrier the A tile needs covers it, so the
+// chain gains no barrier, and the weight bytes read are halved. The TN
+// scales come into shared memory with the first chunk.
 //
-// "simt" (C or Cout not a multiple of 8): f32 FMAs on the CUDA cores, 64
+// "simt" (C or Cout not a multiple of 8, and f32 weights): f32 FMAs on the
+// CUDA cores, 64
 // pixels x 64 output channels a block, C in chunks of 32, the depthwise
 // read straight from global memory.
 //
@@ -61,6 +78,7 @@
 
 #include "depthwise.cuh"
 #include "tensor_core.cuh"
+#include "weights.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -84,14 +102,17 @@ constexpr int RN = TN_SIMT / TX;                 // 4 output channels a thread
 constexpr int W_LOADS = CK_SIMT * TN_SIMT / THREADS;   // 8 pw weights a thread
 constexpr int DS_LD = TM + 4;   // row of the depthwise tile, float4-aligned
 
-template <int K>
+// WT: the pointwise weight's stored type; PT: the depthwise weight's and
+// the biases' (f32 beside f32, else bf16)
+template <int K, typename WT, typename PT = typename wtypes::Param<WT>::type>
 __global__ void __launch_bounds__(THREADS)
 dw_pw_simt(const __nv_bfloat16* __restrict__ x,
-           const __nv_bfloat16* __restrict__ dw_w,
-           const __nv_bfloat16* __restrict__ dw_b,
-           const __nv_bfloat16* __restrict__ pw_w,
-           const __nv_bfloat16* __restrict__ pw_b,
+           const PT* __restrict__ dw_w,
+           const PT* __restrict__ dw_b,
+           const WT* __restrict__ pw_w,
+           const PT* __restrict__ pw_b,
            const __nv_bfloat16* __restrict__ res,
+           const float* __restrict__ pw_scale,
            __nv_bfloat16* __restrict__ out, int N, int H, int W, int C,
            int Ho, int Wo, int stride, int pad_h, int pad_w, int Cout,
            int dw_relu, int relu) {
@@ -130,10 +151,10 @@ dw_pw_simt(const __nv_bfloat16* __restrict__ x,
     for (int e = tid; e < K * K * CK_SIMT; e += THREADS) {
       const int ce = c0 + e % CK_SIMT;
       taps[e / CK_SIMT][e % CK_SIMT] =
-          ce < C ? __bfloat162float(dw_w[(e / CK_SIMT) * C + ce]) : 0.f;
+          ce < C ? wtypes::to_f32(dw_w[(e / CK_SIMT) * C + ce]) : 0.f;
     }
     __syncthreads();
-    const float b = c_ok ? __bfloat162float(dw_b[c]) : 0.f;
+    const float b = c_ok ? wtypes::to_f32(dw_b[c]) : 0.f;
     int ox = ox_first, oy = oy_first, img = img_first;
     for (int i = 0; i < DW_PIX; ++i) {
       float d = 0.f;
@@ -179,7 +200,7 @@ dw_pw_simt(const __nv_bfloat16* __restrict__ x,
       const int cc = e / TN_SIMT, nn = e % TN_SIMT;
       const int ci = c0 + cc, co = n0 + nn;
       ws[cc][nn] = (ci < C && co < Cout)
-                       ? __bfloat162float(pw_w[(size_t)ci * Cout + co])
+                       ? wtypes::to_f32(pw_w[(size_t)ci * Cout + co])
                        : 0.f;
     }
     __syncthreads();
@@ -205,13 +226,16 @@ dw_pw_simt(const __nv_bfloat16* __restrict__ x,
   for (int j = 0; j < RN; ++j) {
     const int co = n0 + tx * RN + j;
     if (co >= Cout) continue;
-    const float b = __bfloat162float(pw_b[co]);
+    const float b = wtypes::to_f32(pw_b[co]);
+    const float sc = pw_scale != nullptr ? pw_scale[co] : 1.f;
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const int p = m0 + ty * RM + i;
       if (p >= M) continue;
       const size_t o = (size_t)p * Cout + co;
-      float y = acc[i][j] + b;
+      // int8: the code product times its scale, rounded before pw_b
+      float y =
+          (pw_scale != nullptr ? __fmul_rn(acc[i][j], sc) : acc[i][j]) + b;
       if (res != nullptr) y += __bfloat162float(res[o]);
       if (relu) y = fmaxf(y, 0.f);
       out[o] = __float2bfloat16(y);
@@ -229,33 +253,40 @@ constexpr int SMEM_MAX = 232448;    // what one block may hold on sm_90
 
 __host__ __device__ constexpr int round16(int b) { return (b + 15) / 16 * 16; }
 
-// The dynamic shared memory of one mma block, section by section; the
-// Python plan (dw_pw_fused.smem_bytes) computes the same numbers.
-// The B tile's rows are padded by 8 elements against bank conflicts and a
-// partial row by 4 floats.
+// The dynamic shared memory of one mma block, section by section: the
+// ring, (int8) the widened B tile, the A tile, the partial rows and
+// (int8) the scales. For bf16 weights the Python plan
+// (dw_pw_fused.smem_bytes) computes the same numbers; int8 takes less
+// (its ring holds ck x tn bytes of codes a stage). The B tile's rows are
+// padded by 8 elements against bank conflicts and a partial row by 4
+// floats.
 struct MmaSmem {
-  int halo, taps, dwb, wt, stage, a, red, total;
+  int halo, taps, dwb, wt, stage, btile, a, red, scl, total;
   __host__ __device__ MmaSmem(int k, int tm, int tn, int hr, int hc, int ck,
-                              int split) {
+                              int split, bool codes) {
     halo = round16(hr * hc * ck * 2);
     taps = round16(k * k * ck * 2);
     dwb = round16(ck * 2);
-    wt = ck * (tn + 8) * 2;
+    wt = codes ? ck * tn : ck * (tn + 8) * 2;
     stage = halo + taps + dwb + wt;
+    btile = codes ? ck * (tn + 8) * 2 : 0;
     a = tm * (ck + 8) * 2;
     red = split * ((tm + split - 1) / split) * (tn + 4) * 4;
-    total = STAGES * stage + a + red;
+    scl = codes ? tn * 4 : 0;
+    total = STAGES * stage + btile + a + red + scl;
   }
 };
 
-template <int K, int TM_, int TN>
+// WT: __nv_bfloat16, or int8_t pointwise codes with their scale
+template <int K, int TM_, int TN, typename WT>
 __global__ void __launch_bounds__(2 * TN)
 dw_pw_mma(const __nv_bfloat16* __restrict__ x,
           const __nv_bfloat16* __restrict__ dw_w,
           const __nv_bfloat16* __restrict__ dw_b,
-          const __nv_bfloat16* __restrict__ pw_w,
+          const WT* __restrict__ pw_w,
           const __nv_bfloat16* __restrict__ pw_b,
           const __nv_bfloat16* __restrict__ res,
+          const float* __restrict__ pw_scale,
           __nv_bfloat16* __restrict__ out, int H, int W, int C, int Ho,
           int Wo, int stride, int pad_h, int pad_w, int Cout, int dw_relu,
           int relu, int tr, int tw, int ck, int tiles_y, int tiles_x) {
@@ -268,6 +299,7 @@ dw_pw_mma(const __nv_bfloat16* __restrict__ x,
   constexpr int TG = TN / 8;            // 16-byte groups of a tile row
   constexpr int E_ITEMS = TM_ * TG / MMA_THREADS;   // epilogue items a
                                                     // thread (split 1)
+  constexpr bool CODES = sizeof(WT) == 1;
   extern __shared__ __align__(128) unsigned char smem[];
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -293,10 +325,14 @@ dw_pw_mma(const __nv_bfloat16* __restrict__ x,
   const int lo = rank * chunks / split;
   const int n = (rank + 1) * chunks / split - lo;   // this block's chunks
 
-  const MmaSmem L(K, TM_, TN, hr, hc, ck, split);
-  __nv_bfloat16* a_tile =
+  const MmaSmem L(K, TM_, TN, hr, hc, ck, split, CODES);
+  __nv_bfloat16* b_tile =      // int8: the chunk's codes, widened
       reinterpret_cast<__nv_bfloat16*>(smem + STAGES * L.stage);
-  float* red = reinterpret_cast<float*>(smem + STAGES * L.stage + L.a);
+  __nv_bfloat16* a_tile =
+      reinterpret_cast<__nv_bfloat16*>(smem + STAGES * L.stage + L.btile);
+  float* red = reinterpret_cast<float*>(smem + STAGES * L.stage + L.btile +
+                                        L.a);
+  float* scl = red + L.red / 4;  // int8: the Cout tile's scales
   const int ald = ck + 8;               // A row stride: 80 or 144 B
 
   // this block's output rows [r0, r1) of the tile, summed over the
@@ -351,9 +387,11 @@ dw_pw_mma(const __nv_bfloat16* __restrict__ x,
     for (int e = tid; e < ck * TG; e += MMA_THREADS) {
       const int r = e / TG, col = (e % TG) * 8;
       const bool in = c0 + r < C && n0 + col < Cout;
-      tc::cp_async16(wt + r * BLD + col,
-                     in ? pw_w + (size_t)(c0 + r) * Cout + n0 + col : pw_w,
-                     in);
+      const WT* src = in ? pw_w + (size_t)(c0 + r) * Cout + n0 + col : pw_w;
+      if constexpr (CODES)
+        tc::cp_async8(reinterpret_cast<int8_t*>(wt) + r * TN + col, src, in);
+      else
+        tc::cp_async16(wt + r * BLD + col, src, in);
     }
   };
 
@@ -363,6 +401,14 @@ dw_pw_mma(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 
+  // the scales ride with chunk 0: the first wait of the loop below (a
+  // block walks at least one chunk) and its barrier make them visible
+  if constexpr (CODES) {
+    for (int e = tid; e < TN / 4; e += MMA_THREADS) {
+      const bool in = n0 + e * 4 < Cout;
+      tc::cp_async16(scl + e * 4, in ? pw_scale + n0 + e * 4 : pw_scale, in);
+    }
+  }
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n) load(s, s);
@@ -379,8 +425,21 @@ dw_pw_mma(const __nv_bfloat16* __restrict__ x,
         reinterpret_cast<const __nv_bfloat16*>(base + L.halo);
     const __nv_bfloat16* dwb =
         reinterpret_cast<const __nv_bfloat16*>(base + L.halo + L.taps);
-    const __nv_bfloat16* wt = reinterpret_cast<const __nv_bfloat16*>(
-        base + L.halo + L.taps + L.dwb);
+    const __nv_bfloat16* wt =
+        CODES ? b_tile
+              : reinterpret_cast<const __nv_bfloat16*>(base + L.halo +
+                                                       L.taps + L.dwb);
+    if constexpr (CODES) {
+      // this chunk's codes, widened into the B tile (read by the previous
+      // chunk's products, which the barrier above has seen finish)
+      const int8_t* w8 =
+          reinterpret_cast<const int8_t*>(base + L.halo + L.taps + L.dwb);
+      for (int e = tid; e < ck * TG; e += MMA_THREADS) {
+        const int r = e / TG, col = (e % TG) * 8;
+        *reinterpret_cast<uint4*>(b_tile + r * BLD + col) = wtypes::widen8(
+            *reinterpret_cast<const uint2*>(w8 + r * TN + col));
+      }
+    }
 
     // the depthwise of this chunk into the A tile: per kernel row the k
     // taps from zero, then into the accumulator; + dw_b, ReLU, one round
@@ -469,8 +528,8 @@ dw_pw_mma(const __nv_bfloat16* __restrict__ x,
     __syncthreads();
   }
 
-  // rows [r0, r1): the slots summed in rank order, then pw_b, residual
-  // and ReLU in f32, one round to bf16, 16-byte stores
+  // rows [r0, r1): the slots summed in rank order, then (int8) the scale,
+  // then pw_b, residual and ReLU in f32, one round to bf16, 16-byte stores
 #pragma unroll
   for (int i = 0; i < E_ITEMS; ++i) {
     if (e_out[i] < 0) continue;
@@ -488,6 +547,10 @@ dw_pw_mma(const __nv_bfloat16* __restrict__ x,
     float bf[8], rf[8];
     dw::unpack8(e_bias[i], bf);
     dw::unpack8(e_res[i], rf);
+    if constexpr (CODES) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = __fmul_rn(v[j], scl[c + j]);
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       v[j] += bf[j];
@@ -501,33 +564,37 @@ dw_pw_mma(const __nv_bfloat16* __restrict__ x,
 // ---- launch ----------------------------------------------------------------
 
 struct DwPwArgs {
-  const __nv_bfloat16 *x, *dw_w, *dw_b, *pw_w, *pw_b, *res;
+  const __nv_bfloat16* x;
+  const void *dw_w, *dw_b, *pw_w, *pw_b;   // of the stored weight types
+  const __nv_bfloat16* res;
+  const float* scale;
   __nv_bfloat16* out;
   int N, H, W, C, Ho, Wo, stride, pad_h, pad_w, Cout, dw_relu, relu;
 };
 
-template <int K>
+template <int K, typename WT>
 int launch_simt(const DwPwArgs& a, cudaStream_t stream) {
+  using PT = typename wtypes::Param<WT>::type;
   const int M = a.N * a.Ho * a.Wo;
   dim3 grid((M + TM - 1) / TM, (a.Cout + TN_SIMT - 1) / TN_SIMT);
-  dw_pw_simt<K><<<grid, THREADS, 0, stream>>>(
-      a.x, a.dw_w, a.dw_b, a.pw_w, a.pw_b, a.res, a.out, a.N, a.H, a.W,
-      a.C, a.Ho, a.Wo, a.stride, a.pad_h, a.pad_w, a.Cout, a.dw_relu,
-      a.relu);
+  dw_pw_simt<K, WT><<<grid, THREADS, 0, stream>>>(
+      a.x, (const PT*)a.dw_w, (const PT*)a.dw_b, (const WT*)a.pw_w,
+      (const PT*)a.pw_b, a.res, a.scale, a.out, a.N, a.H, a.W, a.C, a.Ho,
+      a.Wo, a.stride, a.pad_h, a.pad_w, a.Cout, a.dw_relu, a.relu);
   return (int)cudaGetLastError();
 }
 
-template <int K, int TM_, int TN>
+template <int K, int TM_, int TN, typename WT>
 int launch_mma(const DwPwArgs& a, int tr, int tw, int ck, int split,
                cudaStream_t stream) {
   const int hr = (tr - 1) * a.stride + K, hc = (tw - 1) * a.stride + K;
-  const MmaSmem L(K, TM_, TN, hr, hc, ck, split);
+  const MmaSmem L(K, TM_, TN, hr, hc, ck, split, sizeof(WT) == 1);
   if (L.total > SMEM_MAX) return (int)cudaErrorInvalidValue;
   static int smem_set = 48 * 1024;   // what this instance may take now
   if (L.total > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dw_pw_mma<K, TM_, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_MAX);
+        dw_pw_mma<K, TM_, TN, WT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
     if (err != cudaSuccess) return (int)err;
     smem_set = SMEM_MAX;
   }
@@ -545,57 +612,86 @@ int launch_mma(const DwPwArgs& a, int tr, int tw, int ck, int split,
   cfg.attrs = attr;
   cfg.numAttrs = split > 1;              // split 1: no cluster, no barrier
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, dw_pw_mma<K, TM_, TN>, a.x, a.dw_w, a.dw_b, a.pw_w, a.pw_b, a.res,
-      a.out, a.H, a.W, a.C, a.Ho, a.Wo, a.stride, a.pad_h, a.pad_w, a.Cout,
-      a.dw_relu, a.relu, tr, tw, ck, tiles_y, tiles_x);
+      &cfg, dw_pw_mma<K, TM_, TN, WT>, a.x, (const __nv_bfloat16*)a.dw_w,
+      (const __nv_bfloat16*)a.dw_b, (const WT*)a.pw_w,
+      (const __nv_bfloat16*)a.pw_b, a.res, a.scale, a.out, a.H, a.W, a.C,
+      a.Ho, a.Wo, a.stride, a.pad_h, a.pad_w, a.Cout, a.dw_relu, a.relu, tr,
+      tw, ck, tiles_y, tiles_x);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }
 
-template <int K, int TN>
+template <int K, int TN, typename WT>
 int launch_tm(const DwPwArgs& a, int tm, int tr, int tw, int ck, int split,
               cudaStream_t s) {
   switch (tm) {
-    case 16: return launch_mma<K, 16, TN>(a, tr, tw, ck, split, s);
-    case 32: return launch_mma<K, 32, TN>(a, tr, tw, ck, split, s);
-    case 64: return launch_mma<K, 64, TN>(a, tr, tw, ck, split, s);
+    case 16: return launch_mma<K, 16, TN, WT>(a, tr, tw, ck, split, s);
+    case 32: return launch_mma<K, 32, TN, WT>(a, tr, tw, ck, split, s);
+    case 64: return launch_mma<K, 64, TN, WT>(a, tr, tw, ck, split, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <int K>
+template <int K, typename WT>
 int launch(const DwPwArgs& a, int variant, int tm, int tn, int tr, int tw,
            int ck, int split, cudaStream_t s) {
-  if (variant == VARIANT_SIMT) return launch_simt<K>(a, s);
-  if (tn == 64) return launch_tm<K, 64>(a, tm, tr, tw, ck, split, s);
-  return launch_tm<K, 128>(a, tm, tr, tw, ck, split, s);
+  if (variant == VARIANT_SIMT) return launch_simt<K, WT>(a, s);
+  if constexpr (sizeof(WT) == 4) {
+    return (int)cudaErrorInvalidValue;     // f32 weights: simt only
+  } else {
+    if (tn == 64) return launch_tm<K, 64, WT>(a, tm, tr, tw, ck, split, s);
+    return launch_tm<K, 128, WT>(a, tm, tr, tw, ck, split, s);
+  }
+}
+
+// k = QUANT_K takes every stored weight type; the other k bf16 only
+constexpr int QUANT_K = 3;
+
+template <int K>
+int launch_k(const DwPwArgs& a, int wtype, int variant, int tm, int tn,
+             int tr, int tw, int ck, int split, cudaStream_t s) {
+  if (wtype == wtypes::BF16)
+    return launch<K, __nv_bfloat16>(a, variant, tm, tn, tr, tw, ck, split,
+                                    s);
+  if constexpr (K == QUANT_K) {
+    if (wtype == wtypes::INT8)
+      return launch<K, int8_t>(a, variant, tm, tn, tr, tw, ck, split, s);
+    return launch<K, float>(a, variant, tm, tn, tr, tw, ck, split, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// All tensors contiguous on the device: x (N,H,W,C) bf16; dw_w (k,k,C)
-// bf16; dw_b (C,) bf16; pw_w (C,Cout) bf16; pw_b (Cout,) bf16; res
-// (N,Ho,Wo,Cout) bf16 or null; out like res; N*H*W*C and N*Ho*Wo*Cout
-// < 2^31; 1 <= k <= 7. variant 0: simt (tm, tn, tr, tw, ck, split
-// unused). variant 1: mma (C % 8 == 0, Cout % 8 == 0, every pointer
-// 16-byte aligned; tm 16, 32 or 64; tn 64 or 128; tr * tw <= tm; ck 32 or
-// 64; split 1..8 <= ceil(C / ck); the shared memory within the limit).
-// Anything else returns cudaErrorInvalidValue; else cudaGetLastError()
-// after the launch.
-int dw_pw_bf16(const void* x, const void* dw_w, const void* dw_b,
-               const void* pw_w, const void* pw_b, const void* res,
-               void* out, int N, int H, int W, int C, int Ho, int Wo, int k,
-               int stride, int pad_h, int pad_w, int Cout, int dw_relu,
-               int relu, int variant, int tm, int tn, int tr, int tw, int ck,
-               int split, void* stream) {
-  const DwPwArgs a = {(const __nv_bfloat16*)x, (const __nv_bfloat16*)dw_w,
-                      (const __nv_bfloat16*)dw_b, (const __nv_bfloat16*)pw_w,
-                      (const __nv_bfloat16*)pw_b, (const __nv_bfloat16*)res,
+// All tensors contiguous on the device: x (N,H,W,C) bf16; pw_w (C,Cout)
+// of the stored type wtype (0 bf16, 1 int8 codes, 2 f32); dw_w (k,k,C),
+// dw_b (C,) and pw_b (Cout,) f32 with f32 pw_w, else bf16; res
+// (N,Ho,Wo,Cout) bf16 or null; scale (Cout,) f32 with int8 pw_w, else
+// null; out like res; N*H*W*C and N*Ho*Wo*Cout < 2^31; 1 <= k <= 7
+// (k = 3 for int8 and f32). variant 0: simt (tm, tn, tr, tw, ck, split
+// unused). variant 1: mma (bf16 or int8; C % 8 == 0, Cout % 8 == 0,
+// every pointer 16-byte aligned; tm 16, 32 or 64; tn 64 or 128; tr * tw
+// <= tm; ck 32 or 64; split 1..8 <= ceil(C / ck); the shared memory
+// within the limit). Anything else returns cudaErrorInvalidValue; else
+// cudaGetLastError() after the launch.
+int dw_pw_launch(const void* x, const void* dw_w, const void* dw_b,
+                 const void* pw_w, const void* pw_b, const void* res,
+                 const void* scale, void* out, int N, int H, int W, int C,
+                 int Ho, int Wo, int k, int stride, int pad_h, int pad_w,
+                 int Cout, int dw_relu, int relu, int wtype, int variant,
+                 int tm, int tn, int tr, int tw, int ck, int split,
+                 void* stream) {
+  const DwPwArgs a = {(const __nv_bfloat16*)x, dw_w, dw_b, pw_w, pw_b,
+                      (const __nv_bfloat16*)res, (const float*)scale,
                       (__nv_bfloat16*)out, N, H, W, C, Ho, Wo, stride,
                       pad_h, pad_w, Cout, dw_relu, relu};
   const cudaStream_t s = (cudaStream_t)stream;
+  if (wtype < wtypes::BF16 || wtype > wtypes::F32 ||
+      (scale != nullptr) != (wtype == wtypes::INT8))
+    return (int)cudaErrorInvalidValue;
   if (N * Ho * Wo == 0 || Cout == 0) return 0;
   if (k < 1 || k > K_MAX || stride < 1 || C < 1 || (Cout + 63) / 64 > 65535)
     return (int)cudaErrorInvalidValue;
@@ -609,13 +705,14 @@ int dw_pw_bf16(const void* x, const void* dw_w, const void* dw_b,
     return (int)cudaErrorInvalidValue;
   }
   switch (k) {
-    case 1: return launch<1>(a, variant, tm, tn, tr, tw, ck, split, s);
-    case 2: return launch<2>(a, variant, tm, tn, tr, tw, ck, split, s);
-    case 3: return launch<3>(a, variant, tm, tn, tr, tw, ck, split, s);
-    case 4: return launch<4>(a, variant, tm, tn, tr, tw, ck, split, s);
-    case 5: return launch<5>(a, variant, tm, tn, tr, tw, ck, split, s);
-    case 6: return launch<6>(a, variant, tm, tn, tr, tw, ck, split, s);
-    default: return launch<7>(a, variant, tm, tn, tr, tw, ck, split, s);
+    case 1: return launch_k<1>(a, wtype, variant, tm, tn, tr, tw, ck, split, s);
+    case 2: return launch_k<2>(a, wtype, variant, tm, tn, tr, tw, ck, split, s);
+    case 3: return launch_k<3>(a, wtype, variant, tm, tn, tr, tw, ck, split, s);
+    case 4: return launch_k<4>(a, wtype, variant, tm, tn, tr, tw, ck, split, s);
+    case 5: return launch_k<5>(a, wtype, variant, tm, tn, tr, tw, ck, split, s);
+    case 6: return launch_k<6>(a, wtype, variant, tm, tn, tr, tw, ck, split, s);
+    default:
+      return launch_k<7>(a, wtype, variant, tm, tn, tr, tw, ck, split, s);
   }
 }
 

@@ -10,6 +10,12 @@
 // epilogue of bias, optional residual and optional ReLU in f32 followed
 // by one round to bf16: the order of sparse_conv.py:116-130.
 //
+// Stored weights (a template argument, weights.cuh): bf16; int8 codes,
+// whose (ob, bn) f32 scale multiplies the f32 sum once in the epilogue,
+// before bias and residual (the Pallas flush, sparse_conv.py:117-121;
+// under split-K, the full sum after the rank-ordered reduction, never a
+// partial); or f32 with an f32 bias (simt only).
+//
 // The TPU kernel walks K as the innermost, sequential grid axis and
 // carries a VMEM accumulator between grid steps. Here one block owns TM
 // output pixels of one output block column and runs (its share of) the
@@ -19,10 +25,10 @@
 // id is decoded into (ky, kx, cb) here, as conv_block_coords does. Two
 // variants, chosen in Python (sparse_conv.variant) and passed in:
 //
-// "mma" (bm a multiple of 16, bn of 8, both <= 32: every ResNet-50
-// layer). 4 warps; TM (16 or 32, from sparse_conv.plan) pixels x 32
-// columns, the warps laid out as TM/16 along the pixels and 64/TM along
-// the columns. A 4-stage cp.async ring brings each surviving
+// "mma" (bf16 or int8 weights; bm a multiple of 16, bn of 8, both <= 32:
+// every ResNet-50 layer). 4 warps; TM (16 or 32, from sparse_conv.plan)
+// pixels x 32 columns, the warps laid out as TM/16 along the pixels and
+// 64/TM along the columns. A 4-stage cp.async ring brings each surviving
 // block's gathered TM x bm tile (one pixel's bm channels are bm*2
 // contiguous bytes: 16-byte copies, zero-filled by the source-size-0
 // form in the halo and past the last pixel) and its bm x bn weight
@@ -31,6 +37,11 @@
 // mma.sync.m16n8k16 sums in f32 (bf16 x bf16 products are exact in
 // f32). The block's idx entries come in before the loop, 32 a warp in
 // registers, handed out by shuffles, so no gather waits on an idx load.
+// int8 weights: cp.async copies bytes and cannot widen, so the ring holds
+// the bm x bn codes (8-byte copies, rows of 40 bytes) and each thread
+// builds its B fragments from them (4 byte loads and 2 conversions per
+// fragment, exact in bf16): half the weight bytes from device memory, no
+// extra barrier, the same mma.sync on bf16.
 // Split-K: the grid's third axis is a thread-block cluster of S <= 8
 // blocks (no cluster at S = 1); block (rank r) walks steps [r*K/S,
 // (r+1)*K/S) and owns rows [r*TM/S, (r+1)*TM/S) of the tile. Each block
@@ -41,7 +52,8 @@
 // 16-byte rows. Deterministic, one launch, no workspace, and no block
 // touches a peer after the barrier, so none waits for another to exit.
 //
-// "simt" (any other blocks up to 32 x 32): f32 FMAs on the CUDA cores,
+// "simt" (any other blocks up to 32 x 32, and f32 weights): f32 FMAs on the
+// CUDA cores,
 // grid (ceil(M/64), ob), 256 threads, the whole K loop in each block; a
 // step's loads are issued together into registers, and the next step's
 // before this step's FMAs.
@@ -62,6 +74,7 @@
 #include <stdint.h>
 
 #include "tensor_core.cuh"
+#include "weights.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -82,12 +95,14 @@ constexpr int ROWS = TM / ROW_STEP;          // 8 accumulators per thread
 constexpr int W_LOADS = BM_MAX * BN_MAX / THREADS;   // 4 per thread per step
 constexpr int X_LOADS = TM * BM_MAX / THREADS;       // 8 per thread per step
 
+template <typename WT>
 __global__ void __launch_bounds__(THREADS)
 sparse_conv_simt(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ vals,
+                   const WT* __restrict__ vals,
                    const int32_t* __restrict__ idx,
-                   const __nv_bfloat16* __restrict__ bias,
+                   const typename wtypes::Param<WT>::type* __restrict__ bias,
                    const __nv_bfloat16* __restrict__ res,
+                   const float* __restrict__ scale,
                    __nv_bfloat16* __restrict__ out,
                    int N, int H, int W, int C, int Ho, int Wo, int k,
                    int stride, int pad_h, int pad_w, int ob, int K, int bm,
@@ -140,10 +155,10 @@ sparse_conv_simt(const __nv_bfloat16* __restrict__ x,
     const int pos = blk / cpb;
     const int ky = pos / k, kx = pos % k;
     const int c0 = (blk % cpb) * bm;
-    const __nv_bfloat16* wb = vals + ((size_t)j * K + l) * bm * bn;
+    const WT* wb = vals + ((size_t)j * K + l) * bm * bn;
 #pragma unroll
     for (int u = 0; u < W_LOADS; ++u)
-      wv[u] = w_slot[u] >= 0 ? __bfloat162float(wb[tid + u * THREADS]) : 0.f;
+      wv[u] = w_slot[u] >= 0 ? wtypes::to_f32(wb[tid + u * THREADS]) : 0.f;
 #pragma unroll
     for (int u = 0; u < X_LOADS; ++u) {
       const int iy = x_iy[u] + ky, ix = x_ix[u] + kx;
@@ -183,13 +198,15 @@ sparse_conv_simt(const __nv_bfloat16* __restrict__ x,
   if (col >= bn) return;
   const int cout = ob * bn;
   const int co = j * bn + col;
-  const float b = __bfloat162float(bias[co]);
+  const float b = wtypes::to_f32(bias[co]);
+  const float sc = scale != nullptr ? scale[co] : 1.f;
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     const int p = m0 + row + i * ROW_STEP;
     if (p >= M) continue;
     const size_t o = (size_t)p * cout + co;
-    float y = acc[i] + b;
+    // int8: the code sum times its scale, rounded before the bias joins
+    float y = (scale != nullptr ? __fmul_rn(acc[i], sc) : acc[i]) + b;
     if (res != nullptr) y += __bfloat162float(res[o]);
     if (relu) y = fmaxf(y, 0.f);
     out[o] = __float2bfloat16(y);
@@ -202,16 +219,19 @@ constexpr int MMA_THREADS = 128;
 constexpr int STAGES = 4;                // the cp.async ring
 constexpr int XLD = BM_MAX + 8;          // row strides (elements) of the
 constexpr int WLD = BN_MAX + 8;          // staged tiles: 80 B, 16-aligned
+constexpr int W8LD = BN_MAX + 8;         // an int8 tile's row: 40 B
 constexpr int PLD = BN_MAX + 4;          // row stride (floats) of a partial
 constexpr int MAX_SPLIT = 8;             // the portable cluster size
 
-template <int TM_>
+// WT: __nv_bfloat16, or int8_t codes with their scale
+template <int TM_, typename WT>
 __global__ void __launch_bounds__(MMA_THREADS)
 sparse_conv_mma(const __nv_bfloat16* __restrict__ x,
-                const __nv_bfloat16* __restrict__ vals,
+                const WT* __restrict__ vals,
                 const int32_t* __restrict__ idx,
                 const __nv_bfloat16* __restrict__ bias,
                 const __nv_bfloat16* __restrict__ res,
+                const float* __restrict__ scale,
                 __nv_bfloat16* __restrict__ out, int N, int H, int W, int C,
                 int Ho, int Wo, int k, int stride, int pad_h, int pad_w,
                 int ob, int K, int bm, int bn, int relu) {
@@ -223,8 +243,9 @@ sparse_conv_mma(const __nv_bfloat16* __restrict__ x,
   // epilogue items (a row's 8 columns) a thread at most, at split 1
   constexpr int E_ITEMS = (TM_ * (BN_MAX / 8) + MMA_THREADS - 1) /
                           MMA_THREADS;
+  constexpr bool CODES = sizeof(WT) == 1;
   // stage st: the gathered x tile at ring + st * (XS + WS), then the
-  // weight block
+  // weight block (int8: BM_MAX rows of W8LD bytes at its start)
   __shared__ __align__(128) __nv_bfloat16 ring[STAGES * (XS + WS)];
   // the partials of this block's rows: slot q (rank q's), ceil(TM/S)
   // rows of PLD floats each
@@ -252,6 +273,7 @@ sparse_conv_mma(const __nv_bfloat16* __restrict__ x,
   const int r0 = rank * TM_ / split, r1 = (rank + 1) * TM_ / split;
   if (split > 1) tc::cluster_arrive_relaxed();   // this block runs
   uint4 e_bias[E_ITEMS], e_res[E_ITEMS];
+  float4 e_scale[E_ITEMS][2];   // int8: the item's 8 scales
 #pragma unroll
   for (int i = 0; i < E_ITEMS; ++i) {
     const int e = tid + i * MMA_THREADS;
@@ -262,6 +284,11 @@ sparse_conv_mma(const __nv_bfloat16* __restrict__ x,
       if (res != nullptr)
         e_res[i] = *reinterpret_cast<const uint4*>(
             res + (size_t)p * cout + j * bn + c);
+      if constexpr (CODES) {
+        e_scale[i][0] = *reinterpret_cast<const float4*>(scale + j * bn + c);
+        e_scale[i][1] =
+            *reinterpret_cast<const float4*>(scale + j * bn + c + 4);
+      }
     }
   }
 
@@ -315,10 +342,14 @@ sparse_conv_mma(const __nv_bfloat16* __restrict__ x,
                         : x,
                      in);   // the SAME halo, or a pixel past the last
     }
-    const __nv_bfloat16* wb = vals + ((size_t)j * K + lo + s) * bm * bn;
+    const WT* wb = vals + ((size_t)j * K + lo + s) * bm * bn;
     for (int e = tid; e < bm * wc; e += MMA_THREADS) {
       const int r = e / wc, c = (e % wc) * 8;
-      tc::cp_async16(ws + r * WLD + c, wb + r * bn + c, true);
+      if constexpr (CODES)
+        tc::cp_async8(reinterpret_cast<int8_t*>(ws) + r * W8LD + c,
+                      wb + r * bn + c, true);
+      else
+        tc::cp_async16(ws + r * WLD + c, wb + r * bn + c, true);
     }
   };
 
@@ -346,6 +377,21 @@ sparse_conv_mma(const __nv_bfloat16* __restrict__ x,
       uint32_t a[4];
       tc::ldmatrix_x4(a, &xt[(wm * 16 + (lane % 8) + ((lane / 8) % 2) * 8) *
                                  XLD + kc * 16 + (lane / 16) * 8]);
+      if constexpr (CODES) {
+        // B fragment of column tile t: rows kc*16 + 2tg, +1 (b0) and +8,
+        // +9 (b1) of column 8t + g, each code widened to bf16
+        const int8_t* w8 =
+            reinterpret_cast<const int8_t*>(wt) + (kc * 16 + 2 * tg) * W8LD;
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const int tile = wn * NT + t;
+          if (tile >= n_tiles) continue;
+          const int8_t* wc8 = w8 + tile * 8 + g;
+          tc::mma_bf16(acc[t], a, tc::pack_codes(wc8[0], wc8[W8LD]),
+                       tc::pack_codes(wc8[8 * W8LD], wc8[9 * W8LD]));
+        }
+        continue;
+      }
       const __nv_bfloat16* wrow =
           &wt[(kc * 16 + ((lane / 8) % 2) * 8 + (lane % 8)) * WLD +
               wn * NT * 8];
@@ -387,8 +433,8 @@ sparse_conv_mma(const __nv_bfloat16* __restrict__ x,
     __syncthreads();
   }
 
-  // rows [r0, r1): the slots summed in rank order, then bias, residual
-  // and ReLU in f32, one round to bf16, 16-byte stores
+  // rows [r0, r1): the slots summed in rank order, then (int8) the scale,
+  // then bias, residual and ReLU in f32, one round to bf16, 16-byte stores
 #pragma unroll
   for (int i = 0; i < E_ITEMS; ++i) {
     const int e = tid + i * MMA_THREADS;
@@ -403,6 +449,11 @@ sparse_conv_mma(const __nv_bfloat16* __restrict__ x,
       const float4 b = *reinterpret_cast<const float4*>(pq + 4);
       v[0] += a.x; v[1] += a.y; v[2] += a.z; v[3] += a.w;
       v[4] += b.x; v[5] += b.y; v[6] += b.z; v[7] += b.w;
+    }
+    if constexpr (CODES) {
+      const float* sc = reinterpret_cast<const float*>(e_scale[i]);
+#pragma unroll
+      for (int k8 = 0; k8 < 8; ++k8) v[k8] = __fmul_rn(v[k8], sc[k8]);
     }
     const __nv_bfloat162* b2 =
         reinterpret_cast<const __nv_bfloat162*>(&e_bias[i]);
@@ -432,14 +483,16 @@ sparse_conv_mma(const __nv_bfloat16* __restrict__ x,
 // ---- launch ----------------------------------------------------------------
 
 struct ConvArgs {
-  const __nv_bfloat16 *x, *vals;
+  const __nv_bfloat16* x;
+  const void *vals, *bias;     // of the stored weight type (and its bias)
   const int32_t* idx;
-  const __nv_bfloat16 *bias, *res;
+  const __nv_bfloat16* res;
+  const float* scale;
   __nv_bfloat16* out;
   int N, H, W, C, Ho, Wo, k, stride, pad_h, pad_w, ob, K, bm, bn, relu;
 };
 
-template <int TM_>
+template <int TM_, typename WT>
 int launch_mma(const ConvArgs& a, int split, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((a.N * a.Ho * a.Wo + TM_ - 1) / TM_, a.ob, split);
@@ -453,19 +506,32 @@ int launch_mma(const ConvArgs& a, int split, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = split > 1;              // split 1: no cluster, no barrier
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, sparse_conv_mma<TM_>, a.x, a.vals, a.idx, a.bias, a.res, a.out,
-      a.N, a.H, a.W, a.C, a.Ho, a.Wo, a.k, a.stride, a.pad_h, a.pad_w, a.ob,
-      a.K, a.bm, a.bn, a.relu);
+      &cfg, sparse_conv_mma<TM_, WT>, a.x, (const WT*)a.vals, a.idx,
+      (const __nv_bfloat16*)a.bias, a.res, a.scale, a.out, a.N, a.H, a.W,
+      a.C, a.Ho, a.Wo, a.k, a.stride, a.pad_h, a.pad_w, a.ob, a.K, a.bm,
+      a.bn, a.relu);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }
 
+template <typename WT>
 int launch_simt(const ConvArgs& a, cudaStream_t stream) {
   dim3 grid((a.N * a.Ho * a.Wo + TM - 1) / TM, a.ob);
-  sparse_conv_simt<<<grid, THREADS, 0, stream>>>(
-      a.x, a.vals, a.idx, a.bias, a.res, a.out, a.N, a.H, a.W, a.C, a.Ho,
-      a.Wo, a.k, a.stride, a.pad_h, a.pad_w, a.ob, a.K, a.bm, a.bn, a.relu);
+  sparse_conv_simt<WT><<<grid, THREADS, 0, stream>>>(
+      a.x, (const WT*)a.vals, a.idx,
+      (const typename wtypes::Param<WT>::type*)a.bias, a.res, a.scale, a.out,
+      a.N, a.H, a.W, a.C, a.Ho, a.Wo, a.k, a.stride, a.pad_h, a.pad_w, a.ob,
+      a.K, a.bm, a.bn, a.relu);
   return (int)cudaGetLastError();
+}
+
+template <typename WT>
+int launch_mma_tm(const ConvArgs& a, int tm, int split, cudaStream_t s) {
+  switch (tm) {
+    case 16: return launch_mma<16, WT>(a, split, s);
+    case 32: return launch_mma<32, WT>(a, split, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -476,36 +542,41 @@ int sparse_conv_max_bm() { return BM_MAX; }
 int sparse_conv_max_bn() { return BN_MAX; }
 
 // All tensors contiguous on the device: x (N,H,W,C) bf16; vals
-// (ob,K,bm,bn) bf16; idx (ob,K) int32 flat HWIO block ids; bias
-// (ob*bn,) bf16; res (N,Ho,Wo,ob*bn) bf16 or null; out like res;
-// N*H*W*C and N*Ho*Wo*ob*bn < 2^31. variant: 0 simt (tm 64, split 1),
-// 1 mma (bm % 16 == 0, bn % 8 == 0; tm 16 or 32; split 1..8 <= K;
-// x, vals, bias, res and out 16-byte aligned). Anything else returns
+// (ob,K,bm,bn) of the stored type wtype (0 bf16, 1 int8 codes, 2 f32);
+// idx (ob,K) int32 flat HWIO block ids; bias (ob*bn,) f32 with f32
+// vals, else bf16; res (N,Ho,Wo,ob*bn) bf16 or null; scale (ob,bn) f32
+// with int8 vals, else null; out like res; N*H*W*C and N*Ho*Wo*ob*bn <
+// 2^31. variant: 0 simt (tm 64, split 1), 1 mma (bf16 or int8; bm % 16
+// == 0, bn % 8 == 0; tm 16 or 32; split 1..8 <= K; x, vals, bias, res,
+// scale and out 16-byte aligned). Anything else returns
 // cudaErrorInvalidValue; else cudaGetLastError() after the launch.
-int sparse_conv_bf16(const void* x, const void* vals, const void* idx,
-                     const void* bias, const void* res, void* out, int N,
-                     int H, int W, int C, int Ho, int Wo, int k, int stride,
-                     int pad_h, int pad_w, int ob, int K, int bm, int bn,
-                     int relu, int variant, int tm, int split,
-                     void* stream) {
-  const ConvArgs a = {(const __nv_bfloat16*)x, (const __nv_bfloat16*)vals,
-                      (const int32_t*)idx, (const __nv_bfloat16*)bias,
-                      (const __nv_bfloat16*)res, (__nv_bfloat16*)out, N, H,
-                      W, C, Ho, Wo, k, stride, pad_h, pad_w, ob, K, bm, bn,
-                      relu};
+int sparse_conv_launch(const void* x, const void* vals, const void* idx,
+                       const void* bias, const void* res, const void* scale,
+                       void* out, int N, int H, int W, int C, int Ho, int Wo,
+                       int k, int stride, int pad_h, int pad_w, int ob, int K,
+                       int bm, int bn, int relu, int wtype, int variant,
+                       int tm, int split, void* stream) {
+  const ConvArgs a = {(const __nv_bfloat16*)x, vals, bias,
+                      (const int32_t*)idx, (const __nv_bfloat16*)res,
+                      (const float*)scale, (__nv_bfloat16*)out, N, H, W, C,
+                      Ho, Wo, k, stride, pad_h, pad_w, ob, K, bm, bn, relu};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (bm < 1 || bn < 1 || bm > BM_MAX || bn > BN_MAX || C % bm || ob > 65535)
+  if (bm < 1 || bn < 1 || bm > BM_MAX || bn > BN_MAX || C % bm ||
+      ob > 65535 || wtype < wtypes::BF16 || wtype > wtypes::F32 ||
+      (scale != nullptr) != (wtype == wtypes::INT8))
     return (int)cudaErrorInvalidValue;
-  if (variant == VARIANT_SIMT && tm == TM && split == 1)
-    return launch_simt(a, s);
-  if (variant != VARIANT_MMA || bm % 16 || bn % 8 || split < 1 ||
-      split > MAX_SPLIT || split > (K > 0 ? K : 1))
-    return (int)cudaErrorInvalidValue;
-  switch (tm) {
-    case 16: return launch_mma<16>(a, split, s);
-    case 32: return launch_mma<32>(a, split, s);
-    default: return (int)cudaErrorInvalidValue;
+  if (variant == VARIANT_SIMT && tm == TM && split == 1) {
+    switch (wtype) {
+      case wtypes::BF16: return launch_simt<__nv_bfloat16>(a, s);
+      case wtypes::INT8: return launch_simt<int8_t>(a, s);
+      default: return launch_simt<float>(a, s);
+    }
   }
+  if (variant != VARIANT_MMA || wtype == wtypes::F32 || bm % 16 || bn % 8 ||
+      split < 1 || split > MAX_SPLIT || split > (K > 0 ? K : 1))
+    return (int)cudaErrorInvalidValue;
+  return wtype == wtypes::INT8 ? launch_mma_tm<int8_t>(a, tm, split, s)
+                           : launch_mma_tm<__nv_bfloat16>(a, tm, split, s);
 }
 
 const char* sparse_conv_error_string(int err) {

@@ -6,6 +6,10 @@
 //   y[m, j*bn:+bn] = sum_k x[m, idx[j,k]*bm:+bm] @ vals[j,k]
 //
 // with an f32 accumulator and the output in x's dtype; no epilogue.
+// Stored weights (a template argument, weights.cuh): bf16 (every
+// variant), int8 codes (gemv, simt; the caller multiplies the output by
+// the per-channel scale, as the reference does outside its Pallas
+// kernel) or f32 (simt).
 //
 // Three variants, chosen in Python (sparse_matmul.variant) and passed in.
 // The TPU kernel's sequential K grid axis becomes a loop inside a block
@@ -17,9 +21,9 @@
 // threads (about one per two rows) owns 8 of its output columns (grid
 // (ceil(bn/8), ob): 160 blocks for the classifier, 320 and 120 for
 // SmolLM-360M's w1 and w2) and every row: thread t takes rows t,
-// t + THREADS, ..., loading each row's 8 columns as
-// one 16-byte vector (bn % 8 == 0; element by element otherwise, as for
-// the classifier's bn = 25) and the gathered x values (idx, then x)
+// t + THREADS, ..., loading each row's 8 columns as one 16-byte vector
+// (8 bytes for int8 codes; bn % 8 == 0; element by element otherwise, as
+// for the classifier's bn = 25) and the gathered x values (idx, then x)
 // into registers, every load issued before the first FMA; M rounded up
 // to 1, 2, 4 or 8 is a template argument, so a thread holds that many x
 // 8 sums. The f32 partials are summed over each warp's lanes by an xor
@@ -66,6 +70,7 @@
 #include <stdint.h>
 
 #include "tensor_core.cuh"
+#include "weights.cuh"
 
 namespace {
 
@@ -80,19 +85,17 @@ constexpr int LANES = 32;               // columns lane and lane + 32
 constexpr int GROUPS = THREADS / LANES; // 8 row groups
 constexpr int W_LOADS = BM_MAX * BN_MAX / THREADS;   // 16 per thread
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+using wtypes::to_f32;
+
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <typename T>
+template <typename T, typename WT>
 __global__ void __launch_bounds__(THREADS)
 sparse_matmul_simt(const T* __restrict__ x,
-                     const __nv_bfloat16* __restrict__ vals,
+                     const WT* __restrict__ vals,
                      const int32_t* __restrict__ idx, T* __restrict__ out,
                      int M, int d_in, int ob, int K, int bm, int bn) {
   constexpr int RPT = 8;                // rows a thread
@@ -129,10 +132,10 @@ sparse_matmul_simt(const T* __restrict__ x,
   float wv[W_LOADS], xv[X_LOADS];
   auto load = [&](int l) {
     const int c0 = idx[j * K + l] * bm;
-    const __nv_bfloat16* wb = vals + ((size_t)j * K + l) * bm * bn;
+    const WT* wb = vals + ((size_t)j * K + l) * bm * bn;
 #pragma unroll
     for (int u = 0; u < W_LOADS; ++u)
-      wv[u] = w_slot[u] >= 0 ? __bfloat162float(wb[tid + u * THREADS]) : 0.f;
+      wv[u] = w_slot[u] >= 0 ? to_f32(wb[tid + u * THREADS]) : 0.f;
 #pragma unroll
     for (int u = 0; u < X_LOADS; ++u)
       xv[u] = x_off[u] >= 0 ? to_f32(x[x_off[u] + c0]) : 0.f;
@@ -293,12 +296,39 @@ sparse_matmul_mma(const __nv_bfloat16* __restrict__ x,
 
 constexpr int GEMV_COLS = 8;            // output columns a block
 
+// A weight row's 8 columns as one vector load: 16 bytes of bf16, 8 bytes
+// of int8 codes; widened to f32 before the FMAs.
+template <typename WT>
+struct Row8;
+template <>
+struct Row8<__nv_bfloat16> {
+  using vec = uint4;
+  __device__ static void widen(const uint4& v, float (&w)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      w[2 * i] = f.x;
+      w[2 * i + 1] = f.y;
+    }
+  }
+};
+template <>
+struct Row8<int8_t> {
+  using vec = uint2;
+  __device__ static void widen(const uint2& v, float (&w)[8]) {
+    const int8_t* c = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) w[i] = (float)c[i];
+  }
+};
+
 // MT: M rounded up to 1, 2, 4 or 8 (x rows >= M load nothing);
 // THREADS: 64, 128 or 256, about one thread per two weight rows
-template <typename T, int MT, int THREADS>
+template <typename T, typename WT, int MT, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 sparse_matmul_gemv(const T* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ vals,
+                   const WT* __restrict__ vals,
                    const int32_t* __restrict__ idx, T* __restrict__ out,
                    int M, int d_in, int ob, int K, int bm, int bn,
                    int vec) {
@@ -309,7 +339,8 @@ sparse_matmul_gemv(const T* __restrict__ x,
   const int nc = min(GEMV_COLS, bn - c0);  // this block's columns
   const int rows = K * bm;                  // column j's weight rows
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const __nv_bfloat16* wj = vals + (size_t)j * rows * bn + c0;
+  const WT* wj = vals + (size_t)j * rows * bn + c0;
+  using V = typename Row8<WT>::vec;
   const int32_t* ij = idx + (size_t)j * K;
 
   float acc[MT][GEMV_COLS];
@@ -322,18 +353,18 @@ sparse_matmul_gemv(const T* __restrict__ x,
   // its first FMA; at the classifier's and SmolLM-360M's shapes one
   // round holds every row
   for (int r0 = 0; r0 < rows; r0 += THREADS * RB) {
-    uint4 wv[RB];
+    V wv[RB];
     float xv[RB][MT];
 #pragma unroll
     for (int u = 0; u < RB; ++u) {
       const int R = r0 + tid + u * THREADS;
-      wv[u] = make_uint4(0, 0, 0, 0);
+      wv[u] = V{};
       if (R >= rows) continue;
-      const __nv_bfloat16* wr = wj + (size_t)R * bn;
+      const WT* wr = wj + (size_t)R * bn;
       if (vec) {
-        wv[u] = *reinterpret_cast<const uint4*>(wr);
+        wv[u] = *reinterpret_cast<const V*>(wr);
       } else {
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&wv[u]);
+        WT* e = reinterpret_cast<WT*>(&wv[u]);
 #pragma unroll
         for (int c = 0; c < GEMV_COLS; ++c)
           if (c < nc) e[c] = wr[c];
@@ -350,17 +381,13 @@ sparse_matmul_gemv(const T* __restrict__ x,
     }
 #pragma unroll
     for (int u = 0; u < RB; ++u) {
-      const __nv_bfloat162* w2 =
-          reinterpret_cast<const __nv_bfloat162*>(&wv[u]);
+      float w[GEMV_COLS];
+      Row8<WT>::widen(wv[u], w);
 #pragma unroll
-      for (int c2 = 0; c2 < GEMV_COLS / 2; ++c2) {
-        const float2 w = __bfloat1622float2(w2[c2]);
+      for (int c = 0; c < GEMV_COLS; ++c)
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          acc[m][2 * c2] = fmaf(xv[u][m], w.x, acc[m][2 * c2]);
-          acc[m][2 * c2 + 1] = fmaf(xv[u][m], w.y, acc[m][2 * c2 + 1]);
-        }
-      }
+        for (int m = 0; m < MT; ++m)
+          acc[m][c] = fmaf(xv[u][m], w[c], acc[m][c]);
     }
   }
 
@@ -389,65 +416,97 @@ sparse_matmul_gemv(const T* __restrict__ x,
 
 // ---- launch --------------------------------------------------------------
 
-template <typename T>
+template <typename T, typename WT>
 int launch_simt(const void* x, const void* vals, const void* idx, void* out,
                 int M, int d_in, int ob, int K, int bm, int bn,
                 cudaStream_t stream) {
   dim3 grid((M + GROUPS * 8 - 1) / (GROUPS * 8), ob);
-  sparse_matmul_simt<T><<<grid, THREADS, 0, stream>>>(
-      (const T*)x, (const __nv_bfloat16*)vals, (const int32_t*)idx, (T*)out,
-      M, d_in, ob, K, bm, bn);
+  sparse_matmul_simt<T, WT><<<grid, THREADS, 0, stream>>>(
+      (const T*)x, (const WT*)vals, (const int32_t*)idx, (T*)out, M, d_in,
+      ob, K, bm, bn);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int MT, int THREADS>
+template <typename T, typename WT, int MT, int THREADS>
 int launch_gemv_mt(const void* x, const void* vals, const void* idx,
                    void* out, int M, int d_in, int ob, int K, int bm, int bn,
                    int vec, cudaStream_t stream) {
   dim3 grid((bn + GEMV_COLS - 1) / GEMV_COLS, ob);
-  sparse_matmul_gemv<T, MT, THREADS><<<grid, THREADS, 0, stream>>>(
-      (const T*)x, (const __nv_bfloat16*)vals, (const int32_t*)idx, (T*)out,
-      M, d_in, ob, K, bm, bn, vec);
+  sparse_matmul_gemv<T, WT, MT, THREADS><<<grid, THREADS, 0, stream>>>(
+      (const T*)x, (const WT*)vals, (const int32_t*)idx, (T*)out, M, d_in,
+      ob, K, bm, bn, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int THREADS>
+template <typename T, typename WT, int THREADS>
 int launch_gemv_t(const void* x, const void* vals, const void* idx,
                   void* out, int M, int d_in, int ob, int K, int bm, int bn,
                   int vec, cudaStream_t stream) {
   if (M <= 1)
-    return launch_gemv_mt<T, 1, THREADS>(x, vals, idx, out, M, d_in, ob, K,
-                                         bm, bn, vec, stream);
+    return launch_gemv_mt<T, WT, 1, THREADS>(x, vals, idx, out, M, d_in, ob,
+                                             K, bm, bn, vec, stream);
   if (M <= 2)
-    return launch_gemv_mt<T, 2, THREADS>(x, vals, idx, out, M, d_in, ob, K,
-                                         bm, bn, vec, stream);
+    return launch_gemv_mt<T, WT, 2, THREADS>(x, vals, idx, out, M, d_in, ob,
+                                             K, bm, bn, vec, stream);
   if (M <= 4)
-    return launch_gemv_mt<T, 4, THREADS>(x, vals, idx, out, M, d_in, ob, K,
-                                         bm, bn, vec, stream);
-  return launch_gemv_mt<T, 8, THREADS>(x, vals, idx, out, M, d_in, ob, K,
-                                       bm, bn, vec, stream);
+    return launch_gemv_mt<T, WT, 4, THREADS>(x, vals, idx, out, M, d_in, ob,
+                                             K, bm, bn, vec, stream);
+  return launch_gemv_mt<T, WT, 8, THREADS>(x, vals, idx, out, M, d_in, ob, K,
+                                           bm, bn, vec, stream);
 }
 
 // The block size follows the rows: about two weight rows a thread with
 // 16-byte loads, one with element loads (the fastest of 64, 128 and 256
 // threads at the classifier's and SmolLM-360M's shapes on the H100;
 // PERF.md).
-template <typename T>
+template <typename T, typename WT>
 int launch_gemv(const void* x, const void* vals, const void* idx, void* out,
                 int M, int d_in, int ob, int K, int bm, int bn,
                 cudaStream_t stream) {
   if (M < 1 || M > 8 || ob > 65535) return (int)cudaErrorInvalidValue;
-  const int vec =
-      bn % 8 == 0 && reinterpret_cast<uintptr_t>(vals) % 16 == 0;
+  const int vec = bn % 8 == 0 && reinterpret_cast<uintptr_t>(vals) %
+                                         (8 * sizeof(WT)) == 0;
   const int want = vec ? (K * bm + 1) / 2 : K * bm;   // threads wanted
   if (want <= 64)
-    return launch_gemv_t<T, 64>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
-                                vec, stream);
+    return launch_gemv_t<T, WT, 64>(x, vals, idx, out, M, d_in, ob, K, bm,
+                                    bn, vec, stream);
   if (want <= 128)
-    return launch_gemv_t<T, 128>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
-                                 vec, stream);
-  return launch_gemv_t<T, 256>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
-                               vec, stream);
+    return launch_gemv_t<T, WT, 128>(x, vals, idx, out, M, d_in, ob, K, bm,
+                                     bn, vec, stream);
+  return launch_gemv_t<T, WT, 256>(x, vals, idx, out, M, d_in, ob, K, bm,
+                                   bn, vec, stream);
+}
+
+// The simt and gemv launches of x type T by the stored weight type: gemv
+// for bf16 and int8 weights, simt for all three.
+template <typename T>
+int launch_by_weight(const void* x, const void* vals, const void* idx,
+                     void* out, int M, int d_in, int ob, int K, int bm,
+                     int bn, int wtype, int variant, cudaStream_t s) {
+  if (variant == VARIANT_GEMV) {
+    switch (wtype) {
+      case wtypes::BF16:
+        return launch_gemv<T, __nv_bfloat16>(x, vals, idx, out, M, d_in, ob,
+                                             K, bm, bn, s);
+      case wtypes::INT8:
+        return launch_gemv<T, int8_t>(x, vals, idx, out, M, d_in, ob, K, bm,
+                                      bn, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (variant != VARIANT_SIMT) return (int)cudaErrorInvalidValue;
+  switch (wtype) {
+    case wtypes::BF16:
+      return launch_simt<T, __nv_bfloat16>(x, vals, idx, out, M, d_in, ob, K,
+                                           bm, bn, s);
+    case wtypes::INT8:
+      return launch_simt<T, int8_t>(x, vals, idx, out, M, d_in, ob, K, bm,
+                                    bn, s);
+    case wtypes::F32:
+      return launch_simt<T, float>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
+                                   s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int launch_mma(const void* x, const void* vals, const void* idx, void* out,
@@ -469,42 +528,30 @@ extern "C" {
 int sparse_matmul_max_bm() { return BM_MAX; }
 int sparse_matmul_max_bn() { return BN_MAX; }
 
-// x (M, d_in) f32 or bf16, M * d_in < 2^31; vals (ob,K,bm,bn) bf16,
-// bm, bn <= 64; idx (ob,K) int32; out (M, ob*bn) in x's dtype; all
-// contiguous on the device (16-byte aligned for mma). variant: 0 simt,
-// 1 mma (bf16 only; bm % 16 == 0, bn % 8 == 0), 2 gemv (M <= 8).
-// Returns cudaErrorInvalidValue for a combination the kernels lack, else
-// cudaGetLastError() after the launch.
+// x (M, d_in) f32 or bf16, M * d_in < 2^31; vals (ob,K,bm,bn) of the
+// stored type wtype (0 bf16, 1 int8 codes, 2 f32), bm, bn <= 64; idx
+// (ob,K) int32; out (M, ob*bn) in x's dtype; all contiguous on the
+// device (16-byte aligned for mma). variant: 0 simt, 1 mma (bf16 x and
+// vals only; bm % 16 == 0, bn % 8 == 0), 2 gemv (M <= 8; bf16 or int8
+// vals). Returns cudaErrorInvalidValue for a combination the kernels
+// lack, else cudaGetLastError() after the launch.
 int sparse_matmul_f32(const void* x, const void* vals, const void* idx,
                       void* out, int M, int d_in, int ob, int K, int bm,
-                      int bn, int variant, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (variant) {
-    case VARIANT_SIMT:
-      return launch_simt<float>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
-                                s);
-    case VARIANT_GEMV:
-      return launch_gemv<float>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
-                                s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                      int bn, int wtype, int variant, void* stream) {
+  return launch_by_weight<float>(x, vals, idx, out, M, d_in, ob, K, bm, bn,
+                                 wtype, variant, (cudaStream_t)stream);
 }
 
 int sparse_matmul_bf16(const void* x, const void* vals, const void* idx,
                        void* out, int M, int d_in, int ob, int K, int bm,
-                       int bn, int variant, void* stream) {
+                       int bn, int wtype, int variant, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (variant) {
-    case VARIANT_SIMT:
-      return launch_simt<__nv_bfloat16>(x, vals, idx, out, M, d_in, ob, K,
-                                        bm, bn, s);
-    case VARIANT_MMA:
-      return launch_mma(x, vals, idx, out, M, d_in, ob, K, bm, bn, s);
-    case VARIANT_GEMV:
-      return launch_gemv<__nv_bfloat16>(x, vals, idx, out, M, d_in, ob, K,
-                                        bm, bn, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (variant == VARIANT_MMA)
+    return wtype == wtypes::BF16
+               ? launch_mma(x, vals, idx, out, M, d_in, ob, K, bm, bn, s)
+               : (int)cudaErrorInvalidValue;
+  return launch_by_weight<__nv_bfloat16>(x, vals, idx, out, M, d_in, ob, K,
+                                         bm, bn, wtype, variant, s);
 }
 
 const char* sparse_matmul_error_string(int err) {

@@ -1,5 +1,6 @@
 // Tensor-core building blocks for the port's kernels (sm_90a), as inline
-// PTX: cp.async copies into shared memory, ldmatrix fragment loads, the
+// PTX: cp.async copies into shared memory (16 bytes, and 8 for int8 weight
+// rows), ldmatrix fragment loads, the
 // warp-level mma.sync.m16n8k16 product on bf16 operands with f32
 // accumulators, and the split arrive / wait of a thread-block cluster's
 // barrier.
@@ -34,6 +35,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 8 bytes global -> shared (through L1), zero-filled when !valid: the
+// int8 weight rows, whose 8 columns are 8 bytes.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -90,6 +100,13 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
 // lower column of a fragment).
 __device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
   return bits(__floats2bfloat162_rn(x0, x1));
+}
+
+// Two int8 weight codes as one register of two bf16, x0 in the low half:
+// |code| <= 127 is exact in bf16, so the tensor cores see the codes
+// themselves.
+__device__ __forceinline__ uint32_t pack_codes(int8_t x0, int8_t x1) {
+  return pack_bf16((float)x0, (float)x1);
 }
 
 // x = hi + lo + O(2^-17 |x|): hi = bf16(x), lo = bf16(x - hi), both as

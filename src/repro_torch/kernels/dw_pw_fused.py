@@ -17,6 +17,13 @@ weight, ``+ pw_b``, optional residual (f32), optional ReLU, one round.
 Neither version writes the (N, Ho, Wo, C) depthwise tensor: the kernel
 keeps it in shared memory, and the plain version works one chunk of
 output rows at a time, as the reference's XLA twin (``dw_pw_xla``) does.
+
+Stored weights: all bf16 (native); int8 pointwise codes with a (Cout,)
+f32 ``pw_scale`` that multiplies the f32 code product before ``pw_b``
+(the reference's flush, ``dw_pw_fused.py:83-86``), the depthwise weight
+and the biases bf16; or all weights and biases f32 (the "f32" store).
+The kernel is built for the int8 and f32 stores at k = 3 only
+(``QUANT_KS``), the MobileNets' depthwise.
 """
 from __future__ import annotations
 
@@ -40,23 +47,17 @@ def _row_chunk(ho: int, cap: int = 16) -> int:
     return 1
 
 
-def _refuse_scale(pw_scale) -> None:
-    if pw_scale is not None:
-        raise NotImplementedError(
-            "int8 pw_scale in dw_pw: ROADMAP Queue 1, int8/bf16 storage")
-
-
 def dw_pw_torch(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
                 stride: int = 1, dw_relu: bool = True,
                 relu: bool = True) -> torch.Tensor:
     """x: (N, H, W, C); dw_w: (k, k, C); dw_b: (C,); pw_w: (C, Cout)
-    dense; pw_b: (Cout,); residual: optional (N, Ho, Wo, Cout). SAME
-    padding on the depthwise. Returns (N, Ho, Wo, Cout) in x.dtype.
+    dense (int8 codes when ``pw_scale``, (Cout,) f32, is given); pw_b:
+    (Cout,); residual: optional (N, Ho, Wo, Cout). SAME padding on the
+    depthwise. Returns (N, Ho, Wo, Cout) in x.dtype.
 
     Loops over chunks of at most 16 output rows; each chunk runs the depthwise on its (rows + halo) input slab and feeds
     the result straight into the pointwise product, so the working set
     is one chunk."""
-    _refuse_scale(pw_scale)
     n = x.shape[0]
     k = dw_w.shape[0]
     co = pw_w.shape[-1]
@@ -72,7 +73,10 @@ def dw_pw_torch(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
         if dw_relu:
             d = torch.relu(d)
         d = d.to(x.dtype)                    # the dw->pw boundary round
-        y = torch.matmul(d.float(), w32) + pw_b.float()
+        y = torch.matmul(d.float(), w32)
+        if pw_scale is not None:
+            y = y * pw_scale.float()          # the code product, re-realed
+        y = y + pw_b.float()
         if residual is not None:
             y = y + residual[:, r0:r0 + hb].float()
         if relu:
@@ -89,14 +93,19 @@ STAGES = 3             # the cp.async ring
 MIN_BLOCKS = 128       # a grid this large fills the card (a sweep)
 SMEM_MAX = 232448      # the shared memory one block may hold on sm_90
 MAX_MMA_STRIDE = 4     # beyond it the halo of a 16-pixel tile may not fit
+QUANT_KS = (3,)        # the k the int8 and f32 instances are built for
 
 
-def variant(c: int, cout: int, k: int, stride: int = 1) -> str:
+def variant(c: int, cout: int, k: int, stride: int = 1,
+            w_dtype=torch.bfloat16) -> str:
     """The kernel variant for C input and Cout output channels, a k x k
-    depthwise and ``stride``: "mma" when C and Cout are multiples of 8
-    (16-byte copies of 8 channels; every MobileNet block) and the stride
-    is at most MAX_MMA_STRIDE, else "simt"."""
-    if c % 8 == 0 and cout % 8 == 0 and 1 <= k <= MAX_K and \
+    depthwise, ``stride`` and a pointwise weight stored as ``w_dtype``:
+    "mma" for bf16 or int8 weights (the codes are exact in bf16) when C
+    and Cout are multiples of 8 (16-byte copies of 8 channels; every
+    MobileNet block) and the stride is at most MAX_MMA_STRIDE, else
+    "simt" (f32 weights always)."""
+    if w_dtype in (torch.bfloat16, torch.int8) and c % 8 == 0 and \
+            cout % 8 == 0 and 1 <= k <= MAX_K and \
             1 <= stride <= MAX_MMA_STRIDE:
         return "mma"
     return "simt"
@@ -107,7 +116,9 @@ def smem_bytes(k: int, tm: int, tn: int, hr: int, hc: int, ck: int,
     """Dynamic shared memory of one mma block: STAGES x (input halo of
     hr x hc pixels x ck channels, the taps, dw_b, the ck x tn pw_w tile
     with rows padded by 8), the tm x (ck + 8) A tile and the split slots
-    of f32 partial rows (``MmaSmem`` in ``csrc/dw_pw.cu``)."""
+    of f32 partial rows (``MmaSmem`` in ``csrc/dw_pw.cu``). The int8
+    instances take less: their ring holds the ck x tn codes, widened
+    into one bf16 B tile outside it, plus tn f32 scales."""
     def r16(b):
         return -(-b // 16) * 16
     stage = (r16(hr * hc * ck * 2) + r16(k * k * ck * 2) + r16(ck * 2)
@@ -202,8 +213,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = _build.load("dw_pw")
-    fn = lib.dw_pw_bf16
-    fn.argtypes = [_P] * 7 + [_I] * 20 + [_P]
+    fn = lib.dw_pw_launch
+    fn.argtypes = [_P] * 8 + [_I] * 21 + [_P]
     fn.restype = _I
     return lib, fn
 
@@ -212,29 +223,48 @@ def dw_pw(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
           stride: int = 1, dw_relu: bool = True,
           relu: bool = True) -> torch.Tensor:
     """The CUDA kernel: same function and arguments as
-    :func:`dw_pw_torch`, on contiguous bf16 CUDA tensors with a k x k
+    :func:`dw_pw_torch`, on contiguous CUDA tensors with a k x k
     depthwise, 1 <= k <= MAX_K, in the variant :func:`variant` names.
-    Raises on anything the kernel does not take, and if the launch fails
-    (a cluster launch included); it never falls back to the plain version
-    or to the other variant. The output is allocated here and the kernel
-    runs on the current stream without synchronising."""
-    _refuse_scale(pw_scale)
+    x and residual are bf16; the weights and biases bf16 (native), or
+    pw_w int8 codes with an f32 ``pw_scale`` and the rest bf16, or all
+    f32; int8 and f32 at k in QUANT_KS only. Raises on anything the
+    kernel does not take, and if the launch fails (a cluster launch
+    included); it never falls back to the plain version or to the other
+    variant. The output is allocated here and the kernel runs on the
+    current stream without synchronising."""
     k = dw_w.shape[0]
+    w_dtype = pw_w.dtype
     if not 1 <= k <= MAX_K:
         raise ValueError(f"dw_pw: a {k}x{k} depthwise; the kernel is built "
                          f"for k from 1 to {MAX_K}")
+    if w_dtype not in (torch.bfloat16, torch.int8, torch.float32):
+        raise ValueError(f"dw_pw: pw_w must be bf16, int8 or f32, got "
+                         f"{w_dtype}")
+    if w_dtype != torch.bfloat16 and k not in QUANT_KS:
+        raise ValueError(f"dw_pw: {w_dtype} weights with a {k}x{k} "
+                         f"depthwise; the kernel's int8 and f32 instances "
+                         f"are built for k in {QUANT_KS}")
+    if (pw_scale is not None) != (w_dtype == torch.int8):
+        raise ValueError("dw_pw: a pw_scale comes with int8 pw_w, and only "
+                         "with it")
+    p_dtype = torch.float32 if w_dtype == torch.float32 else torch.bfloat16
+    want = {"x": torch.bfloat16, "dw_w": p_dtype, "dw_b": p_dtype,
+            "pw_w": w_dtype, "pw_b": p_dtype, "residual": torch.bfloat16,
+            "pw_scale": torch.float32}
     tensors = {"x": x, "dw_w": dw_w, "dw_b": dw_b, "pw_w": pw_w,
                "pw_b": pw_b}
     if residual is not None:
         tensors["residual"] = residual
+    if pw_scale is not None:
+        tensors["pw_scale"] = pw_scale
     for name, t in tensors.items():
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"dw_pw: {name} must be on {x.device} "
                              f"(a CUDA device), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"dw_pw: {name} must be contiguous")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"dw_pw: {name} must be bfloat16, "
+        if t.dtype != want[name]:
+            raise ValueError(f"dw_pw: {name} must be {want[name]}, "
                              f"got {t.dtype}")
     if x.dim() != 4 or dw_w.dim() != 3 or pw_w.dim() != 2:
         raise ValueError(f"dw_pw: needs x (N, H, W, C), dw_w (k, k, C) and "
@@ -243,7 +273,8 @@ def dw_pw(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
     n, h, w, c = x.shape
     co = pw_w.shape[1]
     if (tuple(dw_w.shape) != (k, k, c) or tuple(dw_b.shape) != (c,)
-            or pw_w.shape[0] != c or tuple(pw_b.shape) != (co,)):
+            or pw_w.shape[0] != c or tuple(pw_b.shape) != (co,)
+            or (pw_scale is not None and tuple(pw_scale.shape) != (co,))):
         raise ValueError(f"dw_pw: dw_w {tuple(dw_w.shape)}, dw_b "
                          f"{tuple(dw_b.shape)}, pw_w {tuple(pw_w.shape)}, "
                          f"pw_b {tuple(pw_b.shape)} do not fit C={c}")
@@ -257,19 +288,23 @@ def dw_pw(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
                          f"output {tuple(out.shape)}")
     if x.numel() >= 2 ** 31 or out.numel() >= 2 ** 31:
         raise ValueError("dw_pw: x and the output need < 2^31 elements")
-    v = variant(c, co, k, stride)
+    v = variant(c, co, k, stride, w_dtype)
     p = plan(n, ho, wo, c, co, k, stride) if v == "mma" else None
     if v == "mma":
         x, dw_w, dw_b, pw_w, pw_b = (_build.aligned16(t) for t in
                                      (x, dw_w, dw_b, pw_w, pw_b))
         if residual is not None:
             residual = _build.aligned16(residual)
+        if pw_scale is not None:
+            pw_scale = _build.aligned16(pw_scale)
     lib, fn = _kernel()
     err = fn(x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
              pw_b.data_ptr(),
              None if residual is None else residual.data_ptr(),
+             None if pw_scale is None else pw_scale.data_ptr(),
              out.data_ptr(), n, h, w, c, ho, wo, k, stride, ph, pw, co,
-             int(dw_relu), int(relu), _build.VARIANT_CODES[v],
+             int(dw_relu), int(relu), _build.weight_code(w_dtype),
+             _build.VARIANT_CODES[v],
              *((p.tm, p.tn, p.tr, p.tw, p.ck, p.split) if p else
                (0, 0, 0, 0, 0, 1)),
              torch.cuda.current_stream(x.device).cuda_stream)

@@ -11,8 +11,19 @@ run can show that its main path went through the kernels.
 ``VARIANT_LAUNCHES`` counts the launches of ``sparse_conv``,
 ``sparse_matmul``, ``dw_pw`` and ``flash_attention`` by (name, variant),
 the variants of each in ``_build.VARIANTS``.
+
+Quantized weights (``core/quant.py``) take the reference's int8 fast
+path by default: the int8 codes go into the kernel and the per-channel
+scale multiplies the f32 sum of code products once, in the epilogue,
+before bias, residual and activation (``sparse_matmul``: after the
+kernel, as the reference applies it outside its Pallas kernel).
+``config(int8_fast_path=False)`` dequantizes the weights on entry
+instead, the reference's path that the fast one is tested against.
 """
 from __future__ import annotations
+
+import contextlib
+from typing import Optional
 
 import torch
 
@@ -23,6 +34,28 @@ from repro_torch.kernels import sparse_conv as _sc
 from repro_torch.kernels import sparse_matmul as _sm
 from repro_torch.kernels._build import (  # noqa: F401
     LAUNCHES, VARIANT_LAUNCHES, reset_launches)
+
+
+_INT8_FAST = {"on": True}
+
+
+@contextlib.contextmanager
+def config(*, int8_fast_path: Optional[bool] = None):
+    """Scope the int8 strategy (the reference's ``kernels.config``
+    knob): True feeds the codes to the kernels and applies the scale
+    in the epilogue, False dequantizes at op entry. ``None`` leaves it
+    as it is; the previous value comes back on exit."""
+    prev = _INT8_FAST["on"]
+    if int8_fast_path is not None:
+        _INT8_FAST["on"] = bool(int8_fast_path)
+    try:
+        yield
+    finally:
+        _INT8_FAST["on"] = prev
+
+
+def int8_fast_path() -> bool:
+    return _INT8_FAST["on"]
 
 
 def _route(x: torch.Tensor, op: str) -> bool:
@@ -36,7 +69,13 @@ def _route(x: torch.Tensor, op: str) -> bool:
 
 
 def sparse_matmul(x: torch.Tensor, sw) -> torch.Tensor:
-    """x: (..., d_in) @ block-balanced SparseWeight -> (..., d_out)."""
+    """x: (..., d_in) @ block-balanced SparseWeight -> (..., d_out).
+
+    int8 ``sw``: the kernel sums the code products into x's dtype and
+    the (ob, bn) scale multiplies that output in f32 afterwards, one
+    multiply per output channel (reference ``ops.py:135-144``)."""
+    if sw.scale is not None and not _INT8_FAST["on"]:
+        sw = sw.dequantized()
     *lead, d_in = x.shape
     if d_in != sw.d_in:
         raise ValueError(f"sparse_matmul: x has {d_in} features, the "
@@ -44,7 +83,10 @@ def sparse_matmul(x: torch.Tensor, sw) -> torch.Tensor:
     xm = x.reshape(-1, d_in).contiguous()
     fn = _sm.sparse_matmul if _route(x, "sparse_matmul") \
         else _sm.sparse_matmul_torch
-    return fn(xm, sw.vals, sw.idx).reshape(*lead, sw.d_out)
+    y = fn(xm, sw.vals, sw.idx)
+    if sw.scale is not None:
+        y = (y.float() * sw.scale.reshape(-1)).to(y.dtype)
+    return y.reshape(*lead, sw.d_out)
 
 
 def sparse_conv(x, sw, bias, *, k: int, stride: int = 1, relu: bool = True,
@@ -54,7 +96,11 @@ def sparse_conv(x, sw, bias, *, k: int, stride: int = 1, relu: bool = True,
     x: (N, H, W, C) NHWC; sw: block-balanced SparseWeight over the
     HWIO-flattened (k*k*C, Cout) matrix (block rows divide C); bias:
     (Cout,). SAME padding; bias, optional ``residual`` (N, Ho, Wo, Cout)
-    and optional ReLU fused into the epilogue."""
+    and optional ReLU fused into the epilogue. int8 ``sw``: the codes
+    go into the kernel and its (ob, bn) scale multiplies the f32 sum in
+    the epilogue, before bias and residual."""
+    if sw.scale is not None and not _INT8_FAST["on"]:
+        sw = sw.dequantized()
     c = x.shape[-1]
     if sw.d_in != k * k * c or c % sw.vals.shape[2]:
         raise ValueError(f"sparse_conv: weight d_in={sw.d_in} with blocks "
@@ -62,8 +108,8 @@ def sparse_conv(x, sw, bias, *, k: int, stride: int = 1, relu: bool = True,
                          f"C={c}")
     fn = _sc.sparse_conv if _route(x, "sparse_conv") \
         else _sc.sparse_conv_torch
-    return fn(x, sw.vals, sw.idx, bias, residual, k=k, stride=stride,
-              relu=relu)
+    return fn(x, sw.vals, sw.idx, bias, residual, sw.scale, k=k,
+              stride=stride, relu=relu)
 
 
 def depthwise_conv(x, w, *, stride: int = 1) -> torch.Tensor:
@@ -83,10 +129,22 @@ def dw_pw_conv(x, dw_w, dw_b, pw_w, pw_b, *, stride: int = 1,
     reaches device memory on the card, and exists one row chunk at a
     time on the CPU.
 
-    x: (N, H, W, C); dw_w: (k, k, C); dw_b: (C,); pw_w: (C, Cout) dense;
-    pw_b: (Cout,); residual: optional fused (N, Ho, Wo, Cout) skip."""
+    x: (N, H, W, C); dw_w: (k, k, C); dw_b: (C,); pw_w: (C, Cout) dense
+    (or a QuantizedWeight: its codes go into the kernel and its (Cout,)
+    scale joins the epilogue); pw_b: (Cout,); residual: optional fused
+    (N, Ho, Wo, Cout) skip. A quantized dw_w is dequantized on entry
+    (reference ``ops.py:320-326``)."""
+    from repro_torch.core.quant import QuantizedWeight
+    if isinstance(dw_w, QuantizedWeight):
+        dw_w = dw_w.dequant()
+    pw_scale = None
+    if isinstance(pw_w, QuantizedWeight):
+        if _INT8_FAST["on"]:
+            pw_scale, pw_w = pw_w.scale, pw_w.codes
+        else:
+            pw_w = pw_w.dequant()
     fn = _dwpw.dw_pw if _route(x, "dw_pw") else _dwpw.dw_pw_torch
-    return fn(x, dw_w, dw_b, pw_w, pw_b, residual, stride=stride,
+    return fn(x, dw_w, dw_b, pw_w, pw_b, residual, pw_scale, stride=stride,
               dw_relu=dw_relu, relu=relu)
 
 

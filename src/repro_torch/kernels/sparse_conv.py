@@ -14,6 +14,11 @@ Weight layout: the 2D conv weight is (k*k*cin, cout) with rows in HWIO
 order — row f = (ky*k + kx)*cin + c — pruned block-balanced. The block
 row size ``bm`` divides ``cin``, so every surviving block is exactly one
 (ky, kx, channel-block) gather.
+
+Stored weights: bf16 vals (native), int8 codes with an (ob, bn) f32
+``scale`` that multiplies the f32 sum of code products in the epilogue
+before bias and residual (the reference's flush, ``sparse_conv.py:
+117-121``), or f32 vals with an f32 bias (the "f32" store).
 """
 from __future__ import annotations
 
@@ -43,16 +48,19 @@ def same_pads(size: int, k: int, stride: int) -> tuple[int, int, int]:
     return out, total // 2, total - total // 2
 
 
-def sparse_conv_torch(x, vals, idx, bias, residual=None, *, k: int,
-                      stride: int = 1, relu: bool = True) -> torch.Tensor:
-    """y[n, oy, ox, j*bn:+bn] = act(sum_l win(x; ky,kx,cb)[oy,ox] @ vals[j,l]
-    + b + residual), SAME padding, f32 accumulation, output in x.dtype.
+def sparse_conv_torch(x, vals, idx, bias, residual=None, scale=None, *,
+                      k: int, stride: int = 1,
+                      relu: bool = True) -> torch.Tensor:
+    """y[n, oy, ox, j*bn:+bn] = act(scale[j] * sum_l win(x; ky,kx,cb)[oy,ox]
+    @ vals[j,l] + b + residual), SAME padding, f32 accumulation, output
+    in x.dtype.
 
-    x: (N, H, W, C) NHWC; vals: (ob, K, bm, bn); idx: (ob, K) int flat
-    HWIO block ids; bias: (ob*bn,); residual: optional (N, Ho, Wo,
-    ob*bn). Each step of the K loop gathers one window per output block
-    column, (N, ob, Ho, Wo, bm): the size of the output, never k*k times
-    the input."""
+    x: (N, H, W, C) NHWC; vals: (ob, K, bm, bn) bf16, f32 or int8 codes;
+    idx: (ob, K) int flat HWIO block ids; bias: (ob*bn,); residual:
+    optional (N, Ho, Wo, ob*bn); scale: (ob, bn) f32 with int8 codes,
+    else None. Each step of the K loop gathers one window per output
+    block column, (N, ob, Ho, Wo, bm): the size of the output, never k*k
+    times the input."""
     n, h, w, c = x.shape
     ob, n_k, bm, bn = vals.shape
     ho, ph_lo, ph_hi = same_pads(h, k, stride)
@@ -70,6 +78,8 @@ def sparse_conv_torch(x, vals, idx, bias, residual=None, *, k: int,
         chans = (cb[:, l, None] * bm + ch)[:, None, None, :]   # (ob, 1, 1, bm)
         a = xp[:, rows, cols, chans]                  # (N, ob, Ho, Wo, bm)
         acc += torch.einsum("njhwm,jmo->nhwjo", a.float(), vals[:, l].float())
+    if scale is not None:
+        acc = acc * scale.float()                 # the code sum, re-realed
     y = acc.reshape(n, ho, wo, ob * bn) + bias.float()
     if residual is not None:
         y = y + residual.float()
@@ -78,11 +88,14 @@ def sparse_conv_torch(x, vals, idx, bias, residual=None, *, k: int,
     return y.to(x.dtype)
 
 
-def variant(bm: int, bn: int) -> str:
-    """The kernel variant for (bm, bn) weight blocks: "mma" when bm is a
-    multiple of 16 and bn of 8, both <= 32 (the mma.m16n8k16 tiles;
-    every ResNet-50 layer, 32 x 32), else "simt"."""
-    if bm % 16 == 0 and bn % 8 == 0 and 0 < bm <= 32 and 0 < bn <= 32:
+def variant(bm: int, bn: int, w_dtype=torch.bfloat16) -> str:
+    """The kernel variant for (bm, bn) weight blocks stored as
+    ``w_dtype``: "mma" for bf16 or int8 blocks (the codes are exact in
+    bf16) when bm is a multiple of 16 and bn of 8, both <= 32 (the
+    mma.m16n8k16 tiles; every ResNet-50 layer, 32 x 32), else "simt"
+    (f32 weights always)."""
+    if w_dtype in (torch.bfloat16, torch.int8) and bm % 16 == 0 and \
+            bn % 8 == 0 and 0 < bm <= 32 and 0 < bn <= 32:
         return "mma"
     return "simt"
 
@@ -120,8 +133,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = _build.load("sparse_conv")
-    fn = lib.sparse_conv_bf16
-    fn.argtypes = [_P] * 6 + [_I] * 18 + [_P]
+    fn = lib.sparse_conv_launch
+    fn.argtypes = [_P] * 7 + [_I] * 19 + [_P]
     fn.restype = _I
     return lib, fn, lib.sparse_conv_max_bm(), lib.sparse_conv_max_bn()
 
@@ -129,27 +142,38 @@ def _kernel():
 def sparse_conv(x, vals, idx, bias, residual=None, scale=None, *, k: int,
                 stride: int = 1, relu: bool = True) -> torch.Tensor:
     """The CUDA kernel: same function and arguments as
-    :func:`sparse_conv_torch`, on bf16 CUDA tensors, in the variant
-    :func:`variant` names. Raises on anything the kernel does not take,
-    and if the launch fails (a cluster launch included); it never falls
-    back to the plain version or to the other variant.
-    The output is allocated here and the kernel runs on the current
-    stream without synchronising."""
-    if scale is not None:
-        raise NotImplementedError(
-            "int8 scale in sparse_conv: ROADMAP Queue 1, int8/bf16 storage")
+    :func:`sparse_conv_torch`, on CUDA tensors (x, residual bf16; vals
+    bf16 with a bf16 bias, int8 codes with a bf16 bias and an f32
+    scale, or f32 with an f32 bias), in the variant :func:`variant`
+    names. Raises on anything the kernel does not take, and if the
+    launch fails (a cluster launch included); it never falls back to
+    the plain version or to the other variant. The output is allocated
+    here and the kernel runs on the current stream without
+    synchronising."""
+    w_dtype = vals.dtype
+    if w_dtype not in (torch.bfloat16, torch.int8, torch.float32):
+        raise ValueError(f"sparse_conv: vals must be bf16, int8 or f32, "
+                         f"got {w_dtype}")
+    if (scale is not None) != (w_dtype == torch.int8):
+        raise ValueError("sparse_conv: a scale comes with int8 vals, and "
+                         "only with them")
+    b_dtype = torch.float32 if w_dtype == torch.float32 else torch.bfloat16
+    want = {"x": torch.bfloat16, "vals": w_dtype, "idx": torch.int32,
+            "bias": b_dtype, "residual": torch.bfloat16,
+            "scale": torch.float32}
     tensors = {"x": x, "vals": vals, "idx": idx, "bias": bias}
     if residual is not None:
         tensors["residual"] = residual
+    if scale is not None:
+        tensors["scale"] = scale
     for name, t in tensors.items():
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"sparse_conv: {name} must be on {x.device} "
                              f"(a CUDA device), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"sparse_conv: {name} must be contiguous")
-        want = torch.int32 if name == "idx" else torch.bfloat16
-        if t.dtype != want:
-            raise ValueError(f"sparse_conv: {name} must be {want}, "
+        if t.dtype != want[name]:
+            raise ValueError(f"sparse_conv: {name} must be {want[name]}, "
                              f"got {t.dtype}")
     n, h, w, c = x.shape
     ob, n_k, bm, bn = vals.shape
@@ -157,10 +181,12 @@ def sparse_conv(x, vals, idx, bias, residual=None, scale=None, *, k: int,
     if c % bm or bm > max_bm or bn > max_bn:
         raise ValueError(f"sparse_conv: blocks ({bm}, {bn}) need bm | C={c}"
                          f", bm <= {max_bm} and bn <= {max_bn}")
-    if tuple(idx.shape) != (ob, n_k) or tuple(bias.shape) != (ob * bn,):
+    if tuple(idx.shape) != (ob, n_k) or tuple(bias.shape) != (ob * bn,) \
+            or (scale is not None and tuple(scale.shape) != (ob, bn)):
         raise ValueError(f"sparse_conv: idx {tuple(idx.shape)} / bias "
-                         f"{tuple(bias.shape)} do not match vals "
-                         f"{tuple(vals.shape)}")
+                         f"{tuple(bias.shape)} / scale "
+                         f"{None if scale is None else tuple(scale.shape)} "
+                         f"do not match vals {tuple(vals.shape)}")
     ho, ph, _ = same_pads(h, k, stride)
     wo, pw, _ = same_pads(w, k, stride)
     out = torch.empty((n, ho, wo, ob * bn), dtype=torch.bfloat16,
@@ -170,16 +196,20 @@ def sparse_conv(x, vals, idx, bias, residual=None, scale=None, *, k: int,
                          f"output {tuple(out.shape)}")
     if x.numel() >= 2 ** 31 or out.numel() >= 2 ** 31:
         raise ValueError("sparse_conv: x and the output need < 2^31 elements")
-    v = variant(bm, bn)
+    v = variant(bm, bn, w_dtype)
     tm, split = plan(n * ho * wo, ob, n_k) if v == "mma" else (64, 1)
     if v == "mma":
         x, vals, bias = (_build.aligned16(t) for t in (x, vals, bias))
         if residual is not None:
             residual = _build.aligned16(residual)
+        if scale is not None:
+            scale = _build.aligned16(scale)
     err = fn(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), bias.data_ptr(),
              None if residual is None else residual.data_ptr(),
+             None if scale is None else scale.data_ptr(),
              out.data_ptr(), n, h, w, c, ho, wo, k, stride, ph, pw, ob, n_k,
-             bm, bn, int(relu), _build.VARIANT_CODES[v], tm, split,
+             bm, bn, int(relu), _build.weight_code(w_dtype),
+             _build.VARIANT_CODES[v], tm, split,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, "sparse_conv", err)
     _build.LAUNCHES["sparse_conv"] += 1

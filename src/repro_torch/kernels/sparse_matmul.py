@@ -10,6 +10,10 @@ cores) for more bf16 rows with blocks the tensor-core tiles divide (the
 LM prefill), "simt" (CUDA cores) otherwise. ``sparse_matmul_torch`` is
 the plain PyTorch version of the same function: the CPU path and the
 check every variant is held to on the card.
+
+Stored weights: bf16 vals, int8 codes (gemv, simt; the caller applies
+the scale to the output, as the reference does outside its Pallas
+kernel, ``ops.py:135-144``) or f32 vals (simt).
 """
 from __future__ import annotations
 
@@ -24,9 +28,10 @@ from repro_torch.kernels import _build
 def sparse_matmul_torch(x, vals, idx) -> torch.Tensor:
     """y[m, j*bn:+bn] = sum_k x[m, idx[j,k]*bm:+bm] @ vals[j,k].
 
-    x: (M, d_in); vals: (ob, K, bm, bn); idx: (ob, K). f32 accumulation,
-    output in x.dtype. Each step of the K loop gathers one input block
-    per output block column, (M, ob, bm): the size of the output."""
+    x: (M, d_in); vals: (ob, K, bm, bn) bf16, f32 or int8 codes; idx:
+    (ob, K). f32 accumulation, output in x.dtype. Each step of the K
+    loop gathers one input block per output block column, (M, ob, bm):
+    the size of the output."""
     m, d_in = x.shape
     ob, n_k, bm, bn = vals.shape
     xb = x.reshape(m, d_in // bm, bm)
@@ -40,15 +45,19 @@ def sparse_matmul_torch(x, vals, idx) -> torch.Tensor:
 SIMT_MAX_M = 8     # rows up to which the gemv variant runs (decode)
 
 
-def variant(dtype: torch.dtype, m: int, bm: int, bn: int) -> str:
+def variant(dtype: torch.dtype, m: int, bm: int, bn: int,
+            w_dtype=torch.bfloat16) -> str:
     """The kernel variant for x of ``dtype`` with ``m`` rows and (bm, bn)
-    weight blocks: "gemv" for m <= SIMT_MAX_M (f32 or bf16, any blocks
-    up to 64 x 64); "mma" for bf16 x, bm a multiple of 16 and bn of 8,
-    both <= 64 (the mma.m16n8k16 tiles); else "simt"."""
+    weight blocks stored as ``w_dtype``: "gemv" for m <= SIMT_MAX_M
+    (f32 or bf16 x, bf16 or int8 blocks up to 64 x 64); "mma" for bf16 x
+    and bf16 blocks, bm a multiple of 16 and bn of 8, both <= 64 (the
+    mma.m16n8k16 tiles); else "simt" (f32 weights always)."""
+    if w_dtype == torch.float32:
+        return "simt"
     if m <= SIMT_MAX_M:
         return "gemv"
-    if dtype == torch.bfloat16 and bm % 16 == 0 and bn % 8 == 0 \
-            and 0 < bm <= 64 and 0 < bn <= 64:
+    if dtype == torch.bfloat16 and w_dtype == torch.bfloat16 and \
+            bm % 16 == 0 and bn % 8 == 0 and 0 < bm <= 64 and 0 < bn <= 64:
         return "mma"
     return "simt"
 
@@ -80,7 +89,7 @@ def _kernel():
     fns = {}
     for dtype, fn in ((torch.float32, lib.sparse_matmul_f32),
                       (torch.bfloat16, lib.sparse_matmul_bf16)):
-        fn.argtypes = [_P] * 4 + [_I] * 7 + [_P]
+        fn.argtypes = [_P] * 4 + [_I] * 8 + [_P]
         fn.restype = _I
         fns[dtype] = fn
     return lib, fns, lib.sparse_matmul_max_bm(), lib.sparse_matmul_max_bn()
@@ -88,8 +97,9 @@ def _kernel():
 
 def sparse_matmul(x, vals, idx) -> torch.Tensor:
     """The CUDA kernel: same function and arguments as
-    :func:`sparse_matmul_torch`, with x f32 or bf16 and vals bf16 on a
-    CUDA device, in the variant :func:`variant` names. Raises on
+    :func:`sparse_matmul_torch`, with x f32 or bf16 and vals bf16, int8
+    or f32 on a CUDA device, in the variant :func:`variant` names.
+    Raises on
     anything the kernel does not take, and if the launch fails; it never
     falls back to the plain version or to another variant."""
     for name, t in (("x", x), ("vals", vals), ("idx", idx)):
@@ -98,10 +108,12 @@ def sparse_matmul(x, vals, idx) -> torch.Tensor:
                              f"(a CUDA device), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"sparse_matmul: {name} must be contiguous")
-    if x.dtype not in (torch.float32, torch.bfloat16) \
-            or vals.dtype != torch.bfloat16 or idx.dtype != torch.int32:
-        raise ValueError(f"sparse_matmul: needs x f32/bf16, vals bf16, idx "
-                         f"int32; got {x.dtype}, {vals.dtype}, {idx.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or vals.dtype not in (
+            torch.bfloat16, torch.int8, torch.float32) \
+            or idx.dtype != torch.int32:
+        raise ValueError(f"sparse_matmul: needs x f32/bf16, vals bf16/int8/"
+                         f"f32, idx int32; got {x.dtype}, {vals.dtype}, "
+                         f"{idx.dtype}")
     m, d_in = x.shape
     ob, n_k, bm, bn = vals.shape
     lib, fns, max_bm, max_bn = _kernel()
@@ -110,7 +122,7 @@ def sparse_matmul(x, vals, idx) -> torch.Tensor:
         raise ValueError(f"sparse_matmul: vals {tuple(vals.shape)} / idx "
                          f"{tuple(idx.shape)} do not fit x {tuple(x.shape)} "
                          f"(bm <= {max_bm}, bn <= {max_bn})")
-    v = variant(x.dtype, m, bm, bn)
+    v = variant(x.dtype, m, bm, bn, vals.dtype)
     if v == "mma":
         x, vals = _build.aligned16(x), _build.aligned16(vals)
     elif v == "gemv":               # 16-byte weight loads where bn % 8 == 0
@@ -118,6 +130,7 @@ def sparse_matmul(x, vals, idx) -> torch.Tensor:
     out = torch.empty((m, ob * bn), dtype=x.dtype, device=x.device)
     err = fns[x.dtype](x.data_ptr(), vals.data_ptr(), idx.data_ptr(),
                        out.data_ptr(), m, d_in, ob, n_k, bm, bn,
+                       _build.weight_code(vals.dtype),
                        _build.VARIANT_CODES[v],
                        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, "sparse_matmul", err)

@@ -4,13 +4,16 @@
 Counterpart of the reference's ``src/repro/launch/serve.py``. For a CNN
 it runs the paper's headline regime, batch-1 latency mode: one image in
 flight, the next request admitted only after this one's logits are on
-the host. The other CNN modes raise ``NotImplementedError`` naming the
+the host, with the weights stored at ``quantize`` (native, f32, bf16 or
+int8). On the card each request replays one CUDA graph of the whole
+forward, PyTorch's counterpart of the reference's single jitted
+request. The other CNN modes raise ``NotImplementedError`` naming the
 ROADMAP item that ports them. An LM arch (``smollm-360m``) runs
 ``serve_lm``: the prompts stepped through the decode path, then greedy
 decoding.
 
     python -m repro_torch.launch.serve --arch resnet50 --mode latency \\
-        --requests 50 --image-size 224
+        --requests 50 --image-size 224 --quantize int8
     python -m repro_torch.launch.serve --arch smollm-360m --full-size \\
         --batch 4 --prompt-len 32 --gen 16
 
@@ -28,9 +31,10 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.device import resolve_device
-from repro_torch.core.quant import STORE_DTYPES
+from repro_torch.core.quant import STORE_DTYPES, pytree_param_bytes, \
+    quantize_tree
+from repro_torch.kernels import ops
 from repro_torch.models import cnn, lm
-from repro_torch.models.layers import SparseWeight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,9 +91,6 @@ def _check_ported(cfg: ServeConfig) -> None:
         raise NotImplementedError(
             "mode='throughput': ROADMAP Queue 1, throughput and continuous "
             "serving")
-    if cfg.quantize != "native":
-        raise NotImplementedError(
-            f"quantize={cfg.quantize!r}: ROADMAP Queue 1, int8/bf16 storage")
     if cfg.n_stages > 1:
         raise NotImplementedError(
             f"n_stages={cfg.n_stages}: ROADMAP Queue 1, stage pipeline")
@@ -183,36 +184,96 @@ def serve_lm(arch: str, *, batch: int = 4, prompt_len: int = 32,
     return out
 
 
-def _param_bytes(params: dict) -> int:
-    total = 0
-    for p in params.values():
-        w = p["w"]
-        leaves = (w.vals, w.idx) if isinstance(w, SparseWeight) else (w,)
-        for t in leaves + (p["b"],):
-            total += t.numel() * t.element_size()
-    return total
+def _launch_counts() -> tuple[dict, dict]:
+    return dict(ops.LAUNCHES), dict(ops.VARIANT_LAUNCHES)
 
 
-def _serve_cnn_latency(cfg: ServeConfig) -> dict:
-    """Batch-1 latency serving — the paper's headline regime.
+def _launch_delta(before: tuple[dict, dict]) -> tuple[dict, dict]:
+    after = _launch_counts()
+    return tuple({k: a[k] - b.get(k, 0) for k in a}
+                 for a, b in zip(after, before))
 
-    Each request is one (1, H, W, 3) f32 image on the host. Its latency
-    is the wall time of H2D, the forward through the fused graph, and
-    D2H of the logits (``.cpu()`` waits for the device), so the
-    p50/p99 are round trips with nothing queued. One warm-up request
-    runs first and is not counted (on the card it builds the kernels)."""
+
+def latency_request(cfg: ServeConfig, *, capture: bool = True):
+    """The batch-1 request of ``cfg``'s CNN, ready to serve: ``(request,
+    info)``, where ``request(img)`` takes one (1, H, W, 3) f32 image on
+    the host and returns its (1, 1000) f32 logits on the host.
+
+    The weights are drawn from ``cfg.seed`` and stored at
+    ``cfg.quantize`` once, before the warm-up (reference ``cnn.py:
+    433-435``). One eager warm-up request runs here (on the card it
+    builds the kernels and sets their shared-memory limits). On the
+    card, with ``capture``, the forward from a static device input is
+    then captured into one CUDA graph, and ``request`` copies its image
+    into that input, replays the graph and copies the logits out: one
+    launch from the host a request, as the reference's one jitted
+    request is one dispatch. ``capture=False`` runs every request
+    eagerly, the reference the graph is held against; on the CPU
+    requests are always eager.
+
+    ``info``: ``captured``, ``warmup_s``, ``param_bytes_stored`` (the
+    reference's number), and ``launches_per_request`` /
+    ``variant_launches_per_request``, the kernel launches of one request
+    counted while the graph was captured (a replay counts nothing: the
+    counters are Python integers), or during the warm-up when nothing is
+    captured."""
     dev = resolve_device(cfg.device)
     mcfg = get_config(cfg.arch)
-    params = cnn.init_cnn(mcfg, torch.Generator().manual_seed(cfg.seed),
-                          device=dev)
+    native = cnn.init_cnn(mcfg, torch.Generator().manual_seed(cfg.seed),
+                          device="cpu")
+    params = cnn.params_to(quantize_tree(native, cfg.quantize), dev)
     img_shape = (1, cfg.image_size, cfg.image_size, 3)
+    graph = capture and dev.type == "cuda"
 
-    def request(img: torch.Tensor) -> torch.Tensor:
-        return cnn.cnn_forward(mcfg, params, img, device=dev).cpu()
+    def forward(img: torch.Tensor) -> torch.Tensor:
+        return cnn.cnn_forward(mcfg, params, img, device=dev)
 
+    before = _launch_counts()
+    side = torch.cuda.Stream(dev) if graph else None
     t0 = time.perf_counter()
-    request(torch.zeros(img_shape))
+    if side is not None:
+        # the warm-up on a side stream, as PyTorch's capture recipe asks
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            forward(torch.zeros(img_shape)).cpu()
+        torch.cuda.current_stream(dev).wait_stream(side)
+    else:
+        forward(torch.zeros(img_shape)).cpu()
     warmup_s = time.perf_counter() - t0
+    per_request = _launch_delta(before)
+
+    if graph:
+        static_in = torch.zeros(img_shape, device=dev)
+        cuda_graph = torch.cuda.CUDAGraph()
+        before = _launch_counts()
+        with torch.cuda.graph(cuda_graph):
+            static_out = forward(static_in)
+        per_request = _launch_delta(before)
+
+        def request(img: torch.Tensor) -> torch.Tensor:
+            static_in.copy_(img)
+            cuda_graph.replay()
+            return static_out.cpu()
+    else:
+        def request(img: torch.Tensor) -> torch.Tensor:
+            return forward(img).cpu()
+
+    return request, {
+        "captured": graph, "warmup_s": warmup_s,
+        "param_bytes_stored": pytree_param_bytes(native, cfg.quantize),
+        "launches_per_request": per_request[0],
+        "variant_launches_per_request": per_request[1]}
+
+
+def _serve_cnn_latency(cfg: ServeConfig, *, capture: bool = True) -> dict:
+    """Batch-1 latency serving — the paper's headline regime: the
+    requests of :func:`latency_request` (a CUDA graph replay each on the
+    card unless ``capture=False``), one in flight. Each request's
+    latency is the wall time of H2D, the forward through the fused graph,
+    and D2H of the logits (which waits for the device), so the p50/p99
+    are round trips with nothing queued; the warm-up is not counted."""
+    request, info = latency_request(cfg, capture=capture)
+    img_shape = (1, cfg.image_size, cfg.image_size, 3)
     reqs = torch.randn((cfg.n_requests,) + img_shape[1:],
                        generator=torch.Generator().manual_seed(cfg.seed + 1))
     lats, logits = [], []
@@ -224,17 +285,17 @@ def _serve_cnn_latency(cfg: ServeConfig) -> dict:
     p50 = float(np.percentile(lats, 50))
     p99 = float(np.percentile(lats, 99))
     if cfg.verbose:
-        print(f"{cfg.arch}: batch-1 latency on {dev} at {cfg.image_size}px: "
-              f"p50 {p50 * 1e3:.3f}ms / p99 {p99 * 1e3:.3f}ms over "
-              f"{cfg.n_requests} requests (warm-up {warmup_s:.2f}s)")
+        print(f"{cfg.arch}: batch-1 latency on {cfg.device} at "
+              f"{cfg.image_size}px (quantize={cfg.quantize}, "
+              f"{'CUDA graph' if info['captured'] else 'eager'}): p50 "
+              f"{p50 * 1e3:.3f}ms / p99 {p99 * 1e3:.3f}ms over "
+              f"{cfg.n_requests} requests (warm-up {info['warmup_s']:.2f}s)")
     return {"mode": "latency", "quantize": cfg.quantize,
-            "device": str(dev),
+            "device": str(resolve_device(cfg.device)),
             "latency_p50_s": p50, "latency_p99_s": p99,
             "request_latencies_s": lats,
             "logits": torch.cat(logits).numpy(),
-            "request_images": reqs.numpy(),
-            "n_stages": 1, "warmup_s": warmup_s,
-            "param_bytes_stored": _param_bytes(params)}
+            "request_images": reqs.numpy(), "n_stages": 1, **info}
 
 
 def main(argv=None):
@@ -244,6 +305,7 @@ def main(argv=None):
                     default="latency")
     ap.add_argument("--requests", type=int, default=50)
     ap.add_argument("--image-size", type=int, default=224)
+    ap.add_argument("--quantize", choices=STORE_DTYPES, default="native")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     lm_args = ap.add_argument_group("LM archs")
@@ -262,7 +324,8 @@ def main(argv=None):
         return
     serve(ServeConfig(arch=args.arch, mode=args.mode,
                       n_requests=args.requests, image_size=args.image_size,
-                      seed=args.seed, device=args.device))
+                      quantize=args.quantize, seed=args.seed,
+                      device=args.device))
 
 
 if __name__ == "__main__":

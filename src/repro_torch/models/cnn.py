@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.core.device import resolve_device
 from repro_torch.core.fusion import conv_part, fused_graph_for
 from repro_torch.core.graph import INPUT, ConvSpec, LayerGraph
+from repro_torch.core.quant import QuantizedWeight
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.sparse_conv import same_pads
 from repro_torch.models import layers as L
@@ -157,8 +158,10 @@ def _largest_div(n, cap):
     return 1
 
 
-def _to(p: dict, dev: torch.device) -> dict:
-    return {name: {"w": q["w"].to(dev), "b": q["b"].to(dev)}
+def params_to(p: dict, device) -> dict:
+    """A CNN's params on ``device``: every leaf (tensor, SparseWeight,
+    QuantizedWeight) moved, bits unchanged."""
+    return {name: {"w": q["w"].to(device), "b": q["b"].to(device)}
             for name, q in p.items()}
 
 
@@ -190,26 +193,36 @@ def init_cnn(cfg, generator: torch.Generator, *, device="cuda") -> dict:
                               sp)
         params[s.name] = {"w": w, "b": torch.zeros((s.cout,),
                                                    dtype=torch.bfloat16)}
-    return _to(params, dev)
+    return params_to(params, dev)
 
 
 def params_from_numpy(tree: dict, *, device="cuda") -> dict:
     """The reference's CNN params, given as numpy, as the port's:
-    ``{name: {"w": ndarray | {"vals", "idx", "d_in"}, "b": ndarray}}``
-    -> ``{name: {"w": Tensor | SparseWeight, "b": Tensor}}`` on
-    ``device``. Every leaf keeps its dtype and bits."""
+    ``{name: {"w": w, "b": ndarray}}`` with ``w`` an ndarray, a sparse
+    ``{"vals", "idx", "d_in"[, "scale", "orig_dtype"]}`` or a quantized
+    dense ``{"codes", "scale", "orig_dtype"}``, -> ``{name: {"w": Tensor
+    | SparseWeight | QuantizedWeight, "b": Tensor}}`` on ``device``.
+    Every leaf keeps its dtype and bits (int8 codes, f32 scales)."""
     dev = resolve_device(device)
     params = {}
     for name, p in tree.items():
         w = p["w"]
-        if isinstance(w, dict):
+        if isinstance(w, dict) and "codes" in w:
+            w = QuantizedWeight(tensor_from_numpy(w["codes"]),
+                                tensor_from_numpy(w["scale"]),
+                                str(w["orig_dtype"]))
+        elif isinstance(w, dict):
+            scale = w.get("scale")
             w = SparseWeight(tensor_from_numpy(w["vals"]),
                              tensor_from_numpy(w["idx"]).to(torch.int32),
-                             int(w["d_in"]))
+                             int(w["d_in"]),
+                             None if scale is None
+                             else tensor_from_numpy(scale),
+                             w.get("orig_dtype"))
         else:
             w = tensor_from_numpy(w)
         params[name] = {"w": w, "b": tensor_from_numpy(p["b"])}
-    return _to(params, dev)
+    return params_to(params, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -229,11 +242,16 @@ def conv2d(x, p, s: ConvSpec, *, relu=True, residual=None):
     """The HPIPE convolution unit: the fused block-sparse conv kernel for
     pruned weights, ``F.conv2d`` for dense ones. No im2col tensor either
     way. ``residual``: optional skip tensor joined in the epilogue
-    before the activation."""
+    before the activation. An int8 SparseWeight goes to the kernel
+    dispatch (which applies its scale in the epilogue); a dense
+    QuantizedWeight is dequantized here, on every call, as in the
+    reference (``F.conv2d`` has no epilogue to take the scale)."""
     w = p["w"]
     if isinstance(w, SparseWeight):
         return kops.sparse_conv(x, w, p["b"], k=s.k, stride=s.stride,
                                 relu=relu, residual=residual)
+    if isinstance(w, QuantizedWeight):
+        w = w.dequant()
     # full-f32 operands: the products of bf16 values are exact, and the
     # sums are f32 as in the reference's preferred_element_type=f32
     xn = _pad_same_nchw(x.float().permute(0, 3, 1, 2), s.k, s.stride)
@@ -255,8 +273,13 @@ def conv2d(x, p, s: ConvSpec, *, relu=True, residual=None):
 def depthwise(x, p, s: ConvSpec, *, relu=True):
     """A standalone depthwise node: the depthwise kernel's bf16 output,
     then bias and ReLU in bf16 (the reference's order, a second rounding
-    that the fused dw->pw node does not have)."""
-    y = kops.depthwise_conv(x, p["w"], stride=s.stride) + p["b"]
+    that the fused dw->pw node does not have). A quantized weight is
+    dequantized on entry: the depthwise has no wide accumulator whose
+    epilogue could take a scale."""
+    w = p["w"]
+    if isinstance(w, QuantizedWeight):
+        w = w.dequant()
+    y = kops.depthwise_conv(x, w, stride=s.stride) + p["b"]
     return torch.relu(y) if relu else y
 
 
@@ -294,11 +317,18 @@ def _global_avgpool(x):
 def fc_apply(p, x):
     """The classifier matmul, dense or pruned: f32 inputs and
     accumulation either way, so logits stay f32; the bias joins after,
-    in f32."""
+    in f32. A dense QuantizedWeight: the code product, then the
+    per-channel scale (dequantized at entry under
+    ``ops.config(int8_fast_path=False)``), as in the reference."""
     w = p["w"]
     x32 = x.float()
     if isinstance(w, SparseWeight):
         y = kops.sparse_matmul(x32, w)
+    elif isinstance(w, QuantizedWeight):
+        if kops.int8_fast_path():
+            y = (x32 @ w.codes.float()) * w.scale
+        else:
+            y = x32 @ w.dequant().float()
     else:
         y = x32 @ w.float()
     return y + p["b"].float()

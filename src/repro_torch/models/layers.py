@@ -30,13 +30,15 @@ class SparseWeight:
 
     vals: (out_blocks, K, bm, bn) — the K surviving input blocks of each
           output block column (HPIPE: one channel split's weights,
-          padded to equal length).
+          padded to equal length). Float natively; int8 codes when
+          quantized (``core/quant.py``).
     idx:  (out_blocks, K) int32 — input block ids, ascending (HPIPE:
           decoded runlengths).
     d_in: input width of the dense matrix.
-
-    ``scale``/``orig_dtype`` mark int8 codes in the reference; the int8
-    path is not ported yet, so a weight that carries them is refused.
+    scale: (out_blocks, bn) f32, one symmetric scale per output channel,
+          present iff vals are int8 codes.
+    orig_dtype: the dtype name that dequantization restores (None when
+          not quantized).
     """
     vals: torch.Tensor
     idx: torch.Tensor
@@ -45,20 +47,36 @@ class SparseWeight:
     orig_dtype: Optional[str] = None
 
     def __post_init__(self):
-        if self.scale is not None or self.orig_dtype is not None:
-            raise NotImplementedError(
-                "int8 SparseWeight (scale/orig_dtype): ROADMAP Queue 1, "
-                "int8/bf16 storage")
         if self.idx.dtype != torch.int32:
             raise ValueError(f"idx must be int32, got {self.idx.dtype}")
+        if (self.scale is None) != (self.orig_dtype is None) or (
+                self.scale is not None and self.vals.dtype != torch.int8):
+            raise ValueError("scale and orig_dtype come together, with "
+                             "int8 vals")
 
     @property
     def d_out(self) -> int:
         return self.vals.shape[-4] * self.vals.shape[-1]
 
+    def dequant_vals(self) -> torch.Tensor:
+        """vals at their original float dtype (the vals themselves if not
+        quantized): codes * scale in f32, rounded once."""
+        if self.scale is None:
+            return self.vals
+        return (self.vals.float() * self.scale[:, None, None, :].float()
+                ).to(getattr(torch, self.orig_dtype))
+
+    def dequantized(self) -> "SparseWeight":
+        """The weight with float vals and no scale."""
+        if self.scale is None:
+            return self
+        return SparseWeight(self.dequant_vals(), self.idx, self.d_in)
+
     def to(self, device) -> "SparseWeight":
-        return SparseWeight(self.vals.to(device), self.idx.to(device),
-                            self.d_in)
+        return SparseWeight(
+            self.vals.to(device), self.idx.to(device), self.d_in,
+            None if self.scale is None else self.scale.to(device),
+            self.orig_dtype)
 
 
 def dense_init(generator: torch.Generator, shape, in_axis_size: int,

@@ -199,20 +199,13 @@ def test_entry_points_default_to_the_card(entry):
     {"mode": "throughput"},
     {"mode": "throughput", "continuous": True},
     {"mode": "throughput", "tier": True},
-    {"mode": "latency", "quantize": "int8"},
     {"mode": "latency", "n_stages": 2},
     {"arch": "mistral-nemo-12b", "mode": "latency"},
-], ids=["throughput", "continuous", "tier", "int8", "stages", "lm"])
+], ids=["throughput", "continuous", "tier", "stages", "lm"])
 def test_unported_modes_name_their_roadmap_item(kw):
     kw = {"arch": "resnet50", "device": "cpu", **kw}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve(ServeConfig(**kw))
-
-
-def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SparseWeight(torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, dtype=torch.int32),
-                     16, scale=torch.ones(1, 4))
 
 
 # keyword sets that both ServeConfigs take (the port's extra ``device``

@@ -535,3 +535,161 @@ def test_lm_on_card_matches_cpu_and_uses_the_kernels(dev):
     _assert_launches({"sparse_matmul": 3 * n})
     _assert_variant("sparse_matmul", "gemv", 3 * n)   # M = 2
     assert lg.shape == (2, 1, cfg.vocab_size) and torch.isfinite(lg).all()
+
+
+# ---- stored weights: int8 codes with their scales, and f32 ----------------
+
+def _int8(sw):
+    """An int8 SparseWeight (codes and (ob, bn) scales) from a float one."""
+    from repro_torch.core.quant import quantize_tree
+    return quantize_tree({"l": {"w": sw.to("cpu")}}, "int8")["l"]["w"].to(
+        sw.vals.device)
+
+
+# (n, H, C, Cout, bm, bn, k, stride, sparsity): ResNet-50 shapes through
+# mma (one without split, some over a cluster), and blocks only simt takes
+CONV_STORE_CASES = [
+    (1, 56, 64, 64, 32, 32, 3, 1, 0.85), (1, 7, 512, 512, 32, 32, 3, 1, 0.85),
+    (1, 56, 256, 128, 32, 32, 1, 2, 0.85), (1, 7, 2048, 512, 32, 32, 1, 1,
+                                            0.85),
+    (1, 9, 32, 32, 8, 8, 3, 1, 0.5),
+]
+
+
+@pytest.mark.parametrize("store", ["int8", "f32"])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("case", CONV_STORE_CASES, ids=str)
+def test_sparse_conv_stored_weights_match_plain(dev, case, residual, store):
+    """int8 codes take mma where the blocks allow (simt otherwise), their
+    scale in the epilogue; f32 weights take simt with an f32 bias."""
+    n, h, cin, cout, bm, bn, k, stride, sp = case
+    gen = torch.Generator().manual_seed(cin + cout + h + k)
+    sw = _weight(gen, k * k * cin, cout, bm, bn, sp, dev)
+    x = torch.randn((n, h, h, cin), generator=gen).to(dev, torch.bfloat16)
+    b = (torch.randn((cout,), generator=gen) * 0.1).to(dev, torch.bfloat16)
+    ho = -(-h // stride)
+    r = (torch.randn((n, ho, ho, cout), generator=gen)
+         .to(dev, torch.bfloat16) if residual else None)
+    if store == "int8":
+        sw = _int8(sw)
+        want_v = "simt" if bm == 8 else "mma"
+    else:
+        sw = type(sw)(sw.vals.float(), sw.idx, sw.d_in)
+        b = b.float()
+        want_v = "simt"
+    assert sc.variant(bm, bn, sw.vals.dtype) == want_v
+    ops.reset_launches()
+    got = sc.sparse_conv(x, sw.vals, sw.idx, b, r, sw.scale, k=k,
+                         stride=stride, relu=not residual)
+    _assert_variant("sparse_conv", want_v)
+    want = sc.sparse_conv_torch(x, sw.vals, sw.idx, b, r, sw.scale, k=k,
+                                stride=stride, relu=not residual)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("store", ["int8", "f32"])
+@pytest.mark.parametrize("m", [1, 4, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_out,bn", [(1000, 25), (256, 32)])
+def test_sparse_matmul_stored_weights_match_plain(dev, d_out, bn, dtype, m,
+                                                  store):
+    """int8 codes: gemv at M <= 8, simt above; f32 weights: simt. The
+    kernel computes the code product; ``ops.sparse_matmul`` applies the
+    scale after it."""
+    gen = torch.Generator().manual_seed(d_out + m)
+    sw = _weight(gen, 2048, d_out, 32, bn, 0.85, dev)
+    sw = _int8(sw) if store == "int8" else type(sw)(sw.vals.float(), sw.idx,
+                                                     sw.d_in)
+    x = torch.randn((m, 2048), generator=gen).to(dev, dtype)
+    want_v = "gemv" if store == "int8" and m <= 8 else "simt"
+    assert sm.variant(dtype, m, 32, bn, sw.vals.dtype) == want_v
+    ops.reset_launches()
+    got = sm.sparse_matmul(x, sw.vals, sw.idx)
+    _assert_variant("sparse_matmul", want_v)
+    want = sm.sparse_matmul_torch(x, sw.vals, sw.idx)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        _bf16_close(got, want)
+    else:
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+    y = ops.sparse_matmul(x, sw)
+    torch.cuda.synchronize()
+    y_cpu = ops.sparse_matmul(x.cpu(), sw.to("cpu"))
+    if dtype == torch.bfloat16:
+        _bf16_close(y.cpu(), y_cpu)
+    else:
+        assert float((y.cpu() - y_cpu).abs().max()) <= \
+            1e-5 * float(y_cpu.abs().max())
+
+
+@pytest.mark.parametrize("store", ["int8", "f32"])
+@pytest.mark.parametrize("shape", [(32, 64, 112, 1, False, True),
+                                   (144, 24, 56, 1, True, False),
+                                   (576, 96, 14, 1, True, False),
+                                   (960, 320, 7, 1, False, False),
+                                   (512, 1024, 14, 2, False, True),
+                                   (36, 24, 9, 1, True, True)], ids=str)
+def test_dw_pw_stored_weights_match_plain(dev, shape, store):
+    """int8 pointwise codes take mma (simt at C 36), their scale in the
+    epilogue; f32 weights and biases take simt."""
+    from repro_torch.core.quant import quantize_tree
+    c, co, h, stride, residual, relu = shape
+    gen = torch.Generator().manual_seed(c + co + h)
+    x, dw_w, dw_b, pw_w, pw_b, r = _dw_pw_inputs(gen, 1, c, co, h, stride,
+                                                 residual, dev)
+    if store == "int8":
+        q = quantize_tree({"l": {"w": pw_w.cpu()}}, "int8")["l"]["w"]
+        args = (x, dw_w, dw_b, q.codes.to(dev), pw_b, r, q.scale.to(dev))
+        want_v = "mma" if c % 8 == 0 and co % 8 == 0 else "simt"
+    else:
+        args = (x, dw_w.float(), dw_b.float(), pw_w.float(), pw_b.float(), r,
+                None)
+        want_v = "simt"
+    assert dwpw.variant(c, co, 3, stride, args[3].dtype) == want_v
+    kw = dict(stride=stride, relu=relu)
+    ops.reset_launches()
+    got = dwpw.dw_pw(*args, **kw)
+    _assert_variant("dw_pw", want_v)
+    want = dwpw.dw_pw_torch(*args, **kw)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+
+
+def test_stored_weights_refused_where_not_built(dev):
+    """int8 and f32 dw_pw are built for the 3x3 depthwise only; a scale
+    without int8 codes is refused; nothing falls back."""
+    gen = torch.Generator().manual_seed(0)
+    x, dw_w, dw_b, pw_w, pw_b, _ = _dw_pw_inputs(gen, 1, 32, 32, 8, 1, False,
+                                                 dev, k=5)
+    codes = torch.ones((32, 32), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="k in"):
+        dwpw.dw_pw(x, dw_w, dw_b, codes, pw_b, None,
+                   torch.ones(32, device=dev))
+    with pytest.raises(ValueError, match="pw_scale"):
+        dwpw.dw_pw(x, dw_w, dw_b, pw_w, pw_b, None,
+                   torch.ones(32, device=dev))
+
+
+@pytest.mark.parametrize("quantize", ["native", "int8"])
+def test_graph_replay_equals_eager_bitwise(dev, quantize):
+    """A ResNet-50 request replayed from its CUDA graph gives the eager
+    request's logits bit for bit; the capture holds one request's
+    launches (47 sparse_conv mma + 1 sparse_matmul gemv)."""
+    from repro_torch.launch.serve import ServeConfig, _serve_cnn_latency
+    cfg = ServeConfig(arch="resnet50", mode="latency", image_size=64,
+                      n_requests=3, quantize=quantize, device="cuda",
+                      verbose=False)
+    ops.reset_launches()
+    graph = _serve_cnn_latency(cfg)
+    assert graph["captured"]
+    assert ops.LAUNCHES["sparse_conv"] == 2 * 47     # warm-up + capture
+    eager = _serve_cnn_latency(cfg, capture=False)
+    assert not eager["captured"]
+    for out in (graph, eager):
+        assert out["launches_per_request"]["sparse_conv"] == 47
+        assert out["variant_launches_per_request"][
+            ("sparse_matmul", "gemv")] == 1
+    assert (graph["logits"].view("uint32") ==
+            eager["logits"].view("uint32")).all()

@@ -147,8 +147,8 @@ def test_cpu_tensors_take_the_plain_versions():
 
 def test_cuda_wrappers_refuse_cpu_tensors(monkeypatch):
     """No fallback: the kernel wrappers raise on a CPU tensor instead of
-    running the plain version, before building anything; an int8
-    pointwise scale is refused on both paths."""
+    running the plain version, before building anything, int8 codes
+    with their pointwise scale included; the plain version takes them."""
     built = []
     monkeypatch.setattr(_build, "load", built.append)
     dw._kernel.cache_clear()
@@ -162,8 +162,9 @@ def test_cuda_wrappers_refuse_cpu_tensors(monkeypatch):
         dw.depthwise_conv(x, dw_w)
     with pytest.raises(ValueError):
         dwpw.dw_pw(x, dw_w, dw_b, pw_w, pw_b)
-    for fn in (dwpw.dw_pw, dwpw.dw_pw_torch):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1, int8/bf16 storage"):
-            fn(x, dw_w, dw_b, pw_w, pw_b, pw_scale=torch.ones(16))
+    codes = torch.ones(32, 16, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        dwpw.dw_pw(x, dw_w, dw_b, codes, pw_b, pw_scale=torch.ones(16))
+    assert dwpw.dw_pw_torch(x, dw_w, dw_b, codes, pw_b,
+                            pw_scale=torch.ones(16)).shape == (1, 4, 4, 16)
     assert built == []

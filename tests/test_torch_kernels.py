@@ -154,9 +154,10 @@ def test_cuda_wrappers_refuse_cpu_tensors(monkeypatch):
                        sw.vals, sw.idx, b, k=1)
     with pytest.raises((ValueError, RuntimeError)):
         sm.sparse_matmul(torch.zeros(1, 64), sw.vals, sw.idx)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):       # int8 codes with their scale
         sc.sparse_conv(torch.zeros(1, 4, 4, 64, dtype=torch.bfloat16),
-                       sw.vals, sw.idx, b, scale=torch.ones(2, 32), k=1)
+                       sw.vals.to(torch.int8), sw.idx, b,
+                       scale=torch.ones(2, 32), k=1)
     assert built == []
 
 

@@ -77,7 +77,7 @@ def build(knockouts: bool) -> dict:
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed:\n{log}")
         lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
-        lib.dw_pw_bf16.argtypes = [_P] * 7 + [_I] * 20 + [_P]
+        lib.dw_pw_launch.argtypes = [_P] * 8 + [_I] * 21 + [_P]
         libs[name] = lib
     return libs
 
@@ -118,11 +118,12 @@ def main() -> int:
         want = dwpw.dw_pw_torch(x, dw_w, dw_b, pw_w, pw_b, res, stride=stride)
 
         def launch(lib, tm, tn, tr, tw, ck, split):
-            err = lib.dw_pw_bf16(
+            err = lib.dw_pw_launch(
                 x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
                 pw_b.data_ptr(), None if res is None else res.data_ptr(),
-                out.data_ptr(), 1, h, h, c, ho, ho, 3, stride, ph, ph, co, 1, 1,
-                1, tm, tn, tr, tw, ck, split,
+                None, out.data_ptr(), 1, h, h, c, ho, ho, 3, stride, ph, ph, co,
+                1, 1, _build.weight_code(torch.bfloat16), 1, tm, tn, tr, tw, ck,
+                split,
                 torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"{label}: launch failed ({err})")
