@@ -27,9 +27,12 @@ Phases, in order; any failure raises and exits nonzero:
    sparse_conv "mma" at every ResNet-50 layer shape (residual on and
    off), the int8 classifier through "gemv", int8 dw_pw "mma" at every
    MobileNet block shape, and one "simt" shape each in int8 and in f32
-   (sparse_conv, sparse_matmul, dw_pw); each check also asserts the
-   variant ("mma": tensor cores, "simt": CUDA cores, "gemv": M <= 8) that
-   ``variant()`` names was the one launched;
+   (sparse_conv, sparse_matmul, dw_pw); then the throughput paths'
+   microbatch shapes, n 2 and 4: sparse_conv at every ResNet-50 layer
+   shape, the classifier (M 2, 4) and dw_pw at every MobileNet block
+   shape, bf16 and int8 (each shape's plan printed); each check also
+   asserts the variant ("mma": tensor cores, "simt": CUDA cores, "gemv":
+   M <= 8) that ``variant()`` names was the one launched;
 4. main paths, each with the launch counters reset just before and read
    just after, every counter checked by name, and the variant counters
    of sparse_conv, sparse_matmul, dw_pw and flash_attention with them
@@ -44,7 +47,16 @@ Phases, in order; any failure raises and exits nonzero:
    runs no Python), the graph's logits equal the eager ones bit for bit,
    and both are held against the port's plain CPU forward on the same
    stored weights and images; then one ``cnn_forward`` per MobileNet on
-   the unfused view (``graph_for(name)``). Then
+   the unfused view (``graph_for(name)``). Then throughput serving through
+   the heterogeneous layer pipeline for each CNN at native and int8, each
+   stage on its own CUDA stream and, for comparison, all on one:
+   ``_serve_cnn`` (batch 16, M 4, S 4; the whole batch one CUDA graph,
+   its launches M x one forward's) and ``_serve_cnn_continuous`` (16
+   requests of 8 images, mb 2, and mb 1 for ResNet-50; one captured tick
+   a microbatch, one forward's launches): the logits equal the sequential
+   forward on the card, microbatch by microbatch, bit for bit, the
+   one-stream run's too, and the plain CPU forward's within the bars
+   above; the counters count the warm-ups and the captures. Then
    SmolLM-360M at full width and depth: ``make_prefill_step`` on 2048
    random tokens (32 flash_attention + 96 sparse_matmul launches, all
    "mma"), a prefill at T 256 held against the port's CPU forward, and
@@ -60,7 +72,11 @@ Phases, in order; any failure raises and exits nonzero:
    its bound (sparse_conv per layer with its plan, and summed by K); the
    int8 kernels beside the bf16 ones at the same shapes, their bound
    counting a byte a weight; eager and graph p50/p99 of every serving run
-   above and the stored bytes of each CNN at each store dtype;
+   above and the stored bytes of each CNN at each store dtype; the
+   kernels at the microbatch shapes (one microbatch forward's launches,
+   n 2 and 4) beside their plain versions, bounds and library calls; where
+   a tick's time goes (each stage program alone, the stages on one stream,
+   one tick on S streams, the plain forward of the microbatch);
    SmolLM-360M's prefill latency and ``serve_lm``'s times;
 6. one ``{"kernels": [...]}`` line, then the device line last.
 
@@ -105,6 +121,13 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 IMAGE_SIZE = 224
 N_REQUESTS = 50
+# throughput serving: the batched executor's batch, microbatches, stages
+# and timed replays; the continuous server's requests, images a request
+# and microbatch sizes
+PIPE_BATCH, PIPE_M, PIPE_S, PIPE_ITERS = 16, 4, 4, 20
+PIPE_MB_SIZES = (2, PIPE_BATCH // PIPE_M)
+CONT_REQUESTS, CONT_BATCH = 16, 8
+CONT_MB = {"resnet50": (1, 2), "mobilenet_v1": (2,), "mobilenet_v2": (2,)}
 MOBILENETS = ("mobilenet_v1", "mobilenet_v2")
 MB_BLOCKS = {"mobilenet_v1": 13, "mobilenet_v2": 17}   # dw_pw / dw nodes
 SEED = 0
@@ -291,6 +314,8 @@ def main() -> int:
               "card", file=sys.stderr)
         return 1
     from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core import planner
     from repro_torch.core.fusion import conv_part, fused_graph_for
     from repro_torch.core.graph import INPUT, graph_for
     from repro_torch.core.quant import (STORE_DTYPES, pytree_param_bytes,
@@ -302,8 +327,9 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import sparse_conv as sc
     from repro_torch.kernels import sparse_matmul as sm
-    from repro_torch.launch.serve import (ServeConfig, _serve_cnn_latency,
-                                          serve, serve_lm)
+    from repro_torch.launch.serve import (CNNPipelineServer, ServeConfig,
+                                          _serve_cnn, _serve_cnn_continuous,
+                                          _serve_cnn_latency, serve, serve_lm)
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import cnn, lm
     from repro_torch.models import layers as lm_layers
@@ -471,14 +497,15 @@ def main() -> int:
             raise AssertionError(f"{name}: expected {MB_BLOCKS[name]} dw_pw "
                                  f"and dw nodes")
 
-    def dw_pw_args(name, node):
+    def dw_pw_args(name, node, n=1):
         """(x, dw_w, dw_b, pw_w, pw_b, residual, kwargs) on the card at
-        the node's shape: the node's weights, random x, biases, skip."""
+        the node's shape, batch n: the node's weights, random x, biases,
+        skip."""
         dw_s, pw_s = node.parts[0], node.parts[1]
         p = mb_params[name]
         ho = node.conv_out_hw
-        x = randn((1, node.in_hw, node.in_hw, node.cin))
-        r = randn((1, ho, ho, node.cout)) if node.residual_from else None
+        x = randn((n, node.in_hw, node.in_hw, node.cin))
+        r = randn((n, ho, ho, node.cout)) if node.residual_from else None
         return (x, p[dw_s.name]["w"].to(dev), randn((node.cin,)) * 0.1,
                 p[pw_s.name]["w"].to(dev), randn((node.cout,)) * 0.1, r,
                 dict(stride=node.stride, dw_relu=dw_s.relu, relu=node.relu))
@@ -721,6 +748,65 @@ def main() -> int:
           f"{q_err} within 1 bf16 ulp / 1e-5 relative; checks by variant "
           f"{ {f'{n}/{v}': c for (n, v), c in checked_variants.items()} }")
 
+    # the throughput paths' microbatch shapes: every kernel at n = the
+    # batched executor's mb (batch 16 over M 4) and the continuous
+    # server's mb 2 (its mb 1 is the latency shape above), bf16 and int8
+    mb_err = {"sparse_conv": 0.0, "sparse_matmul": 0.0, "dw_pw": 0.0}
+    n_mb_checks = 0
+    for n_ in PIPE_MB_SIZES:
+        seen = set()
+        for node in layers:
+            sw, _ = conv_part_params(node)
+            key = (node.k, node.stride, node.cin, node.cout, sw.vals.shape[1],
+                   node.in_hw, bool(node.residual_from))
+            if key in seen:
+                continue
+            seen.add(key)
+            ho = node.conv_out_hw
+            x = randn((n_, node.in_hw, node.in_hw, node.cin))
+            b = randn((node.cout,)) * 0.1
+            r = randn((n_, ho, ho, node.cout)) if node.residual_from else None
+            sw8 = params_q["int8"][conv_part(node).name]["w"].to(dev)
+            for store, w in (("bf16", sw), ("int8", sw8)):
+                mb_err["sparse_conv"] = max(mb_err["sparse_conv"], check_conv(
+                    f"n={n_} {store} {key}", x, w, b, r, node.relu,
+                    k=node.k, stride=node.stride))
+                n_mb_checks += 1
+            tm, split = sc.plan(n_ * ho * ho, sw.vals.shape[0],
+                                sw.vals.shape[1])
+            print(f"[plan] sparse_conv n={n_} {node.name:9s} M "
+                  f"{n_ * ho * ho:6d}: tm {tm}, split {split}")
+        for store, w in (("bf16", fc_w), ("int8", fc8)):
+            mb_err["sparse_matmul"] = max(mb_err["sparse_matmul"], check_mm(
+                f"fc M={n_} f32 x {store}", randn((n_, 2048), torch.float32),
+                w, f32_tol))
+            n_mb_checks += 1
+        for name in MOBILENETS:
+            seen = set()
+            for node in mb_blocks[name]:
+                key = (node.cin, node.cout, node.in_hw, node.stride,
+                       bool(node.residual_from), node.relu)
+                if key in seen:
+                    continue
+                seen.add(key)
+                x, dw_w, dw_b, pw_w, pw_b, r, kw = dw_pw_args(name, node, n_)
+                pw8 = mb_q[name][node.parts[1].name]["w"].to(dev)
+                for store, args in (
+                        ("bf16", (x, dw_w, dw_b, pw_w, pw_b, r)),
+                        ("int8", (x, dw_w, dw_b, pw8.codes, pw_b, r,
+                                  pw8.scale))):
+                    mb_err["dw_pw"] = max(mb_err["dw_pw"], check_dw_pw(
+                        f"n={n_} {store} {name} {key}", args, kw))
+                    n_mb_checks += 1
+                ho = node.conv_out_hw
+                pl = dwpw.plan(n_, ho, ho, node.cin, node.cout, node.k,
+                               node.stride)
+                print(f"[plan] dw_pw n={n_} {name} {node.name:8s}: {pl}")
+    print(f"[check] microbatch shapes n={PIPE_MB_SIZES}: {n_mb_checks} "
+          f"checks (sparse_conv at every ResNet-50 layer shape, the "
+          f"classifier, dw_pw at every MobileNet block shape; bf16 and "
+          f"int8): max |err| {mb_err} within 1 bf16 ulp / 1e-5 relative")
+
     # -- 4. the main paths ------------------------------------------------
     def check_logits(logits, images, cfg_, params_, graph=None,
                      rtol=LOGIT_RTOL, n=2) -> float:
@@ -936,6 +1022,148 @@ def main() -> int:
               f"every node on the card's own inputs within its bar (worst "
               f"share: fused {node_err['fused']:.3f}, unfused "
               f"{node_err['unfused']:.3f})")
+
+    # Throughput serving through the heterogeneous layer pipeline, each
+    # (stage, replica) slot on its own CUDA stream: the batched executor
+    # (batch 16, M 4, S 4; the whole batch one CUDA graph) and the
+    # continuous server (one captured tick a microbatch; mb 2 for every
+    # CNN, mb 1 for ResNet-50), each with S streams and with one, at
+    # native and int8. The counters are reset before each run and read
+    # after: the warm-up and the capture count, a replay counts nothing.
+    # The logits must equal the sequential forward on the card,
+    # microbatch by microbatch, bit for bit (and the one-stream run's),
+    # and the plain CPU forward's within the latency runs' bars.
+    pipe = {}
+    pipe_launches = {}
+    for arch in STORE_RUNS:
+        mcfg = get_config(arch)
+        rtol = LOGIT_RTOL if arch == "resnet50" else MB_LOGIT_RTOL
+        for q in ("native", "int8"):
+            per_fwd, per_fwd_v = per_request_want(arch, q)
+            stored = quantize_tree(cnn_params[arch], q)
+            p_dev = cnn.params_to(stored, dev)
+
+            def sequential(images, mb):
+                """cnn_forward on the card, mb images at a time."""
+                with torch.inference_mode():
+                    return torch.cat([cnn.cnn_forward(
+                        mcfg, p_dev, torch.from_numpy(images[i:i + mb]),
+                        device=dev).cpu()
+                        for i in range(0, images.shape[0], mb)])
+
+            def counted_run(what, fn, per_capture, captures):
+                """``fn()`` with the counters reset before and read after:
+                ``captures`` forwards of ``per_capture`` launches each (the
+                eager warm-ups and the captures); returns fn's result."""
+                ops.reset_launches()
+                res = fn()
+                counted, variants = dict(ops.LAUNCHES), dict(
+                    ops.VARIANT_LAUNCHES)
+                check_launches(counted, {k: v * per_capture * captures
+                                         for k, v in per_fwd.items()},
+                               f"{what}: warm-up and capture")
+                check_variants(variants, {k: v * per_capture * captures
+                                          for k, v in per_fwd_v.items()},
+                               f"{what}: warm-up and capture")
+                add_variants(variants)
+                for k, v in counted.items():
+                    pipe_launches[k] = pipe_launches.get(k, 0) + v
+                return res
+
+            runs = {}
+            for streams in (True, False):
+                what = (f"{arch} {q} batched, "
+                        f"{'S streams' if streams else 'one stream'}")
+                res = counted_run(what, lambda: _serve_cnn(
+                    arch, batch=PIPE_BATCH, n_microbatches=PIPE_M,
+                    n_stages=PIPE_S, image_size=IMAGE_SIZE, iters=PIPE_ITERS,
+                    seed=SEED, quantize=q, streams=streams), PIPE_M, 2)
+                check_launches(res["launches_per_batch"],
+                               {k: v * PIPE_M for k, v in per_fwd.items()},
+                               f"{what}: one batch (its capture)")
+                if not res["captured"] or res["streams"] != (
+                        PIPE_S if streams else 1):
+                    raise AssertionError(f"{what}: captured "
+                                         f"{res['captured']}, streams "
+                                         f"{res['streams']}")
+                runs[streams] = res
+            out_s, out_1 = runs[True], runs[False]
+            mb = PIPE_BATCH // PIPE_M
+            seq = sequential(out_s["images"], mb)
+            if not torch.equal(torch.from_numpy(out_s["logits"]), seq) or \
+                    not np.array_equal(out_s["logits"].view(np.uint32),
+                                       out_1["logits"].view(np.uint32)):
+                raise AssertionError(f"{arch} {q} batched: pipelined logits "
+                                     f"differ from the sequential forward "
+                                     f"(mb {mb}) or the one-stream run's")
+            err = check_logits(torch.from_numpy(out_s["logits"]),
+                               out_s["images"], mcfg, stored, rtol=rtol)
+            row = {"images_per_s": out_s["images_per_s"],
+                   "images_per_s_one_stream": out_1["images_per_s"],
+                   "run_ms": out_s["run_s"] * 1e3,
+                   "run_ms_one_stream": out_1["run_s"] * 1e3,
+                   "bubble": out_s["bubble_fraction"],
+                   "stage_of": out_s["stage_of"],
+                   "imbalance": out_s["imbalance"],
+                   "wire_width": out_s["wire_width"],
+                   "stage_runs": out_s["stage_runs"], "ticks": out_s["ticks"],
+                   "launches_per_batch": out_s["launches_per_batch"],
+                   "logit_err": err, "continuous": {},
+                   "latency_p50_ms": serving[(arch, q)]["graph_p50_ms"]}
+            print(f"[main] {arch} {q} batched throughput: batch "
+                  f"{PIPE_BATCH} at {IMAGE_SIZE}px, M {PIPE_M}, S {PIPE_S} "
+                  f"(stage_of cuts {row['stage_of']}, imbalance "
+                  f"{row['imbalance']:.3f}, wire {row['wire_width']} f32): "
+                  f"{row['images_per_s']:.1f} im/s with {PIPE_S} streams "
+                  f"({row['run_ms']:.4f} ms a batch), "
+                  f"{row['images_per_s_one_stream']:.1f} im/s with one "
+                  f"({row['run_ms_one_stream']:.4f} ms); bubble "
+                  f"{row['bubble']:.3f}, {row['stage_runs']} stage runs in "
+                  f"{row['ticks']} ticks; a batch's capture "
+                  f"{variant_str(out_s['variant_launches_per_batch'])}; "
+                  f"== sequential (mb {mb}) and one stream bitwise; vs CPU "
+                  f"{err:.3e} (bar {rtol}); batch-1 latency p50 "
+                  f"{row['latency_p50_ms']:.4f} ms")
+            for mb in CONT_MB[arch]:
+                for streams in (True, False):
+                    what = (f"{arch} {q} continuous mb {mb}, "
+                            f"{'S streams' if streams else 'one stream'}")
+                    res = counted_run(what, lambda: _serve_cnn_continuous(
+                        arch, n_requests=CONT_REQUESTS, batch=CONT_BATCH,
+                        mb_size=mb, n_stages=PIPE_S, image_size=IMAGE_SIZE,
+                        seed=SEED, quantize=q, streams=streams), 1, 4)
+                    check_launches(res["launches_per_tick"][0], per_fwd,
+                                   f"{what}: one tick (its capture)")
+                    n_mb = CONT_REQUESTS * CONT_BATCH // mb
+                    if res["ticks"] != n_mb + PIPE_S - 1 or \
+                            res["injected_microbatches"] != n_mb:
+                        raise AssertionError(f"{what}: {res['ticks']} ticks")
+                    for x, got in zip(res["request_images"], res["logits"]):
+                        if not torch.equal(torch.from_numpy(got),
+                                           sequential(x, mb)):
+                            raise AssertionError(f"{what}: logits differ "
+                                                 f"from the sequential "
+                                                 f"forward (mb {mb})")
+                    c_err = check_logits(
+                        torch.from_numpy(res["logits"][0]),
+                        res["request_images"][0], mcfg, stored, rtol=rtol,
+                        n=1)
+                    row["continuous"][(mb, streams)] = {
+                        "images_per_s": res["images_per_s"],
+                        "steady_bubble": res["steady_bubble"],
+                        "p50_ms": res["latency_p50_s"] * 1e3,
+                        "p99_ms": res["latency_p99_s"] * 1e3,
+                        "ticks": res["ticks"], "elapsed_s": res["elapsed_s"]}
+                    c = row["continuous"][(mb, streams)]
+                    print(f"[main] {what}: {CONT_REQUESTS} x {CONT_BATCH} "
+                          f"images: {c['images_per_s']:.1f} im/s, steady "
+                          f"bubble {c['steady_bubble']:.4f} ({c['ticks']} "
+                          f"ticks), request p50 {c['p50_ms']:.3f} / p99 "
+                          f"{c['p99_ms']:.3f} ms; == sequential (mb {mb}) "
+                          f"bitwise; vs CPU {c_err:.3e}")
+            pipe[(arch, q)] = row
+    for k, v in pipe_launches.items():
+        all_launches[k] = all_launches.get(k, 0) + v
 
     # SmolLM-360M prefill: the whole prompt in one forward, attention
     # through the flash kernel, the FFN through the sparse matmul
@@ -1332,6 +1560,129 @@ def main() -> int:
               f"{row['forward_ms']:.4f} ms; stored "
               f"{row['param_bytes_stored']} B")
 
+    # The kernels at the throughput paths' microbatch shapes (n = 2, 4):
+    # one microbatch forward's launches of each, bf16, beside the plain
+    # versions, the bound and the library call, as at batch 1 above.
+    mb_times = {}
+    for n_ in PIPE_MB_SIZES:
+        t = {"sparse_conv": {}, "sparse_matmul": {}, "dw_pw": {}}
+        for node in layers:
+            sw, b = conv_part_params(node)
+            ob, n_k, bm, bn = sw.vals.shape
+            ho = node.conv_out_hw
+            x = randn((n_, node.in_hw, node.in_hw, node.cin))
+            r = randn((n_, ho, ho, node.cout)) if node.residual_from else None
+            kw = dict(k=node.k, stride=node.stride, relu=node.relu)
+            w_lib = densify(sw).reshape(node.k, node.k, node.cin, node.cout) \
+                .permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+            x_nchw = x.permute(0, 3, 1, 2)
+            m = n_ * ho * ho
+            x_elems = conv_input_elems(x.shape, sw.idx, node.k, node.stride,
+                                       bm)
+            nbytes = (x_elems * 2 + sw.vals.numel() * 2 + sw.idx.numel() * 4
+                      + b.numel() * 2 + m * node.cout * 2
+                      * (2 if r is not None else 1))
+            t_b, t_o = bound(nbytes, 2 * m * ob * n_k * bm * bn,
+                             torch.bfloat16)
+            add_sums(t["sparse_conv"], {
+                "ms": time_ms(lambda: sc.sparse_conv(x, sw.vals, sw.idx, b,
+                                                     r, **kw)),
+                "plain_ms": time_ms(lambda: sc.sparse_conv_torch(
+                    x, sw.vals, sw.idx, b, r, **kw), reps=5, rounds=2),
+                "library_ms": time_ms(lambda: F.conv2d(
+                    x_nchw, w_lib, b, node.stride, node.k // 2)),
+                "bound_ms": max(t_b, t_o), "bytes_ms": t_b, "ops_ms": t_o})
+        x_fc = randn((n_, 2048), torch.float32)
+        ob, n_k, bm, bn = fc_w.vals.shape
+        t_b, t_o = bound(n_ * int(fc_w.idx.unique().numel()) * bm * 4
+                         + fc_w.vals.numel() * 2 + fc_w.idx.numel() * 4
+                         + n_ * ob * bn * 4, 2 * n_ * ob * n_k * bm * bn,
+                         torch.float32)
+        add_sums(t["sparse_matmul"], {
+            "ms": time_ms(lambda: sm.sparse_matmul(x_fc, fc_w.vals,
+                                                   fc_w.idx)),
+            "plain_ms": time_ms(lambda: sm.sparse_matmul_torch(
+                x_fc, fc_w.vals, fc_w.idx)),
+            "library_ms": time_ms(lambda: torch.matmul(x_fc, w_fc_dense)),
+            "bound_ms": max(t_b, t_o), "bytes_ms": t_b, "ops_ms": t_o})
+        for name in MOBILENETS:
+            for node in mb_blocks[name]:
+                x, dw_w, dw_b, pw_w, pw_b, r, kw = dw_pw_args(name, node, n_)
+                c, co, ho = node.cin, node.cout, node.conv_out_hw
+                m = n_ * ho * ho
+                x_cl = x.permute(0, 3, 1, 2)
+                w_dw = dw_w.permute(2, 0, 1).unsqueeze(1).contiguous(
+                    memory_format=torch.channels_last)
+                w_pw = pw_w.t().reshape(co, c, 1, 1).contiguous(
+                    memory_format=torch.channels_last)
+                t_b, t_o = bound(2 * (x.numel() + dw_w.numel() + c
+                                      + pw_w.numel() + co
+                                      + m * co * (2 if r is not None else 1)),
+                                 2 * m * c * (9 + co), torch.bfloat16)
+                add_sums(t["dw_pw"], {
+                    "ms": time_ms(lambda: dwpw.dw_pw(x, dw_w, dw_b, pw_w,
+                                                     pw_b, r, **kw)),
+                    "plain_ms": time_ms(lambda: dwpw.dw_pw_torch(
+                        x, dw_w, dw_b, pw_w, pw_b, r, **kw), reps=5,
+                        rounds=2),
+                    "library_ms": time_ms(lambda: F.conv2d(F.conv2d(
+                        x_cl, w_dw, dw_b, node.stride, 1, groups=c), w_pw,
+                        pw_b)),
+                    "bound_ms": max(t_b, t_o), "bytes_ms": t_b,
+                    "ops_ms": t_o})
+        for name, row in t.items():
+            row["bound_by"] = bound_by(row["bytes_ms"], row["ops_ms"])
+            print(f"[time] microbatch n={n_}: {name} (one forward's "
+                  f"launches{' of both MobileNets' if name == 'dw_pw' else ''}"
+                  f"): kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, library "
+                  f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} "
+                  f"ms ({row['bound_by']})")
+        mb_times[n_] = t
+
+    # Where a tick's time goes, for each CNN (native) at the continuous
+    # server's mb 2 and the batched executor's mb 4: each stage program
+    # alone (its kernels, its wire unpack and pack), the S stages one
+    # after another on one stream, one tick with the stages on their own
+    # streams (fork, S stages, join), and the plain forward of the same
+    # microbatch without any wire.
+    ticks = {}
+    for arch in STORE_RUNS:
+        mcfg = get_config(arch)
+        p_dev = cnn.params_to(cnn_params[arch], dev)
+        plan_ = planner.plan(mcfg, cnn_params[arch], planner.PlanRequest(
+            n_stages=PIPE_S))
+        for mb in sorted({2, PIPE_BATCH // PIPE_M}):
+            fns, pack_in, _, width = cnn.stage_programs(
+                mcfg, p_dev, plan_["stage_of"],
+                (mb, IMAGE_SIZE, IMAGE_SIZE, 3))
+            img = randn((mb, IMAGE_SIZE, IMAGE_SIZE, 3), torch.float32)
+            with torch.inference_mode():
+                wires = [pack_in(img)]
+                for fn in fns:
+                    wires.append(fn(wires[-1]))
+            state = torch.stack(wires[:PIPE_S])
+            nxt = torch.empty_like(state)
+            slots = pp.slot_streams(PIPE_S, 1, dev)
+            stage_ms = [time_ms(lambda k=k: fns[k](state[k], out=nxt[k]))
+                        for k in range(PIPE_S)]
+            row = {"stage_ms": stage_ms, "wire_width": width,
+                   "chain_ms": time_ms(lambda: pp.pipeline_step_hetero(
+                       fns, state, None, n_stages=PIPE_S, out=nxt)),
+                   "tick_ms": time_ms(lambda: pp.pipeline_step_hetero(
+                       fns, state, None, n_stages=PIPE_S, out=nxt,
+                       streams=slots)),
+                   "forward_ms": time_ms(lambda: cnn.cnn_forward(
+                       mcfg, p_dev, img, device=dev))}
+            ticks[(arch, mb)] = row
+            print(f"[time] tick {arch} mb {mb} (wire {width} f32): stages "
+                  f"{[round(s, 4) for s in stage_ms]} ms (sum "
+                  f"{sum(stage_ms):.4f}, max {max(stage_ms):.4f}); one "
+                  f"stream {row['chain_ms']:.4f} ms, {PIPE_S} streams "
+                  f"{row['tick_ms']:.4f} ms; the plain forward of the "
+                  f"microbatch {row['forward_ms']:.4f} ms")
+
     # SmolLM-360M: the flash kernel per layer of a T=2048 prefill, beside
     # its plain version and SDPA on the same expanded tensors; the sparse
     # matmul at its FFN shapes beside torch.matmul on the densified weight
@@ -1419,6 +1770,12 @@ def main() -> int:
         "serving": {f"{a}/{q}": row for (a, q), row in serving.items()},
         "param_bytes_stored": param_bytes, "fc_int8": fc8,
         "depthwise_layers": dw_rows, "smollm": lm_main,
+        "throughput": {f"{a}/{q}": dict(row, continuous={
+            f"mb{mb}/{'streams' if st else 'one_stream'}": c
+            for (mb, st), c in row["continuous"].items()})
+            for (a, q), row in pipe.items()},
+        "microbatch_kernel_times": mb_times,
+        "ticks": {f"{a}/mb{mb}": row for (a, mb), row in ticks.items()},
         "variant_launches": {f"{n}/{v}": c for (n, v), c in
                              all_variants.items()},
         "ptxas": resources, "hmma": hmma}, indent=1))
@@ -1522,6 +1879,14 @@ def main() -> int:
     ]
     for entry in kernels:
         name = entry["name"]
+        # the throughput paths: launches counted over every batched and
+        # continuous run (warm-ups and captures), the checks at the
+        # microbatch shapes, one microbatch forward's launches timed there
+        entry["throughput"] = {
+            "launches": pipe_launches.get(name, 0),
+            "max_abs_err": mb_err.get(name),
+            "by_microbatch": {n: mb_times[n].get(name)
+                              for n in PIPE_MB_SIZES}}
         entry["ptxas"] = resources[name]
         entry["hmma"] = hmma[name]
         if name in _build.VARIANTS:

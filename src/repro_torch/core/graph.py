@@ -18,9 +18,11 @@ using three per-spec fields:
   branches and MobileNet-V2 linear bottlenecks don't).
 
 The graph is pure structure (numpy-free, torch-free): the interpreter
-that executes it lives in ``repro_torch/models/cnn.py``. The
-reference's stage partitioner (``StageSlice``, ``partition``,
-``live_at``) is not copied yet: it comes with the stage-pipeline slice.
+that executes it lives in ``repro_torch/models/cnn.py``; the stage
+partitioner below computes, for any contiguous stage assignment, the
+set of *live values* crossing each stage cut — the skip buffer the
+heterogeneous pipeline (``core/pipeline.py``) must carry when a
+residual edge spans stages.
 """
 from __future__ import annotations
 
@@ -66,6 +68,34 @@ class ConvSpec:
             ohw = -(-ohw // self.pool_stride)
         return ohw
 
+    def macs(self) -> int:
+        """Dense multiply-accumulates for this op."""
+        if self.kind == "conv":
+            # MACs happen at the conv unit's own resolution — a fused
+            # pooling epilogue shrinks the node OUTPUT, not the conv
+            return self.conv_out_hw ** 2 * self.k ** 2 * self.cin * self.cout
+        if self.kind == "dw":
+            return self.out_hw ** 2 * self.k ** 2 * self.cin
+        if self.kind == "fc":
+            return self.cin * self.cout
+        return 0
+
+
+@dataclass(frozen=True)
+class StageSlice:
+    """One pipeline stage: nodes [start, stop) plus its wire contract.
+
+    ``in_live`` / ``out_live`` are the value names crossing the stage's
+    input / output cut, ordered by producer index (INPUT first). A
+    residual edge whose producer and consumer land in different stages
+    appears in every boundary in between — that is the skip buffer.
+    """
+    stage: int
+    start: int
+    stop: int
+    in_live: tuple[str, ...]
+    out_live: tuple[str, ...]
+
 
 class LayerGraph:
     """Topologically ordered layer DAG with explicit residual edges."""
@@ -75,6 +105,7 @@ class LayerGraph:
         self.name = name
         self.nodes = nodes
         self.inputs = inputs          # per node: (primary[, residual])
+        self._index = {n.name: i for i, n in enumerate(nodes)}
 
     @classmethod
     def from_specs(cls, name: str, specs: list[ConvSpec]) -> "LayerGraph":
@@ -96,6 +127,9 @@ class LayerGraph:
         return g
 
     # -- structure ---------------------------------------------------------
+
+    def index(self, name: str) -> int:
+        return self._index[name]
 
     @property
     def output(self) -> str:
@@ -123,6 +157,61 @@ class LayerGraph:
                         f"{self.name}: node {node.name!r} reads {src!r} "
                         "which is not produced earlier (or at all)")
             seen.add(node.name)
+
+    def consumers(self) -> dict[str, list[int]]:
+        """value name -> node indices that read it (graph output is
+        consumed at index len(nodes))."""
+        cons: dict[str, list[int]] = {INPUT: []}
+        for i, edge in enumerate(self.inputs):
+            for src in edge:
+                cons.setdefault(src, []).append(i)
+        cons.setdefault(self.output, []).append(len(self.nodes))
+        return cons
+
+    def live_at(self, boundary: int) -> tuple[str, ...]:
+        """Values produced before node index ``boundary`` that some node
+        at index >= boundary still reads, ordered by producer index
+        (INPUT first). This is the wire content at a stage cut."""
+        cons = self.consumers()
+        live = []
+        if boundary == 0 or any(c >= boundary for c in cons.get(INPUT, [])):
+            live.append(INPUT)
+        for i, node in enumerate(self.nodes):
+            if i >= boundary:
+                break
+            if any(c >= boundary for c in cons.get(node.name, [])):
+                live.append(node.name)
+        return tuple(live)
+
+    # -- stage partitioning ------------------------------------------------
+
+    def partition(self, stage_of: list[int]) -> list[StageSlice]:
+        """Split into contiguous stages per ``stage_of`` (one id per
+        node, nondecreasing, starting at 0, no gaps). Returns one
+        :class:`StageSlice` per stage with resolved wire contracts."""
+        if len(stage_of) != len(self.nodes):
+            raise ValueError(f"stage_of has {len(stage_of)} entries for "
+                             f"{len(self.nodes)} nodes")
+        if stage_of and stage_of[0] != 0:
+            raise ValueError("stage ids must start at 0")
+        for a, b in zip(stage_of, stage_of[1:]):
+            if b - a not in (0, 1):
+                raise ValueError("stage ids must be contiguous and "
+                                 f"nondecreasing, got ...{a},{b}...")
+        n_stages = (max(stage_of) + 1) if stage_of else 0
+        bounds = [0]
+        for s in range(n_stages):
+            bounds.append(max(i for i, sid in enumerate(stage_of)
+                              if sid == s) + 1)
+        slices = []
+        for s in range(n_stages):
+            start, stop = bounds[s], bounds[s + 1]
+            # live_at(0) == (INPUT,) and live_at(n) == (output,), so the
+            # edge stages need no special-casing
+            slices.append(StageSlice(stage=s, start=start, stop=stop,
+                                     in_live=self.live_at(start),
+                                     out_live=self.live_at(stop)))
+        return slices
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,6 +26,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -73,6 +75,16 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, VARIANT_LAUNCHES):
         for key in counts:
             counts[key] = 0
+
+
+def plain_acc(t: torch.Tensor) -> torch.dtype:
+    """The dtype the plain version of a hand-written kernel sums its
+    products in, rounding once to f32 after: f64 on the CPU, so the sum
+    is the correctly rounded one whatever order the CPU's BLAS takes
+    (the bf16 products are exact and their f64 sum all but always is);
+    f32 on the card, where a plain version is the check its kernel is
+    held to, in the kernel's own precision."""
+    return torch.float32 if t.device.type == "cuda" else torch.float64
 
 
 def aligned16(t):

@@ -57,14 +57,16 @@ def dw_pw_torch(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
 
     Loops over chunks of at most 16 output rows; each chunk runs the depthwise on its (rows + halo) input slab and feeds
     the result straight into the pointwise product, so the working set
-    is one chunk."""
+    is one chunk. The pointwise sums are f32 (on the CPU f64 rounded
+    once to f32: ``_build.plain_acc``)."""
     n = x.shape[0]
     k = dw_w.shape[0]
     co = pw_w.shape[-1]
     xp, ho, wo = pad_same_nhwc(x, k, stride)
     hb = _row_chunk(ho)
     rows_in = (hb - 1) * stride + k
-    w32 = pw_w.float()
+    ad = _build.plain_acc(x)
+    w_acc = pw_w.to(ad)
     out = torch.empty((n, ho, wo, co), dtype=x.dtype, device=x.device)
     for r0 in range(0, ho, hb):
         slab = xp[:, r0 * stride:r0 * stride + rows_in]
@@ -73,7 +75,7 @@ def dw_pw_torch(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
         if dw_relu:
             d = torch.relu(d)
         d = d.to(x.dtype)                    # the dw->pw boundary round
-        y = torch.matmul(d.float(), w32)
+        y = torch.matmul(d.to(ad), w_acc).float()
         if pw_scale is not None:
             y = y * pw_scale.float()          # the code product, re-realed
         y = y + pw_b.float()

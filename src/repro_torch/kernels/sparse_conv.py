@@ -53,7 +53,8 @@ def sparse_conv_torch(x, vals, idx, bias, residual=None, scale=None, *,
                       relu: bool = True) -> torch.Tensor:
     """y[n, oy, ox, j*bn:+bn] = act(scale[j] * sum_l win(x; ky,kx,cb)[oy,ox]
     @ vals[j,l] + b + residual), SAME padding, f32 accumulation, output
-    in x.dtype.
+    in x.dtype (on the CPU the sum is taken in f64 and rounded once to
+    f32: ``_build.plain_acc``).
 
     x: (N, H, W, C) NHWC; vals: (ob, K, bm, bn) bf16, f32 or int8 codes;
     idx: (ob, K) int flat HWIO block ids; bias: (ob*bn,); residual:
@@ -71,13 +72,15 @@ def sparse_conv_torch(x, vals, idx, bias, residual=None, scale=None, *,
     oy = torch.arange(ho, device=dev) * stride
     ox = torch.arange(wo, device=dev) * stride
     ch = torch.arange(bm, device=dev)
-    acc = torch.zeros((n, ho, wo, ob, bn), dtype=torch.float32, device=dev)
+    ad = _build.plain_acc(x)
+    acc = torch.zeros((n, ho, wo, ob, bn), dtype=ad, device=dev)
     for l in range(n_k):
         rows = (ky[:, l, None] + oy)[:, :, None, None]         # (ob, Ho, 1, 1)
         cols = (kx[:, l, None] + ox)[:, None, :, None]         # (ob, 1, Wo, 1)
         chans = (cb[:, l, None] * bm + ch)[:, None, None, :]   # (ob, 1, 1, bm)
         a = xp[:, rows, cols, chans]                  # (N, ob, Ho, Wo, bm)
-        acc += torch.einsum("njhwm,jmo->nhwjo", a.float(), vals[:, l].float())
+        acc += torch.einsum("njhwm,jmo->nhwjo", a.to(ad), vals[:, l].to(ad))
+    acc = acc.float()
     if scale is not None:
         acc = acc * scale.float()                 # the code sum, re-realed
     y = acc.reshape(n, ho, wo, ob * bn) + bias.float()

@@ -29,17 +29,19 @@ def sparse_matmul_torch(x, vals, idx) -> torch.Tensor:
     """y[m, j*bn:+bn] = sum_k x[m, idx[j,k]*bm:+bm] @ vals[j,k].
 
     x: (M, d_in); vals: (ob, K, bm, bn) bf16, f32 or int8 codes; idx:
-    (ob, K). f32 accumulation, output in x.dtype. Each step of the K
-    loop gathers one input block per output block column, (M, ob, bm):
-    the size of the output."""
+    (ob, K). f32 accumulation (on the CPU, f64 rounded once to f32:
+    ``_build.plain_acc``), output in x.dtype. Each step of the K loop
+    gathers one input block per output block column, (M, ob, bm): the
+    size of the output."""
     m, d_in = x.shape
     ob, n_k, bm, bn = vals.shape
+    ad = _build.plain_acc(x)
     xb = x.reshape(m, d_in // bm, bm)
-    acc = torch.zeros((m, ob, bn), dtype=torch.float32, device=x.device)
+    acc = torch.zeros((m, ob, bn), dtype=ad, device=x.device)
     for l in range(n_k):
         xg = xb[:, idx[:, l].long()]                          # (M, ob, bm)
-        acc += torch.einsum("tjb,jbn->tjn", xg.float(), vals[:, l].float())
-    return acc.reshape(m, ob * bn).to(x.dtype)
+        acc += torch.einsum("tjb,jbn->tjn", xg.to(ad), vals[:, l].to(ad))
+    return acc.reshape(m, ob * bn).float().to(x.dtype)
 
 
 SIMT_MAX_M = 8     # rows up to which the gemv variant runs (decode)

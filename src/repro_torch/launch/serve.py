@@ -1,30 +1,53 @@
 """Serving on the port: ``serve(ServeConfig(...)) -> dict`` and
 ``serve_lm(arch, ...)``.
 
-Counterpart of the reference's ``src/repro/launch/serve.py``. For a CNN
-it runs the paper's headline regime, batch-1 latency mode: one image in
-flight, the next request admitted only after this one's logits are on
-the host, with the weights stored at ``quantize`` (native, f32, bf16 or
-int8). On the card each request replays one CUDA graph of the whole
-forward, PyTorch's counterpart of the reference's single jitted
-request. The other CNN modes raise ``NotImplementedError`` naming the
+Counterpart of the reference's ``src/repro/launch/serve.py``. A CNN arch
+serves images in the mode the config names, with the weights stored at
+``quantize`` (native, f32, bf16 or int8):
+
+- ``mode="throughput"`` (the default): the heterogeneous layer pipeline.
+  The planner cuts the fused layer graph into ``n_stages`` cost-balanced
+  stages (``core/planner.py``), each stage runs its own program on its
+  own CUDA stream (``core/pipeline.py``), and microbatches stream
+  through them. The batched executor (``_serve_cnn``) captures a whole
+  batch, all M + S - 1 ticks, as one CUDA graph and times its replays;
+  ``continuous=True`` serves back-to-back requests through a
+  never-draining pipeline (``CNNPipelineServer``): one captured tick
+  replayed per microbatch, the next microbatch's H2D and the previous
+  one's D2H on a copy stream beside the tick in flight.
+- ``mode="latency"``: batch 1, one image in flight, the next request
+  admitted only after this one's logits are on the host; each request
+  replays one CUDA graph of the whole forward.
+
+On the CPU (``device="cpu"``) the same calls run the plain versions,
+eagerly. The tier, the (stages, replicas) co-planner, the tuning cache
+and per-stage placement raise ``NotImplementedError`` naming the
 ROADMAP item that ports them. An LM arch (``smollm-360m``) runs
 ``serve_lm``: the prompts stepped through the decode path, then greedy
 decoding.
 
+    python -m repro_torch.launch.serve --arch resnet50 --batch 16 \\
+        --microbatches 4 --stages 4
+    python -m repro_torch.launch.serve --arch resnet50 --continuous \\
+        --requests 8 --batch 8 --mb-size 2
     python -m repro_torch.launch.serve --arch resnet50 --mode latency \\
-        --requests 50 --image-size 224 --quantize int8
+        --requests 50 --quantize int8
     python -m repro_torch.launch.serve --arch smollm-360m --full-size \\
         --batch 4 --prompt-len 32 --gen 16
 
 ``--arch`` is any of the paper's CNNs: ``resnet50`` (sparse),
-``mobilenet_v1`` or ``mobilenet_v2`` (dense), or ``smollm-360m``.
+``mobilenet_v1`` or ``mobilenet_v2`` (dense), or ``smollm-360m``; add
+``--device cpu --image-size 32`` to run on the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import time
+from collections import deque
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,6 +56,9 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core.device import resolve_device
 from repro_torch.core.quant import STORE_DTYPES, pytree_param_bytes, \
     quantize_tree
+from repro_torch.core import pipeline as pp
+from repro_torch.core import planner
+from repro_torch.core.fusion import fused_graph_for
 from repro_torch.kernels import ops
 from repro_torch.models import cnn, lm
 
@@ -42,22 +68,30 @@ class ServeConfig:
     """Everything ``serve()`` needs, in one frozen value; the reference's
     field names, defaults and validation, plus ``device``. ``image_size``
     is the reference's 64: ``main()``'s ``--image-size`` and
-    ``chip_smoke.py`` ask for the paper's 224 explicitly. ``n_stages``
-    defaults to 1 here: the stage pipeline is not ported yet, and in
-    latency mode the reference's composed stages equal the sequential
-    forward bitwise, so one chain is the same function."""
+    ``chip_smoke.py`` ask for the paper's 224 explicitly. ``placed=None``
+    does not place (placement is not ported; the reference places
+    automatically when it has one device per stage)."""
     arch: str
     mode: str = "throughput"            # "latency" | "throughput"
     continuous: bool = False
     tier: bool = False
+    replicas: int = 1
     procs: int = 0
     hosts: int = 0
     quantize: str = "native"
     batch: int = 16                     # LM archs: sequences per batch
     n_requests: int = 4
-    n_stages: int = 1
+    n_microbatches: int = 4
+    mb_size: int = 2
+    n_stages: int = 4
     image_size: int = 64
+    iters: int = 3
     seed: int = 0
+    placed: Optional[bool] = None
+    param_budget_frac: Optional[float] = None
+    auto_split: bool = False
+    tuning_cache: Optional[object] = None
+    calibrate: bool = False
     verbose: bool = True
     device: str = "cuda"
 
@@ -80,32 +114,42 @@ class ServeConfig:
             raise ValueError(f"n_requests={self.n_requests}: need >= 1")
 
 
+_TIER = "ROADMAP Queue 1 item 7, fault-tolerant tier"
+_TUNING = "ROADMAP Queue 1 item 5, co-planner, measured cost model and tuning"
+
+
 def _check_ported(cfg: ServeConfig) -> None:
     if cfg.tier or cfg.procs or cfg.hosts:
-        raise NotImplementedError(
-            "tier/procs/hosts: ROADMAP Queue 1, fault-tolerant tier")
-    if cfg.continuous:
-        raise NotImplementedError(
-            "continuous: ROADMAP Queue 1, throughput and continuous serving")
-    if cfg.mode != "latency":
-        raise NotImplementedError(
-            "mode='throughput': ROADMAP Queue 1, throughput and continuous "
-            "serving")
-    if cfg.n_stages > 1:
-        raise NotImplementedError(
-            f"n_stages={cfg.n_stages}: ROADMAP Queue 1, stage pipeline")
+        raise NotImplementedError(f"tier/procs/hosts: {_TIER}")
 
 
 def serve(cfg: ServeConfig) -> dict:
     """THE serving entry point. Runs on ``cfg.device`` (the card by
-    default; raises ``RuntimeError`` without one). An LM arch runs
-    ``serve_lm`` (reduced size, as the reference's dispatch does); an
-    LM arch that is not ported raises ``NotImplementedError``."""
+    default; raises ``RuntimeError`` without one). A CNN arch runs the
+    mode the config names: ``latency`` (batch 1, p50/p99), or
+    ``throughput`` through the continuous (``continuous``) or the
+    one-shot batched executor. An LM arch runs ``serve_lm`` (reduced
+    size, as the reference's dispatch does); an LM arch that is not
+    ported raises ``NotImplementedError``."""
     if get_config(cfg.arch).family != "cnn":
         return serve_lm(cfg.arch, batch=cfg.batch, seed=cfg.seed,
                         verbose=cfg.verbose, device=cfg.device)
     _check_ported(cfg)
-    return _serve_cnn_latency(cfg)
+    if cfg.mode == "latency":
+        return _serve_cnn_latency(cfg)
+    common = dict(n_stages=cfg.n_stages, n_replicas=cfg.replicas,
+                  image_size=cfg.image_size, seed=cfg.seed,
+                  placed=cfg.placed, param_budget_frac=cfg.param_budget_frac,
+                  auto_split=cfg.auto_split, tuning_cache=cfg.tuning_cache,
+                  calibrate=cfg.calibrate, quantize=cfg.quantize,
+                  verbose=cfg.verbose, device=cfg.device)
+    if cfg.continuous:
+        return _serve_cnn_continuous(cfg.arch, n_requests=cfg.n_requests,
+                                     batch=cfg.batch, mb_size=cfg.mb_size,
+                                     **common)
+    return _serve_cnn(cfg.arch, batch=cfg.batch,
+                      n_microbatches=cfg.n_microbatches, iters=cfg.iters,
+                      **common)
 
 
 def _sync(dev: torch.device) -> None:
@@ -184,6 +228,23 @@ def serve_lm(arch: str, *, batch: int = 4, prompt_len: int = 32,
     return out
 
 
+@contextlib.contextmanager
+def _capture(cuda_graph: "torch.cuda.CUDAGraph"):
+    """``torch.cuda.graph(cuda_graph)`` with Python's cycle collector run
+    first and held off during the capture: a collection inside it could
+    free an earlier graph and its memory pool, whose ``cudaFree``
+    invalidates the capture."""
+    gc.collect()
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(cuda_graph):
+            yield
+    finally:
+        if was_enabled:
+            gc.enable()
+
+
 def _launch_counts() -> tuple[dict, dict]:
     return dict(ops.LAUNCHES), dict(ops.VARIANT_LAUNCHES)
 
@@ -194,14 +255,22 @@ def _launch_delta(before: tuple[dict, dict]) -> tuple[dict, dict]:
                  for a, b in zip(after, before))
 
 
-def latency_request(cfg: ServeConfig, *, capture: bool = True):
+def _init_native(mcfg, seed: int) -> dict:
+    """The serving weights: drawn from ``seed`` on the CPU, native."""
+    return cnn.init_cnn(mcfg, torch.Generator().manual_seed(seed),
+                        device="cpu")
+
+
+def latency_request(cfg: ServeConfig, *, capture: bool = True,
+                    native: Optional[dict] = None):
     """The batch-1 request of ``cfg``'s CNN, ready to serve: ``(request,
     info)``, where ``request(img)`` takes one (1, H, W, 3) f32 image on
     the host and returns its (1, 1000) f32 logits on the host.
 
-    The weights are drawn from ``cfg.seed`` and stored at
-    ``cfg.quantize`` once, before the warm-up (reference ``cnn.py:
-    433-435``). One eager warm-up request runs here (on the card it
+    The weights (``native``, on the CPU, by default drawn from
+    ``cfg.seed``) are stored at ``cfg.quantize`` once, before the
+    warm-up (reference ``cnn.py:433-435``). One eager warm-up request
+    runs here (on the card it
     builds the kernels and sets their shared-memory limits). On the
     card, with ``capture``, the forward from a static device input is
     then captured into one CUDA graph, and ``request`` copies its image
@@ -219,8 +288,8 @@ def latency_request(cfg: ServeConfig, *, capture: bool = True):
     captured."""
     dev = resolve_device(cfg.device)
     mcfg = get_config(cfg.arch)
-    native = cnn.init_cnn(mcfg, torch.Generator().manual_seed(cfg.seed),
-                          device="cpu")
+    if native is None:
+        native = _init_native(mcfg, cfg.seed)
     params = cnn.params_to(quantize_tree(native, cfg.quantize), dev)
     img_shape = (1, cfg.image_size, cfg.image_size, 3)
     graph = capture and dev.type == "cuda"
@@ -246,7 +315,7 @@ def latency_request(cfg: ServeConfig, *, capture: bool = True):
         static_in = torch.zeros(img_shape, device=dev)
         cuda_graph = torch.cuda.CUDAGraph()
         before = _launch_counts()
-        with torch.cuda.graph(cuda_graph):
+        with _capture(cuda_graph):
             static_out = forward(static_in)
         per_request = _launch_delta(before)
 
@@ -265,14 +334,26 @@ def latency_request(cfg: ServeConfig, *, capture: bool = True):
         "variant_launches_per_request": per_request[1]}
 
 
+
+
 def _serve_cnn_latency(cfg: ServeConfig, *, capture: bool = True) -> dict:
     """Batch-1 latency serving — the paper's headline regime: the
     requests of :func:`latency_request` (a CUDA graph replay each on the
     card unless ``capture=False``), one in flight. Each request's
     latency is the wall time of H2D, the forward through the fused graph,
     and D2H of the logits (which waits for the device), so the p50/p99
-    are round trips with nothing queued; the warm-up is not counted."""
-    request, info = latency_request(cfg, capture=capture)
+    are round trips with nothing queued; the warm-up is not counted.
+
+    The plan's ``n_stages`` is reported, as the reference's; the request
+    stays the direct forward, which is bitwise the reference's composed
+    stage chain (pipelined == sequential)."""
+    mcfg, native, plan, _, _ = _plan_cnn_serving(
+        cfg.arch, n_stages=cfg.n_stages, n_replicas=1,
+        param_budget_frac=cfg.param_budget_frac, auto_split=False,
+        seed=cfg.seed, tuning_cache=cfg.tuning_cache,
+        calibrate=cfg.calibrate, image_size=cfg.image_size,
+        store_dtype=cfg.quantize)
+    request, info = latency_request(cfg, capture=capture, native=native)
     img_shape = (1, cfg.image_size, cfg.image_size, 3)
     reqs = torch.randn((cfg.n_requests,) + img_shape[1:],
                        generator=torch.Generator().manual_seed(cfg.seed + 1))
@@ -287,29 +368,653 @@ def _serve_cnn_latency(cfg: ServeConfig, *, capture: bool = True) -> dict:
     if cfg.verbose:
         print(f"{cfg.arch}: batch-1 latency on {cfg.device} at "
               f"{cfg.image_size}px (quantize={cfg.quantize}, "
-              f"{'CUDA graph' if info['captured'] else 'eager'}): p50 "
-              f"{p50 * 1e3:.3f}ms / p99 {p99 * 1e3:.3f}ms over "
-              f"{cfg.n_requests} requests (warm-up {info['warmup_s']:.2f}s)")
+              f"{'CUDA graph' if info['captured'] else 'eager'}, plan of "
+              f"{plan['n_stages']} stages): p50 {p50 * 1e3:.3f}ms / p99 "
+              f"{p99 * 1e3:.3f}ms over {cfg.n_requests} requests (warm-up "
+              f"{info['warmup_s']:.2f}s)")
     return {"mode": "latency", "quantize": cfg.quantize,
             "device": str(resolve_device(cfg.device)),
             "latency_p50_s": p50, "latency_p99_s": p99,
             "request_latencies_s": lats,
             "logits": torch.cat(logits).numpy(),
-            "request_images": reqs.numpy(), "n_stages": 1, **info}
+            "request_images": reqs.numpy(),
+            "n_stages": int(plan["n_stages"]), **info}
+
+
+# ---------------------------------------------------------------------------
+# throughput serving: the heterogeneous layer pipeline
+# ---------------------------------------------------------------------------
+
+def _plan_cnn_serving(arch: str, *, n_stages: int, n_replicas: int,
+                      param_budget_frac,
+                      auto_split: bool, seed: int, tuning_cache=None,
+                      calibrate: bool = False, image_size: int = 64,
+                      store_dtype: str = "native",
+                      params: Optional[dict] = None):
+    """Shared serving preamble of every CNN executor: the weights (drawn
+    from ``seed`` on the CPU, native, unless ``params`` gives them),
+    the weight budget (``param_budget_frac`` of the bytes stored at
+    ``store_dtype``) and the analytic ``n_stages`` cut. Returns ``(cfg,
+    params, plan, n_replicas, total_bytes)``. The co-planner's split
+    (``auto_split``) and the measured cost model (``tuning_cache``,
+    ``calibrate``) raise ``NotImplementedError``."""
+    if auto_split:
+        raise NotImplementedError(f"auto_split: {_TUNING}")
+    if tuning_cache is not None or calibrate:
+        raise NotImplementedError(f"tuning_cache/calibrate: {_TUNING}")
+    cfg = get_config(arch)
+    if cfg.family != "cnn":
+        raise ValueError(f"{arch} is not a CNN arch")
+    if params is None:
+        params = _init_native(cfg, seed)
+    total_bytes = pytree_param_bytes(params, store_dtype)
+    budget = (int(param_budget_frac * total_bytes)
+              if param_budget_frac else None)
+    plan = planner.plan(cfg, params, planner.PlanRequest(
+        n_stages=n_stages, max_stage_param_bytes=budget,
+        store_dtype=store_dtype))
+    return cfg, params, plan, n_replicas, total_bytes
+
+
+def _check_placement(placed, n_stages: int, n_replicas: int,
+                     dev: torch.device) -> None:
+    """``placed=True``: the reference's ``ValueError`` when the devices
+    cannot hold one stage each, else ``NotImplementedError`` (per-stage
+    placement is not ported)."""
+    if not placed:
+        return
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    need = n_stages * n_replicas
+    if n_dev < need:
+        raise ValueError(
+            f"placed=True needs >= {need} devices ({n_stages} stages x "
+            f"{n_replicas} replicas), have {n_dev}; drop "
+            "placement/replication")
+    raise NotImplementedError(f"placed=True: {_TIER} (per-stage weight "
+                              "placement)")
+
+
+def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
+               n_stages: int = 4, image_size: int = 64, iters: int = 3,
+               seed: int = 0, verbose: bool = True, placed=None,
+               param_budget_frac=None, n_replicas: int = 1,
+               auto_split: bool = False, tuning_cache=None,
+               calibrate: bool = False, quantize: str = "native",
+               device="cuda", streams: bool = True,
+               params: Optional[dict] = None, images=None) -> dict:
+    """Batched image serving through the heterogeneous layer pipeline.
+
+    Plans cost-balanced stage cuts over the fused layer graph, compiles
+    per-stage wire programs (``cnn.stage_programs``) and streams M
+    microbatches of the batch through them: M + S - 1 ticks of
+    ``pipeline.pipeline_step_hetero``, each stage on its own CUDA stream
+    (``streams=False``: all on one stream). A stage runs only on the
+    ticks where its slot holds a microbatch (M x S x R stage runs).
+
+    On the card the whole batch, from a static device input to the
+    logits, is captured as one CUDA graph after an eager warm-up on a
+    side stream, and ``run_s`` is the mean of ``iters`` replays with the
+    images already on the card, as the reference times its jitted
+    ``run``. On the CPU it runs eagerly. ``images_per_s`` = batch /
+    run_s. A batch the microbatch count does not divide is zero-padded
+    and the padded outputs dropped.
+
+    ``params``: the native weights on the CPU (default: drawn from
+    ``seed``); ``images``: (B, H, W, 3) f32 (default: drawn from
+    ``seed`` with a CPU ``torch.Generator``)."""
+    dev = resolve_device(device)
+    cfg, native, plan, r, total_bytes = _plan_cnn_serving(
+        arch, n_stages=n_stages, n_replicas=n_replicas,
+        param_budget_frac=param_budget_frac, auto_split=auto_split,
+        seed=seed, tuning_cache=tuning_cache, calibrate=calibrate,
+        image_size=image_size, store_dtype=quantize, params=params)
+    if not n_microbatches:
+        raise NotImplementedError(f"n_microbatches=0 (autotuned): {_TUNING}")
+    s = plan["n_stages"]
+    _check_placement(placed, s, r, dev)
+    if images is None:
+        images = torch.randn((batch, image_size, image_size, 3),
+                             generator=torch.Generator().manual_seed(seed))
+    if not isinstance(images, torch.Tensor):
+        images = torch.from_numpy(np.array(images, np.float32))
+    images = images.float()
+    batch = images.shape[0]
+    x_mb = pp.microbatch(images.to(dev), n_microbatches, pad=True,
+                         n_replicas=r)
+    lead = (r, n_microbatches) if r > 1 else (n_microbatches,)
+    mb_shape = tuple(x_mb.shape[len(lead):])
+    dparams = cnn.params_to(quantize_tree(native, quantize), dev)
+    stage_fns, pack_in, unpack_out, width = cnn.stage_programs(
+        cfg, dparams, plan["stage_of"], mb_shape, quantize=quantize)
+    cuda = dev.type == "cuda"
+    slots = pp.slot_streams(s, r, dev) if streams and cuda else None
+
+    def run(xmb: torch.Tensor) -> torch.Tensor:
+        wires = torch.zeros(lead + (mb_shape[0], width), device=dev)
+        for idx in np.ndindex(*lead):
+            pack_in(xmb[idx], out=wires[idx])
+        outs = pp.pipeline_apply_gspmd_hetero(stage_fns, wires, n_stages=s,
+                                        n_replicas=r, streams=slots)
+        return pp.concat_hetero_outputs(outs, unpack_out, n_microbatches,
+                                        n_replicas=r)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    graph = cuda
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    if graph:
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            run(x_mb)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        sync()
+        cuda_graph = torch.cuda.CUDAGraph()
+        before = _launch_counts()
+        with _capture(cuda_graph):
+            static_out = run(x_mb)
+        per_batch = _launch_delta(before)
+        go = cuda_graph.replay
+    else:
+        static_out = run(x_mb)
+        per_batch = _launch_delta(before)
+
+        def go():
+            static_out.copy_(run(x_mb))
+    go()
+    sync()
+    logits = static_out[:batch].cpu()
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(max(iters, 1)):
+        go()
+        sync()
+    run_s = (time.perf_counter() - t0) / max(iters, 1)
+
+    ims_per_s = batch / max(run_s, 1e-9)
+    bub = pp.bubble_fraction(n_microbatches, s)
+    placed_bytes = int(plan["placed_bytes_per_device"])
+    n_streams = s * r if slots is not None else 1
+    if verbose:
+        rep = f" x{r} replicas" if r > 1 else ""
+        print(f"{arch}: {batch} imgs @{image_size}px through {s} stages"
+              f"{rep} (M={n_microbatches}, {n_streams} streams, "
+              f"{'CUDA graph' if graph else 'eager'}, "
+              f"quantize={quantize}) on {dev}: {ims_per_s:.1f} im/s "
+              f"(warm-up {compile_s:.2f}s, bubble {bub:.2f}, imbalance "
+              f"{plan['imbalance']:.2f}, wire {width} f32)")
+    return {"logits": logits.numpy(), "images": images.numpy(),
+            "images_per_s": ims_per_s, "compile_s": compile_s,
+            "run_s": run_s, "bubble_fraction": bub, "n_stages": s,
+            "n_replicas": r, "n_microbatches": n_microbatches,
+            "imbalance": plan["imbalance"], "stage_of": plan["stage_of"],
+            "placed": False, "quantize": quantize, "device": str(dev),
+            "param_bytes_replicated_per_device": int(total_bytes),
+            "param_bytes_placed_per_device": placed_bytes,
+            "param_placement_ratio": placed_bytes / max(total_bytes, 1),
+            "ticks": n_microbatches + s - 1,
+            "stage_runs": n_microbatches * s * r, "streams": n_streams,
+            "wire_width": width, "captured": graph,
+            "launches_per_batch": per_batch[0],
+            "variant_launches_per_batch": per_batch[1]}
+
+
+class CNNPipelineServer:
+    """Continuous-batching image server over the heterogeneous layer
+    pipeline — the steady state HPIPE's throughput numbers describe (a
+    pipeline that is always full, not one that fills and drains per
+    batch).
+
+    ``submit()`` cuts each request's images into fixed-size microbatches
+    (the last one zero-padded, the pad rows dropped on output) and
+    queues them; ``run()`` ticks the pipeline once per queued
+    microbatch, injecting request K+1's first microbatch on the tick
+    right after request K's last (the pipeline never drains between
+    requests), plus S-1 flush ticks.
+
+    A tick (parity p = tick % 2) packs the staged images ``_img[p]``
+    into state ``_bufs[p]`` slot 0, runs ``pipeline_step_hetero`` into
+    ``_bufs[1 - p]`` (each (stage, replica) slot on its own CUDA stream)
+    and unpacks the emitted wire into ``_out[p]``: every buffer is
+    preallocated and written in place. On the card each parity's tick is
+    captured once as a CUDA graph (after an eager warm-up on a side
+    stream) and replayed per microbatch. The next tick's H2D (from
+    pinned memory) and this tick's D2H run on a copy stream, ordered by
+    events, so both overlap the tick in flight; the D2H is read back one
+    tick late, as the reference's ``_tick_once`` arranges. On the CPU the
+    tick runs eagerly.
+
+    Bitwise contract: continuous serving equals isolated requests and
+    the sequential forward at the same microbatch size (slots never
+    mix)."""
+
+    def __init__(self, arch: str, *, mb_size: int = 2, n_stages: int = 4,
+                 n_replicas: int = 1, image_size: int = 64, seed: int = 0,
+                 placed=None, param_budget_frac=None,
+                 auto_split: bool = False, verbose: bool = False,
+                 params=None, tuning_cache=None,
+                 calibrate: bool = False, quantize: str = "native",
+                 device="cuda", streams: bool = True):
+        dev = resolve_device(device)
+        cfg, params, plan, n_replicas, _ = _plan_cnn_serving(
+            arch, n_stages=n_stages, n_replicas=n_replicas,
+            param_budget_frac=param_budget_frac,
+            auto_split=auto_split, seed=seed, tuning_cache=tuning_cache,
+            calibrate=calibrate, image_size=image_size,
+            store_dtype=quantize, params=params)
+        self.cfg = cfg
+        self.quantize = quantize
+        self.n_stages = s = plan["n_stages"]
+        self.n_replicas = r = n_replicas
+        self.mb_size = mb_size
+        self.image_size = image_size
+        self.plan = plan
+        self.device = dev
+        _check_placement(placed, s, r, dev)
+        self.placed = False
+        mb_shape = (mb_size, image_size, image_size, 3)
+        dparams = cnn.params_to(quantize_tree(params, quantize), dev)
+        stage_fns, pack_in, unpack_out, width = cnn.stage_programs(
+            cfg, dparams, plan["stage_of"], mb_shape, quantize=quantize)
+        self.width = width
+        lead = (r,) if r > 1 else ()
+        self._img_shape = lead + mb_shape
+        self._state_shape = (s,) + lead + (mb_size, width)
+        self._bufs = [torch.zeros(self._state_shape, device=dev)
+                      for _ in range(2)]
+        self._img = [torch.zeros(self._img_shape, device=dev)
+                     for _ in range(2)]
+        logits = cnn.node_shapes(cfg, None, mb_shape)[
+            fused_graph_for(cfg.name).output]
+        out_shape = lead + tuple(logits.shape)
+        self._out = [torch.zeros(out_shape, device=dev) for _ in range(2)]
+        self._cuda = dev.type == "cuda"
+        slots = pp.slot_streams(s, r, dev) if streams and self._cuda \
+            else None
+        self.streams = s * r if slots is not None else 1
+        bufs, img, outs = self._bufs, self._img, self._out
+
+        # (the tick holds no reference to the server: no cycle, so a
+        # server is freed, graphs and pools with it, when it is dropped)
+        def tick(p: int) -> None:
+            src, dst = bufs[p], bufs[1 - p]
+            for q in range(r):
+                pack_in(img[p][q] if r > 1 else img[p],
+                        out=src[0, q] if r > 1 else src[0])
+            pp.pipeline_step_hetero(stage_fns, src, None, n_stages=s,
+                                    n_replicas=r, out=dst, streams=slots)
+            for q in range(r):
+                if r > 1:
+                    outs[p][q].copy_(unpack_out(dst[0, q]))
+                else:
+                    outs[p].copy_(unpack_out(dst[0]))
+
+        self.captured = self._cuda
+        self.launches_per_tick = None
+        if self._cuda:
+            ev = torch.cuda.Event
+            self._copy = torch.cuda.Stream(dev)
+            self._h2d_done = [ev(), ev()]
+            self._tick_done = [ev(), ev()]
+            self._d2h_done = [ev(), ev()]
+            self._pin_in = [torch.zeros(self._img_shape).pin_memory()
+                            for _ in range(2)]
+            self._pin_out = [torch.zeros(out_shape).pin_memory()
+                             for _ in range(2)]
+            cur = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(cur)
+            before = _launch_counts()
+            with torch.cuda.stream(side):
+                tick(0)
+            self.launches_per_tick = _launch_delta(before)
+            with torch.cuda.stream(side):
+                tick(1)
+            cur.wait_stream(side)
+            torch.cuda.synchronize(dev)
+            graphs = []
+            for p in range(2):
+                g = torch.cuda.CUDAGraph()
+                before = _launch_counts()
+                with _capture(g):
+                    tick(p)
+                if p == 0:
+                    self.launches_per_tick = _launch_delta(before)
+                graphs.append(g)
+            self._step = lambda p: graphs[p].replay()
+        else:
+            self._step = tick
+        self._reset()
+        # FIFO of (req_id, mb_index, n_valid, images) microbatch slots
+        self._queue = deque()
+        self._results = {}
+        self._pending = {}
+        self._next_req = 0
+        self.ticks = 0
+        self.injected_slots = 0
+        self.verbose = verbose
+        self._req_submit = {}
+        self._req_done = {}
+
+    @property
+    def idle_slots(self) -> int:
+        """Pipeline slots that ran empty over the server's lifetime
+        (fill/flush ticks + unfilled replica slots)."""
+        return self.ticks * self.n_replicas - self.injected_slots
+
+    def _reset(self) -> None:
+        """A zero pipeline state and empty tracking."""
+        for b in self._bufs:
+            b.zero_()
+        self._staged = None
+        self._inflight = deque()
+        self._emitted = None
+
+    # -- request intake ----------------------------------------------------
+
+    def submit(self, images) -> int:
+        """Queue one request (B, H, W, 3). Returns a request id whose
+        logits ``results()`` yields after ``run()``."""
+        images = np.asarray(images, np.float32)
+        b = images.shape[0]
+        if b == 0:
+            raise ValueError("empty request (batch 0)")
+        if images.shape[1:] != (self.image_size, self.image_size, 3):
+            raise ValueError(f"request shape {images.shape[1:]} != "
+                             f"({self.image_size}, {self.image_size}, 3)")
+        req = self._next_req
+        self._next_req += 1
+        n_mb = -(-b // self.mb_size)
+        self._pending[req] = n_mb
+        self._results[req] = [None] * n_mb
+        self._req_submit[req] = time.perf_counter()
+        for i in range(n_mb):
+            chunk = images[i * self.mb_size:(i + 1) * self.mb_size]
+            n_valid = chunk.shape[0]
+            if n_valid < self.mb_size:
+                chunk = np.concatenate(
+                    [chunk, np.zeros((self.mb_size - n_valid,)
+                                     + chunk.shape[1:], np.float32)])
+            self._queue.append((req, i, n_valid, chunk))
+        return req
+
+    @property
+    def busy(self) -> bool:
+        """True while any microbatch is queued, staged, in flight, or
+        emitted-but-uncollected."""
+        return bool(self._queue) or self._staged is not None or \
+            any(s is not None for s in self._inflight) or \
+            self._emitted is not None
+
+    # -- the device side of a tick -----------------------------------------
+
+    def _put(self, p: int, imgs: Optional[np.ndarray]) -> None:
+        """Stage the images of the next parity-p tick (zeros for an idle
+        tick) into ``_img[p]``: on the card from pinned memory on the copy
+        stream, once the parity-p tick before has read it."""
+        if not self._cuda:
+            if imgs is None:
+                self._img[p].zero_()
+            else:
+                self._img[p].copy_(torch.from_numpy(imgs))
+            return
+        self._h2d_done[p].synchronize()       # _pin_in[p] is free again
+        with torch.cuda.stream(self._copy):
+            self._copy.wait_event(self._tick_done[p])
+            if imgs is None:
+                self._img[p].zero_()
+            else:
+                self._pin_in[p].copy_(torch.from_numpy(imgs))
+                self._img[p].copy_(self._pin_in[p], non_blocking=True)
+            self._h2d_done[p].record(self._copy)
+
+    def _dispatch(self, p: int) -> None:
+        if self._cuda:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(self._h2d_done[p])
+            cur.wait_event(self._d2h_done[p])   # _out[p] read back
+            self._step(p)
+            self._tick_done[p].record(cur)
+        else:
+            self._step(p)
+
+    def _fetch(self, p: int) -> None:
+        """Start the D2H of the logits the parity-p tick emitted."""
+        if self._cuda:
+            with torch.cuda.stream(self._copy):
+                self._copy.wait_event(self._tick_done[p])
+                self._pin_out[p].copy_(self._out[p], non_blocking=True)
+                self._d2h_done[p].record(self._copy)
+
+    def _read(self, p: int) -> np.ndarray:
+        if self._cuda:
+            self._d2h_done[p].synchronize()
+            return self._pin_out[p].numpy().copy()
+        return self._out[p].numpy().copy()
+
+    # -- the serving loop --------------------------------------------------
+
+    def _stage_next(self):
+        """Pop the next tick's worth of slots (R microbatches) and start
+        their H2D — called right after the CURRENT tick is dispatched,
+        so the transfer overlaps the step."""
+        if not self._queue:
+            return None
+        r = self.n_replicas
+        slots = [self._queue.popleft() if self._queue else None
+                 for _ in range(r)] if r > 1 else [self._queue.popleft()]
+        zeros = np.zeros((self.mb_size, self.image_size, self.image_size, 3),
+                         np.float32)
+        imgs = np.stack([sl[3] if sl is not None else zeros
+                         for sl in slots]) if r > 1 else slots[0][3]
+        p = self.ticks % 2
+        self._put(p, imgs)
+        return slots, p
+
+    def _collect(self, slots, p: int) -> None:
+        """Record one tick's emitted microbatch(es). Blocks on the D2H —
+        deferred one tick, so the next tick is already dispatched."""
+        if slots is None:
+            return
+        logits = self._read(p)
+        for k, slot in enumerate(slots):
+            if slot is None:
+                continue
+            req, i, n_valid, _ = slot
+            lg = logits[k] if self.n_replicas > 1 else logits
+            self._results[req][i] = lg[:n_valid]
+            self._pending[req] -= 1
+            if self._pending[req] == 0:
+                self._req_done[req] = time.perf_counter()
+
+    def _tick_once(self) -> bool:
+        """One pipeline tick. Returns True if a device tick was
+        dispatched, False when the pipe was idle and only the trailing
+        emitted output remained to collect."""
+        if self._staged is None:
+            self._staged = self._stage_next()
+        if self._staged is None and not any(
+                s is not None for s in self._inflight):
+            if self._emitted is not None:
+                self._collect(*self._emitted)
+                self._emitted = None
+            return False
+        if self._staged is not None:
+            slots, p = self._staged
+        else:
+            slots, p = None, self.ticks % 2
+            self._put(p, None)                 # an idle slot: zero wire
+        self._dispatch(p)
+        self.ticks += 1
+        if slots is not None:
+            self.injected_slots += sum(1 for s in slots if s is not None)
+        self._inflight.append(slots)
+        self._staged = self._stage_next()     # H2D overlaps the step
+        if self._emitted is not None:
+            self._collect(*self._emitted)
+            self._emitted = None
+        if len(self._inflight) >= self.n_stages:
+            done = self._inflight.popleft()
+            if done is not None:
+                self._fetch(p)
+            self._emitted = (done, p)
+        return True
+
+    def run(self) -> dict:
+        """Drain the queue: one pipeline tick per queued microbatch plus
+        S-1 flush ticks. Returns throughput/bubble metrics for the run."""
+        t0 = time.perf_counter()
+        n_imgs = sum(s[2] for s in self._queue)
+        ticks_before = self.ticks
+        injected_before = self.injected_slots
+        done_before = set(self._req_done)
+        if self._staged is None:
+            self._staged = self._stage_next()
+        while self._staged is not None or any(
+                s is not None for s in self._inflight):
+            self._tick_once()
+        if self._emitted is not None:
+            self._collect(*self._emitted)
+            self._emitted = None
+        elapsed = time.perf_counter() - t0
+        ticks = self.ticks - ticks_before
+        injected = self.injected_slots - injected_before
+        slot_ticks = ticks * self.n_replicas
+        bubble = 1.0 - injected / max(slot_ticks, 1)
+        lat = [self._req_done[r] - self._req_submit[r]
+               for r in self._req_done if r not in done_before]
+        metrics = {
+            "request_latencies_s": lat,
+            "images": int(n_imgs),
+            "ticks": int(ticks),
+            "injected_microbatches": int(injected),
+            "images_per_s": n_imgs / max(elapsed, 1e-9),
+            "elapsed_s": elapsed,
+            "steady_bubble": bubble,
+            "fill_bubble_single_batch": None,
+            "n_stages": self.n_stages,
+            "n_replicas": self.n_replicas,
+        }
+        if self.verbose:
+            print(f"{self.cfg.name}: served {n_imgs} imgs in {ticks} "
+                  f"ticks ({metrics['images_per_s']:.1f} im/s, steady "
+                  f"bubble {bubble:.3f})")
+        return metrics
+
+    def results(self, req: int) -> np.ndarray:
+        """(B, 1000) logits of a completed request. One-shot: the entry
+        is evicted on delivery."""
+        if req not in self._pending:
+            raise KeyError(f"unknown request id {req}")
+        if self._pending[req] != 0:
+            raise ValueError(f"request {req} incomplete "
+                             f"({self._pending[req]} microbatches "
+                             "outstanding); call run() first")
+        del self._pending[req]
+        self._req_submit.pop(req, None)
+        self._req_done.pop(req, None)
+        return np.concatenate(self._results.pop(req), axis=0)
+
+
+def _serve_cnn_continuous(arch: str, *, n_requests: int = 4,
+                          batch: int = 8, mb_size: int = 2,
+                          n_stages: int = 4, n_replicas: int = 1,
+                          image_size: int = 64, seed: int = 0,
+                          placed=None, param_budget_frac=None,
+                          auto_split: bool = False, verbose: bool = True,
+                          tuning_cache=None, calibrate: bool = False,
+                          quantize: str = "native", device="cuda",
+                          streams: bool = True,
+                          params: Optional[dict] = None,
+                          requests=None) -> dict:
+    """Continuous-batching serving run: K back-to-back requests through
+    one :class:`CNNPipelineServer` (the pipeline never drains between
+    them), after one warm-up request. Returns the per-request logits,
+    throughput, the steady-state bubble (below the single-batch fill
+    bubble (S-1)/(M+S-1) for K > 1) and the request latencies' p50/p99.
+
+    ``params``: the native weights on the CPU (default: drawn from
+    ``seed``); ``requests``: K arrays (B, H, W, 3) f32 (default: drawn
+    from ``seed + 1`` with a CPU ``torch.Generator``)."""
+    srv = CNNPipelineServer(arch, mb_size=mb_size, n_stages=n_stages,
+                            n_replicas=n_replicas, image_size=image_size,
+                            seed=seed, placed=placed,
+                            param_budget_frac=param_budget_frac,
+                            auto_split=auto_split, verbose=False,
+                            tuning_cache=tuning_cache, calibrate=calibrate,
+                            quantize=quantize, device=device,
+                            streams=streams, params=params)
+    warm = srv.submit(np.zeros((mb_size, image_size, image_size, 3),
+                               np.float32))
+    srv.run()
+    srv.results(warm)
+    if requests is None:
+        gen = torch.Generator().manual_seed(seed + 1)
+        requests = [torch.randn((batch, image_size, image_size, 3),
+                                generator=gen).numpy()
+                    for _ in range(n_requests)]
+    reqs = [srv.submit(imgs) for imgs in requests]
+    metrics = srv.run()
+    m_per_req = -(-int(np.asarray(requests[0]).shape[0]) // mb_size)
+    metrics["fill_bubble_single_batch"] = pp.bubble_fraction(
+        m_per_req, srv.n_stages)
+    metrics["logits"] = [srv.results(rq) for rq in reqs]
+    metrics["request_images"] = [np.asarray(x, np.float32)
+                                 for x in requests]
+    lat = metrics["request_latencies_s"]
+    metrics["latency_p50_s"] = float(np.percentile(lat, 50))
+    metrics["latency_p99_s"] = float(np.percentile(lat, 99))
+    metrics.update(quantize=quantize, device=str(srv.device),
+                   mb_size=mb_size, streams=srv.streams,
+                   captured=srv.captured, wire_width=srv.width,
+                   stage_of=srv.plan["stage_of"],
+                   launches_per_tick=srv.launches_per_tick)
+    if verbose:
+        print(f"{arch}: continuous {len(reqs)} x {batch} imgs "
+              f"(mb {mb_size}, {srv.n_stages} stages, {srv.streams} "
+              f"streams, quantize={quantize}) on {srv.device}: "
+              f"{metrics['images_per_s']:.1f} im/s, steady bubble "
+              f"{metrics['steady_bubble']:.3f} vs single-batch fill "
+              f"{metrics['fill_bubble_single_batch']:.3f}, latency p50 "
+              f"{metrics['latency_p50_s'] * 1e3:.3f}ms / p99 "
+              f"{metrics['latency_p99_s'] * 1e3:.3f}ms")
+    return metrics
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="resnet50")
     ap.add_argument("--mode", choices=("latency", "throughput"),
-                    default="latency")
-    ap.add_argument("--requests", type=int, default=50)
+                    default="throughput",
+                    help="latency: batch-1 single-image serving, "
+                         "measured p50/p99; throughput: the batched / "
+                         "continuous pipelines")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="images per batch (CNN), sequences (LM)")
+    ap.add_argument("--requests", type=int, default=4,
+                    help="latency and continuous modes: request count")
+    ap.add_argument("--microbatches", type=int, default=4,
+                    help="microbatches per batch")
+    ap.add_argument("--stages", type=int, default=4)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="run this many whole pipelines side by side, "
+                         "each slot on its own stream")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching serving loop: requests "
+                         "stream through a never-draining pipeline")
+    ap.add_argument("--mb-size", type=int, default=2,
+                    help="continuous mode: images per microbatch")
+    ap.add_argument("--param-budget-frac", type=float, default=None,
+                    help="bound any stage's weight bytes to this "
+                         "fraction of the model (memory-aware planner)")
     ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--quantize", choices=STORE_DTYPES, default="native")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     lm_args = ap.add_argument_group("LM archs")
-    lm_args.add_argument("--batch", type=int, default=4)
     lm_args.add_argument("--prompt-len", type=int, default=32)
     lm_args.add_argument("--gen", type=int, default=16)
     lm_args.add_argument("--max-seq", type=int, default=128)
@@ -323,9 +1028,13 @@ def main(argv=None):
                  device=args.device)
         return
     serve(ServeConfig(arch=args.arch, mode=args.mode,
-                      n_requests=args.requests, image_size=args.image_size,
-                      quantize=args.quantize, seed=args.seed,
-                      device=args.device))
+                      continuous=args.continuous, replicas=args.replicas,
+                      batch=args.batch, n_requests=args.requests,
+                      n_microbatches=args.microbatches,
+                      mb_size=args.mb_size, n_stages=args.stages,
+                      param_budget_frac=args.param_budget_frac,
+                      image_size=args.image_size, quantize=args.quantize,
+                      seed=args.seed, device=args.device))
 
 
 if __name__ == "__main__":

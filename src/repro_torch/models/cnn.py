@@ -23,7 +23,7 @@ the node before them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -337,7 +337,20 @@ def fc_apply(p, x):
 def run_node(node: ConvSpec, params, *args):
     """Execute one IR node (original layer kinds + the fused super-nodes
     of core/fusion.py). ``args`` are the resolved input values
-    (primary[, residual] — see LayerGraph.inputs)."""
+    (primary[, residual] — see LayerGraph.inputs).
+
+    On the CPU a batch runs one image at a time: the CPU's conv and
+    matmul libraries sum a row in another order at another batch size,
+    and the layer pipeline's bitwise contract needs a microbatch to give
+    the rows the whole batch gives. Each image's sums stay f32, in the
+    order one image takes. On the card the kernels see the whole batch."""
+    if args[0].device.type != "cuda" and args[0].shape[0] > 1:
+        return torch.cat([_run_node(node, params, *one)
+                          for one in zip(*(a.split(1) for a in args))])
+    return _run_node(node, params, *args)
+
+
+def _run_node(node: ConvSpec, params, *args):
     x = args[0]
     res = args[1] if (node.residual_from and node.kind != "add") else None
     if node.kind == "conv":
@@ -368,12 +381,20 @@ def run_node(node: ConvSpec, params, *args):
 # the graph interpreter
 # ---------------------------------------------------------------------------
 
-def _interpret(g: LayerGraph, params, x) -> dict:
-    """Execute every node of ``g`` on input ``x``; returns the env that
-    maps each value name to its tensor."""
-    env = {INPUT: x}
-    for node, srcs in zip(g.nodes, g.inputs):
-        env[node.name] = run_node(node, params, *[env[s] for s in srcs])
+def _interpret(g: LayerGraph, params, x, *, start=0, stop=None,
+               env=None) -> dict:
+    """Execute nodes [start, stop) of ``g``. ``env`` maps value names to
+    tensors and must contain every value the slice reads; returns the
+    env extended with each executed node's output. Dead values are NOT
+    freed here: slicing callers (stage programs) bound liveness via the
+    wire contract instead."""
+    env = dict(env or {})
+    if x is not None:
+        env[INPUT] = x
+    stop = len(g.nodes) if stop is None else stop
+    for i in range(start, stop):
+        env[g.nodes[i].name] = run_node(g.nodes[i], params,
+                                        *[env[s] for s in g.inputs[i]])
     return env
 
 
@@ -390,3 +411,132 @@ def cnn_forward(cfg, params, images, *, graph: Optional[LayerGraph] = None,
     with torch.inference_mode():
         env = _interpret(g, params, x)
     return env[g.output]
+
+
+# ---------------------------------------------------------------------------
+# heterogeneous stage programs for the layer pipeline
+# ---------------------------------------------------------------------------
+
+class ValueShape(NamedTuple):
+    """Shape and dtype of one IR value (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def _out_shape(node: ConvSpec, x: ValueShape) -> ValueShape:
+    """The output of ``node`` on a primary input of shape ``x`` (NHWC
+    bf16 activations; the classifier's logits f32): what ``run_node``
+    returns, from the spec alone."""
+    n, h, w, c = x.shape if len(x.shape) == 4 else (x.shape[0], 0, 0,
+                                                    x.shape[-1])
+    if node.kind in ("fc", "avgpool_fc"):
+        return ValueShape((n, node.cout), torch.float32)
+    if node.kind == "avgpool":
+        return ValueShape((n, c), x.dtype)
+    if node.kind == "add":
+        return x
+    ho, wo = -(-h // node.stride), -(-w // node.stride)
+    if node.pool_stride:
+        ho, wo = -(-ho // node.pool_stride), -(-wo // node.pool_stride)
+    cout = c if node.kind in ("dw", "maxpool") else node.cout
+    return ValueShape((n, ho, wo, cout), x.dtype)
+
+
+def node_shapes(cfg, params, image_shape,
+                graph: Optional[LayerGraph] = None) -> dict:
+    """Shape and dtype of every IR value (INPUT + each node output) at a
+    concrete image shape (N, H, W, 3): the shape inference the stage
+    partitioner needs to size wires, derived from the specs (the
+    reference evaluates its interpreter abstractly, ``jax.eval_shape``;
+    the values are the same). Defaults to the fused graph; pass an
+    explicit graph for the unfused view."""
+    g = graph if graph is not None else fused_graph_for(cfg.name)
+    shapes = {INPUT: ValueShape(tuple(image_shape), torch.bfloat16)}
+    for node, srcs in zip(g.nodes, g.inputs):
+        shapes[node.name] = _out_shape(node, shapes[srcs[0]])
+    return shapes
+
+
+def stage_part_names(g: LayerGraph, stage_of) -> list[list[str]]:
+    """Per stage: the fused-node PART names owning parameters — the keys
+    of the param dict each stage's weights live under."""
+    out = []
+    for sl in g.partition(list(stage_of)):
+        names = []
+        for node in g.nodes[sl.start:sl.stop]:
+            for part in (node.parts or (node,)):
+                if part.kind in ("conv", "dw", "fc"):
+                    names.append(part.name)
+        out.append(names)
+    return out
+
+
+def stage_param_trees(g: LayerGraph, stage_of, params) -> list[dict]:
+    """Each stage's parameter slice of the full tree: exactly the part
+    params its IR slice reads."""
+    return [{n: params[n] for n in names}
+            for names in stage_part_names(g, stage_of)]
+
+
+def stage_programs(cfg, params, stage_of, image_shape, *,
+                   graph: Optional[LayerGraph] = None,
+                   placed: bool = False, quantize: str = "native"):
+    """Compile the IR into per-stage wire programs.
+
+    stage_of: stage id per IR node of the FUSED graph (contiguous, from
+    ``planner.plan``). image_shape: (mb, H, W, 3) of ONE microbatch.
+    Returns ``(stage_fns, pack_in, unpack_out, width)``:
+
+    - stage_fns[s](wire, out=None): (mb, width) f32 wire -> (mb, width)
+      f32 wire, written into ``out`` when given. The wire carries the
+      stage boundary's live values (activations AND residual skips
+      crossing the cut), each f32-widened (bf16 -> f32 is exact, so
+      pipelined == sequential bit for bit).
+    - pack_in(images, out=None): (mb, H, W, 3) f32 -> input wire for
+      stage 0 (the images rounded to bf16, as ``cnn_forward`` does).
+    - unpack_out(wire): last stage's wire -> (mb, 1000) f32 logits.
+
+    ``quantize`` (``core/quant.py`` store dtype) re-stores the weights
+    ONCE up front, and every stage reads that one tree. ``placed=True``
+    (per-stage placement, packed param rows) raises
+    ``NotImplementedError``: ROADMAP Queue 1 item 7."""
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core.quant import quantize_tree
+    if placed:
+        raise NotImplementedError(
+            "stage_programs(placed=True): per-stage weight placement, "
+            "ROADMAP Queue 1 item 7 (tier and param-blob reader)")
+    g = graph if graph is not None else fused_graph_for(cfg.name)
+    params = quantize_tree(params, quantize)
+    slices = g.partition(list(stage_of))
+    shapes = node_shapes(cfg, params, image_shape, graph=g)
+
+    def fmt(names):
+        return pp.WireFormat.for_values(
+            [(n, shapes[n].shape, shapes[n].dtype) for n in names])
+
+    in_fmts = [fmt(sl.in_live) for sl in slices]
+    out_fmts = [fmt(sl.out_live) for sl in slices]
+    width = max(f.width for f in in_fmts + out_fmts)
+
+    def make_stage(sl, in_fmt, out_fmt):
+        def stage(wire, out=None):
+            with torch.no_grad():
+                env = dict(zip(sl.in_live, in_fmt.unpack(wire)))
+                env = _interpret(g, params, None, start=sl.start,
+                                 stop=sl.stop, env=env)
+                return out_fmt.pack([env[n] for n in sl.out_live], width,
+                                    out=out)
+        return stage
+
+    stage_fns = [make_stage(sl, fi, fo)
+                 for sl, fi, fo in zip(slices, in_fmts, out_fmts)]
+
+    def pack_in(images, out=None):
+        return in_fmts[0].pack([images.to(torch.bfloat16)], width, out=out)
+
+    def unpack_out(wire):
+        return out_fmts[-1].unpack(wire)[0]
+
+    return stage_fns, pack_in, unpack_out, width

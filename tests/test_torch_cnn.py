@@ -196,13 +196,16 @@ def test_entry_points_default_to_the_card(entry):
 
 
 @pytest.mark.parametrize("kw", [
-    {"mode": "throughput"},
-    {"mode": "throughput", "continuous": True},
+    {"mode": "throughput", "auto_split": True},
+    {"mode": "throughput", "continuous": True, "tuning_cache": "c.json"},
     {"mode": "throughput", "tier": True},
-    {"mode": "latency", "n_stages": 2},
+    {"mode": "latency", "n_stages": 2, "calibrate": True},
     {"arch": "mistral-nemo-12b", "mode": "latency"},
 ], ids=["throughput", "continuous", "tier", "stages", "lm"])
 def test_unported_modes_name_their_roadmap_item(kw):
+    """What is still to port raises, naming its ROADMAP item: the
+    co-planner's split and the tuning cache in the throughput modes and
+    in latency mode's plan, the tier, the LM archs not ported."""
     kw = {"arch": "resnet50", "device": "cpu", **kw}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve(ServeConfig(**kw))
@@ -218,6 +221,12 @@ _SERVE_CONFIG_KW = [
     {"mode": "latency", "procs": 1}, {"mode": "latency", "hosts": 1},
     {"mode": "latency", "continuous": True}, {"mode": "latency", "tier": True},
     {"continuous": True, "tier": True}, {"image_size": 224},
+    {"replicas": 2}, {"n_microbatches": 8}, {"mb_size": 4}, {"iters": 1},
+    {"placed": True}, {"placed": False}, {"param_budget_frac": 0.25},
+    {"auto_split": True}, {"tuning_cache": "cache.json"},
+    {"calibrate": True}, {"n_stages": 8}, {"mode": "latency",
+                                           "n_stages": 2},
+    {"continuous": True, "replicas": 2, "mb_size": 1},
 ]
 
 
@@ -235,12 +244,16 @@ def test_serve_config_refuses_what_the_reference_refuses(kw):
     assert (ref is None) == (port is None), (ref, port)
     if port is not None:
         for field in ("mode", "quantize", "procs", "hosts", "image_size",
-                      "seed", "n_requests", "batch"):
+                      "seed", "n_requests", "batch", "continuous", "tier",
+                      "replicas", "n_microbatches", "mb_size", "n_stages",
+                      "iters", "placed", "param_budget_frac", "auto_split",
+                      "tuning_cache", "calibrate"):
             assert getattr(port, field) == getattr(ref, field), field
 
 
 def test_serve_config_defaults_and_refusals():
     assert ServeConfig(arch="resnet50").image_size == 64
+    assert ServeConfig(arch="resnet50").n_stages == 4
     with pytest.raises(ValueError, match="quantize"):
         ServeConfig(arch="resnet50", quantize="bogus")
     with pytest.raises(ValueError, match="exclusive"):

@@ -693,3 +693,52 @@ def test_graph_replay_equals_eager_bitwise(dev, quantize):
             ("sparse_matmul", "gemv")] == 1
     assert (graph["logits"].view("uint32") ==
             eager["logits"].view("uint32")).all()
+
+
+@pytest.mark.parametrize("quantize", ["native", "int8"])
+@pytest.mark.parametrize("arch", ["resnet50", "mobilenet_v1",
+                                  "mobilenet_v2"])
+def test_pipeline_serving_equals_sequential_on_the_card(dev, arch, quantize):
+    """Throughput serving on the card at 64 px: the batched executor
+    (batch 8, M 4, S 3, each stage on its own stream, captured as one CUDA
+    graph) and the continuous server (mb 2, one captured tick a
+    microbatch) give the sequential forward's logits, microbatch by
+    microbatch, bit for bit; the one-stream executor gives the same; the
+    capture holds M x one forward's launches, the tick one forward's."""
+    from repro_torch.core.quant import quantize_tree
+    from repro_torch.launch import serve as srv
+    cfg = get_config(arch)
+    params = cnn.params_to(quantize_tree(srv._init_native(cfg, 0), quantize),
+                           dev)
+    per_forward = {"resnet50": {"sparse_conv": 47, "sparse_matmul": 1}}.get(
+        arch, {"dw_pw": 13 if arch == "mobilenet_v1" else 17})
+    kw = dict(batch=8, n_microbatches=4, n_stages=3, image_size=64,
+              iters=2, quantize=quantize, verbose=False)
+    ops.reset_launches()
+    out = srv._serve_cnn(arch, **kw)
+    assert out["captured"] and out["streams"] == 3
+    for name, n in per_forward.items():
+        assert out["launches_per_batch"][name] == 4 * n
+        assert ops.LAUNCHES[name] == 2 * 4 * n     # warm-up + capture
+    images = torch.from_numpy(out["images"])
+    seq = torch.cat([cnn.cnn_forward(cfg, params, images[i:i + 2],
+                                     device="cuda").cpu()
+                     for i in range(0, 8, 2)])
+    assert torch.equal(torch.from_numpy(out["logits"]), seq)
+    one = srv._serve_cnn(arch, streams=False, **kw)
+    assert one["streams"] == 1
+    assert (one["logits"].view("uint32") == out["logits"].view("uint32")).all()
+    ops.reset_launches()
+    cont = srv._serve_cnn_continuous(arch, n_requests=2, batch=5, mb_size=2,
+                                     n_stages=3, image_size=64,
+                                     quantize=quantize, verbose=False)
+    for name, n in per_forward.items():
+        assert cont["launches_per_tick"][0][name] == n
+    assert cont["ticks"] == 3 + 3 + 2
+    for x, got in zip(cont["request_images"], cont["logits"]):
+        # the server's microbatches: the last one zero-padded to mb 2
+        x = torch.cat([torch.from_numpy(x), torch.zeros((1,) + x.shape[1:])])
+        want = torch.cat([cnn.cnn_forward(cfg, params, x[i:i + 2],
+                                          device="cuda").cpu()
+                          for i in range(0, 6, 2)])
+        assert torch.equal(torch.from_numpy(got), want[:5])
