@@ -78,7 +78,20 @@ Phases, in order; any failure raises and exits nonzero:
    a tick's time goes (each stage program alone, the stages on one stream,
    one tick on S streams, the plain forward of the microbatch);
    SmolLM-360M's prefill latency and ``serve_lm``'s times;
-6. one ``{"kernels": [...]}`` line, then the device line last.
+6. the measured cost model and the tuned kernels: for each CNN at native
+   weights, ``tuning.calibrate(..., autotune=True)`` at batch 1 and at mb
+   4 (the MobileNets' dw_pw also tuned at n 2, their depthwise on the
+   unfused view at n 1); every tuned plan against its plain version at
+   the shape it was tuned at, timed beside ``plan()``'s default (dw_pw
+   beside the cuDNN pair); S 4 cuts with ``model="measured"`` from each
+   cache beside the analytic cut (and the mb-4 cut once more with
+   plan()'s kernels), their predicted stage costs beside each stage
+   program timed alone at mb 4; ``_serve_cnn`` (batch 16, M 4, S 4)
+   under each cut, twice, in turns, its logits equal to the sequential
+   forward under the same cache bit for bit, its images/s printed;
+   ``n_microbatches=0`` and ``auto_split=True`` once each;
+7. one ``{"kernels": [...]}`` line (each kernel with the knobs it was
+   tuned to), then the device line last.
 
 Per-layer numbers are also written to ``build/chip_smoke.json``.
 
@@ -102,6 +115,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -131,6 +145,8 @@ CONT_MB = {"resnet50": (1, 2), "mobilenet_v1": (2,), "mobilenet_v2": (2,)}
 MOBILENETS = ("mobilenet_v1", "mobilenet_v2")
 MB_BLOCKS = {"mobilenet_v1": 13, "mobilenet_v2": 17}   # dw_pw / dw nodes
 SEED = 0
+# the profiler's timed replays a node (calibrate; the autotuner takes half)
+TUNE_ITERS = 4
 # the port's logits vs its plain CPU forward: the two sum in f32 in other
 # orders and may round a bf16 activation the other way, which the next
 # layers carry on; at random init max |logit| is ~1e-3 of an activation,
@@ -1758,6 +1774,309 @@ def main() -> int:
                "sparse_matmul": lm_mm_rows,
                "ffn_per_prefill": ffn_prefill}
 
+    # -- 6. the measured cost model and the tuned kernels -----------------
+    # For each CNN at native weights: calibrate (the autotuner times every
+    # plan each kernel can run at each distinct node shape, then every
+    # fused node is timed on the card under the winners) at batch 1 and at
+    # the batched cell's microbatch (mb 4); the MobileNets' dw_pw is also
+    # tuned at n 2 and their depthwise on the unfused view at n 1. Every
+    # tuned plan runs against its plain version at the shape it was tuned
+    # at, and is timed beside plan()'s default (dw_pw beside the cuDNN
+    # pair). Then S 4 cuts from each cache beside the analytic one, each
+    # stage program timed alone at mb 4 under its cache, and the batched
+    # executor (batch 16, M 4) under each cut, twice: launches counted
+    # with the counters reset just before and read just after, the logits
+    # equal to the sequential forward under the same cache bit for bit.
+    # Last, n_microbatches=0 and auto_split=True once each.
+    from repro_torch.core import tuning
+    t_phase = time.perf_counter()
+    tune_mb = PIPE_BATCH // PIPE_M
+    sig = tuning.device_signature(dev)
+    tuned = {"sparse_conv": [], "dw_pw": [], "depthwise_conv": []}
+
+    def tuned_sites(arch, graph_, cache, n_img, p_dev):
+        """Every knob site of ``graph_`` at batch ``n_img``: the plan the
+        cache holds against the plain version and timed beside plan()'s
+        default; dw_pw also beside the cuDNN pair."""
+        mcfg_ = get_config(arch)
+        shapes = cnn.node_shapes(mcfg_, None,
+                                 (n_img, IMAGE_SIZE, IMAGE_SIZE, 3),
+                                 graph=graph_)
+        sites = {}
+        for node, edge in zip(graph_.nodes, graph_.inputs):
+            s_in = tuple(shapes[edge[0]].shape)
+            site = (node.kind, s_in, node.k, node.stride, node.cout)
+            if site in sites:
+                sites[site][1] += 1
+            else:
+                sites[site] = [node, 1]
+        for (kind, s_in, k_, stride, co), (node, count) in sites.items():
+            x = randn(s_in)
+            ho = -(-s_in[1] // stride)
+            pair_ms = None
+            if kind == "conv":
+                p = p_dev[conv_part(node).name]
+                sw = p["w"]
+                if not isinstance(sw, SparseWeight):
+                    continue
+                ob, n_k, bm, bn = sw.vals.shape
+                key = tuning.kernel_key(
+                    "sconv", s_in, torch.bfloat16, device=sig, k=k_,
+                    s=stride, b=f"{bm}x{bn}K{n_k}", co=ob * bn)
+                plan_t = (cache.knob(key, "tm"), cache.knob(key, "split"))
+                plan_d = sc.plan(n_img * ho * ho, ob, n_k)
+                kw = dict(k=k_, stride=stride, relu=node.relu)
+
+                def run(pl, x=x, sw=sw, b=p["b"], kw=kw):
+                    return sc.sparse_conv(x, sw.vals, sw.idx, b, plan=pl,
+                                          **kw)
+                want = sc.sparse_conv_torch(x, sw.vals, sw.idx, p["b"], **kw)
+                name, fmt = "sparse_conv", (lambda pl: f"tm{pl[0]} s{pl[1]}")
+            elif kind == "dw_pw":
+                dw_p = p_dev[node.parts[0].name]
+                pw_p = p_dev[conv_part(node).name]
+                c = s_in[-1]
+                key = tuning.kernel_key("dwpw", s_in, torch.bfloat16,
+                                        device=sig, k=k_, s=stride, co=co)
+                knobs = [cache.knob(key, n) for n in ("tm", "tn", "ck",
+                                                      "split")]
+                plan_d = dwpw.plan(n_img, ho, ho, c, co, k_, stride)
+                plan_t = None if None in knobs else dwpw.make_plan(
+                    n_img, ho, ho, c, co, k_, stride, *knobs)
+                kw = dict(stride=stride, dw_relu=node.parts[0].relu,
+                          relu=node.relu)
+                args = (x, dw_p["w"], dw_p["b"], pw_p["w"], pw_p["b"])
+
+                def run(pl, args=args, kw=kw):
+                    return dwpw.dw_pw(*args, plan=pl, **kw)
+                want = dwpw.dw_pw_torch(*args, **kw)
+                x_cl = x.permute(0, 3, 1, 2)
+                w_dw = dw_p["w"].permute(2, 0, 1).unsqueeze(1).contiguous(
+                    memory_format=torch.channels_last)
+                w_pw = pw_p["w"].t().reshape(co, c, 1, 1).contiguous(
+                    memory_format=torch.channels_last)
+                pair_ms = time_ms(lambda: F.conv2d(F.conv2d(
+                    x_cl, w_dw, dw_p["b"], stride, 1, groups=c), w_pw,
+                    pw_p["b"]))
+                name = "dw_pw"
+
+                def fmt(pl):
+                    return f"tm{pl.tm} tn{pl.tn} ck{pl.ck} s{pl.split}"
+            elif kind == "dw":
+                w = p_dev[node.name]["w"]
+                key = tuning.kernel_key("dw", s_in, torch.bfloat16,
+                                        device=sig, k=k_, s=stride)
+                plan_t = (cache.knob(key, "r"), cache.knob(key, "threads"))
+                plan_d = dwk.plan(n_img, ho, ho, s_in[-1], k_, stride)
+
+                def run(pl, x=x, w=w, stride=stride):
+                    return dwk.depthwise_conv(x, w, stride=stride, plan=pl)
+                want = dwk.depthwise_conv_torch(x, w, stride=stride)
+                name, fmt = "depthwise_conv", (
+                    lambda pl: f"r{pl[0]} t{pl[1]}")
+            else:
+                continue
+            if plan_t is None or None in tuple(plan_t):
+                raise AssertionError(f"{arch} {node.name} n={n_img}: the "
+                                     f"cache holds no tuned plan at {key}")
+            got = run(plan_t)
+            torch.cuda.synchronize()
+            err = compare(got, want, bf16_tol,
+                          f"tuned {name} {arch} {node.name} n={n_img} "
+                          f"{fmt(plan_t)}")
+            row = {"arch": arch, "node": node.name, "n": n_img,
+                   "count": count, "plan": fmt(plan_t),
+                   "default": fmt(plan_d), "max_abs_err": err,
+                   "ms": time_ms(lambda: run(plan_t)),
+                   "default_ms": time_ms(lambda: run(plan_d)),
+                   "tuner_us": cache.time_us(key), "pair_ms": pair_ms}
+            tuned[name].append(row)
+
+    caches = {}
+    for arch in STORE_RUNS:
+        mcfg = get_config(arch)
+        p_dev = cnn.params_to(cnn_params[arch], dev)
+        shapes_n = (1, 2, tune_mb) if arch in MOBILENETS else (1, tune_mb)
+        for n_img in shapes_n:
+            t0 = time.perf_counter()
+            shape = (n_img, IMAGE_SIZE, IMAGE_SIZE, 3)
+            if n_img == 2:         # dw_pw at the continuous cell's mb
+                cache = tuning.autotune_graph(mcfg, p_dev, shape)
+            else:
+                cache = tuning.calibrate(mcfg, p_dev, shape, autotune=True,
+                                         iters=TUNE_ITERS)
+            if arch in MOBILENETS and n_img == 1:
+                tuning.autotune_graph(mcfg, p_dev, shape,
+                                      graph=graph_for(arch), cache=cache)
+            caches[(arch, n_img)] = cache
+            tuning.set_tuning_cache(None)
+            n_kern = sum(k.startswith("kern/") for k in cache.entries)
+            print(f"[tune] {arch} n={n_img}: {len(cache) - n_kern} node "
+                  f"times, {n_kern} tuned kernel sites in "
+                  f"{time.perf_counter() - t0:.1f}s")
+            tuned_sites(arch, fused_graph_for(arch), cache, n_img, p_dev)
+            if arch in MOBILENETS and n_img == 1:
+                tuned_sites(arch, graph_for(arch), cache, n_img, p_dev)
+    for name, rows_ in tuned.items():
+        for r_ in rows_:
+            print(f"[tune] {name} {r_['arch']} {r_['node']:8s} n={r_['n']} "
+                  f"(x{r_['count']}): tuned {r_['plan']} "
+                  f"{r_['ms'] * 1e3:.2f} us, plan() {r_['default']} "
+                  f"{r_['default_ms'] * 1e3:.2f} us"
+                  + (f", cuDNN pair {r_['pair_ms'] * 1e3:.2f} us"
+                     if r_["pair_ms"] is not None else "")
+                  + f"; vs plain {r_['max_abs_err']:.2e}")
+    tuned_sums = {}
+    for name, rows_ in tuned.items():
+        for n_img in sorted({r_["n"] for r_ in rows_}):
+            rs = [r_ for r_ in rows_ if r_["n"] == n_img]
+            s_ = {key: sum(r_[key] * r_["count"] for r_ in rs)
+                  for key in ("ms", "default_ms")}
+            if name == "dw_pw":
+                s_["pair_ms"] = sum(r_["pair_ms"] * r_["count"] for r_ in rs)
+            s_["changed"] = sum(r_["plan"] != r_["default"] for r_ in rs)
+            s_["sites"] = len(rs)
+            tuned_sums[(name, n_img)] = s_
+            print(f"[tune] {name} n={n_img}, one forward of "
+                  f"{'both MobileNets' if name != 'sparse_conv' else 'ResNet-50'}"
+                  f": tuned {s_['ms']:.4f} ms, plan() {s_['default_ms']:.4f}"
+                  f" ms" + (f", cuDNN pair {s_['pair_ms']:.4f} ms"
+                            if name == "dw_pw" else "")
+                  + f"; {s_['changed']} of {s_['sites']} sites tuned away "
+                  f"from plan()")
+
+    plans_run = {}
+    for arch in STORE_RUNS:
+        mcfg = get_config(arch)
+        p_dev = cnn.params_to(cnn_params[arch], dev)
+        per_fwd, per_fwd_v = per_request_want(arch, "native")
+        analytic = planner.plan(mcfg, cnn_params[arch], planner.PlanRequest(
+            n_stages=PIPE_S))
+        cuts = {"analytic": (analytic, None)}
+        for n_img in (1, tune_mb):
+            cache = caches[(arch, n_img)]
+            with tuning.device_scope(dev):
+                cuts[f"measured n{n_img}"] = (planner.plan(
+                    mcfg, cnn_params[arch], planner.PlanRequest(
+                        n_stages=PIPE_S, model="measured",
+                        tuning_cache=cache)), cache)
+        # the mb-4 cut with plan()'s kernels: the same node times, no
+        # tuned kernel plans, so the cut and the knobs show apart
+        cache = caches[(arch, tune_mb)]
+        bare = tuning.TuningCache({k: v for k, v in cache.entries.items()
+                                   if k.startswith("node/")}, cache.meta)
+        cuts[f"measured n{tune_mb}, plan() kernels"] = (
+            cuts[f"measured n{tune_mb}"][0], bare)
+        rows_ = {}
+        for label, (plan_, cache) in cuts.items():
+            cov = plan_["measured_coverage"]
+            if cache is not None and cov["coverage"] != 1.0:
+                raise AssertionError(f"{arch} {label}: coverage {cov}")
+            tuning.set_tuning_cache(cache)
+            fns, pack_in, _, width = cnn.stage_programs(
+                mcfg, p_dev, plan_["stage_of"],
+                (tune_mb, IMAGE_SIZE, IMAGE_SIZE, 3))
+            img = randn((tune_mb, IMAGE_SIZE, IMAGE_SIZE, 3), torch.float32)
+            with torch.inference_mode():
+                wires = [pack_in(img)]
+                for fn in fns:
+                    wires.append(fn(wires[-1]))
+            s_used = len(fns)
+            state = torch.stack(wires[:s_used])
+            nxt = torch.empty_like(state)
+            stage_ms = [time_ms(lambda k=k: fns[k](state[k], out=nxt[k]))
+                        for k in range(s_used)]
+            tuning.set_tuning_cache(None)
+            rows_[label] = {
+                "stage_of": plan_["stage_of"],
+                "predicted": [float(c) for c in plan_["stage_cost"]],
+                "predicted_ratio": plan_["imbalance"], "stage_ms": stage_ms,
+                "measured_ratio": max(stage_ms) / (sum(stage_ms) / s_used),
+                "images_per_s_runs": []}
+        # each cut served twice, in turns (a, b, c, d, d, c, b, a), so the
+        # spread within the run shows beside the differences
+        for label in list(cuts) + list(reversed(cuts)):
+            plan_, cache = cuts[label]
+            ops.reset_launches()
+            res = _serve_cnn(arch, batch=PIPE_BATCH, n_microbatches=PIPE_M,
+                             n_stages=PIPE_S, image_size=IMAGE_SIZE,
+                             iters=PIPE_ITERS, seed=SEED, tuning_cache=cache)
+            counted, variants = dict(ops.LAUNCHES), dict(ops.VARIANT_LAUNCHES)
+            what = f"{arch} batched, {label} cut"
+            check_launches(counted, {k: v * PIPE_M * 2
+                                     for k, v in per_fwd.items()}, what)
+            check_variants(variants, {k: v * PIPE_M * 2
+                                      for k, v in per_fwd_v.items()}, what)
+            add_variants(variants)
+            for k, v in counted.items():
+                all_launches[k] = all_launches.get(k, 0) + v
+            if res["stage_of"] != plan_["stage_of"]:
+                raise AssertionError(f"{what}: served {res['stage_of']}")
+            if tuning.current_tuning_cache() is not cache:
+                raise AssertionError(f"{what}: the cache is not installed")
+            with torch.inference_mode():
+                seq = torch.cat([cnn.cnn_forward(
+                    mcfg, p_dev, torch.from_numpy(res["images"][i:i + tune_mb]),
+                    device=dev).cpu() for i in range(0, PIPE_BATCH, tune_mb)])
+            tuning.set_tuning_cache(None)
+            if not torch.equal(torch.from_numpy(res["logits"]), seq):
+                raise AssertionError(f"{what}: logits differ from the "
+                                     f"sequential forward under the cache")
+            rows_[label]["images_per_s_runs"].append(res["images_per_s"])
+        for label, row in rows_.items():
+            row["images_per_s"] = statistics.median(row["images_per_s_runs"])
+            plans_run[(arch, label)] = row
+            unit = "cycles" if cuts[label][1] is None else "us"
+            print(f"[plan] {arch} S {PIPE_S} {label} cut {row['stage_of']}: "
+                  f"predicted stages {[round(c, 1) for c in row['predicted']]}"
+                  f" {unit} (max/mean {row['predicted_ratio']:.3f}); on the "
+                  f"card at mb {tune_mb} "
+                  f"{[round(t_ * 1e3, 1) for t_ in row['stage_ms']]} us "
+                  f"(max/mean {row['measured_ratio']:.3f}); batched "
+                  f"{PIPE_BATCH} M {PIPE_M}: "
+                  f"{[round(v, 1) for v in row['images_per_s_runs']]} im/s; "
+                  f"== sequential (mb {tune_mb}) under the same cache bitwise")
+
+    # n_microbatches=0 (M from the measured stage costs) and auto_split
+    # (one card: S 1, R 1), each once, under the mb-4 cache
+    for arch, kw in (("mobilenet_v1", {"n_microbatches": 0}),
+                     ("resnet50", {"n_microbatches": PIPE_M,
+                                   "auto_split": True})):
+        mcfg = get_config(arch)
+        p_dev = cnn.params_to(cnn_params[arch], dev)
+        per_fwd, _ = per_request_want(arch, "native")
+        cache = caches[(arch, tune_mb)]
+        ops.reset_launches()
+        res = _serve_cnn(arch, batch=PIPE_BATCH, n_stages=PIPE_S,
+                         image_size=IMAGE_SIZE, iters=PIPE_ITERS, seed=SEED,
+                         tuning_cache=cache, **kw)
+        m_ = res["n_microbatches"]
+        check_launches(dict(ops.LAUNCHES), {k: v * m_ * 2
+                                            for k, v in per_fwd.items()},
+                       f"{arch} {kw}")
+        for k, v in ops.LAUNCHES.items():
+            all_launches[k] = all_launches.get(k, 0) + v
+        mb_ = -(-PIPE_BATCH // m_)
+        with torch.inference_mode():
+            seq = torch.cat([cnn.cnn_forward(
+                mcfg, p_dev, torch.from_numpy(res["images"][i:i + mb_]),
+                device=dev).cpu() for i in range(0, PIPE_BATCH, mb_)])
+        tuning.set_tuning_cache(None)
+        if not torch.equal(torch.from_numpy(res["logits"]), seq):
+            raise AssertionError(f"{arch} {kw}: logits differ from the "
+                                 f"sequential forward (mb {mb_})")
+        if kw.get("auto_split") and (res["n_stages"], res["n_replicas"]) != \
+                (1, 1):
+            raise AssertionError(f"{arch} auto_split: S {res['n_stages']}, "
+                                 f"R {res['n_replicas']} on one card")
+        plans_run[(arch, str(kw))] = {"n_microbatches": m_,
+                                      "n_stages": res["n_stages"],
+                                      "images_per_s": res["images_per_s"]}
+        print(f"[plan] {arch} {kw}: M {m_}, S {res['n_stages']}, R "
+              f"{res['n_replicas']}: {res['images_per_s']:.1f} im/s; == "
+              f"sequential (mb {mb_}) under the cache bitwise")
+    print(f"[tune] phase 6 in {time.perf_counter() - t_phase:.1f}s")
+
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "build_s": build_s,
@@ -1778,9 +2097,13 @@ def main() -> int:
         "ticks": {f"{a}/mb{mb}": row for (a, mb), row in ticks.items()},
         "variant_launches": {f"{n}/{v}": c for (n, v), c in
                              all_variants.items()},
-        "ptxas": resources, "hmma": hmma}, indent=1))
+        "ptxas": resources, "hmma": hmma,
+        "tuned_kernels": tuned,
+        "tuned_sums": {f"{n}/n{k}": v for (n, k), v in tuned_sums.items()},
+        "cuts": {f"{a}/{lbl}": row for (a, lbl), row in plans_run.items()}},
+        indent=1))
 
-    # -- 6. the kernels line, then the device line ------------------------
+    # -- 7. the kernels line, then the device line ------------------------
     kernels = [
         {"name": "sparse_conv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sparse_conv.cu",
@@ -1887,6 +2210,19 @@ def main() -> int:
             "max_abs_err": mb_err.get(name),
             "by_microbatch": {n: mb_times[n].get(name)
                               for n in PIPE_MB_SIZES}}
+        rows_ = tuned.get(name)
+        # the plans the autotuner chose at each site (arch/node/batch),
+        # and plan()'s where they differ; sparse_matmul and flash have no
+        # knobs
+        entry["tuned"] = {
+            "knobs": {f"{r['arch']}/{r['node']}/n{r['n']}": r["plan"]
+                      for r in rows_},
+            "defaults_where_changed": {
+                f"{r['arch']}/{r['node']}/n{r['n']}": r["default"]
+                for r in rows_ if r["plan"] != r["default"]},
+            "max_abs_err": max(r["max_abs_err"] for r in rows_),
+            "by_n": {n_: tuned_sums[(name, n_)] for n_ in sorted(
+                {r["n"] for r in rows_})}} if rows_ else None
         entry["ptxas"] = resources[name]
         entry["hmma"] = hmma[name]
         if name in _build.VARIANTS:

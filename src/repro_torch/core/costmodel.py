@@ -1,6 +1,7 @@
 """Per-layer analytic throughput model (paper Sec. IV): the CNN part of
 the reference's ``src/repro/core/costmodel.py``, which the planner's
-stage costs and weight budget read.
+stage costs and weight budget read, and the measured model's
+calibration fit (``fit_scale_factors``).
 
 HPIPE stages process one output line (1 x W x Co) at a time; a layer with
 ``n_channel_splits = s`` partitions each output channel's surviving
@@ -135,3 +136,24 @@ def node_weight_bytes(node, params, store_dtype: str = "native") -> int:
     parts = node.parts or (node,)
     return sum(pytree_param_bytes(params[p.name], store_dtype)
                for p in parts if p.name in params)
+
+
+def fit_scale_factors(measured_us, analytic_cycles, kinds) -> dict:
+    """Calibration fit for the measured cost model (``core/tuning.py``):
+    per-op-kind scale factors mapping analytic cycles to measured
+    microseconds, plus a ``"*"`` global fallback.
+
+    Each scale is the geometric mean of the measured / analytic ratios of
+    that kind's profiled nodes (the minimizer of mean squared log error,
+    so one slow outlier shifts the fit by its log, not its magnitude).
+    Uncached shapes are then priced at ``analytic * scale[kind]``
+    (falling back to ``scale["*"]``), which keeps the analytic model's
+    order within a kind while taking the device's absolute rates."""
+    ratios: dict[str, list] = {}
+    for t, a, k in zip(measured_us, analytic_cycles, kinds):
+        if t is None or t <= 0 or a <= 0:
+            continue
+        r = float(np.log(t / a))
+        ratios.setdefault(k, []).append(r)
+        ratios.setdefault("*", []).append(r)
+    return {k: float(np.exp(np.mean(v))) for k, v in ratios.items()}

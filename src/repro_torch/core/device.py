@@ -1,6 +1,10 @@
 """Device choice for the port's entry points: the card unless the caller
-asks for the CPU, and never a silent move from one to the other."""
+asks for the CPU, and never a silent move from one to the other; and the
+CUDA-graph capture that the serving paths and the profiler share."""
 from __future__ import annotations
+
+import contextlib
+import gc
 
 import torch
 
@@ -14,3 +18,24 @@ def resolve_device(device) -> torch.device:
             f"device={str(device)!r} but CUDA is not available: the port "
             "runs on the card; pass device='cpu' for its plain CPU path")
     return dev
+
+
+@contextlib.contextmanager
+def graph_capture(cuda_graph: "torch.cuda.CUDAGraph", collect: bool = True):
+    """``torch.cuda.graph(cuda_graph)`` with Python's cycle collector held
+    off during the capture: a collection inside it could free an earlier
+    graph and its memory pool, whose ``cudaFree`` invalidates the
+    capture. ``collect`` runs the collector first, so that garbage held
+    in cycles is freed before the capture and not after it (the serving
+    paths; the profiler's many small captures skip it: one collection
+    costs more than the capture)."""
+    if collect:
+        gc.collect()
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(cuda_graph):
+            yield
+    finally:
+        if was_enabled:
+            gc.enable()

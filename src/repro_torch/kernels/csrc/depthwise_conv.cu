@@ -19,8 +19,9 @@
 // read once, and adds each into the row sums of the pixels whose window
 // holds it (a sliding window in registers; kx ascends for every pixel,
 // so the sums keep their order). The SAME halo reads zero (no padded
-// copy). k (1..7), R (2 at stride 1, else 1: the best of R = 1, 2, 4 at
-// every MobileNet shape in a sweep on the H100, PERF.md) and the stride
+// copy). k (1..7), R (plan: 2 at stride 1, else 1: the best of R = 1, 2,
+// 4 at every MobileNet shape in a sweep on the H100, PERF.md; the
+// autotuner may pick 4) and the stride
 // (1 where R = 2) are template arguments; the index math is 32-bit. C that
 // is not a multiple of 8 takes the same kernel with masked scalar loads and
 // stores (VEC false). depthwise_conv.plan sizes the blocks so that the
@@ -141,8 +142,8 @@ int launch(const DwArgs& a, int threads, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// R = 1 takes any stride, R = 2 stride 1; C % 8 != 0 takes the masked
-// scalar tail, one pixel a thread.
+// R = 1 takes any stride, R = 2 and 4 stride 1; C % 8 != 0 takes the
+// masked scalar tail, one pixel a thread.
 template <int K>
 int launch_k(const DwArgs& a, int r, int threads, cudaStream_t s) {
   if (r == 1)
@@ -150,6 +151,8 @@ int launch_k(const DwArgs& a, int r, int threads, cudaStream_t s) {
                    : launch<K, 0, 1, true>(a, threads, s);
   if (r == 2 && a.stride == 1 && a.C % 8 == 0)
     return launch<K, 1, 2, true>(a, threads, s);
+  if (r == 4 && a.stride == 1 && a.C % 8 == 0)
+    return launch<K, 1, 4, true>(a, threads, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -160,7 +163,7 @@ extern "C" {
 // All tensors contiguous on the device: x (N,H,W,C) bf16; w (k,k,C) bf16;
 // out (N,Ho,Wo,C) bf16; N*H*W*C and N*Ho*Wo*C < 2^31; 1 <= k <= 7; where
 // C % 8 == 0, x, w and out 16-byte aligned. r: output pixels a thread (1,
-// or 2 at stride 1 where C % 8 == 0); threads: a block's threads, a
+// or 2 or 4 at stride 1 where C % 8 == 0); threads: a block's threads, a
 // multiple of 32 up to 256. Anything else returns cudaErrorInvalidValue;
 // else cudaGetLastError() after the launch.
 int depthwise_conv_bf16(const void* x, const void* w, void* out, int N,

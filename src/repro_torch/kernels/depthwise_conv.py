@@ -91,6 +91,32 @@ def plan(n: int, ho: int, wo: int, c: int, k: int,
     return r, threads
 
 
+_default_plan = plan   # the wrapper's ``plan`` argument shadows it
+
+RS = (1, 2, 4)                 # pixels a thread: the kernel's instances
+THREADS = (32, 64, 128, 256)   # threads a block the autotuner tries
+
+
+def plan_candidates(c: int, stride: int) -> list[tuple[int, int]]:
+    """Every (r, threads) the kernel can run: r of RS (r > 1 only at
+    stride 1 where C is a multiple of 8) x threads of THREADS. The
+    autotuner's search space (``core/tuning.autotune_depthwise_plan``)."""
+    rs = RS if stride == 1 and c % 8 == 0 else (1,)
+    return [(r, t) for r in rs for t in THREADS]
+
+
+def check_plan(plan, c: int, stride: int) -> tuple[int, int]:
+    """``plan`` as an int pair (r, threads) if the kernel can run it, else
+    ValueError (the candidates of :func:`plan_candidates`)."""
+    r, threads = (int(v) for v in plan)
+    if (r, threads) not in plan_candidates(c, stride):
+        raise ValueError(f"depthwise_conv: plan (r {r}, threads {threads}) "
+                         f"needs r in {RS} (r > 1 at stride 1 with C % 8 "
+                         f"== 0; here stride {stride}, C {c}) and threads "
+                         f"in {THREADS}")
+    return r, threads
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -103,13 +129,17 @@ def _kernel():
     return lib, fn
 
 
-def depthwise_conv(x, w, *, stride: int = 1) -> torch.Tensor:
+def depthwise_conv(x, w, *, stride: int = 1, plan=None) -> torch.Tensor:
     """The CUDA kernel: same function and arguments as
     :func:`depthwise_conv_torch`, on contiguous bf16 CUDA tensors with a
     k x k kernel, 1 <= k <= MAX_K, and any C (C not a multiple of 8 takes
     masked scalar loads). Raises on anything the kernel does not take; it
     never falls back to the plain version. The output is allocated here
-    and the kernel runs on the current stream without synchronising."""
+    and the kernel runs on the current stream without synchronising.
+
+    ``plan``: (r, threads) in place of :func:`plan`'s (a tuned plan,
+    ``kernels/ops.py``); one it cannot run raises (:func:`check_plan`).
+    The kernel never substitutes its own."""
     k = w.shape[0]
     if not 1 <= k <= MAX_K:
         raise ValueError(f"depthwise_conv: a {k}x{k} kernel; the kernel is "
@@ -138,7 +168,8 @@ def depthwise_conv(x, w, *, stride: int = 1) -> torch.Tensor:
                          "elements")
     if c % 8 == 0:                    # 16-byte vectors of 8 channels
         x, w = _build.aligned16(x), _build.aligned16(w)
-    r, threads = plan(n, ho, wo, c, k, stride)
+    r, threads = check_plan(plan, c, stride) if plan is not None else \
+        _default_plan(n, ho, wo, c, k, stride)
     lib, fn = _kernel()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, ho, wo,

@@ -114,19 +114,21 @@ def variant(c: int, cout: int, k: int, stride: int = 1,
 
 
 def smem_bytes(k: int, tm: int, tn: int, hr: int, hc: int, ck: int,
-               split: int) -> int:
+               split: int, codes: bool = False) -> int:
     """Dynamic shared memory of one mma block: STAGES x (input halo of
     hr x hc pixels x ck channels, the taps, dw_b, the ck x tn pw_w tile
     with rows padded by 8), the tm x (ck + 8) A tile and the split slots
     of f32 partial rows (``MmaSmem`` in ``csrc/dw_pw.cu``). The int8
-    instances take less: their ring holds the ck x tn codes, widened
-    into one bf16 B tile outside it, plus tn f32 scales."""
+    instances (``codes``) take less: their ring holds the ck x tn codes,
+    widened into one bf16 B tile outside it, plus tn f32 scales."""
     def r16(b):
         return -(-b // 16) * 16
-    stage = (r16(hr * hc * ck * 2) + r16(k * k * ck * 2) + r16(ck * 2)
-             + ck * (tn + 8) * 2)
-    return (STAGES * stage + tm * (ck + 8) * 2
-            + split * -(-tm // split) * (tn + 4) * 4)
+    wt = ck * tn if codes else ck * (tn + 8) * 2
+    stage = r16(hr * hc * ck * 2) + r16(k * k * ck * 2) + r16(ck * 2) + wt
+    return (STAGES * stage + (ck * (tn + 8) * 2 if codes else 0)
+            + tm * (ck + 8) * 2
+            + split * -(-tm // split) * (tn + 4) * 4
+            + (tn * 4 if codes else 0))
 
 
 class Plan(NamedTuple):
@@ -209,6 +211,74 @@ def plan(n: int, ho: int, wo: int, c: int, cout: int, k: int,
                      f"W_out={wo} in {SMEM_MAX} bytes of shared memory")
 
 
+_default_plan = plan   # the wrapper's ``plan`` argument shadows it
+
+
+TNS = (64, 128)        # Cout tiles a block (on 2 * tn threads)
+CKS = (32, 64)         # channels a chunk
+SPLITS = (1, 2, 4, 8)  # cluster sizes the autotuner tries (<= MAX_SPLIT)
+
+
+def make_plan(n: int, ho: int, wo: int, c: int, cout: int, k: int,
+              stride: int, tm: int, tn: int, ck: int, split: int,
+              codes: bool = False) -> Plan:
+    """The full :class:`Plan` of the knobs (tm, tn, ck, split) at an
+    (n, ho, wo) output: the pixel tile's rows and columns
+    (:func:`tile_shape`), the grid, the busiest block's chunks and the
+    shared memory (int8 ``codes`` take less)."""
+    tr, tw = tile_shape(tm, ho, wo)
+    hr, hc = (tr - 1) * stride + k, (tw - 1) * stride + k
+    chunks = -(-c // ck)
+    blocks = n * -(-ho // tr) * -(-wo // tw) * -(-cout // tn) * split
+    return Plan(tm, tn, tr, tw, ck, split, blocks, -(-chunks // split),
+                smem_bytes(k, tm, tn, hr, hc, ck, split, codes))
+
+
+def plan_candidates(n: int, ho: int, wo: int, c: int, cout: int, k: int,
+                    stride: int, codes: bool = False) -> list[Plan]:
+    """Every plan the mma variant can run at an (n, ho, wo) output: each
+    tile of TILES x Cout tile of TNS x chunk of CKS x split of SPLITS
+    whose split leaves every block a chunk and whose shared memory fits
+    SMEM_MAX. The autotuner's search space
+    (``core/tuning.autotune_dw_pw_plan``) and ``tools/sweep_dw_pw.py``'s."""
+    out = []
+    for tm in TILES:
+        for tn in TNS:
+            for ck in CKS:
+                for split in SPLITS:
+                    if split > -(-c // ck):
+                        continue
+                    p = make_plan(n, ho, wo, c, cout, k, stride, tm, tn, ck,
+                                  split, codes)
+                    if p.smem <= SMEM_MAX:
+                        out.append(p)
+    return out
+
+
+def check_plan(plan, n: int, ho: int, wo: int, c: int, cout: int, k: int,
+               stride: int, codes: bool = False) -> Plan:
+    """``plan`` (a :class:`Plan`, or any (tm, tn, tr, tw, ck, split, ...)
+    sequence) as a full Plan if the mma variant can run it, else
+    ValueError: tm one of TILES, tn of TNS, ck of CKS, 1 <= tr, tw and tr
+    x tw <= tm, 1 <= split <= MAX_SPLIT and <= the chunks of C, and the
+    shared memory within SMEM_MAX."""
+    tm, tn, tr, tw, ck, split = (int(v) for v in tuple(plan)[:6])
+    chunks = -(-c // ck) if ck in CKS else 0
+    ok = (tm in TILES and tn in TNS and ck in CKS and tr >= 1 and tw >= 1
+          and tr * tw <= tm and 1 <= split <= min(MAX_SPLIT, chunks))
+    hr, hc = (tr - 1) * stride + k, (tw - 1) * stride + k
+    smem = smem_bytes(k, tm, tn, hr, hc, ck, split, codes) if ok else 0
+    if not ok or smem > SMEM_MAX:
+        raise ValueError(f"dw_pw: plan (tm {tm}, tn {tn}, tr {tr}, tw {tw}, "
+                         f"ck {ck}, split {split}) cannot run at C={c}, "
+                         f"k={k}, stride={stride}: needs tm in {TILES}, tn "
+                         f"in {TNS}, ck in {CKS}, tr x tw <= tm, split <= "
+                         f"min({MAX_SPLIT}, {chunks} chunks) and shared "
+                         f"memory {smem} <= {SMEM_MAX}")
+    blocks = n * -(-ho // tr) * -(-wo // tw) * -(-cout // tn) * split
+    return Plan(tm, tn, tr, tw, ck, split, blocks, -(-chunks // split), smem)
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -222,8 +292,8 @@ def _kernel():
 
 
 def dw_pw(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
-          stride: int = 1, dw_relu: bool = True,
-          relu: bool = True) -> torch.Tensor:
+          stride: int = 1, dw_relu: bool = True, relu: bool = True,
+          plan=None) -> torch.Tensor:
     """The CUDA kernel: same function and arguments as
     :func:`dw_pw_torch`, on contiguous CUDA tensors with a k x k
     depthwise, 1 <= k <= MAX_K, in the variant :func:`variant` names.
@@ -233,7 +303,12 @@ def dw_pw(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
     kernel does not take, and if the launch fails (a cluster launch
     included); it never falls back to the plain version or to the other
     variant. The output is allocated here and the kernel runs on the
-    current stream without synchronising."""
+    current stream without synchronising.
+
+    ``plan``: the mma variant's :class:`Plan` in place of :func:`plan`'s
+    (a tuned plan, ``kernels/ops.py``); one it cannot run raises
+    (:func:`check_plan`), and so does a plan for the simt variant, which
+    has no knobs. The kernel never substitutes its own."""
     k = dw_w.shape[0]
     w_dtype = pw_w.dtype
     if not 1 <= k <= MAX_K:
@@ -291,7 +366,16 @@ def dw_pw(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
     if x.numel() >= 2 ** 31 or out.numel() >= 2 ** 31:
         raise ValueError("dw_pw: x and the output need < 2^31 elements")
     v = variant(c, co, k, stride, w_dtype)
-    p = plan(n, ho, wo, c, co, k, stride) if v == "mma" else None
+    if plan is not None and v != "mma":
+        raise ValueError(f"dw_pw: a plan for the {v} variant, which takes "
+                         f"none")
+    if v != "mma":
+        p = None
+    elif plan is not None:
+        p = check_plan(plan, n, ho, wo, c, co, k, stride,
+                       codes=w_dtype == torch.int8)
+    else:
+        p = _default_plan(n, ho, wo, c, co, k, stride)
     if v == "mma":
         x, dw_w, dw_b, pw_w, pw_b = (_build.aligned16(t) for t in
                                      (x, dw_w, dw_b, pw_w, pw_b))

@@ -19,6 +19,15 @@ before bias, residual and activation (``sparse_matmul``: after the
 kernel, as the reference applies it outside its Pallas kernel).
 ``config(int8_fast_path=False)`` dequantizes the weights on entry
 instead, the reference's path that the fast one is tested against.
+
+Tuned knobs (``core/tuning.py``): with a tuning cache active
+(``config(tuning_cache=...)`` or ``set_tuning_cache``), ``sparse_conv``,
+``dw_pw_conv`` and ``depthwise_conv`` look up the plan the autotuner
+recorded for the call's shape on this card (:func:`_knob`) and hand it to
+the kernel wrapper, which runs it or raises; where the cache has no entry
+the wrapper's own ``plan()`` decides. The lookup happens when a kernel is
+launched or captured, so a captured CUDA graph keeps the knobs of its
+capture. CPU tensors take the plain versions, which have no knobs.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import tuning as _tuning
 from repro_torch.kernels import depthwise_conv as _dw
 from repro_torch.kernels import dw_pw_fused as _dwpw
 from repro_torch.kernels import flash_attention as _fa
@@ -39,23 +49,63 @@ from repro_torch.kernels._build import (  # noqa: F401
 _INT8_FAST = {"on": True}
 
 
+def set_tuning_cache(cache):
+    """Install a :class:`repro_torch.core.tuning.TuningCache` whose tuned
+    kernel plans the dispatchers below read (``None`` clears). Knobs are
+    read when a kernel is launched or captured. Returns a context-manager
+    guard that restores the previous cache."""
+    return _tuning.set_tuning_cache(cache)
+
+
 @contextlib.contextmanager
-def config(*, int8_fast_path: Optional[bool] = None):
-    """Scope the int8 strategy (the reference's ``kernels.config``
-    knob): True feeds the codes to the kernels and applies the scale
-    in the epilogue, False dequantizes at op entry. ``None`` leaves it
-    as it is; the previous value comes back on exit."""
+def config(*, tuning_cache=None, int8_fast_path: Optional[bool] = None):
+    """Scope the dispatch knobs (the reference's ``kernels.config``):
+    ``tuning_cache`` (a TuningCache) supplies the kernels' tuned plans;
+    ``int8_fast_path`` True feeds int8 codes to the kernels and applies
+    the scale in the epilogue, False dequantizes at op entry. ``None``
+    leaves a knob as it is; every previous value comes back on exit."""
     prev = _INT8_FAST["on"]
-    if int8_fast_path is not None:
-        _INT8_FAST["on"] = bool(int8_fast_path)
+    guard = None
     try:
+        if int8_fast_path is not None:
+            _INT8_FAST["on"] = bool(int8_fast_path)
+        if tuning_cache is not None:
+            guard = _tuning.set_tuning_cache(tuning_cache)
         yield
     finally:
         _INT8_FAST["on"] = prev
+        if guard is not None:
+            guard.__exit__(None, None, None)
 
 
 def int8_fast_path() -> bool:
     return _INT8_FAST["on"]
+
+
+def _knob(op: str, in_shape, dtype, name: str, default, *, device=None,
+          **fields):
+    """The tuned value of knob ``name`` at kernel key ``(op, in_shape,
+    dtype, fields)`` on ``device`` (its signature) in the active tuning
+    cache; ``default`` when no cache is active or it has no such entry
+    (an entry for another shape or card never matches)."""
+    cache = _tuning.current_tuning_cache()
+    if cache is None:
+        return default
+    key = _tuning.kernel_key(op, in_shape, dtype,
+                             device=_tuning.device_signature(device),
+                             **fields)
+    return cache.knob(key, name, default)
+
+
+def _tuned(op: str, x: torch.Tensor, names, **fields):
+    """The tuned knobs ``names`` at ``x``'s kernel key (the autotuners
+    record them together), or None where the active cache has no such
+    entry: the wrapper's ``plan()`` decides."""
+    if _tuning.current_tuning_cache() is None:
+        return None
+    vals = tuple(_knob(op, x.shape, x.dtype, n, None, device=x.device,
+                       **fields) for n in names)
+    return None if None in vals else vals
 
 
 def _route(x: torch.Tensor, op: str) -> bool:
@@ -106,19 +156,25 @@ def sparse_conv(x, sw, bias, *, k: int, stride: int = 1, relu: bool = True,
         raise ValueError(f"sparse_conv: weight d_in={sw.d_in} with blocks "
                          f"{tuple(sw.vals.shape[2:])} does not fit k={k}, "
                          f"C={c}")
-    fn = _sc.sparse_conv if _route(x, "sparse_conv") \
-        else _sc.sparse_conv_torch
-    return fn(x, sw.vals, sw.idx, bias, residual, sw.scale, k=k,
-              stride=stride, relu=relu)
+    if not _route(x, "sparse_conv"):
+        return _sc.sparse_conv_torch(x, sw.vals, sw.idx, bias, residual,
+                                     sw.scale, k=k, stride=stride, relu=relu)
+    ob, n_k, bm, bn = sw.vals.shape
+    plan = _tuned("sconv", x, ("tm", "split"), k=k, s=stride,
+                  b=f"{bm}x{bn}K{n_k}", co=ob * bn) \
+        if _sc.variant(bm, bn, sw.vals.dtype) == "mma" else None
+    return _sc.sparse_conv(x, sw.vals, sw.idx, bias, residual, sw.scale,
+                           k=k, stride=stride, relu=relu, plan=plan)
 
 
 def depthwise_conv(x, w, *, stride: int = 1) -> torch.Tensor:
     """NHWC depthwise conv (HPIPE's DepthwiseConv2D unit): x (N, H, W,
     C), w (k, k, C), SAME padding, f32 sums, output in x.dtype, no
     bias."""
-    fn = _dw.depthwise_conv if _route(x, "depthwise_conv") \
-        else _dw.depthwise_conv_torch
-    return fn(x, w, stride=stride)
+    if not _route(x, "depthwise_conv"):
+        return _dw.depthwise_conv_torch(x, w, stride=stride)
+    plan = _tuned("dw", x, ("r", "threads"), k=w.shape[1], s=stride)
+    return _dw.depthwise_conv(x, w, stride=stride, plan=plan)
 
 
 def dw_pw_conv(x, dw_w, dw_b, pw_w, pw_b, *, stride: int = 1,
@@ -143,9 +199,20 @@ def dw_pw_conv(x, dw_w, dw_b, pw_w, pw_b, *, stride: int = 1,
             pw_scale, pw_w = pw_w.scale, pw_w.codes
         else:
             pw_w = pw_w.dequant()
-    fn = _dwpw.dw_pw if _route(x, "dw_pw") else _dwpw.dw_pw_torch
-    return fn(x, dw_w, dw_b, pw_w, pw_b, residual, pw_scale, stride=stride,
-              dw_relu=dw_relu, relu=relu)
+    if not _route(x, "dw_pw"):
+        return _dwpw.dw_pw_torch(x, dw_w, dw_b, pw_w, pw_b, residual,
+                                 pw_scale, stride=stride, dw_relu=dw_relu,
+                                 relu=relu)
+    n, h, w, c = x.shape
+    k, co = dw_w.shape[0], pw_w.shape[-1]
+    knobs = _tuned("dwpw", x, ("tm", "tn", "ck", "split"), k=dw_w.shape[1],
+                   s=stride, co=co) \
+        if _dwpw.variant(c, co, k, stride, pw_w.dtype) == "mma" else None
+    plan = None if knobs is None else _dwpw.make_plan(
+        n, -(-h // stride), -(-w // stride), c, co, k, stride, *knobs,
+        codes=pw_w.dtype == torch.int8)
+    return _dwpw.dw_pw(x, dw_w, dw_b, pw_w, pw_b, residual, pw_scale,
+                       stride=stride, dw_relu=dw_relu, relu=relu, plan=plan)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

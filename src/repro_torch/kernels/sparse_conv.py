@@ -123,6 +123,32 @@ def plan(m: int, ob: int, k_steps: int) -> tuple[int, int]:
     return (16 if m <= 16 else 32), split
 
 
+_default_plan = plan   # the wrapper's ``plan`` argument shadows it
+
+SPLITS = (1, 2, 4, 8)  # the splits the autotuner tries (<= MAX_SPLIT)
+
+
+def plan_candidates(k_steps: int) -> list[tuple[int, int]]:
+    """Every (tm, split) the mma variant can run for a column of k_steps
+    surviving blocks: each tile of TILES x each split of SPLITS up to
+    k_steps (every rank walks at least one step). The autotuner's
+    search space (``core/tuning.autotune_sparse_conv_plan``)."""
+    return [(tm, split) for tm in TILES for split in SPLITS
+            if split <= max(k_steps, 1)]
+
+
+def check_plan(plan, k_steps: int) -> tuple[int, int]:
+    """``plan`` as an int pair (tm, split) if the mma variant can run it
+    for k_steps surviving blocks a column, else ValueError: tm one of
+    TILES, 1 <= split <= MAX_SPLIT and split <= k_steps."""
+    tm, split = (int(v) for v in plan)
+    if tm not in TILES or not 1 <= split <= min(MAX_SPLIT, max(k_steps, 1)):
+        raise ValueError(f"sparse_conv: plan (tm {tm}, split {split}) needs "
+                         f"tm in {TILES} and 1 <= split <= "
+                         f"min({MAX_SPLIT}, K steps {k_steps})")
+    return tm, split
+
+
 def k_slices(k_steps: int, split: int) -> list[tuple[int, int]]:
     """The K steps [lo, hi) that each cluster rank walks, in rank order:
     rank r takes [r*K//S, (r+1)*K//S), as the kernel does."""
@@ -143,7 +169,8 @@ def _kernel():
 
 
 def sparse_conv(x, vals, idx, bias, residual=None, scale=None, *, k: int,
-                stride: int = 1, relu: bool = True) -> torch.Tensor:
+                stride: int = 1, relu: bool = True,
+                plan=None) -> torch.Tensor:
     """The CUDA kernel: same function and arguments as
     :func:`sparse_conv_torch`, on CUDA tensors (x, residual bf16; vals
     bf16 with a bf16 bias, int8 codes with a bf16 bias and an f32
@@ -152,7 +179,12 @@ def sparse_conv(x, vals, idx, bias, residual=None, scale=None, *, k: int,
     launch fails (a cluster launch included); it never falls back to
     the plain version or to the other variant. The output is allocated
     here and the kernel runs on the current stream without
-    synchronising."""
+    synchronising.
+
+    ``plan``: the mma variant's (tm, split) in place of :func:`plan`'s
+    (a tuned plan, ``kernels/ops.py``); one it cannot run raises
+    (:func:`check_plan`), and so does a plan for the simt variant, which
+    has no knobs. The kernel never substitutes its own."""
     w_dtype = vals.dtype
     if w_dtype not in (torch.bfloat16, torch.int8, torch.float32):
         raise ValueError(f"sparse_conv: vals must be bf16, int8 or f32, "
@@ -200,7 +232,14 @@ def sparse_conv(x, vals, idx, bias, residual=None, scale=None, *, k: int,
     if x.numel() >= 2 ** 31 or out.numel() >= 2 ** 31:
         raise ValueError("sparse_conv: x and the output need < 2^31 elements")
     v = variant(bm, bn, w_dtype)
-    tm, split = plan(n * ho * wo, ob, n_k) if v == "mma" else (64, 1)
+    if plan is not None and v != "mma":
+        raise ValueError(f"sparse_conv: a plan for the {v} variant, which "
+                         f"takes none")
+    if v == "mma":
+        tm, split = check_plan(plan, n_k) if plan is not None else \
+            _default_plan(n * ho * wo, ob, n_k)
+    else:
+        tm, split = 64, 1
     if v == "mma":
         x, vals, bias = (_build.aligned16(t) for t in (x, vals, bias))
         if residual is not None:

@@ -19,12 +19,19 @@ serves images in the mode the config names, with the weights stored at
   admitted only after this one's logits are on the host; each request
   replays one CUDA graph of the whole forward.
 
+Planning (``_plan_cnn_serving``): the analytic cut by default;
+``tuning_cache`` (a path or a ``core.tuning.TuningCache``) plans from the
+times measured on the device and installs the cache, whose tuned kernel
+plans the kernels then run; ``calibrate`` measures every fused node
+first; ``auto_split`` lets the (stages, replicas) co-planner split the
+devices (one card: S = 1, R = 1); ``n_microbatches=0`` autotunes M from
+the plan's stage costs.
+
 On the CPU (``device="cpu"``) the same calls run the plain versions,
-eagerly. The tier, the (stages, replicas) co-planner, the tuning cache
-and per-stage placement raise ``NotImplementedError`` naming the
-ROADMAP item that ports them. An LM arch (``smollm-360m``) runs
-``serve_lm``: the prompts stepped through the decode path, then greedy
-decoding.
+eagerly. The tier and per-stage placement raise
+``NotImplementedError`` naming the ROADMAP item that ports them. An LM
+arch (``smollm-360m``) runs ``serve_lm``: the prompts stepped through
+the decode path, then greedy decoding.
 
     python -m repro_torch.launch.serve --arch resnet50 --batch 16 \\
         --microbatches 4 --stages 4
@@ -32,6 +39,8 @@ decoding.
         --requests 8 --batch 8 --mb-size 2
     python -m repro_torch.launch.serve --arch resnet50 --mode latency \\
         --requests 50 --quantize int8
+    python -m repro_torch.launch.serve --arch resnet50 --calibrate \\
+        --tuning-cache build/resnet50_h100.json --microbatches 0
     python -m repro_torch.launch.serve --arch smollm-360m --full-size \\
         --batch 4 --prompt-len 32 --gen 16
 
@@ -42,9 +51,7 @@ decoding.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
-import gc
 import time
 from collections import deque
 from typing import Optional
@@ -53,11 +60,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.core.device import graph_capture as _capture
 from repro_torch.core.device import resolve_device
 from repro_torch.core.quant import STORE_DTYPES, pytree_param_bytes, \
     quantize_tree
 from repro_torch.core import pipeline as pp
-from repro_torch.core import planner
+from repro_torch.core import planner, tuning
 from repro_torch.core.fusion import fused_graph_for
 from repro_torch.kernels import ops
 from repro_torch.models import cnn, lm
@@ -115,7 +123,6 @@ class ServeConfig:
 
 
 _TIER = "ROADMAP Queue 1 item 7, fault-tolerant tier"
-_TUNING = "ROADMAP Queue 1 item 5, co-planner, measured cost model and tuning"
 
 
 def _check_ported(cfg: ServeConfig) -> None:
@@ -228,23 +235,6 @@ def serve_lm(arch: str, *, batch: int = 4, prompt_len: int = 32,
     return out
 
 
-@contextlib.contextmanager
-def _capture(cuda_graph: "torch.cuda.CUDAGraph"):
-    """``torch.cuda.graph(cuda_graph)`` with Python's cycle collector run
-    first and held off during the capture: a collection inside it could
-    free an earlier graph and its memory pool, whose ``cudaFree``
-    invalidates the capture."""
-    gc.collect()
-    was_enabled = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.graph(cuda_graph):
-            yield
-    finally:
-        if was_enabled:
-            gc.enable()
-
-
 def _launch_counts() -> tuple[dict, dict]:
     return dict(ops.LAUNCHES), dict(ops.VARIANT_LAUNCHES)
 
@@ -348,11 +338,11 @@ def _serve_cnn_latency(cfg: ServeConfig, *, capture: bool = True) -> dict:
     stays the direct forward, which is bitwise the reference's composed
     stage chain (pipelined == sequential)."""
     mcfg, native, plan, _, _ = _plan_cnn_serving(
-        cfg.arch, n_stages=cfg.n_stages, n_replicas=1,
+        cfg.arch, n_stages=cfg.n_stages, n_replicas=1, n_microbatches=1,
         param_budget_frac=cfg.param_budget_frac, auto_split=False,
         seed=cfg.seed, tuning_cache=cfg.tuning_cache,
         calibrate=cfg.calibrate, image_size=cfg.image_size,
-        store_dtype=cfg.quantize)
+        store_dtype=cfg.quantize, verbose=cfg.verbose, device=cfg.device)
     request, info = latency_request(cfg, capture=capture, native=native)
     img_shape = (1, cfg.image_size, cfg.image_size, 3)
     reqs = torch.randn((cfg.n_requests,) + img_shape[1:],
@@ -386,33 +376,68 @@ def _serve_cnn_latency(cfg: ServeConfig, *, capture: bool = True) -> dict:
 # ---------------------------------------------------------------------------
 
 def _plan_cnn_serving(arch: str, *, n_stages: int, n_replicas: int,
-                      param_budget_frac,
+                      n_microbatches: int, param_budget_frac,
                       auto_split: bool, seed: int, tuning_cache=None,
                       calibrate: bool = False, image_size: int = 64,
                       store_dtype: str = "native",
-                      params: Optional[dict] = None):
-    """Shared serving preamble of every CNN executor: the weights (drawn
-    from ``seed`` on the CPU, native, unless ``params`` gives them),
-    the weight budget (``param_budget_frac`` of the bytes stored at
-    ``store_dtype``) and the analytic ``n_stages`` cut. Returns ``(cfg,
-    params, plan, n_replicas, total_bytes)``. The co-planner's split
-    (``auto_split``) and the measured cost model (``tuning_cache``,
-    ``calibrate``) raise ``NotImplementedError``."""
-    if auto_split:
-        raise NotImplementedError(f"auto_split: {_TUNING}")
-    if tuning_cache is not None or calibrate:
-        raise NotImplementedError(f"tuning_cache/calibrate: {_TUNING}")
+                      params: Optional[dict] = None, verbose: bool = False,
+                      device="cuda"):
+    """Shared serving preamble of every CNN executor (reference
+    ``serve.py:245-303``): the weights (drawn from ``seed`` on the CPU,
+    native, unless ``params`` gives them), the weight budget
+    (``param_budget_frac`` of the bytes stored at ``store_dtype``) and
+    the (stages, replicas) split: the co-planner's over the devices of
+    ``device``'s kind when ``auto_split`` (one card: S = 1, R = 1), the
+    caller's otherwise. Returns ``(cfg, params, plan, n_replicas,
+    total_bytes)``.
+
+    Profile-guided planning: ``tuning_cache`` (a path or a TuningCache)
+    plans with ``model="measured"`` over the cache's node times and
+    installs the cache for dispatch (``tuning.set_tuning_cache``: the
+    kernels run its tuned plans from then on, as in the reference);
+    ``calibrate=True`` first times every fused node on ``device`` at
+    ``(1, image_size, image_size, 3)`` (the card's kernels there, the
+    plain versions on the CPU) and writes the cache back to a path. A
+    missing or cold cache gives the analytic plan bit for bit."""
     cfg = get_config(arch)
     if cfg.family != "cnn":
         raise ValueError(f"{arch} is not a CNN arch")
+    dev = resolve_device(device)
     if params is None:
         params = _init_native(cfg, seed)
     total_bytes = pytree_param_bytes(params, store_dtype)
     budget = (int(param_budget_frac * total_bytes)
               if param_budget_frac else None)
-    plan = planner.plan(cfg, params, planner.PlanRequest(
-        n_stages=n_stages, max_stage_param_bytes=budget,
-        store_dtype=store_dtype))
+    cache, model = None, "analytic"
+    if tuning_cache is not None or calibrate:
+        if isinstance(tuning_cache, tuning.TuningCache):
+            path, cache = None, tuning_cache
+        else:
+            path = tuning_cache
+            cache = (tuning.TuningCache.load(path) if path
+                     else tuning.TuningCache())
+        if calibrate:
+            if verbose:
+                print(f"[serve] calibrating {arch} at {image_size}px on "
+                      f"{dev} ({len(cache)} cached entries)...")
+            cache = tuning.calibrate(
+                cfg, cnn.params_to(params, dev),
+                (1, image_size, image_size, 3), cache=cache, path=path,
+                verbose=verbose)
+        model = "measured"
+        tuning.set_tuning_cache(cache)      # the kernels' tuned plans
+    with tuning.device_scope(dev):
+        if auto_split:
+            n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+            plan2d = planner.plan(cfg, params, planner.PlanRequest(
+                n_devices=n_dev, n_microbatches=n_microbatches,
+                max_stage_param_bytes=budget, model=model,
+                tuning_cache=cache, store_dtype=store_dtype))
+            plan, n_replicas = plan2d["plan"], plan2d["n_replicas"]
+        else:
+            plan = planner.plan(cfg, params, planner.PlanRequest(
+                n_stages=n_stages, max_stage_param_bytes=budget,
+                model=model, tuning_cache=cache, store_dtype=store_dtype))
     return cfg, params, plan, n_replicas, total_bytes
 
 
@@ -461,15 +486,26 @@ def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
 
     ``params``: the native weights on the CPU (default: drawn from
     ``seed``); ``images``: (B, H, W, 3) f32 (default: drawn from
-    ``seed`` with a CPU ``torch.Generator``)."""
+    ``seed`` with a CPU ``torch.Generator``). ``n_microbatches=0``
+    autotunes M from the plan's stage costs
+    (``tuning.autotune_microbatch``); ``tuning_cache``, ``calibrate``
+    and ``auto_split`` as in :func:`_plan_cnn_serving`."""
     dev = resolve_device(device)
     cfg, native, plan, r, total_bytes = _plan_cnn_serving(
         arch, n_stages=n_stages, n_replicas=n_replicas,
+        n_microbatches=n_microbatches or 8,
         param_budget_frac=param_budget_frac, auto_split=auto_split,
         seed=seed, tuning_cache=tuning_cache, calibrate=calibrate,
-        image_size=image_size, store_dtype=quantize, params=params)
+        image_size=image_size, store_dtype=quantize, params=params,
+        verbose=verbose, device=dev)
     if not n_microbatches:
-        raise NotImplementedError(f"n_microbatches=0 (autotuned): {_TUNING}")
+        # the knee of the fill curve over the plan's (measured or
+        # analytic) stage costs
+        n_microbatches = tuning.autotune_microbatch(
+            plan["stage_cost"], n_replicas=r,
+            cache=tuning.current_tuning_cache(), arch=arch)
+        if verbose:
+            print(f"[serve] autotuned n_microbatches={n_microbatches}")
     s = plan["n_stages"]
     _check_placement(placed, s, r, dev)
     if images is None:
@@ -601,10 +637,15 @@ class CNNPipelineServer:
         dev = resolve_device(device)
         cfg, params, plan, n_replicas, _ = _plan_cnn_serving(
             arch, n_stages=n_stages, n_replicas=n_replicas,
+            # the co-planner's fill term wants the microbatches a stream
+            # brings, not one request's: continuous injection amortizes
+            # the fill (as in the reference)
+            n_microbatches=32,
             param_budget_frac=param_budget_frac,
             auto_split=auto_split, seed=seed, tuning_cache=tuning_cache,
             calibrate=calibrate, image_size=image_size,
-            store_dtype=quantize, params=params)
+            store_dtype=quantize, params=params, verbose=verbose,
+            device=dev)
         self.cfg = cfg
         self.quantize = quantize
         self.n_stages = s = plan["n_stages"]
@@ -997,7 +1038,8 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=4,
                     help="latency and continuous modes: request count")
     ap.add_argument("--microbatches", type=int, default=4,
-                    help="microbatches per batch")
+                    help="microbatches per batch (0 = autotune the count "
+                         "from the plan's stage costs)")
     ap.add_argument("--stages", type=int, default=4)
     ap.add_argument("--replicas", type=int, default=1,
                     help="run this many whole pipelines side by side, "
@@ -1010,6 +1052,19 @@ def main(argv=None):
     ap.add_argument("--param-budget-frac", type=float, default=None,
                     help="bound any stage's weight bytes to this "
                          "fraction of the model (memory-aware planner)")
+    ap.add_argument("--auto-split", action="store_true",
+                    help="let the (stages, replicas) co-planner pick "
+                         "the split for the devices there are")
+    ap.add_argument("--tuning-cache", type=str, default=None,
+                    metavar="PATH",
+                    help="plan stages from this profiled tuning cache "
+                         "(model='measured') and run its tuned kernel "
+                         "plans; missing file = cold cache = analytic "
+                         "plan")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="profile every fused node on the device first "
+                         "and write the results to --tuning-cache (then "
+                         "plan from them)")
     ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--quantize", choices=STORE_DTYPES, default="native")
     ap.add_argument("--seed", type=int, default=0)
@@ -1033,6 +1088,9 @@ def main(argv=None):
                       n_microbatches=args.microbatches,
                       mb_size=args.mb_size, n_stages=args.stages,
                       param_budget_frac=args.param_budget_frac,
+                      auto_split=args.auto_split,
+                      tuning_cache=args.tuning_cache,
+                      calibrate=args.calibrate,
                       image_size=args.image_size, quantize=args.quantize,
                       seed=args.seed, device=args.device))
 

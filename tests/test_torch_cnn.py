@@ -3,6 +3,9 @@ full width and 32 px, on the reference's own weights carried across with
 ``params_from_numpy``; the port's serving path; and the entry points'
 refusal to run anywhere but the card unless asked; ``ServeConfig``
 refusing what the reference's refuses."""
+import functools
+import warnings
+
 import numpy as np
 import pytest
 
@@ -195,6 +198,11 @@ def test_entry_points_default_to_the_card(entry):
         calls[entry]()
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_forward_jit(ref_cfg):
+    return jax.jit(lambda p, im: ref_cnn.cnn_forward(ref_cfg, p, im))
+
+
 @pytest.mark.parametrize("kw", [
     {"mode": "throughput", "auto_split": True},
     {"mode": "throughput", "continuous": True, "tuning_cache": "c.json"},
@@ -202,13 +210,71 @@ def test_entry_points_default_to_the_card(entry):
     {"mode": "latency", "n_stages": 2, "calibrate": True},
     {"arch": "mistral-nemo-12b", "mode": "latency"},
 ], ids=["throughput", "continuous", "tier", "stages", "lm"])
-def test_unported_modes_name_their_roadmap_item(kw):
-    """What is still to port raises, naming its ROADMAP item: the
-    co-planner's split and the tuning cache in the throughput modes and
-    in latency mode's plan, the tier, the LM archs not ported."""
-    kw = {"arch": "resnet50", "device": "cpu", **kw}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve(ServeConfig(**kw))
+def test_unported_modes_name_their_roadmap_item(kw, weights, monkeypatch,
+                                                tmp_path):
+    """The co-planner's split, the tuning cache and calibration now run in
+    the throughput, continuous and latency modes, serving the reference's
+    weights: each plan equals the reference planner's under the same
+    request (the calibrated one read from the port's own measurements,
+    whose keys the reference reads too), and the logits the reference's
+    forward within the parity bar, top-1 equal. What is still to port
+    raises, naming its ROADMAP item: the tier, the LM archs not ported."""
+    ref_cfg, ref_params, _, params = weights
+    kw = {"arch": "resnet50", "device": "cpu", "image_size": IMAGE,
+          "batch": 2, "n_microbatches": 2, "n_requests": 1, "mb_size": 2,
+          "verbose": False, **kw}
+    if kw.get("tier") or kw["arch"] != "resnet50":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            serve(ServeConfig(**kw))
+        return
+    from repro.core import planner as ref_planner
+    from repro.core import tuning as ref_tuning
+    from repro_torch.core import tuning
+    from repro_torch.launch import serve as port_serve
+    monkeypatch.chdir(tmp_path)                # c.json: a missing file
+    monkeypatch.setattr(port_serve, "_init_native", lambda cfg, seed: params)
+    tuning.set_tuning_cache(None)
+    try:
+        out = serve(ServeConfig(**kw))
+        cache = tuning.current_tuning_cache()
+    finally:
+        tuning.set_tuning_cache(None)
+    if kw.get("auto_split"):
+        want = ref_planner.plan(ref_cfg, ref_params, ref_planner.PlanRequest(
+            n_devices=1, n_microbatches=2))
+        assert (out["n_stages"], out["n_replicas"]) == (
+            want["n_stages"], want["n_replicas"]) == (1, 1)
+        want = want["plan"]
+    else:
+        # the port's measured times under the reference's device string
+        sig = ref_tuning.device_signature()
+        ref_cache = ref_tuning.TuningCache(
+            {k.replace("/cpu:plain", f"/{sig}"): v
+             for k, v in cache.entries.items()}, dict(cache.meta))
+        calibrated = kw.get("calibrate", False)
+        assert len(cache) > 0 if calibrated else len(cache) == 0
+        from repro_torch.core import planner
+        with warnings.catch_warnings(), tuning.device_scope("cpu"):
+            warnings.simplefilter("ignore")
+            req = dict(n_stages=kw.get("n_stages", 4), model="measured")
+            want = ref_planner.plan(ref_cfg, ref_params,
+                                    ref_planner.PlanRequest(
+                                        **req, tuning_cache=ref_cache))
+            got = planner.plan(get_config("resnet50"), params,
+                               planner.PlanRequest(**req,
+                                                   tuning_cache=cache))
+        assert got["stage_of"] == want["stage_of"]
+        np.testing.assert_array_equal(got["stage_cost"], want["stage_cost"])
+        assert got["measured_coverage"]["coverage"] == (
+            1.0 if calibrated else 0.0)
+        if "stage_of" in out:
+            assert out["stage_of"] == got["stage_of"]
+    assert out["n_stages"] == want["n_stages"]
+    logits = out["logits"][0] if kw.get("continuous") else out["logits"]
+    images = out["request_images"][0] if kw.get("continuous") else \
+        out.get("images", out.get("request_images"))
+    ref = _ref_forward_jit(ref_cfg)(ref_params, images[:1])
+    _assert_logits_close(torch.from_numpy(np.asarray(logits[:1])), ref)
 
 
 # keyword sets that both ServeConfigs take (the port's extra ``device``

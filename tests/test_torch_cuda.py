@@ -742,3 +742,185 @@ def test_pipeline_serving_equals_sequential_on_the_card(dev, arch, quantize):
                                           device="cuda").cpu()
                           for i in range(0, 6, 2)])
         assert torch.equal(torch.from_numpy(got), want[:5])
+
+
+# -- tuned plans (core/tuning.py) ---------------------------------------------
+
+def _groups_bitwise(outs, order_key):
+    """Candidates whose knobs that order the sums (``order_key``) agree
+    give the same output bit for bit: the tile and thread knobs change
+    where a sum is taken, not its order."""
+    firsts = {}
+    for plan, y in outs:
+        k = order_key(plan)
+        if k in firsts:
+            assert torch.equal(y, firsts[k]), (plan, k)
+        else:
+            firsts[k] = y
+
+
+# (N, H, C, Cout, k, stride, sparsity): a ResNet-50 stage-2 3x3 layer at
+# n 1 and its 1x1 stage-3 layer at n 4
+TUNE_CONV_CASES = [(1, 28, 128, 128, 3, 1, 0.85), (4, 7, 2048, 512, 1, 1, 0.85)]
+
+
+@pytest.mark.parametrize("case", TUNE_CONV_CASES, ids=str)
+def test_sparse_conv_every_candidate_plan(dev, case):
+    """Every (tm, split) the autotuner may pick: within 1 bf16 ulp of the
+    plain version; the same split gives the default plan's bits."""
+    n, h, cin, cout, k, stride, sp = case
+    gen = torch.Generator().manual_seed(h + cin)
+    sw = _weight(gen, k * k * cin, cout, 32, 32, sp, dev)
+    x = torch.randn((n, h, h, cin), generator=gen).to(dev, torch.bfloat16)
+    b = (torch.randn((cout,), generator=gen) * 0.1).to(dev, torch.bfloat16)
+    n_k = sw.vals.shape[1]
+    want = sc.sparse_conv_torch(x, sw.vals, sw.idx, b, k=k, stride=stride)
+    default = sc.sparse_conv(x, sw.vals, sw.idx, b, k=k, stride=stride)
+    d_plan = sc.plan(n * -(-h // stride) ** 2, cout // 32, n_k)
+    outs = [(d_plan, default)]
+    for plan in sc.plan_candidates(n_k):
+        y = sc.sparse_conv(x, sw.vals, sw.idx, b, k=k, stride=stride,
+                           plan=plan)
+        torch.cuda.synchronize()
+        _bf16_close(y, want)
+        outs.append((plan, y))
+    _groups_bitwise(outs, lambda p: p[1])
+
+
+# (N, H, C, Cout, stride): a MobileNet-V1 block at n 1 and a V2 block at n 4
+TUNE_DW_PW_CASES = [(1, 56, 128, 128, 1), (4, 14, 576, 160, 2)]
+
+
+@pytest.mark.parametrize("case", TUNE_DW_PW_CASES, ids=str)
+def test_dw_pw_every_candidate_plan(dev, case):
+    """Every plan of ``dw_pw_fused.plan_candidates``: within 1 bf16 ulp of
+    the plain version; the same (ck, split) gives the same bits."""
+    n, h, c, co, stride = case
+    gen = torch.Generator().manual_seed(c + co)
+    x, dw_w, dw_b, pw_w, pw_b, r = _dw_pw_inputs(gen, n, c, co, h, stride,
+                                                 True, dev)
+    want = dwpw.dw_pw_torch(x, dw_w, dw_b, pw_w, pw_b, r, stride=stride)
+    ho = -(-h // stride)
+    d_plan = dwpw.plan(n, ho, ho, c, co, 3, stride)
+    outs = [(d_plan, dwpw.dw_pw(x, dw_w, dw_b, pw_w, pw_b, r,
+                                stride=stride))]
+    for plan in dwpw.plan_candidates(n, ho, ho, c, co, 3, stride):
+        y = dwpw.dw_pw(x, dw_w, dw_b, pw_w, pw_b, r, stride=stride,
+                       plan=plan)
+        torch.cuda.synchronize()
+        _bf16_close(y, want)
+        outs.append((plan, y))
+    _groups_bitwise(outs, lambda p: (p.ck, p.split))
+
+
+@pytest.mark.parametrize("case", [(2, 56, 64, 1), (1, 14, 512, 2)], ids=str)
+def test_depthwise_every_candidate_plan(dev, case):
+    """Every (r, threads): the default plan's bits (no knob orders the
+    sums), within 1 bf16 ulp of the plain version."""
+    n, h, c, stride = case
+    gen = torch.Generator().manual_seed(h + c)
+    x = torch.randn((n, h, h, c), generator=gen).to(dev, torch.bfloat16)
+    w = (torch.randn((3, 3, c), generator=gen) / 3).to(dev, torch.bfloat16)
+    want = dw.depthwise_conv_torch(x, w, stride=stride)
+    default = dw.depthwise_conv(x, w, stride=stride)
+    cands = dw.plan_candidates(c, stride)
+    assert len(cands) == (12 if stride == 1 else 4)
+    for plan in cands:
+        y = dw.depthwise_conv(x, w, stride=stride, plan=plan)
+        torch.cuda.synchronize()
+        _bf16_close(y, want)
+        assert torch.equal(y, default), plan
+
+
+def test_wrappers_refuse_plans_they_cannot_run(dev):
+    """An infeasible plan raises; a plan for a variant without knobs
+    raises; nothing falls back to the default plan."""
+    gen = torch.Generator().manual_seed(3)
+    sw = _weight(gen, 9 * 64, 64, 32, 32, 0.5, dev)
+    x = torch.randn((1, 9, 9, 64), generator=gen).to(dev, torch.bfloat16)
+    b = torch.zeros(64, dtype=torch.bfloat16, device=dev)
+    n_k = sw.vals.shape[1]
+    for bad in ((64, 1), (32, n_k + 1), (16, 0)):
+        with pytest.raises(ValueError, match="plan"):
+            sc.sparse_conv(x, sw.vals, sw.idx, b, k=3, plan=bad)
+    sw8 = _weight(gen, 9 * 64, 64, 8, 8, 0.5, dev)
+    with pytest.raises(ValueError, match="simt"):
+        sc.sparse_conv(x, sw8.vals, sw8.idx, b, k=3, plan=(32, 1))
+    xd, dw_w, dw_b, pw_w, pw_b, _ = _dw_pw_inputs(gen, 1, 64, 64, 9, 1,
+                                                  False, dev)
+    good = dwpw.plan(1, 9, 9, 64, 64, 3, 1)
+    for bad in (good._replace(split=4), good._replace(tn=32),
+                good._replace(tr=9, tw=9)):
+        with pytest.raises(ValueError, match="plan"):
+            dwpw.dw_pw(xd, dw_w, dw_b, pw_w, pw_b, plan=bad)
+    with pytest.raises(ValueError, match="plan"):
+        dw.depthwise_conv(xd, dw_w, stride=2, plan=(2, 64))
+    with pytest.raises(ValueError, match="plan"):
+        dw.depthwise_conv(xd, dw_w, plan=(1, 48))
+
+
+def test_captured_graph_keeps_its_knobs(dev):
+    """ops.dw_pw_conv captured under one cache replays that plan after the
+    active cache changes, even to a plan the kernel refuses (the eager
+    call then raises); the capture counted one launch, a replay none."""
+    from repro_torch.core import tuning
+    gen = torch.Generator().manual_seed(5)
+    x, dw_w, dw_b, pw_w, pw_b, _ = _dw_pw_inputs(gen, 1, 128, 128, 28, 1,
+                                                 False, dev)
+    key = tuning.kernel_key("dwpw", x.shape, x.dtype,
+                            device=tuning.device_signature(dev), k=3, s=1,
+                            co=128)
+    good, bad = tuning.TuningCache(), tuning.TuningCache()
+    for cache, split in ((good, 2), (bad, 64)):
+        for name, v in (("tm", 32), ("tn", 64), ("ck", 32), ("split", split)):
+            cache.put_knob(key, name, v)
+    with ops.config(tuning_cache=good):
+        want = ops.dw_pw_conv(x, dw_w, dw_b, pw_w, pw_b)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        ops.reset_launches()
+        with torch.cuda.graph(graph):
+            out = ops.dw_pw_conv(x, dw_w, dw_b, pw_w, pw_b)
+        _assert_launches({"dw_pw": 1})
+    _bf16_close(want, dwpw.dw_pw_torch(x, dw_w, dw_b, pw_w, pw_b))
+    with ops.config(tuning_cache=bad):
+        with pytest.raises(ValueError, match="plan"):
+            ops.dw_pw_conv(x, dw_w, dw_b, pw_w, pw_b)
+        ops.reset_launches()
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_launches({})
+    assert torch.equal(out, want)
+
+
+def test_calibrate_resnet50_covers_every_node(dev):
+    """calibrate(..., autotune=True) on the card at 64 px: every fused node
+    timed (the measured plan's coverage 1.0, keys on this card), every
+    distinct sparse conv shape tuned, and the forward under the cache
+    within the bars of the default forward."""
+    from repro_torch.core import planner, tuning
+    from repro_torch.launch import serve as srv
+    cfg = get_config("resnet50")
+    params = cnn.params_to(srv._init_native(cfg, 0), dev)
+    cache = tuning.calibrate(cfg, params, (1, 64, 64, 3), autotune=True,
+                             iters=3)
+    sig = tuning.device_signature(dev)
+    assert cache.meta["device"] == sig and sig.endswith(":cuda")
+    assert all(k.endswith(sig) for k in cache.entries)
+    plan = planner.plan(cfg, params, planner.PlanRequest(
+        n_stages=4, model="measured", tuning_cache=cache))
+    cov = plan["measured_coverage"]
+    assert cov["coverage"] == 1.0 and cov["fallback"] == []
+    assert all(c > 0 for c in plan["node_cycles"])
+    sconv = [k for k in cache.entries if k.startswith("kern/sconv/")]
+    assert len(sconv) >= 15
+    for key in sconv:
+        assert cache.knob(key, "tm") in sc.TILES and cache.time_us(key) > 0
+    x = torch.randn((1, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    base = cnn.cnn_forward(cfg, params, x, device="cuda").cpu()
+    ops.reset_launches()
+    with ops.config(tuning_cache=cache):
+        tuned = cnn.cnn_forward(cfg, params, x, device="cuda").cpu()
+    _assert_launches({"sparse_conv": 47, "sparse_matmul": 1})
+    scale = float(base.abs().max())
+    assert float((tuned - base).abs().max()) <= 1e-3 * scale

@@ -10,6 +10,7 @@ in both throughput modes. The serving runs against the reference's own
 are in tests/test_torch_pipeline_serve.py."""
 import dataclasses
 import functools
+import warnings
 
 import numpy as np
 import pytest
@@ -255,6 +256,16 @@ def test_serve_throughput_and_continuous_at_every_store_dtype(quantize):
         np.testing.assert_array_equal(got, want.numpy())
 
 
+def _ref_tree(params):
+    """The port's dense weights as the reference's arrays, bit for bit."""
+    def arr(t):
+        if t.dtype == torch.bfloat16:
+            return jnp.asarray(t.view(torch.int16).numpy()).view(jnp.bfloat16)
+        return jnp.asarray(t.numpy())
+    return {n: {"w": arr(p["w"]), "b": arr(p["b"])}
+            for n, p in params.items()}
+
+
 @pytest.mark.parametrize("kw", [
     {"auto_split": True}, {"tuning_cache": "cache.json"},
     {"calibrate": True}, {"n_microbatches": 0},
@@ -262,10 +273,72 @@ def test_serve_throughput_and_continuous_at_every_store_dtype(quantize):
                                       "n_stages": 1},
     {"continuous": True, "auto_split": True}, {"tier": True},
 ], ids=str)
-def test_unported_throughput_knobs_name_their_roadmap_item(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        serve(ServeConfig(arch="mobilenet_v1", device="cpu",
-                          image_size=IMAGE, batch=4, verbose=False, **kw))
+def test_unported_throughput_knobs_name_their_roadmap_item(kw, monkeypatch,
+                                                           tmp_path):
+    """The co-planner's split, a tuning cache (here a missing file: a
+    cold cache), calibration and the autotuned microbatch count now run:
+    the plan (and M) equal the reference planner's on the same weights
+    under the same request, the calibrated plan read from the port's own
+    measurements, and the logits the sequential forward's bitwise.
+    Per-stage placement and the tier still raise, naming their ROADMAP
+    item."""
+    base = dict(arch="mobilenet_v1", device="cpu", image_size=IMAGE,
+                batch=4, n_requests=2, mb_size=2, verbose=False)
+    if kw.get("placed") or kw.get("tier"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+            serve(ServeConfig(**base, **kw))
+        return
+    from repro.configs import get_config as ref_get_config
+    from repro.core import planner as ref_planner
+    from repro.core import tuning as ref_tuning
+    from repro_torch.core import tuning
+    monkeypatch.chdir(tmp_path)              # cache.json: a missing file
+    cfg = get_config("mobilenet_v1")
+    params = port_serve._init_native(cfg, 0)
+    ref_cfg, ref_params = ref_get_config("mobilenet_v1"), _ref_tree(params)
+    tuning.set_tuning_cache(None)
+    try:
+        out = serve(ServeConfig(**base, **kw))
+        cache = tuning.current_tuning_cache()
+    finally:
+        tuning.set_tuning_cache(None)
+    m = 32 if kw.get("continuous") else 4
+    if kw.get("auto_split"):
+        want = ref_planner.plan(ref_cfg, ref_params, ref_planner.PlanRequest(
+            n_devices=1, n_microbatches=m))
+        assert (out["n_stages"], out["n_replicas"]) == (
+            want["n_stages"], want["n_replicas"]) == (1, 1)
+        want = want["plan"]
+    elif "tuning_cache" in kw or kw.get("calibrate"):
+        sig = ref_tuning.device_signature()
+        ref_cache = ref_tuning.TuningCache(
+            {k.replace("/cpu:plain", f"/{sig}"): v
+             for k, v in cache.entries.items()}, dict(cache.meta))
+        assert len(cache) > 0 if kw.get("calibrate") else len(cache) == 0
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            want = ref_planner.plan(ref_cfg, ref_params,
+                                    ref_planner.PlanRequest(
+                                        n_stages=4, model="measured",
+                                        tuning_cache=ref_cache))
+        if kw.get("calibrate"):
+            assert want["measured_coverage"]["coverage"] == 1.0
+    else:
+        want = ref_planner.plan(ref_cfg, ref_params,
+                                ref_planner.PlanRequest(n_stages=4))
+        assert out["n_microbatches"] == ref_tuning.autotune_microbatch(
+            want["stage_cost"], n_replicas=1)
+    assert out["n_stages"] == want["n_stages"]
+    assert out["stage_of"] == want["stage_of"]
+    if kw.get("continuous"):
+        for x, got in zip(out["request_images"], out["logits"]):
+            np.testing.assert_array_equal(got, cnn.cnn_forward(
+                cfg, params, torch.from_numpy(x), device="cpu").numpy())
+    else:
+        want_logits = cnn.cnn_forward(cfg, params,
+                                      torch.from_numpy(out["images"]),
+                                      device="cpu")
+        np.testing.assert_array_equal(out["logits"], want_logits.numpy())
 
 
 @pytest.mark.parametrize("continuous", [False, True])

@@ -361,7 +361,8 @@ def test_pipeline_throughput_rel_tradeoff():
 
 def test_plan_request_validation_and_unported_requests():
     """PlanRequest keeps the reference's validation; the co-plan and the
-    measured model name their ROADMAP item."""
+    measured model (no cache active: a cold one) plan as the reference's
+    (tests/test_torch_tuning.py holds every other case)."""
     for kw in ({"n_stages": 2, "store_dtype": "bogus"}, {},
                {"n_stages": 2, "n_devices": 4}):
         with pytest.raises(ValueError) as got:
@@ -369,12 +370,22 @@ def test_plan_request_validation_and_unported_requests():
         with pytest.raises(ValueError) as want:
             ref_planner.PlanRequest(**kw)
         assert str(got.value) == str(want.value)
-    _, _, cfg, params = _weights("mobilenet_v1")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        planner.plan(cfg, params, planner.PlanRequest(n_devices=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        planner.plan(cfg, params, planner.PlanRequest(n_stages=2,
-                                                      model="measured"))
+    ref_cfg, ref_params, cfg, params = _weights("mobilenet_v1")
+    got = planner.plan(cfg, params, planner.PlanRequest(n_devices=4))
+    want = ref_planner.plan(ref_cfg, ref_params,
+                            ref_planner.PlanRequest(n_devices=4))
+    assert got["candidates"] == want["candidates"]
+    assert (got.n_stages, got.n_replicas) == (want["n_stages"],
+                                              want["n_replicas"])
+    _assert_same_plan(got.plan, want["plan"])
+    with pytest.warns(UserWarning, match="cold-cache"):
+        got = planner.plan(cfg, params, planner.PlanRequest(
+            n_stages=2, model="measured"))
+    with pytest.warns(UserWarning, match="cold-cache"):
+        want = ref_planner.plan(ref_cfg, ref_params, ref_planner.PlanRequest(
+            n_stages=2, model="measured"))
+    _assert_same_plan(got, want)
+    assert got["measured_coverage"] == want["measured_coverage"]
     with pytest.raises(ValueError, match="unknown cost model"):
         planner.cnn_node_costs(cfg, params, model="bogus")
 

@@ -1,7 +1,8 @@
 """Where the fused dw->pw kernel's time goes on one NVIDIA card, and how
 good ``dw_pw_fused.plan()`` is: at every distinct MobileNet-V1/V2 block
 shape (224 px, batch 1), the mma variant's time at the plan's tiles, at
-every other tile, Cout tile, channel chunk and split that fits, and (with
+every other tile, Cout tile, channel chunk and split that fits (the
+autotuner's candidates, ``dw_pw_fused.plan_candidates``), and (with
 ``--knockouts``) copies of the kernel with one part taken out (the
 depthwise, the halo copies, the tensor-core product, or all three with
 the taps and weight copies: a bare launch with its epilogue).
@@ -137,19 +138,10 @@ def main() -> int:
         torch.cuda.synchronize()
         compare(out, want, bf16_tol, label)
         sweep = []
-        for tm in dwpw.TILES:
-            tr, tw = dwpw.tile_shape(tm, ho, ho)
-            for tn in (64, 128):
-                for ck in (32, 64):
-                    for split in (1, 2, 4, 8):
-                        if split > -(-c // ck) or dwpw.smem_bytes(
-                                3, tm, tn, (tr - 1) * stride + 3,
-                                (tw - 1) * stride + 3, ck,
-                                split) > dwpw.SMEM_MAX:
-                            continue
-                        t = time_ms(lambda: launch(libs["dw_pw"], tm, tn, tr,
-                                                   tw, ck, split)) * 1e3
-                        sweep.append((t, tm, tn, ck, split))
+        for q in dwpw.plan_candidates(1, ho, ho, c, co, 3, stride):
+            t = time_ms(lambda: launch(libs["dw_pw"], q.tm, q.tn, q.tr, q.tw,
+                                       q.ck, q.split)) * 1e3
+            sweep.append((t, q.tm, q.tn, q.ck, q.split))
         sweep.sort()
         best = sweep[0]
         rows.append({"block": label, "plan": p._asdict(), "us": times,
