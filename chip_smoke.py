@@ -90,8 +90,24 @@ Phases, in order; any failure raises and exits nonzero:
    under each cut, twice, in turns, its logits equal to the sequential
    forward under the same cache bit for bit, its images/s printed;
    ``n_microbatches=0`` and ``auto_split=True`` once each;
-7. one ``{"kernels": [...]}`` line (each kernel with the knobs it was
-   tuned to), then the device line last.
+7. the fault-tolerant tier, ResNet-50 at 224 px, S 4, mb 2, through
+   ``serve()``: ``tier=True`` with 2 replicas at native and int8, clean
+   and with replica 0 failed at tick 3 (16 requests of 8 images; the
+   failed run == the clean run == the sequential forward, microbatch by
+   microbatch, bit for bit; each replica's warm-up and capture counted);
+   ``procs=2`` with worker 0 and ``hosts=2`` with worker 1 SIGKILLed at
+   their first tick (4 requests; == the in-process tier bitwise; each
+   worker's launches up to ``ready`` counted); two dial-in workers with
+   worker 1's connection killed through a ``NetFaultProxy`` mid-stream
+   (its frames swallowed from the submit to the kill, so work is
+   outstanding), then a second stream once the respawned worker is ready; images/s of
+   one ``CNNPipelineServer`` (built under ``deterministic_convs``, as the
+   replicas are) against the tier at R 1, R 2 and R 2 with replica 0
+   failed at its tick 120 on the same stream served 8 times, three times
+   each, in turns, and the failure's cost in ms; a ``[tier]`` line each;
+8. one ``{"kernels": [...]}`` line (each kernel with the knobs it was
+   tuned to, and its launches in the tier phase), then the device line
+   last.
 
 Per-layer numbers are also written to ``build/chip_smoke.json``.
 
@@ -141,6 +157,12 @@ N_REQUESTS = 50
 PIPE_BATCH, PIPE_M, PIPE_S, PIPE_ITERS = 16, 4, 4, 20
 PIPE_MB_SIZES = (2, PIPE_BATCH // PIPE_M)
 CONT_REQUESTS, CONT_BATCH = 16, 8
+# the fault-tolerant tier: requests, images a request and microbatch size
+# (in process), requests through the worker processes
+TIER_REQUESTS, TIER_BATCH, TIER_MB, TIER_PROC_REQUESTS = 16, 8, 2, 4
+# times the 16 requests are served for the images/s comparison, and the
+# tick of replica 0 (of ~32 a serving at R 2) at which it fails there
+TIER_RATE_ROUNDS, TIER_FAIL_TICK = 8, 120
 CONT_MB = {"resnet50": (1, 2), "mobilenet_v1": (2,), "mobilenet_v2": (2,)}
 MOBILENETS = ("mobilenet_v1", "mobilenet_v2")
 MB_BLOCKS = {"mobilenet_v1": 13, "mobilenet_v2": 17}   # dw_pw / dw nodes
@@ -344,7 +366,8 @@ def main() -> int:
     from repro_torch.kernels import sparse_conv as sc
     from repro_torch.kernels import sparse_matmul as sm
     from repro_torch.launch.serve import (CNNPipelineServer, ServeConfig,
-                                          _serve_cnn, _serve_cnn_continuous,
+                                          _init_native, _serve_cnn,
+                                          _serve_cnn_continuous,
                                           _serve_cnn_latency, serve, serve_lm)
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import cnn, lm
@@ -2077,6 +2100,303 @@ def main() -> int:
               f"sequential (mb {mb_}) under the cache bitwise")
     print(f"[tune] phase 6 in {time.perf_counter() - t_phase:.1f}s")
 
+    # -- 7. the fault-tolerant tier (runtime/tier.py) ---------------------
+    # ResNet-50 at 224 px, S 4, mb 2. Through serve(): the in-process tier
+    # (R 2) at native and int8, without a failure and with replica 0
+    # failed at tick 3, every request equal to the no-failure run's and
+    # to the sequential forward, microbatch by microbatch, bit for bit;
+    # procs=2 with worker 0 SIGKILLed at its first tick and hosts=2 with
+    # worker 1 SIGKILLed, equal to the in-process tier's bits. Then two
+    # dial-in workers, one of them through a NetFaultProxy whose
+    # connections are killed mid-stream; the respawned worker, once ready,
+    # serves a second stream, bitwise again. Last, images/s of one
+    # CNNPipelineServer against the in-process tier at R 1 and R 2 on the
+    # same stream, in turns. The counters are reset just before each
+    # in-process serve and read just after: the replicas' warm-ups and
+    # captures (a replay runs no Python); the workers report theirs with
+    # ``ready``.
+    import socket as _socket
+    from repro_torch.core.device import deterministic_convs
+    from repro_torch.runtime import fault as rt_fault
+    from repro_torch.runtime import tier as rt_tier
+    t_phase = time.perf_counter()
+    r50 = get_config("resnet50")
+    per_fwd, per_fwd_v = per_request_want("resnet50", "native")
+    tier_rows = {}
+    tier_launches = {k: 0 for k in ops.LAUNCHES}
+    worker_launches = {k: 0 for k in ops.LAUNCHES}
+    tier_kw = dict(arch="resnet50", n_stages=PIPE_S, mb_size=TIER_MB,
+                   image_size=IMAGE_SIZE, batch=TIER_BATCH, seed=SEED,
+                   device="cuda", verbose=False)
+
+    def bits_equal(a, b) -> bool:
+        return a.shape == b.shape and np.array_equal(a.view(np.uint32),
+                                                     b.view(np.uint32))
+
+    def tier_line(what, m, extra=""):
+        print(f"[tier] {what}: {m['images']} images, {m['images_per_s']:.1f}"
+              f" im/s ({m['elapsed_s']:.3f} s), respawns {m['respawns']}, "
+              f"recovered microbatches {m['recovered_microbatches']}"
+              + extra)
+
+    def secs(v):
+        return "none" if v is None else f"{v:.3f} s"
+
+    def ready_str(m):
+        return ", spawn-to-ready " + ", ".join(
+            f"w{r['idx']} gen {r['generation']} {r['seconds']:.2f} s"
+            for r in m["ready_times"])
+
+    def add_worker_launches(ready_times, what):
+        for r in ready_times:
+            check_launches(r["launches"], {k: v * 4 for k, v in
+                                           per_fwd.items()},
+                           f"{what}: worker {r['idx']} gen "
+                           f"{r['generation']} up to ready")
+            for k, v in r["launches"].items():
+                worker_launches[k] += v
+
+    tier_logits = {}
+    for q in ("native", "int8"):
+        outs = []
+        for label, fail in (("no failure", {}),
+                            ("replica 0 failed at tick 3",
+                             {"fail_replica": 0, "fail_at_tick": 3})):
+            ops.reset_launches()
+            m = serve(ServeConfig(tier=True, replicas=2,
+                                  n_requests=TIER_REQUESTS, quantize=q,
+                                  **tier_kw, **fail))
+            counted, variants = dict(ops.LAUNCHES), dict(ops.VARIANT_LAUNCHES)
+            what = f"tier R 2 {q}, {label}"
+            # each replica: 2 eager warm-up ticks and 2 captured ticks
+            check_launches(counted, {k: v * 8 for k, v in per_fwd.items()},
+                           what)
+            check_variants(variants, {k: v * 8 for k, v in
+                                      per_fwd_v.items()}, what)
+            add_variants(variants)
+            for k, v in counted.items():
+                tier_launches[k] += v
+                all_launches[k] = all_launches.get(k, 0) + v
+            if (m["completed"], m["failed"]) != (TIER_REQUESTS, 0) or \
+                    m["respawns"] != (1 if fail else 0) or \
+                    (fail and not m["recovered_microbatches"]):
+                raise AssertionError(f"{what}: {m}")
+            outs.append(m)
+            tier_line(what, m)
+            tier_rows[f"inprocess/{q}/{'failure' if fail else 'clean'}"] = {
+                k: m[k] for k in ("images_per_s", "elapsed_s", "respawns",
+                                  "recovered_microbatches", "rounds",
+                                  "replica_ticks", "latency_p50_s",
+                                  "latency_p99_s")}
+        params_q = cnn.params_to(quantize_tree(
+            _init_native(r50, SEED), q), dev)
+        def sequential(x):
+            with torch.inference_mode():
+                return torch.cat([cnn.cnn_forward(
+                    r50, params_q, torch.from_numpy(x[j:j + TIER_MB]),
+                    device=dev).cpu() for j in range(0, len(x), TIER_MB)
+                ]).numpy()
+        # the sequential forward under the replicas' cuDNN setting is the
+        # contract; the one under the process's own setting only says
+        # whether that setting changes a bit here
+        same_outside = 0
+        for i, (x, a, b) in enumerate(zip(outs[0]["request_images"],
+                                          outs[0]["logits"],
+                                          outs[1]["logits"])):
+            with deterministic_convs():
+                seq = sequential(x)
+            if not (bits_equal(a, b) and bits_equal(b, seq)) or \
+                    not np.isfinite(b).all():
+                raise AssertionError(f"tier {q} request {i}: the failed "
+                                     f"run, the clean run and the sequential"
+                                     f" forward differ")
+            same_outside += bits_equal(b, sequential(x))
+        tier_logits[q] = outs[0]["logits"]
+        tier_images = outs[0]["request_images"]
+        tier_rows[f"inprocess/{q}/same_bits_outside_deterministic_convs"] = \
+            same_outside
+        print(f"[tier] {q}: {TIER_REQUESTS} requests, failed run == clean "
+              f"run == sequential forward (mb {TIER_MB}) bitwise; the "
+              f"sequential forward outside deterministic_convs (cudnn "
+              f"benchmark={torch.backends.cudnn.benchmark}, deterministic="
+              f"{torch.backends.cudnn.deterministic}) gives the same bits "
+              f"on {same_outside} of {TIER_REQUESTS} requests")
+
+    for label, kw in (("procs=2, worker 0 SIGKILLed at tick 1",
+                       {"procs": 2, "kill_worker": 0}),
+                      ("hosts=2, worker 1 SIGKILLed at tick 1",
+                       {"hosts": 2, "kill_worker": 1})):
+        ops.reset_launches()
+        m = serve(ServeConfig(n_requests=TIER_PROC_REQUESTS, kill_at_tick=1,
+                              **tier_kw, **kw))
+        if any(ops.LAUNCHES.values()):
+            raise AssertionError(f"{label}: the supervisor launched kernels")
+        [death] = m["worker_exits"]
+        if (m["completed"], m["failed"], m["respawns"]) != (
+                TIER_PROC_REQUESTS, 0, 1) or death["exit_code"] != -9 or \
+                death["idx"] != kw["kill_worker"]:
+            raise AssertionError(f"{label}: {m}")
+        add_worker_launches(m["ready_times"], label)
+        for i, (a, b) in enumerate(zip(tier_logits["native"], m["logits"])):
+            if not bits_equal(a, b):
+                raise AssertionError(f"{label} request {i}: differs from "
+                                     f"the in-process tier")
+        tier_line(label, m, ready_str(m) + f"; detection to the first "
+                  f"recovered result {secs(m['recovery_s'])} "
+                  f"(detected via {death['detected_via']}); == in-process "
+                  f"tier bitwise")
+        tier_rows[label] = {k: m[k] for k in (
+            "images_per_s", "elapsed_s", "respawns", "recovered_microbatches",
+            "recovery_s", "worker_exits", "ready_times")}
+
+    # a connection cut mid-stream: worker 1 dials through the proxy
+    sock = _socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    proxy = rt_fault.NetFaultProxy(("127.0.0.1", port))
+    reqs = tier_images[:TIER_PROC_REQUESTS]
+    label = "hosts=2, worker 1's connection killed"
+    try:
+        with rt_tier.HostServingTier(
+                "resnet50", n_procs=2, n_stages=PIPE_S, mb_size=TIER_MB,
+                image_size=IMAGE_SIZE, seed=SEED,
+                listen=("127.0.0.1", port),
+                dial_addrs={1: proxy.address}) as ht:
+            # worker 1's frames (results, heartbeats) are swallowed from
+            # the submit to the kill, so the kill lands with its work
+            # outstanding whatever the timing
+            proxy.sever("c2s")
+            rids = [ht.submit(x) for x in reqs]
+            ht.run(max_rounds=2)
+            proxy.heal("c2s")
+            t_kill = time.perf_counter()
+            proxy.kill_connections()
+            deadline = t_kill + 600
+            while ht._live_rids() and time.perf_counter() < deadline:
+                ht.run(max_rounds=20)
+            got = [ht.results(r) for r in rids]
+            done_s = time.perf_counter() - t_kill
+            m = {"images": len(reqs) * TIER_BATCH, "respawns": ht.respawns,
+                 "recovered_microbatches": ht.recovered_microbatches,
+                 "recovery_s": ht.recovery_times[0]
+                 if ht.recovery_times else None}
+            ht._wait_ready()               # the respawned worker warms up
+            # worker 0 sits idle past the death bound before the second
+            # stream: idle time must not read as a stalled tick
+            idle_until = t_kill + done_s + ht.detector.dead_after_s + 0.5
+            while time.perf_counter() < idle_until:
+                ht._wait_events(0.1)
+            idle_s = time.perf_counter() - t_kill - done_s
+            rids = [ht.submit(x) for x in reqs]
+            again = ht.run()
+            got2 = [ht.results(r) for r in rids]
+            m.update(images_per_s=again["images_per_s"],
+                     elapsed_s=again["elapsed_s"],
+                     ready_times=list(ht.ready_times),
+                     worker_exits=list(ht.worker_exits),
+                     blob_bytes_served=ht.blob_bytes_served)
+    finally:
+        proxy.close()
+    if m["respawns"] < 1 or not m["recovered_microbatches"] or \
+            [d["idx"] for d in m["worker_exits"]] != [1]:
+        raise AssertionError(f"{label}: {m}")
+    add_worker_launches(m["ready_times"], label)
+    for i, (a, b, c) in enumerate(zip(tier_logits["native"], got, got2)):
+        if not (bits_equal(a, b) and bits_equal(a, c)):
+            raise AssertionError(f"{label} request {i}: differs from the "
+                                 f"in-process tier")
+    tier_line(label + f", then a second stream after {idle_s:.1f} s idle",
+              m, ready_str(m) +
+              f"; kill to the last result {done_s:.3f} s, to the first "
+              f"recovered result {secs(m['recovery_s'])} after detection; "
+              f"blob {m['blob_bytes_served']} B served; both streams == "
+              f"in-process tier bitwise")
+    tier_rows[label] = dict(m, kill_to_done_s=done_s, idle_s=idle_s)
+
+    # images/s: one server against the tier at R 1 and R 2, and R 2 with
+    # replica 0 failed mid-stream (at its tick TIER_FAIL_TICK, in the
+    # TIER_RATE_ROUNDS // 2-th serving or so), each serving the 16 requests
+    # TIER_RATE_ROUNDS times (the queue never deeper than one stream), in
+    # turns; the tier's host time a scheduler round. The server is built
+    # under deterministic_convs, as every tier replica is, so all four run
+    # the same cuDNN algorithms. A failure's cost: the serving it fell in
+    # against the median of the other servings of that stream.
+    reqs = tier_images
+    rates = {"server": [], "tier R 1": [], "tier R 2": [],
+             "tier R 2 failed": []}
+    round_ms = {k: [] for k in rates if k != "server"}
+    fail_cost_ms, slept_ms, servings_ms, ticks_of = [], [], {}, {}
+    for label in list(rates) + list(reversed(rates)) + list(rates):
+        slept = []
+        if label == "server":
+            with deterministic_convs():
+                obj = CNNPipelineServer(
+                    "resnet50", mb_size=TIER_MB, n_stages=PIPE_S,
+                    image_size=IMAGE_SIZE, seed=SEED, device=dev)
+        else:
+            fail = label.endswith("failed")
+            obj = rt_tier.ServingTier(
+                "resnet50", n_replicas=2 if "R 2" in label else 1,
+                n_stages=PIPE_S, mb_size=TIER_MB, image_size=IMAGE_SIZE,
+                seed=SEED, injectors={0: rt_fault.FailureInjector(
+                    fail_at_steps=(TIER_FAIL_TICK,))} if fail else None,
+                sleep=lambda t: (slept.append(t), time.sleep(t)))
+        n_img, elapsed, n_rounds, per_serving = 0, 0.0, 0, []
+        for _ in range(TIER_RATE_ROUNDS):
+            rids = [obj.submit(x) for x in reqs]
+            m = obj.run()
+            got = [obj.results(r) for r in rids]
+            if not all(bits_equal(a, b) for a, b in
+                       zip(tier_logits["native"], got)):
+                raise AssertionError(f"{label}: logits differ from the "
+                                     f"tier's")
+            n_img += m["images"]
+            elapsed += m["elapsed_s"]
+            n_rounds += m.get("rounds", 0)
+            per_serving.append((m["elapsed_s"], m.get("respawns", 0)))
+        rates[label].append(n_img / elapsed)
+        servings_ms.setdefault(label, []).append(
+            [round(e * 1e3, 3) for e, _ in per_serving])
+        if label in round_ms:
+            round_ms[label].append(elapsed / n_rounds * 1e3)
+            ticks_of.setdefault(label, []).append(m["replica_ticks"])
+        if label == "tier R 2 failed":
+            # the serving in which the respawn count first moved
+            hit = next((i for i, (_, r) in enumerate(per_serving) if r), 0)
+            if per_serving[-1][1] != 1 or hit in (0, TIER_RATE_ROUNDS - 1):
+                raise AssertionError(f"{label}: the failure did not fall "
+                                     f"mid-stream: {per_serving}")
+            rest = [e for i, (e, _) in enumerate(per_serving) if i != hit]
+            fail_cost_ms.append((per_serving[hit][0] - float(np.median(
+                rest))) * 1e3)
+            slept_ms.append(sum(slept) * 1e3)
+    tier_rows["images_per_s"] = rates
+    tier_rows["round_ms"] = round_ms
+    tier_rows["failure_cost_ms"] = fail_cost_ms
+    tier_rows["failure_slept_ms"] = slept_ms
+    tier_rows["servings_ms"] = servings_ms
+    tier_rows["replica_ticks"] = ticks_of
+    print(f"[tier] images/s, {TIER_RATE_ROUNDS} x {len(reqs)} x {TIER_BATCH}"
+          f" images at mb {TIER_MB}, S {PIPE_S}, in turns: " + "; ".join(
+              f"{k} {[round(v, 1) for v in vs]}" for k, vs in rates.items())
+          + "; ms a scheduler round: " + "; ".join(
+              f"{k} {[round(v, 4) for v in vs]}"
+              for k, vs in round_ms.items())
+          + "; all == the tier's logits bitwise")
+    print(f"[tier] R 2, replica 0 failed at its tick {TIER_FAIL_TICK}: the "
+          f"serving it fell in took {[round(v, 3) for v in fail_cost_ms]} "
+          f"ms over the median of the other {TIER_RATE_ROUNDS - 1}; the "
+          f"tier slept {[round(v, 3) for v in slept_ms]} ms in all")
+    for k in ("tier R 2", "tier R 2 failed"):
+        print(f"[tier] {k}: ticks a replica {ticks_of[k]}; ms a serving "
+              f"{servings_ms[k]}")
+    def counts_str(d):
+        return ", ".join(f"{k}: {v}" for k, v in d.items() if v) or "none"
+    print(f"[tier] phase 7 in {time.perf_counter() - t_phase:.1f}s; "
+          f"launches in this process {counts_str(tier_launches)}, in the "
+          f"workers up to ready {counts_str(worker_launches)}")
+
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "build_s": build_s,
@@ -2100,10 +2420,10 @@ def main() -> int:
         "ptxas": resources, "hmma": hmma,
         "tuned_kernels": tuned,
         "tuned_sums": {f"{n}/n{k}": v for (n, k), v in tuned_sums.items()},
-        "cuts": {f"{a}/{lbl}": row for (a, lbl), row in plans_run.items()}},
-        indent=1))
+        "cuts": {f"{a}/{lbl}": row for (a, lbl), row in plans_run.items()},
+        "tier": tier_rows}, indent=1, default=str))
 
-    # -- 7. the kernels line, then the device line ------------------------
+    # -- 8. the kernels line, then the device line ------------------------
     kernels = [
         {"name": "sparse_conv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sparse_conv.cu",
@@ -2223,6 +2543,10 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows_),
             "by_n": {n_: tuned_sums[(name, n_)] for n_ in sorted(
                 {r["n"] for r in rows_})}} if rows_ else None
+        # the tier (phase 7): launches counted in this process while the
+        # replicas warmed up and captured, and by the workers up to ready
+        entry["tier"] = {"launches": tier_launches.get(name, 0),
+                         "worker_launches": worker_launches.get(name, 0)}
         entry["ptxas"] = resources[name]
         entry["hmma"] = hmma[name]
         if name in _build.VARIANTS:

@@ -27,11 +27,17 @@ first; ``auto_split`` lets the (stages, replicas) co-planner split the
 devices (one card: S = 1, R = 1); ``n_microbatches=0`` autotunes M from
 the plan's stage costs.
 
+The fault-tolerant tier (``tier=True``, ``procs=N``, ``hosts=N``;
+``runtime/tier.py``) routes requests across replicas of
+``CNNPipelineServer``: in this process, in OS-process workers, or in
+workers that dial in over TCP, with drain-and-respawn recovery that
+replays a failed replica's microbatches bitwise.
+
 On the CPU (``device="cpu"``) the same calls run the plain versions,
-eagerly. The tier and per-stage placement raise
-``NotImplementedError`` naming the ROADMAP item that ports them. An LM
-arch (``smollm-360m``) runs ``serve_lm``: the prompts stepped through
-the decode path, then greedy decoding.
+eagerly. Per-stage placement raises ``NotImplementedError`` naming the
+ROADMAP item that ports it. An LM arch (``smollm-360m``) runs
+``serve_lm``: the prompts stepped through the decode path, then greedy
+decoding.
 
     python -m repro_torch.launch.serve --arch resnet50 --batch 16 \\
         --microbatches 4 --stages 4
@@ -41,6 +47,11 @@ the decode path, then greedy decoding.
         --requests 50 --quantize int8
     python -m repro_torch.launch.serve --arch resnet50 --calibrate \\
         --tuning-cache build/resnet50_h100.json --microbatches 0
+    python -m repro_torch.launch.serve --arch resnet50 --tier \\
+        --replicas 2 --fail-replica 0 --fail-at-tick 3
+    python -m repro_torch.launch.serve --arch resnet50 --procs 2 \\
+        --kill-worker 0
+    python -m repro_torch.launch.serve --arch resnet50 --hosts 2
     python -m repro_torch.launch.serve --arch smollm-360m --full-size \\
         --batch 4 --prompt-len 32 --gen 16
 
@@ -51,6 +62,7 @@ the decode path, then greedy decoding.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -84,8 +96,9 @@ class ServeConfig:
     continuous: bool = False
     tier: bool = False
     replicas: int = 1
-    procs: int = 0
-    hosts: int = 0
+    procs: int = 0                      # >0: OS-process replica workers
+    hosts: int = 0                      # >0: TCP dial-in replica workers
+    listen: Optional[str] = None        # hosts mode: "host:port" to bind
     quantize: str = "native"
     batch: int = 16                     # LM archs: sequences per batch
     n_requests: int = 4
@@ -98,6 +111,16 @@ class ServeConfig:
     placed: Optional[bool] = None
     param_budget_frac: Optional[float] = None
     auto_split: bool = False
+    # fault-injection knobs (tier / procs / hosts modes)
+    fail_replica: Optional[int] = None
+    fail_at_tick: Optional[int] = None
+    kill_worker: Optional[int] = None
+    kill_at_tick: int = 1
+    # procs / hosts liveness knobs
+    heartbeat_interval_s: float = 0.1
+    suspect_after_s: float = 0.5
+    dead_after_s: float = 10.0
+    ledger_dir: Optional[str] = None
     tuning_cache: Optional[object] = None
     calibrate: bool = False
     verbose: bool = True
@@ -118,32 +141,43 @@ class ServeConfig:
         if self.procs and self.hosts:
             raise ValueError("procs and hosts are exclusive: same-host "
                              "socketpair workers OR TCP dial-in workers")
+        if self.listen is not None and not self.hosts:
+            raise ValueError("listen= names a bind address for hosts "
+                             "mode; set hosts > 0")
         if self.n_requests < 1:
             raise ValueError(f"n_requests={self.n_requests}: need >= 1")
 
 
-_TIER = "ROADMAP Queue 1 item 7, fault-tolerant tier"
-
-
-def _check_ported(cfg: ServeConfig) -> None:
-    if cfg.tier or cfg.procs or cfg.hosts:
-        raise NotImplementedError(f"tier/procs/hosts: {_TIER}")
+_PLACEMENT = "ROADMAP Queue 1 item 9, per-stage weight placement"
 
 
 def serve(cfg: ServeConfig) -> dict:
     """THE serving entry point. Runs on ``cfg.device`` (the card by
     default; raises ``RuntimeError`` without one). A CNN arch runs the
     mode the config names: ``latency`` (batch 1, p50/p99), or
-    ``throughput`` through the continuous (``continuous``) or the
-    one-shot batched executor. An LM arch runs ``serve_lm`` (reduced
-    size, as the reference's dispatch does); an LM arch that is not
-    ported raises ``NotImplementedError``."""
+    ``throughput`` through the fault-tolerant tier (``tier`` / ``procs``
+    / ``hosts``), the continuous (``continuous``) or the one-shot
+    batched executor. An LM arch runs ``serve_lm`` (reduced size, as the
+    reference's dispatch does); an LM arch that is not ported raises
+    ``NotImplementedError``."""
     if get_config(cfg.arch).family != "cnn":
         return serve_lm(cfg.arch, batch=cfg.batch, seed=cfg.seed,
                         verbose=cfg.verbose, device=cfg.device)
-    _check_ported(cfg)
     if cfg.mode == "latency":
         return _serve_cnn_latency(cfg)
+    if cfg.tier or cfg.procs or cfg.hosts:
+        return _serve_cnn_tier(
+            cfg.arch, n_requests=cfg.n_requests, batch=cfg.batch,
+            mb_size=cfg.mb_size, n_stages=cfg.n_stages,
+            n_replicas=cfg.replicas, image_size=cfg.image_size,
+            seed=cfg.seed, fail_replica=cfg.fail_replica,
+            fail_at_tick=cfg.fail_at_tick, procs=cfg.procs,
+            hosts=cfg.hosts, listen=cfg.listen,
+            kill_worker=cfg.kill_worker, kill_at_tick=cfg.kill_at_tick,
+            heartbeat_interval_s=cfg.heartbeat_interval_s,
+            suspect_after_s=cfg.suspect_after_s,
+            dead_after_s=cfg.dead_after_s, ledger_dir=cfg.ledger_dir,
+            quantize=cfg.quantize, verbose=cfg.verbose, device=cfg.device)
     common = dict(n_stages=cfg.n_stages, n_replicas=cfg.replicas,
                   image_size=cfg.image_size, seed=cfg.seed,
                   placed=cfg.placed, param_budget_frac=cfg.param_budget_frac,
@@ -455,8 +489,7 @@ def _check_placement(placed, n_stages: int, n_replicas: int,
             f"placed=True needs >= {need} devices ({n_stages} stages x "
             f"{n_replicas} replicas), have {n_dev}; drop "
             "placement/replication")
-    raise NotImplementedError(f"placed=True: {_TIER} (per-stage weight "
-                              "placement)")
+    raise NotImplementedError(f"placed=True: {_PLACEMENT}")
 
 
 def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
@@ -598,6 +631,9 @@ def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
             "variant_launches_per_batch": per_batch[1]}
 
 
+_EXTERNAL = object()
+
+
 class CNNPipelineServer:
     """Continuous-batching image server over the heterogeneous layer
     pipeline — the steady state HPIPE's throughput numbers describe (a
@@ -620,8 +656,18 @@ class CNNPipelineServer:
     stream) and replayed per microbatch. The next tick's H2D (from
     pinned memory) and this tick's D2H run on a copy stream, ordered by
     events, so both overlap the tick in flight; the D2H is read back one
-    tick late, as the reference's ``_tick_once`` arranges. On the CPU the
-    tick runs eagerly.
+    tick late, as the reference's ``_tick_once`` arranges. Each server
+    replays its ticks on a stream of its own. On the CPU the tick runs
+    eagerly.
+
+    The serving tier's hooks (``runtime/tier.py``): ``enqueue(key, ...)``
+    queues one microbatch whose logits go to ``on_result(key, logits)``;
+    ``injector`` fires first in ``_tick_once``; ``recover_work()`` drains
+    every undelivered microbatch once nothing is in flight on the card,
+    ``respawn()`` zeroes the state in place, ``purge(pred)`` drops queued
+    ones. With ``plan=`` (and ``cfg=``, ``params=``) the server serves
+    that plan and those weights as given, so the tier's replicas share
+    one plan and one device copy of the weights.
 
     Bitwise contract: continuous serving equals isolated requests and
     the sequential forward at the same microbatch size (slots never
@@ -633,19 +679,27 @@ class CNNPipelineServer:
                  auto_split: bool = False, verbose: bool = False,
                  params=None, tuning_cache=None,
                  calibrate: bool = False, quantize: str = "native",
-                 device="cuda", streams: bool = True):
+                 device="cuda", streams: bool = True, injector=None,
+                 cfg=None, plan=None):
         dev = resolve_device(device)
-        cfg, params, plan, n_replicas, _ = _plan_cnn_serving(
-            arch, n_stages=n_stages, n_replicas=n_replicas,
-            # the co-planner's fill term wants the microbatches a stream
-            # brings, not one request's: continuous injection amortizes
-            # the fill (as in the reference)
-            n_microbatches=32,
-            param_budget_frac=param_budget_frac,
-            auto_split=auto_split, seed=seed, tuning_cache=tuning_cache,
-            calibrate=calibrate, image_size=image_size,
-            store_dtype=quantize, params=params, verbose=verbose,
-            device=dev)
+        if plan is not None:
+            # the serving tier plans ONCE and hands every replica the
+            # same (cfg, params, plan): identical weights and stage cuts
+            # are what make failure replay bitwise
+            if cfg is None or params is None:
+                raise ValueError("plan= requires cfg= and params=")
+        else:
+            cfg, params, plan, n_replicas, _ = _plan_cnn_serving(
+                arch, n_stages=n_stages, n_replicas=n_replicas,
+                # the co-planner's fill term wants the microbatches a
+                # stream brings, not one request's: continuous injection
+                # amortizes the fill (as in the reference)
+                n_microbatches=32,
+                param_budget_frac=param_budget_frac,
+                auto_split=auto_split, seed=seed, tuning_cache=tuning_cache,
+                calibrate=calibrate, image_size=image_size,
+                store_dtype=quantize, params=params, verbose=verbose,
+                device=dev)
         self.cfg = cfg
         self.quantize = quantize
         self.n_stages = s = plan["n_stages"]
@@ -697,6 +751,9 @@ class CNNPipelineServer:
         self.launches_per_tick = None
         if self._cuda:
             ev = torch.cuda.Event
+            # each server replays its ticks on a stream of its own, so the
+            # replicas of a tier on one card overlap on it
+            self._stream = torch.cuda.Stream(dev)
             self._copy = torch.cuda.Stream(dev)
             self._h2d_done = [ev(), ev()]
             self._tick_done = [ev(), ev()]
@@ -729,7 +786,8 @@ class CNNPipelineServer:
         else:
             self._step = tick
         self._reset()
-        # FIFO of (req_id, mb_index, n_valid, images) microbatch slots
+        # FIFO of (req_id, mb_index, n_valid, images) microbatch slots; a
+        # tier's slot (enqueue()) has req _EXTERNAL and its key for index
         self._queue = deque()
         self._results = {}
         self._pending = {}
@@ -739,6 +797,12 @@ class CNNPipelineServer:
         self.verbose = verbose
         self._req_submit = {}
         self._req_done = {}
+        # failure injection fires first in the tick path
+        # (maybe_fail(ticks)), where a real mid-stream crash would surface
+        self.injector = injector
+        # tier hook: enqueue()d slots deliver through on_result(key,
+        # logits) instead of the results() store
+        self.on_result = None
 
     @property
     def idle_slots(self) -> int:
@@ -747,12 +811,23 @@ class CNNPipelineServer:
         return self.ticks * self.n_replicas - self.injected_slots
 
     def _reset(self) -> None:
-        """A zero pipeline state and empty tracking."""
-        for b in self._bufs:
-            b.zero_()
+        """A zero pipeline state, written in place (the captured ticks
+        read these addresses), and empty tracking."""
+        with torch.cuda.stream(self._stream) if self._cuda else \
+                contextlib.nullcontext():
+            for b in self._bufs:
+                b.zero_()
         self._staged = None
         self._inflight = deque()
         self._emitted = None
+
+    def _quiesce(self) -> None:
+        """Wait until no copy and no tick of this server is in flight on
+        the card: an H2D of a staged microbatch, the D2H of an emitted
+        one, or a tick. After this every buffer may be reused."""
+        if self._cuda:
+            self._copy.synchronize()
+            self._stream.synchronize()
 
     # -- request intake ----------------------------------------------------
 
@@ -781,6 +856,26 @@ class CNNPipelineServer:
                                      + chunk.shape[1:], np.float32)])
             self._queue.append((req, i, n_valid, chunk))
         return req
+
+    def enqueue(self, key, images, *, n_valid=None) -> None:
+        """Tier hook: queue ONE microbatch whose logits are delivered to
+        ``on_result(key, logits)`` instead of the results() store.
+        ``images`` may be short (padded here) or already the padded
+        ``(mb_size, H, W, 3)`` chunk with ``n_valid`` real rows."""
+        if self.on_result is None:
+            raise ValueError("enqueue() needs on_result set")
+        images = np.asarray(images, np.float32)
+        if images.shape[0] > self.mb_size:
+            raise ValueError(f"enqueue() takes one microbatch "
+                             f"(<= {self.mb_size} rows), got "
+                             f"{images.shape[0]}")
+        if n_valid is None:
+            n_valid = images.shape[0]
+        if images.shape[0] < self.mb_size:
+            images = np.concatenate(
+                [images, np.zeros((self.mb_size - images.shape[0],)
+                                  + images.shape[1:], np.float32)])
+        self._queue.append((_EXTERNAL, key, n_valid, images))
 
     @property
     def busy(self) -> bool:
@@ -814,11 +909,12 @@ class CNNPipelineServer:
 
     def _dispatch(self, p: int) -> None:
         if self._cuda:
-            cur = torch.cuda.current_stream(self.device)
-            cur.wait_event(self._h2d_done[p])
-            cur.wait_event(self._d2h_done[p])   # _out[p] read back
-            self._step(p)
-            self._tick_done[p].record(cur)
+            st = self._stream
+            st.wait_event(self._h2d_done[p])
+            st.wait_event(self._d2h_done[p])   # _out[p] read back
+            with torch.cuda.stream(st):
+                self._step(p)
+            self._tick_done[p].record(st)
         else:
             self._step(p)
 
@@ -866,15 +962,25 @@ class CNNPipelineServer:
                 continue
             req, i, n_valid, _ = slot
             lg = logits[k] if self.n_replicas > 1 else logits
+            if req is _EXTERNAL:
+                self.on_result(i, lg[:n_valid])      # i is the tier's key
+                continue
             self._results[req][i] = lg[:n_valid]
             self._pending[req] -= 1
             if self._pending[req] == 0:
                 self._req_done[req] = time.perf_counter()
 
     def _tick_once(self) -> bool:
-        """One pipeline tick. Returns True if a device tick was
-        dispatched, False when the pipe was idle and only the trailing
-        emitted output remained to collect."""
+        """One pipeline tick (the serving tier drives this directly;
+        run() loops it). Returns True if a device tick was dispatched,
+        False when the pipe was idle and only the trailing emitted output
+        remained to collect. The injector fires FIRST, so an injected
+        replica failure surfaces where a real mid-stream crash would:
+        with the next microbatch's H2D and the last one's D2H possibly
+        still in flight on the copy stream (``recover_work`` waits for
+        them)."""
+        if self.injector is not None:
+            self.injector.maybe_fail(self.ticks)
         if self._staged is None:
             self._staged = self._stage_next()
         if self._staged is None and not any(
@@ -959,6 +1065,72 @@ class CNNPipelineServer:
         self._req_done.pop(req, None)
         return np.concatenate(self._results.pop(req), axis=0)
 
+    # -- failure recovery (the tier's drain-and-respawn contract) ----------
+
+    def recover_work(self):
+        """Drain every undelivered microbatch after a failure, in
+        submission order: emitted-but-uncollected first (recomputed, its
+        output never read), then in flight, staged and queued. Waits
+        first until no copy or tick of this server is in flight, so no
+        late H2D can land on a buffer that is staged again. Internal
+        (submit()) slots are re-queued here; external (enqueue()) slots
+        are RETURNED as ``[(key, n_valid, padded_chunk)]`` for the tier
+        to re-route onto a healthy replica. After this the server is
+        drained and ``respawn()`` makes it serve again.
+
+        A real fault of the card (a sticky CUDA error) poisons the whole
+        process's context: the wait here raises it, and no server of that
+        process can serve again. Recovering from that is the process
+        tier's job (a worker process dies and is respawned), not this
+        method's."""
+        self._quiesce()
+        drained = []
+        if self._emitted is not None:
+            slots, _ = self._emitted          # never read the output
+            if slots is not None:
+                drained.extend(s for s in slots if s is not None)
+            self._emitted = None
+        for slots in self._inflight:
+            if slots is not None:
+                drained.extend(s for s in slots if s is not None)
+        self._inflight.clear()
+        if self._staged is not None:
+            slots, _ = self._staged
+            drained.extend(s for s in slots if s is not None)
+            self._staged = None
+        drained.extend(self._queue)
+        self._queue.clear()
+        external = []
+        for req, i, n_valid, chunk in drained:
+            if req is _EXTERNAL:
+                external.append((i, n_valid, chunk))
+            else:
+                self._queue.append((req, i, n_valid, chunk))
+        return external
+
+    def respawn(self) -> None:
+        """Reset the pipeline after a failure: the state buffers zeroed
+        in place (the captured ticks read their addresses, so nothing is
+        reallocated) once nothing of this server is in flight, and empty
+        tracking. Queued work (anything recover_work() re-queued)
+        survives; the captured ticks and the weights are reused."""
+        self._quiesce()
+        self._reset()
+
+    def purge(self, pred) -> int:
+        """Drop queued EXTERNAL microbatches whose key matches ``pred``
+        (the tier's request shedding: timeout/deadline). Returns the
+        number removed; in-flight slots finish and are dropped at
+        delivery."""
+        kept, n = deque(), 0
+        for slot in self._queue:
+            if slot[0] is _EXTERNAL and pred(slot[1]):
+                n += 1
+            else:
+                kept.append(slot)
+        self._queue = kept
+        return n
+
 
 def _serve_cnn_continuous(arch: str, *, n_requests: int = 4,
                           batch: int = 8, mb_size: int = 2,
@@ -1025,6 +1197,86 @@ def _serve_cnn_continuous(arch: str, *, n_requests: int = 4,
     return metrics
 
 
+def _serve_cnn_tier(arch: str, *, n_requests: int = 8, batch: int = 8,
+                    mb_size: int = 2, n_stages: int = 4,
+                    n_replicas: int = 2, image_size: int = 64,
+                    seed: int = 0, fail_replica=None, fail_at_tick=None,
+                    procs: int = 0, hosts: int = 0, listen=None,
+                    kill_worker=None, kill_at_tick: int = 1,
+                    heartbeat_interval_s: float = 0.1,
+                    suspect_after_s: float = 0.5,
+                    dead_after_s: float = 10.0,
+                    ledger_dir=None, quantize: str = "native",
+                    verbose: bool = True, device="cuda") -> dict:
+    """Fault-tolerant serving (reference ``serve.py:1005-1080``): K
+    requests through a :class:`~repro_torch.runtime.tier.ServingTier` of
+    R :class:`CNNPipelineServer` replicas, optionally failing one
+    mid-stream with a ``FailureInjector`` (``fail_replica`` at
+    ``fail_at_tick``) to show drain-and-respawn keep every request's
+    logits intact.
+
+    ``procs > 0``: OS-process replica workers
+    (:class:`~repro_torch.runtime.tier.ProcessServingTier`): heartbeat
+    liveness, the framed transport and, with ``kill_worker``, a real
+    mid-tick ``SIGKILL`` of that worker at serving tick ``kill_at_tick``.
+    ``hosts > 0``: workers dial the supervisor over TCP
+    (:class:`~repro_torch.runtime.tier.HostServingTier`; ``listen``
+    "host:port", by default a loopback ephemeral port), handshake on the
+    serving fingerprint and fetch the param blob by SHA-256 first.
+
+    The weights are drawn from ``seed``, the K requests of ``batch``
+    images from ``seed + 1`` with a CPU ``torch.Generator``. Returns the
+    tier's metrics with ``logits`` and ``request_images`` per request,
+    and for worker processes ``ready_times`` (each generation's
+    spawn-to-ready seconds and the kernel launches it counted)."""
+    from repro_torch.runtime.fault import FailureInjector
+    from repro_torch.runtime.tier import (HostServingTier,
+                                          ProcessServingTier, ServingTier)
+    common = dict(n_stages=n_stages, mb_size=mb_size,
+                  image_size=image_size, seed=seed, quantize=quantize,
+                  verbose=verbose, device=device)
+    if procs > 0 or hosts > 0:
+        hooks = {}
+        if kill_worker is not None:
+            hooks[kill_worker] = {"kill_at_tick": kill_at_tick}
+        live = dict(worker_hooks=hooks,
+                    heartbeat_interval_s=heartbeat_interval_s,
+                    suspect_after_s=suspect_after_s,
+                    dead_after_s=dead_after_s, ledger_dir=ledger_dir,
+                    **common)
+        if hosts > 0:
+            bind = ("127.0.0.1", 0)
+            if listen:
+                host, _, port = str(listen).rpartition(":")
+                bind = (host or "127.0.0.1", int(port))
+            tier = HostServingTier(arch, n_procs=hosts, listen=bind, **live)
+        else:
+            tier = ProcessServingTier(arch, n_procs=procs, **live)
+    else:
+        injectors = {}
+        if fail_replica is not None and fail_at_tick is not None:
+            injectors[fail_replica] = FailureInjector(
+                fail_at_steps=(fail_at_tick,))
+        tier = ServingTier(arch, n_replicas=n_replicas,
+                           injectors=injectors, **common)
+    gen = torch.Generator().manual_seed(seed + 1)
+    requests = [torch.randn((batch, image_size, image_size, 3),
+                            generator=gen).numpy()
+                for _ in range(n_requests)]
+    try:
+        rids = [tier.submit(imgs) for imgs in requests]
+        metrics = tier.run()
+        metrics["logits"] = [tier.results(r) for r in rids]
+        if procs > 0 or hosts > 0:
+            metrics["ready_times"] = list(tier.ready_times)
+    finally:
+        if procs > 0 or hosts > 0:
+            tier.close()
+    metrics["request_images"] = [np.asarray(x, np.float32)
+                                 for x in requests]
+    return metrics
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="resnet50")
@@ -1065,9 +1317,61 @@ def main(argv=None):
                     help="profile every fused node on the device first "
                          "and write the results to --tuning-cache (then "
                          "plan from them)")
+    tier = ap.add_argument_group("fault-tolerant tier")
+    tier.add_argument("--tier", action="store_true",
+                      help="route requests across --replicas pipeline "
+                           "replicas with drain-and-respawn recovery")
+    tier.add_argument("--fail-replica", type=int, default=None,
+                      help="tier mode: replica to fail via "
+                           "FailureInjector")
+    tier.add_argument("--fail-at-tick", type=int, default=None,
+                      help="tier mode: tick at which that replica fails")
+    tier.add_argument("--procs", type=int, default=0,
+                      help="serve through this many OS-process replica "
+                           "workers (heartbeats, framed transport)")
+    tier.add_argument("--hosts", type=int, default=0,
+                      help="serve through this many TCP dial-in replica "
+                           "workers (fingerprint handshake, the param "
+                           "blob fetched by SHA-256)")
+    tier.add_argument("--listen", type=str, default=None,
+                      metavar="HOST:PORT",
+                      help="hosts mode: bind the worker listener here "
+                           "(default 127.0.0.1 on an ephemeral port)")
+    tier.add_argument("--dial", type=str, default=None,
+                      metavar="HOST:PORT",
+                      help="run as a dial-in WORKER of a --hosts "
+                           "supervisor at this address instead (with "
+                           "--token / --blob-sha / --blob-cache)")
+    tier.add_argument("--token", type=int, default=0,
+                      help="--dial: worker slot token to register as")
+    tier.add_argument("--blob-sha", type=str, default=None,
+                      help="--dial: SHA-256 of the supervisor's param "
+                           "blob (fetched and verified before warm-up)")
+    tier.add_argument("--blob-cache", type=str, default=None,
+                      help="--dial: content-addressed blob cache dir")
+    tier.add_argument("--kill-worker", type=int, default=None,
+                      help="procs/hosts mode: worker that SIGKILLs "
+                           "itself mid-tick")
+    tier.add_argument("--kill-at-tick", type=int, default=1,
+                      help="procs/hosts mode: serving tick at which "
+                           "--kill-worker fires")
+    tier.add_argument("--heartbeat-interval", type=float, default=0.1,
+                      help="procs/hosts mode: worker heartbeat period (s)")
+    tier.add_argument("--suspect-after", type=float, default=0.5,
+                      help="procs/hosts mode: silence that flags a "
+                           "worker as a straggler (s)")
+    tier.add_argument("--dead-after", type=float, default=10.0,
+                      help="procs/hosts mode: silence or stall that "
+                           "declares a worker dead (s; > 2x the "
+                           "heartbeat interval)")
+    tier.add_argument("--ledger-dir", type=str, default=None,
+                      help="procs/hosts mode: keep the replay ledger "
+                           "here (a restarted supervisor resumes it)")
     ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--quantize", choices=STORE_DTYPES, default="native")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="weight seed (part of the tier's handshake "
+                         "fingerprint: equal on both ends)")
     ap.add_argument("--device", default="cuda")
     lm_args = ap.add_argument_group("LM archs")
     lm_args.add_argument("--prompt-len", type=int, default=32)
@@ -1076,14 +1380,43 @@ def main(argv=None):
     lm_args.add_argument("--full-size", action="store_true",
                          help="the config as published, not reduced()")
     args = ap.parse_args(argv)
+    if args.dial:
+        # a dial-in worker of a --hosts tier: the worker's entry point,
+        # with the serving cell this command line names
+        from repro_torch.runtime import worker as worker_mod
+        wargv = ["--dial", args.dial, "--token", str(args.token),
+                 "--arch", args.arch, "--stages", str(args.stages),
+                 "--mb-size", str(args.mb_size),
+                 "--image-size", str(args.image_size),
+                 "--seed", str(args.seed), "--quantize", args.quantize,
+                 "--heartbeat-interval", str(args.heartbeat_interval),
+                 "--device", args.device]
+        if args.blob_sha:
+            wargv += ["--blob-sha", args.blob_sha]
+        if args.blob_cache:
+            wargv += ["--blob-cache", args.blob_cache]
+        return worker_mod.main(wargv)
     if get_config(args.arch).family != "cnn":
         serve_lm(args.arch, batch=args.batch, prompt_len=args.prompt_len,
                  gen_tokens=args.gen, max_seq=args.max_seq,
                  use_reduced=not args.full_size, seed=args.seed,
                  device=args.device)
         return
+    tiered = args.tier or args.procs or args.hosts
     serve(ServeConfig(arch=args.arch, mode=args.mode,
-                      continuous=args.continuous, replicas=args.replicas,
+                      continuous=args.continuous, tier=args.tier,
+                      procs=args.procs, hosts=args.hosts,
+                      listen=args.listen,
+                      replicas=(max(args.replicas, 2) if tiered
+                                else args.replicas),
+                      fail_replica=args.fail_replica,
+                      fail_at_tick=args.fail_at_tick,
+                      kill_worker=args.kill_worker,
+                      kill_at_tick=args.kill_at_tick,
+                      heartbeat_interval_s=args.heartbeat_interval,
+                      suspect_after_s=args.suspect_after,
+                      dead_after_s=args.dead_after,
+                      ledger_dir=args.ledger_dir,
                       batch=args.batch, n_requests=args.requests,
                       n_microbatches=args.microbatches,
                       mb_size=args.mb_size, n_stages=args.stages,
@@ -1096,4 +1429,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

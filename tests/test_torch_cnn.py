@@ -218,12 +218,14 @@ def test_unported_modes_name_their_roadmap_item(kw, weights, monkeypatch,
     request (the calibrated one read from the port's own measurements,
     whose keys the reference reads too), and the logits the reference's
     forward within the parity bar, top-1 equal. What is still to port
-    raises, naming its ROADMAP item: the tier, the LM archs not ported."""
+    raises, naming its ROADMAP item: the LM archs not ported. The tier
+    serves since it was ported: one request of the reference's weights,
+    its logits the reference forward's within the bar."""
     ref_cfg, ref_params, _, params = weights
     kw = {"arch": "resnet50", "device": "cpu", "image_size": IMAGE,
           "batch": 2, "n_microbatches": 2, "n_requests": 1, "mb_size": 2,
           "verbose": False, **kw}
-    if kw.get("tier") or kw["arch"] != "resnet50":
+    if kw["arch"] != "resnet50":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             serve(ServeConfig(**kw))
         return
@@ -233,6 +235,13 @@ def test_unported_modes_name_their_roadmap_item(kw, weights, monkeypatch,
     from repro_torch.launch import serve as port_serve
     monkeypatch.chdir(tmp_path)                # c.json: a missing file
     monkeypatch.setattr(port_serve, "_init_native", lambda cfg, seed: params)
+    if kw.get("tier"):
+        out = serve(ServeConfig(**kw))
+        assert (out["completed"], out["failed"], out["respawns"]) == (1, 0, 0)
+        ref = _ref_forward_jit(ref_cfg)(ref_params,
+                                        out["request_images"][0][:1])
+        _assert_logits_close(torch.from_numpy(out["logits"][0][:1]), ref)
+        return
     tuning.set_tuning_cache(None)
     try:
         out = serve(ServeConfig(**kw))
@@ -293,6 +302,14 @@ _SERVE_CONFIG_KW = [
     {"calibrate": True}, {"n_stages": 8}, {"mode": "latency",
                                            "n_stages": 2},
     {"continuous": True, "replicas": 2, "mb_size": 1},
+    {"listen": "x:1"}, {"listen": "127.0.0.1:0", "hosts": 2},
+    {"listen": "127.0.0.1:0", "procs": 2}, {"listen": "h:1", "tier": True},
+    {"tier": True, "replicas": 2, "fail_replica": 0, "fail_at_tick": 3},
+    {"procs": 2, "kill_worker": 0, "kill_at_tick": 2},
+    {"hosts": 2, "kill_worker": 1}, {"procs": 2, "ledger_dir": "ledger"},
+    {"procs": 2, "heartbeat_interval_s": 0.0},
+    {"procs": 2, "suspect_after_s": 5.0, "dead_after_s": 5.0},
+    {"mode": "latency", "fail_replica": 0},
 ]
 
 
@@ -313,7 +330,10 @@ def test_serve_config_refuses_what_the_reference_refuses(kw):
                       "seed", "n_requests", "batch", "continuous", "tier",
                       "replicas", "n_microbatches", "mb_size", "n_stages",
                       "iters", "placed", "param_budget_frac", "auto_split",
-                      "tuning_cache", "calibrate"):
+                      "tuning_cache", "calibrate", "listen", "fail_replica",
+                      "fail_at_tick", "kill_worker", "kill_at_tick",
+                      "heartbeat_interval_s", "suspect_after_s",
+                      "dead_after_s", "ledger_dir"):
             assert getattr(port, field) == getattr(ref, field), field
 
 
@@ -324,3 +344,5 @@ def test_serve_config_defaults_and_refusals():
         ServeConfig(arch="resnet50", quantize="bogus")
     with pytest.raises(ValueError, match="exclusive"):
         ServeConfig(arch="resnet50", procs=1, hosts=1)
+    with pytest.raises(ValueError, match="listen"):
+        ServeConfig(arch="resnet50", listen="127.0.0.1:0")

@@ -924,3 +924,120 @@ def test_calibrate_resnet50_covers_every_node(dev):
     _assert_launches({"sparse_conv": 47, "sparse_matmul": 1})
     scale = float(base.abs().max())
     assert float((tuned - base).abs().max()) <= 1e-3 * scale
+
+
+# -- the fault-tolerant tier (runtime/tier.py) on the card --------------------
+
+def _tier_requests(n, batch, size):
+    gen = torch.Generator().manual_seed(3)
+    return [torch.randn((batch, size, size, 3), generator=gen).numpy()
+            for _ in range(n)]
+
+
+def _tier_sequential(cfg, params, x, mb):
+    """The sequential forward on the card, microbatch by microbatch, the
+    last one zero-padded to ``mb`` as the tier pads it, under the cuDNN
+    setting the tier builds its replicas with."""
+    from repro_torch.core.device import deterministic_convs
+    x = torch.from_numpy(x)
+    pad = (-len(x)) % mb
+    if pad:
+        x = torch.cat([x, torch.zeros((pad,) + tuple(x.shape[1:]))])
+    with deterministic_convs():
+        return torch.cat([cnn.cnn_forward(cfg, params, x[i:i + mb],
+                                          device="cuda").cpu()
+                          for i in range(0, len(x), mb)])[:len(x) - pad]
+
+
+@pytest.mark.parametrize("quantize", ["native", "int8"])
+@pytest.mark.parametrize("arch", ["resnet50", "mobilenet_v1"])
+def test_tier_recovers_bitwise_on_the_card(dev, arch, quantize):
+    """The in-process tier at 64 px, R 2, S 4, mb 2: replica 0 fails at
+    tick 3 with copies in flight; every request equals the no-failure
+    run's and the sequential forward's bitwise; the respawned replica
+    kept its buffers (its captured ticks read them); both replicas share
+    one copy of the weights and one plan."""
+    from repro_torch.runtime import fault, tier as T
+    cfg = get_config(arch)
+    reqs = _tier_requests(4, 5, 64)
+    outs = []
+    for injectors in ({}, {0: fault.FailureInjector(fail_at_steps=(3,))}):
+        ops.reset_launches()
+        t = T.ServingTier(arch, n_replicas=2, n_stages=4, mb_size=2,
+                          image_size=64, quantize=quantize,
+                          injectors=injectors)
+        launched = dict(ops.LAUNCHES)
+        bufs = [b.data_ptr() for w in t.workers for b in w.server._bufs]
+        rids = [t.submit(x) for x in reqs]
+        m = t.run()
+        outs.append([t.results(r) for r in rids])
+        assert m["completed"] == 4 and m["failed"] == 0
+        assert m["respawns"] == (1 if injectors else 0)
+        assert bufs == [b.data_ptr() for w in t.workers
+                        for b in w.server._bufs]
+        servers = [w.server for w in t.workers]
+        assert servers[0].plan is servers[1].plan is t.plan
+        per_fwd = ({"sparse_conv": 47, "sparse_matmul": 1}
+                   if arch == "resnet50" else {"dw_pw": 13})
+        for name, n in per_fwd.items():     # 2 replicas x 2 eager + 2
+            assert launched[name] == 2 * 4 * n   # captured ticks each
+    for a, b, x in zip(outs[0], outs[1], reqs):
+        assert (a.view("uint32") == b.view("uint32")).all()
+        assert torch.equal(torch.from_numpy(b),
+                           _tier_sequential(cfg, t.params, x, 2))
+
+
+def test_process_and_host_tiers_bitwise_on_the_card(dev):
+    """Two worker processes on the card (ResNet-50 at 64 px): a SIGKILL
+    of worker 0 at its first tick, then two dial-in workers with every
+    connection killed mid-stream; both streams equal the in-process
+    tier's on the same weights bitwise. The workers' frames are swallowed
+    by the proxy from the submit to the kill, so the kill lands with work
+    outstanding whatever the timing."""
+    import socket as _socket
+    import time
+    from repro_torch.runtime import fault, tier as T
+    arch, size = "resnet50", 64
+    reqs = _tier_requests(3, 4, size)
+    ref = T.ServingTier(arch, n_replicas=1, n_stages=2, mb_size=2,
+                        image_size=size)
+    rids = [ref.submit(x) for x in reqs]
+    ref.run()
+    want = [ref.results(r) for r in rids]
+    with T.ProcessServingTier(arch, n_procs=2, n_stages=2, mb_size=2,
+                              image_size=size,
+                              worker_hooks={0: {"kill_at_tick": 1}}) as t:
+        rids = [t.submit(x) for x in reqs]
+        m = t.run()
+        got = [t.results(r) for r in rids]
+        assert m["respawns"] == 1 and m["failed"] == 0
+        assert all(r["launches"]["sparse_conv"] == 4 * 47
+                   for r in t.ready_times)
+    for a, b in zip(want, got):
+        assert (a.view("uint32") == b.view("uint32")).all()
+    s = _socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    proxy = fault.NetFaultProxy(("127.0.0.1", port))
+    try:
+        with T.HostServingTier(arch, n_procs=2, n_stages=2, mb_size=2,
+                               image_size=size, listen=("127.0.0.1", port),
+                               dial_addrs={0: proxy.address,
+                                           1: proxy.address}) as t:
+            # the workers' frames are swallowed until the kill, so work
+            # is surely outstanding on the connections that die
+            proxy.sever("c2s")
+            rids = [t.submit(x) for x in reqs]
+            t.run(max_rounds=2)
+            proxy.heal("c2s")
+            proxy.kill_connections()
+            deadline = time.monotonic() + 600
+            while t._live_rids() and time.monotonic() < deadline:
+                t.run(max_rounds=20)
+            got = [t.results(r) for r in rids]
+            assert t.respawns >= 1 and t.recovered_microbatches >= 1
+    finally:
+        proxy.close()
+    for a, b in zip(want, got):
+        assert (a.view("uint32") == b.view("uint32")).all()

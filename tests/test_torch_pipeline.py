@@ -280,13 +280,25 @@ def test_unported_throughput_knobs_name_their_roadmap_item(kw, monkeypatch,
     the plan (and M) equal the reference planner's on the same weights
     under the same request, the calibrated plan read from the port's own
     measurements, and the logits the sequential forward's bitwise.
-    Per-stage placement and the tier still raise, naming their ROADMAP
-    item."""
+    Per-stage placement still raises, naming its ROADMAP item; the tier
+    serves since it was ported, every request the sequential forward's
+    bitwise."""
     base = dict(arch="mobilenet_v1", device="cpu", image_size=IMAGE,
                 batch=4, n_requests=2, mb_size=2, verbose=False)
-    if kw.get("placed") or kw.get("tier"):
+    if kw.get("placed"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             serve(ServeConfig(**base, **kw))
+        return
+    if kw.get("tier"):
+        out = serve(ServeConfig(**base, **kw))
+        assert (out["completed"], out["failed"]) == (2, 0)
+        cfg = get_config("mobilenet_v1")
+        params = port_serve._init_native(cfg, 0)
+        for x, got in zip(out["request_images"], out["logits"]):
+            np.testing.assert_array_equal(got, np.concatenate([
+                cnn.cnn_forward(cfg, params, torch.from_numpy(x[i:i + 2]),
+                                device="cpu").numpy()
+                for i in range(0, len(x), 2)]))
         return
     from repro.configs import get_config as ref_get_config
     from repro.core import planner as ref_planner
