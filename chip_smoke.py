@@ -53,10 +53,20 @@ Phases, in order; any failure raises and exits nonzero:
    ``_serve_cnn`` (batch 16, M 4, S 4; the whole batch one CUDA graph,
    its launches M x one forward's) and ``_serve_cnn_continuous`` (16
    requests of 8 images, mb 2, and mb 1 for ResNet-50; one captured tick
-   a microbatch, one forward's launches): the logits equal the sequential
-   forward on the card, microbatch by microbatch, bit for bit, the
-   one-stream run's too, and the plain CPU forward's within the bars
-   above; the counters count the warm-ups and the captures. Then
+   a microbatch, one forward's launches; the server's stage programs are
+   PLACED, each reading its weights from its own packed uint8 row): the
+   logits equal the sequential forward on the card, microbatch by
+   microbatch, bit for bit, the one-stream run's too, and the plain CPU
+   forward's within the bars above; the counters count the warm-ups and
+   the captures. Before them, the frozen oracle
+   (``cnn_forward_reference``) at batch 1 for each CNN: bit for bit the
+   unfused view, with the unfused view's launches (13 / 17
+   depthwise_conv). After them, for each CNN at native and int8 (mb 2,
+   S 4), a server on its packed rows beside one on closures over a
+   device copy: the same kernels a tick by name and variant, no
+   aligned16 copy, wires and logits equal bit for bit; each stage's row
+   width, ``stage_bytes``, ``padding_bytes`` and alignment bytes
+   printed. Then
    SmolLM-360M at full width and depth: ``make_prefill_step`` on 2048
    random tokens (32 flash_attention + 96 sparse_matmul launches, all
    "mma"), a prefill at T 256 held against the port's CPU forward, and
@@ -76,8 +86,11 @@ Phases, in order; any failure raises and exits nonzero:
    kernels at the microbatch shapes (one microbatch forward's launches,
    n 2 and 4) beside their plain versions, bounds and library calls; where
    a tick's time goes (each stage program alone, the stages on one stream,
-   one tick on S streams, the plain forward of the microbatch);
-   SmolLM-360M's prefill latency and ``serve_lm``'s times;
+   one tick on S streams, the same tick of the placed programs on packed
+   rows, the plain forward of the microbatch); the continuous server's
+   images/s on rows against closures (native, mb 2, S 4, three turns
+   each in alternation); SmolLM-360M's prefill latency and
+   ``serve_lm``'s times;
 6. the measured cost model and the tuned kernels: for each CNN at native
    weights, ``tuning.calibrate(..., autotune=True)`` at batch 1 and at mb
    4 (the MobileNets' dw_pw also tuned at n 2, their depthwise on the
@@ -90,8 +103,9 @@ Phases, in order; any failure raises and exits nonzero:
    under each cut, twice, in turns, its logits equal to the sequential
    forward under the same cache bit for bit, its images/s printed;
    ``n_microbatches=0`` and ``auto_split=True`` once each;
-7. the fault-tolerant tier, ResNet-50 at 224 px, S 4, mb 2, through
-   ``serve()``: ``tier=True`` with 2 replicas at native and int8, clean
+7. the fault-tolerant tier, ResNet-50 at 224 px, S 4, mb 2, its replicas
+   on placed stage programs over one shared set of packed rows (the
+   workers build theirs from the param blob), through ``serve()``: ``tier=True`` with 2 replicas at native and int8, clean
    and with replica 0 failed at tick 3 (16 requests of 8 images; the
    failed run == the clean run == the sequential forward, microbatch by
    microbatch, bit for bit; each replica's warm-up and capture counted);
@@ -1062,6 +1076,48 @@ def main() -> int:
               f"share: fused {node_err['fused']:.3f}, unfused "
               f"{node_err['unfused']:.3f})")
 
+    # The frozen oracle (cnn.cnn_forward_reference: the per-model forward
+    # monoliths, no layer graph) at batch 1 and 224 px: bit for bit the
+    # unfused view on the same image, and its launches the unfused
+    # view's, counted (the MobileNets' depthwise nodes through
+    # depthwise_conv, ResNet-50's pruned convs through sparse_conv and its
+    # classifier through sparse_matmul).
+    oracle_rows = {}
+    for arch in STORE_RUNS:
+        mcfg = get_config(arch)
+        p_dev = cnn.params_to(cnn_params[arch], dev)
+        img = torch.from_numpy(np.random.default_rng(SEED + 21).normal(
+            size=(1, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32))
+        ops.reset_launches()
+        got = cnn.cnn_forward_reference(mcfg, p_dev, img, device=dev).cpu()
+        o_launches = dict(ops.LAUNCHES)
+        o_variants = dict(ops.VARIANT_LAUNCHES)
+        want = {"sparse_conv": 47, "sparse_matmul": 1} \
+            if arch == "resnet50" else {"depthwise_conv": MB_BLOCKS[arch]}
+        check_launches(o_launches, want, f"{arch} oracle")
+        check_variants(o_variants, per_request_want(arch, "native")[1]
+                       if arch == "resnet50" else {}, f"{arch} oracle")
+        add_variants(o_variants)
+        for k, v in o_launches.items():
+            all_launches[k] = all_launches.get(k, 0) + v
+        ops.reset_launches()
+        unfused = cnn.cnn_forward(mcfg, p_dev, img, graph=graph_for(arch),
+                                  device=dev).cpu()
+        if dict(ops.LAUNCHES) != o_launches or not torch.equal(got,
+                                                                unfused):
+            raise AssertionError(f"{arch} oracle: launches {o_launches} vs "
+                                 f"the unfused view's {dict(ops.LAUNCHES)},"
+                                 f" or its logits differ from the view's")
+        for k, v in ops.LAUNCHES.items():
+            all_launches[k] = all_launches.get(k, 0) + v
+        rtol = LOGIT_RTOL if arch == "resnet50" else MB_LOGIT_RTOL
+        o_err = check_logits(got, img.numpy(), mcfg, cnn_params[arch],
+                             graph=graph_for(arch), rtol=rtol)
+        oracle_rows[arch] = {"launches": o_launches, "logit_err": o_err}
+        print(f"[main] {arch} oracle (cnn_forward_reference) batch 1 at "
+              f"{IMAGE_SIZE}px: launches {o_launches}; == the unfused view "
+              f"bitwise; vs CPU {o_err:.3e} (bar {rtol})")
+
     # Throughput serving through the heterogeneous layer pipeline, each
     # (stage, replica) slot on its own CUDA stream: the batched executor
     # (batch 16, M 4, S 4; the whole batch one CUDA graph) and the
@@ -1203,6 +1259,94 @@ def main() -> int:
             pipe[(arch, q)] = row
     for k, v in pipe_launches.items():
         all_launches[k] = all_launches.get(k, 0) + v
+
+    # Placed stage programs against closures: the continuous server (mb 2,
+    # S 4) on its packed per-stage rows (the default: each stage unpacks
+    # its weights from its own uint8 row, every leaf on a 16-byte
+    # boundary) and on closures over one device copy of the weights, at
+    # native and int8. Each server is counted while it warms up and
+    # captures (2 eager ticks, 2 captured: 4 forwards). The captured
+    # ticks must launch the same kernels, name by name and variant by
+    # variant, with no aligned16 copy of a misaligned tensor, and the two
+    # servers serve the same requests to the same state wires and logits
+    # bit for bit. Phase 5 times the native pair.
+    placed_rows, placed_servers = {}, {}
+    for arch in STORE_RUNS:
+        for q in ("native", "int8"):
+            per_fwd, per_fwd_v = per_request_want(arch, q)
+            reqs = [np.random.default_rng(SEED + 31 + i).normal(
+                size=(CONT_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(
+                    np.float32) for i in range(2)]
+            srvs, outs, copies = {}, {}, {}
+            for form in ("rows", "closures"):
+                what = f"{arch} {q} continuous mb 2 on {form}"
+                ops.reset_launches()
+                c0 = _build.ALIGN_COPIES
+                srv = CNNPipelineServer(
+                    arch, mb_size=2, n_stages=PIPE_S, image_size=IMAGE_SIZE,
+                    seed=SEED, quantize=q, device=dev,
+                    params=cnn_params[arch], closures=form == "closures")
+                copies[form] = _build.ALIGN_COPIES - c0
+                counted = dict(ops.LAUNCHES)
+                variants = dict(ops.VARIANT_LAUNCHES)
+                check_launches(counted, {k: 4 * v for k, v in
+                                         per_fwd.items()},
+                               f"{what}: warm-up and capture")
+                check_variants(variants, {k: 4 * v for k, v in
+                                          per_fwd_v.items()},
+                               f"{what}: warm-up and capture")
+                add_variants(variants)
+                for k, v in counted.items():
+                    all_launches[k] = all_launches.get(k, 0) + v
+                ids = [srv.submit(x) for x in reqs]
+                srv.run()
+                outs[form] = [srv.results(i) for i in ids]
+                srvs[form] = srv
+            rsrv, csrv = srvs["rows"], srvs["closures"]
+            pparams = rsrv.pparams
+            if rsrv.param_rows is None or csrv.param_rows is not None or \
+                    len(rsrv.param_rows) != PIPE_S:
+                raise AssertionError(f"{arch} {q}: rows server holds "
+                                     f"{rsrv.param_rows!r:.80}")
+            if rsrv.launches_per_tick != csrv.launches_per_tick:
+                raise AssertionError(
+                    f"{arch} {q}: a tick on rows launches "
+                    f"{rsrv.launches_per_tick}, on closures "
+                    f"{csrv.launches_per_tick}")
+            if copies["rows"] or copies["closures"]:
+                raise AssertionError(f"{arch} {q}: aligned16 copies while "
+                                     f"the ticks were captured: {copies}")
+            if not all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
+                       for a, b in zip(outs["rows"], outs["closures"])) or \
+                    not all(torch.equal(a, b) for a, b in
+                            zip(rsrv._bufs, csrv._bufs)):
+                raise AssertionError(f"{arch} {q}: the rows server's logits "
+                                     f"or state wires differ from the "
+                                     f"closures'")
+            misaligned = sum(o % 16 != 0 for f in pparams.formats
+                             for o in f.offsets())
+            placed_rows[f"{arch}/{q}"] = row = {
+                "row_widths": list(pparams.row_widths),
+                "stage_bytes": list(pparams.stage_bytes),
+                "padding_bytes": pparams.padding_bytes,
+                "align_bytes": pparams.align_bytes,
+                "leaves": sum(len(f.leaves_meta) for f in pparams.formats),
+                "leaves_off_16_in_reference_layout": misaligned,
+                "launches_per_tick": rsrv.launches_per_tick[0],
+                "variant_launches_per_tick": {
+                    f"{n}/{v}": c for (n, v), c in
+                    rsrv.launches_per_tick[1].items()}}
+            print(f"[main] {arch} {q} placed tick (mb 2, S {PIPE_S}): rows "
+                  f"{row['row_widths']} B (stage_bytes "
+                  f"{row['stage_bytes']}, padding_bytes "
+                  f"{row['padding_bytes']}, alignment bytes "
+                  f"{row['align_bytes']}; {misaligned} of {row['leaves']} "
+                  f"leaves off 16 B in the reference layout); a tick "
+                  f"{variant_str(rsrv.launches_per_tick[1])} on rows and on "
+                  f"closures, no aligned16 copy; wires and logits == "
+                  f"closures bitwise")
+            if q == "native":
+                placed_servers[arch] = srvs
 
     # SmolLM-360M prefill: the whole prompt in one forward, attention
     # through the flash kernel, the FFN through the sparse matmul
@@ -1706,12 +1850,20 @@ def main() -> int:
             slots = pp.slot_streams(PIPE_S, 1, dev)
             stage_ms = [time_ms(lambda k=k: fns[k](state[k], out=nxt[k]))
                         for k in range(PIPE_S)]
+            pfns, _, _, _, pparams = cnn.stage_programs(
+                mcfg, cnn_params[arch], plan_["stage_of"],
+                (mb, IMAGE_SIZE, IMAGE_SIZE, 3), placed=True,
+                align=pp.ALIGN)
+            prow = tuple(r.to(dev) for r in pparams.pack_ragged())
             row = {"stage_ms": stage_ms, "wire_width": width,
                    "chain_ms": time_ms(lambda: pp.pipeline_step_hetero(
                        fns, state, None, n_stages=PIPE_S, out=nxt)),
                    "tick_ms": time_ms(lambda: pp.pipeline_step_hetero(
                        fns, state, None, n_stages=PIPE_S, out=nxt,
                        streams=slots)),
+                   "placed_tick_ms": time_ms(lambda: pp.pipeline_step_hetero(
+                       pfns, state, None, n_stages=PIPE_S, out=nxt,
+                       streams=slots, stage_params=prow)),
                    "forward_ms": time_ms(lambda: cnn.cnn_forward(
                        mcfg, p_dev, img, device=dev))}
             ticks[(arch, mb)] = row
@@ -1719,8 +1871,44 @@ def main() -> int:
                   f"{[round(s, 4) for s in stage_ms]} ms (sum "
                   f"{sum(stage_ms):.4f}, max {max(stage_ms):.4f}); one "
                   f"stream {row['chain_ms']:.4f} ms, {PIPE_S} streams "
-                  f"{row['tick_ms']:.4f} ms; the plain forward of the "
-                  f"microbatch {row['forward_ms']:.4f} ms")
+                  f"{row['tick_ms']:.4f} ms (placed programs on rows "
+                  f"{row['placed_tick_ms']:.4f} ms); the plain forward of "
+                  f"the microbatch {row['forward_ms']:.4f} ms")
+
+    # The continuous server on its packed rows against closures (native,
+    # mb 2, S 4; the servers of phase 4): the same 16 requests of 8 images,
+    # three turns each, in alternation (rows, closures, closures, rows,
+    # rows, closures); images/s of each run and their medians.
+    placed_rates = {}
+    for arch, srvs in placed_servers.items():
+        reqs = [np.random.default_rng(SEED + 41 + i).normal(
+            size=(CONT_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+            for i in range(CONT_REQUESTS)]
+        rates = {"rows": [], "closures": []}
+        first = {}
+        for form in ("rows", "closures", "closures", "rows", "rows",
+                     "closures"):
+            srv = srvs[form]
+            ids = [srv.submit(x) for x in reqs]
+            m = srv.run()
+            got = [srv.results(i) for i in ids]
+            first.setdefault(form, got)
+            rates[form].append(m["images_per_s"])
+        if not all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
+                   for a, b in zip(first["rows"], first["closures"])):
+            raise AssertionError(f"{arch}: rows and closures served other "
+                                 f"logits")
+        placed_rates[arch] = dict(
+            rates, rows_median=statistics.median(rates["rows"]),
+            closures_median=statistics.median(rates["closures"]))
+        pr = placed_rates[arch]
+        print(f"[time] continuous {arch} mb 2, S {PIPE_S}: on rows "
+              f"{[round(v, 1) for v in rates['rows']]} im/s (median "
+              f"{pr['rows_median']:.1f}), on closures "
+              f"{[round(v, 1) for v in rates['closures']]} im/s (median "
+              f"{pr['closures_median']:.1f}); rows / closures "
+              f"{pr['rows_median'] / pr['closures_median']:.4f}")
+    del placed_servers
 
     # SmolLM-360M: the flash kernel per layer of a T=2048 prefill, beside
     # its plain version and SDPA on the same expanded tensors; the sparse
@@ -2421,6 +2609,8 @@ def main() -> int:
         "tuned_kernels": tuned,
         "tuned_sums": {f"{n}/n{k}": v for (n, k), v in tuned_sums.items()},
         "cuts": {f"{a}/{lbl}": row for (a, lbl), row in plans_run.items()},
+        "oracle": oracle_rows, "placed": placed_rows,
+        "placed_rates": placed_rates,
         "tier": tier_rows}, indent=1, default=str))
 
     # -- 8. the kernels line, then the device line ------------------------

@@ -75,6 +75,17 @@ def op_cost_from_sparse(name: str, sw, lines: int, width: int) -> OpCost:
                   n_in_units=sw.d_in // sw.vals.shape[-2], idx=idx)
 
 
+def op_cost_unstructured(name: str, mask, lines: int, width: int) -> OpCost:
+    """Unstructured scalar sparsity (the paper's own format): ``mask``
+    (d_in, Co) bool of surviving weights (reference
+    ``core/costmodel.py:191``). Zeros clump, so split loads are uneven:
+    what exposes the naive model's error."""
+    mask = np.asarray(mask, bool)
+    return OpCost(name=name, lines=lines, width=width,
+                  nnz_per_co=mask.sum(axis=0).astype(np.int64),
+                  n_in_units=mask.shape[0], mask=mask)
+
+
 def op_cost_conv_sparse(name: str, sw, k: int, cin: int, lines: int,
                         width: int) -> OpCost:
     """Cost of the fused implicit-GEMM sparse conv.

@@ -1,8 +1,9 @@
 """Graph-level operator fusion: keep intra-stage activations out of HBM.
 
 Copy of the rewrite rules of the reference's ``src/repro/core/fusion.py``
-(the HBM-traffic model stays there). The kernels named below are the
-reference's; the port's are under ``repro_torch/kernels/``.
+and of its modeled HBM traffic (``graph_hbm_bytes``,
+``fused_block_traffic``). The kernels named below are the reference's;
+the port's are under ``repro_torch/kernels/``.
 
 HPIPE streams activations producer->consumer through dedicated
 per-layer hardware; nothing inside the pipe ever touches DRAM. Our
@@ -165,3 +166,54 @@ def fused_graph_for(name: str) -> LayerGraph:
     keeps the unfused view."""
     from repro_torch.core.graph import graph_for
     return fuse_graph(graph_for(name))
+
+
+# ---------------------------------------------------------------------------
+# modeled HBM traffic (what fusion buys)
+# ---------------------------------------------------------------------------
+
+def graph_hbm_bytes(g: LayerGraph, shapes: dict) -> dict[str, int]:
+    """First-order HBM activation traffic per IR node: each input read
+    once and the output written once, so a fused super-node counts only
+    its boundary tensors (reference ``core/fusion.py:171``).
+
+    ``shapes``: value name -> ``(shape, dtype)`` (``models/cnn.node_shapes``
+    on the UNFUSED graph: its value names are a superset of the fused
+    graph's, since a fused node keeps its last part's name and shape)."""
+    def nbytes(name: str) -> int:
+        shape, dtype = shapes[name]
+        n = dtype.itemsize
+        for d in shape:
+            n *= d
+        return n
+
+    return {node.name: sum(nbytes(src) for src in edge) + nbytes(node.name)
+            for node, edge in zip(g.nodes, g.inputs)}
+
+
+def fused_block_traffic(name: str, shapes: dict) -> dict[str, dict]:
+    """Per fused super-node: its modeled HBM traffic against the sum of
+    its parts in the unfused graph (reference ``core/fusion.py:193``):
+    ``*_bytes`` from :func:`graph_hbm_bytes`, and ``*_passes``, the
+    full-tensor transfers (one per edge and one write per node: a
+    MobileNet dw->pw pair is 4 passes unfused, 2 fused)."""
+    from repro_torch.core.graph import graph_for
+    g0, g1 = graph_for(name), fused_graph_for(name)
+    b0 = graph_hbm_bytes(g0, shapes)
+    b1 = graph_hbm_bytes(g1, shapes)
+    edges0 = {n.name: e for n, e in zip(g0.nodes, g0.inputs)}
+    out = {}
+    for node, edge in zip(g1.nodes, g1.inputs):
+        if not node.parts:
+            continue
+        unfused = sum(b0[p.name] for p in node.parts)
+        out[node.name] = {
+            "parts": [p.name for p in node.parts],
+            "unfused_bytes": unfused,
+            "fused_bytes": b1[node.name],
+            "ratio": unfused / max(b1[node.name], 1),
+            "unfused_passes": sum(len(edges0[p.name]) + 1
+                                  for p in node.parts),
+            "fused_passes": len(edge) + 1,
+        }
+    return out

@@ -32,8 +32,13 @@ so the caching allocator cannot hand a block back while a slot's
 stream still reads it; a stage program's temporaries live and die on
 its own stream.
 
-Per-stage weight placement (``stage_params``) and meshes are not
-ported: one card holds every stage's weights.
+Stage params come in two flavours, as in the reference's single-host
+path: ``stage_params=None`` (each stage program closes over its own
+weights), or the packed per-stage rows (:class:`PlacedParams`): stage k
+is handed ``stage_params[k]``, one uint8 row that it unpacks its weights
+from (:class:`ParamFormat`), so no stage program closes over a weight.
+Meshes (per-stage placement across devices) are not ported: one card
+holds every row.
 """
 from __future__ import annotations
 
@@ -41,6 +46,9 @@ from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import torch
+
+from repro_torch.core import pytree
+from repro_torch.core.quant import quantize_tree
 
 
 def microbatch(x, n_microbatches: int, *, pad: bool = False,
@@ -174,20 +182,232 @@ def concat_hetero_outputs(out_wires, unpack_out, n_microbatches: int,
     return torch.cat(mbs, dim=0)
 
 
-def _check_hetero(stage_fns, n_stages, stage_params, mesh) -> None:
+#: byte alignment of every leaf in the rows a server holds on the card:
+#: the ``mma`` kernels read weights, biases and scales as 16-byte vectors
+ALIGN = 16
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+class ParamFormat:
+    """Fixed BYTE layout of one stage's parameter tree (reference
+    ``core/pipeline.py:342``): every leaf reinterpreted as raw uint8 (a
+    bit copy, never a value conversion: int32 indices and int8 codes
+    keep every bit), flattened and concatenated in JAX's
+    ``tree_flatten`` order (``core/pytree.py``), then zero-padded to the
+    row width. Unpack is the exact inverse, so a stage program that runs
+    on unpacked params is bit-identical to one closing over the
+    originals.
+
+    ``align``: the byte boundary each leaf starts on. 1 is the
+    reference's layout (no gaps), byte for byte; :data:`ALIGN` puts
+    every leaf on a 16-byte boundary, the layout of the rows a server
+    holds on the card, where a leaf at an odd offset would make a kernel
+    wrapper copy it on every launch.
+
+    ``store_dtype`` (``core/quant.py``) re-stores float leaves narrow
+    before the layout: int8 codes and their f32 scales become ordinary
+    leaves of the (quantized) tree. Quantization is idempotent, so
+    ``pack`` takes the original or the already quantized tree."""
+
+    def __init__(self, template, leaves_meta, store_dtype: str = "native"):
+        self.template = template                # structure, d_in, orig_dtype
+        self.keys = [k for k, _ in pytree.keyed_leaves(template)]
+        self.leaves_meta = tuple(leaves_meta)   # per leaf: (shape, dtype)
+        self.store_dtype = store_dtype
+
+    @classmethod
+    def for_tree(cls, tree, store_dtype: str = "native") -> "ParamFormat":
+        tree = quantize_tree(tree, store_dtype)
+        meta = []
+        for leaf in pytree.leaves(tree):
+            if leaf.dtype == torch.bool:
+                # no param tree carries bool leaves: fail loudly rather
+                # than value-convert
+                raise ValueError(f"unsupported param leaf dtype {leaf.dtype}")
+            meta.append((tuple(leaf.shape), leaf.dtype))
+        return cls(tree, meta, store_dtype)
+
+    def _leaf_bytes(self) -> list[int]:
+        out = []
+        for shape, dt in self.leaves_meta:
+            n = dt.itemsize
+            for d in shape:
+                n *= d
+            out.append(n)
+        return out
+
+    @property
+    def nbytes(self) -> int:
+        """Live bytes of this stage's params: the sum of its leaves, not
+        the padded row width."""
+        return sum(self._leaf_bytes())
+
+    def offsets(self, align: int = 1) -> list[int]:
+        """Each leaf's byte offset in a row laid out at ``align``."""
+        out, off = [], 0
+        for size in self._leaf_bytes():
+            off = _round_up(off, align)
+            out.append(off)
+            off += size
+        return out
+
+    def row_bytes(self, align: int = 1) -> int:
+        """The bytes a row laid out at ``align`` needs, rounded up to
+        ``align`` (:attr:`nbytes` at 1)."""
+        sizes = self._leaf_bytes()
+        if not sizes:
+            return 0
+        return _round_up(self.offsets(align)[-1] + sizes[-1], align)
+
+    def pack(self, tree, width: int, align: int = 1) -> torch.Tensor:
+        """Param tree -> (width,) uint8 row on the leaves' device,
+        zero-padded."""
+        leaves = pytree.leaves(quantize_tree(tree, self.store_dtype))
+        if len(leaves) != len(self.leaves_meta):
+            raise ValueError(f"expected {len(self.leaves_meta)} leaves, "
+                             f"got {len(leaves)}")
+        need = self.row_bytes(align)
+        if need > width:
+            raise ValueError(f"param width {width} < payload {need}")
+        dev = leaves[0].device if leaves else "cpu"
+        row = torch.zeros((width,), dtype=torch.uint8, device=dev)
+        for leaf, (shape, dt), off, size in zip(
+                leaves, self.leaves_meta, self.offsets(align),
+                self._leaf_bytes()):
+            if tuple(leaf.shape) != shape or leaf.dtype != dt:
+                raise ValueError(f"leaf mismatch: {tuple(leaf.shape)}/"
+                                 f"{leaf.dtype} vs {shape}/{dt}")
+            if size:
+                # a bit view, never .to(): .to(uint8) would convert values
+                row[off:off + size].copy_(
+                    leaf.detach().contiguous().reshape(-1).view(torch.uint8))
+        return row
+
+    def unpack(self, row: torch.Tensor, align: int = 1):
+        """(>= row_bytes(align),) uint8 row -> the param tree, bit-exact.
+        Each leaf is a view into ``row`` where its offset allows one (a
+        multiple of its itemsize), else a copy of its bytes."""
+        base = row.storage_offset()
+        new = []
+        for (shape, dt), off, size in zip(self.leaves_meta,
+                                          self.offsets(align),
+                                          self._leaf_bytes()):
+            seg = row[off:off + size]
+            if (base + off) % dt.itemsize:
+                seg = seg.clone()
+            new.append(seg.view(dt).reshape(shape))
+        by_key = dict(zip(self.keys, new))
+        return pytree.rebuild(self.template, by_key.__getitem__)
+
+
+@dataclass(frozen=True)
+class PlacedParams:
+    """Per-stage parameter placement plan of a heterogeneous pipeline
+    (reference ``core/pipeline.py:435``).
+
+    ``formats[s]`` packs and unpacks stage s's param subtree,
+    ``trees[s]`` (keyed by fused-node part names) is what ``pack()``
+    serializes, ``width`` the largest stage's live bytes (the row width
+    of the reference's even ``(S, width)`` buffer). ``align``: the
+    layout of the rows ``pack()`` and ``pack_ragged()`` write and the
+    placed stage programs read (:class:`ParamFormat`); at 1 they are the
+    reference's bytes.
+
+    ``stage_bytes``, ``stage_widths``, ``replicated_bytes``,
+    ``padded_buffer_bytes`` and ``padding_bytes`` are the reference's
+    accounting whatever ``align`` is; ``row_widths`` and ``align_bytes``
+    report what the aligned layout adds."""
+    formats: tuple
+    trees: tuple
+    width: int
+    align: int = 1
+
+    @property
+    def stage_bytes(self) -> tuple[int, ...]:
+        """Live (unpadded) param bytes per stage."""
+        return tuple(f.nbytes for f in self.formats)
+
+    @property
+    def stage_widths(self) -> tuple[int, ...]:
+        """The reference's ragged row widths: each stage's live bytes."""
+        return self.stage_bytes
+
+    @property
+    def replicated_bytes(self) -> int:
+        """Residency when one device holds every stage's params."""
+        return sum(self.stage_bytes)
+
+    @property
+    def padded_buffer_bytes(self) -> int:
+        """Total bytes of the reference's even-width (S, width) buffer."""
+        return len(self.formats) * self.width
+
+    @property
+    def padding_bytes(self) -> int:
+        """Bytes the even-width buffer pads beyond the live payloads."""
+        return self.padded_buffer_bytes - sum(self.stage_widths)
+
+    @property
+    def row_widths(self) -> tuple[int, ...]:
+        """Widths of the rows ``pack_ragged()`` returns: ``stage_widths``
+        at align 1, each leaf on its boundary otherwise."""
+        return tuple(f.row_bytes(self.align) for f in self.formats)
+
+    @property
+    def align_bytes(self) -> int:
+        """Bytes the aligned layout adds to the live payloads, summed
+        over the stages (0 at align 1)."""
+        return sum(self.row_widths) - sum(self.stage_bytes)
+
+    @property
+    def buffer_width(self) -> int:
+        """Row width of ``pack()``'s even buffer: ``width`` at align 1."""
+        return _round_up(max((self.width,) + self.row_widths), self.align)
+
+    def pack(self) -> torch.Tensor:
+        """(n_stages, buffer_width) uint8 buffer: row s is stage s's
+        params, every row as wide as the largest."""
+        return torch.stack([f.pack(t, self.buffer_width, self.align)
+                            for f, t in zip(self.formats, self.trees)])
+
+    def pack_ragged(self) -> tuple:
+        """Per-stage ``(row_widths[s],)`` uint8 rows, one tensor each:
+        the payloads of :meth:`pack`'s rows without the even-width
+        padding. The executors take this tuple (or the rows of
+        ``pack()``) as ``stage_params``."""
+        return tuple(f.pack(t, w, self.align) for f, t, w in
+                     zip(self.formats, self.trees, self.row_widths))
+
+
+def _check_hetero_params(stage_fns, n_stages, stage_params, mesh):
+    """Shared validation of the executors (reference
+    ``_check_hetero_params``). Returns ``(placed, ragged)``: ``ragged``
+    marks a tuple or list of per-stage rows, the only placed form one
+    card runs."""
     if len(stage_fns) != n_stages:
         raise ValueError(f"{len(stage_fns)} stage programs for "
                          f"{n_stages} stages")
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: one card has no device mesh (ROADMAP Queue 1 item 9, "
-            "TPU-mesh tooling)")
-    if stage_params is not None:
+            "second half: the mesh tooling and the placed tier)")
+    placed = stage_params is not None
+    ragged = placed and isinstance(stage_params, (tuple, list))
+    if ragged and len(stage_params) != n_stages:
+        raise ValueError(f"{len(stage_params)} ragged param rows for "
+                         f"{n_stages} stages")
+    if placed and not ragged:
         raise ValueError(
             "per-stage weight placement (stage_params=...) requires a "
             "mesh with a 'stage' axis to place each stage's weights "
-            "onto, got no mesh; drop stage_params to run with the "
-            "stage programs' own params")
+            "onto, got no mesh; drop stage_params to run with the stage "
+            "programs' own params, or pass PlacedParams.pack_ragged() "
+            "rows (or the rows of PlacedParams.pack()) for single-card "
+            "packed params")
+    return placed, ragged
 
 
 def slot_streams(n_stages: int, n_replicas: int = 1,
@@ -225,8 +445,14 @@ def pipeline_step_hetero(stage_fns: Sequence, state: torch.Tensor,
     stage that holds no microbatch on a fill or drain tick may be
     skipped, its output slot then left as it was.
 
+    ``stage_params``: None (the stage programs close over their
+    weights) or one uint8 row per stage (:meth:`PlacedParams.pack_ragged`,
+    or the rows of :meth:`PlacedParams.pack`): stage k then runs
+    ``stage_fns[k](stage_params[k], wire, out=buf)``.
+
     Returns ``(out, emitted)``."""
-    _check_hetero(stage_fns, n_stages, stage_params, mesh)
+    placed, _ = _check_hetero_params(stage_fns, n_stages, stage_params,
+                                     mesh)
     rep = n_replicas > 1
     want = (n_stages, n_replicas) if rep else (n_stages,)
     if tuple(state.shape[:len(want)]) != want:
@@ -247,7 +473,8 @@ def pipeline_step_hetero(stage_fns: Sequence, state: torch.Tensor,
         else:
             dst = out[(k + 1) % n_stages, r] if rep \
                 else out[(k + 1) % n_stages]
-        stage_fns[k](src, out=dst)
+        args = (stage_params[k],) if placed else ()
+        stage_fns[k](*args, src, out=dst)
 
     slots = [(k, r) for k in stages for r in range(n_replicas)]
     if streams is None:
@@ -279,8 +506,9 @@ def pipeline_apply_gspmd_hetero(stage_fns: Sequence, x_wire: torch.Tensor,
     ``n_replicas`` > 1 (``microbatch(..., n_replicas=R)``). Returns the
     last stage's wires, same shape. A stage runs only on the ticks where
     its slot holds a microbatch: M x S stage runs in all instead of
-    (M + S - 1) x S, with the same outputs."""
-    _check_hetero(stage_fns, n_stages, stage_params, mesh)
+    (M + S - 1) x S, with the same outputs. ``stage_params`` as in
+    :func:`pipeline_step_hetero`."""
+    _check_hetero_params(stage_fns, n_stages, stage_params, mesh)
     rep = n_replicas > 1
     if rep and x_wire.shape[0] != n_replicas:
         raise ValueError(
@@ -303,5 +531,6 @@ def pipeline_apply_gspmd_hetero(stage_fns: Sequence, x_wire: torch.Tensor,
         active = [k for k in range(s) if 0 <= i - k < m]
         pipeline_step_hetero(stage_fns, bufs[i % 2], inject, n_stages=s,
                              n_replicas=n_replicas, out=bufs[(i + 1) % 2],
-                             emit=emit, streams=streams, active=active)
+                             emit=emit, streams=streams, active=active,
+                             stage_params=stage_params)
     return outs

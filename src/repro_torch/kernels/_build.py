@@ -87,10 +87,19 @@ def plain_acc(t: torch.Tensor) -> torch.dtype:
     return torch.float32 if t.device.type == "cuda" else torch.float64
 
 
+#: tensors :func:`aligned16` copied (a copy kernel beside the launch; in
+#: a captured graph, one on every replay)
+ALIGN_COPIES = 0
+
+
 def aligned16(t):
     """``t``, or a copy of it if its data does not start on a 16-byte
     boundary: the mma variants copy 16-byte vectors."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    global ALIGN_COPIES
+    if t.data_ptr() % 16 == 0:
+        return t
+    ALIGN_COPIES += 1
+    return t.clone()
 
 
 def _nvcc() -> str:

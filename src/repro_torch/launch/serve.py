@@ -33,9 +33,17 @@ The fault-tolerant tier (``tier=True``, ``procs=N``, ``hosts=N``;
 workers that dial in over TCP, with drain-and-respawn recovery that
 replays a failed replica's microbatches bitwise.
 
+Weights on the card: the continuous server and the tier's replicas run
+PLACED stage programs, as the reference's single-host server does: each
+stage unpacks its params from its own packed uint8 row
+(``pipeline.PlacedParams``), every leaf on a 16-byte boundary, and no
+stage program closes over a weight. With one device per stage (S = R = 1
+on one card) the rows are those of the even ``(S, width)`` buffer, as in
+the reference's placed path; ``_serve_cnn`` takes that path there too
+and otherwise closes over one device copy of the weights.
+
 On the CPU (``device="cpu"``) the same calls run the plain versions,
-eagerly. Per-stage placement raises ``NotImplementedError`` naming the
-ROADMAP item that ports it. An LM arch (``smollm-360m``) runs
+eagerly. An LM arch (``smollm-360m``) runs
 ``serve_lm``: the prompts stepped through the decode path, then greedy
 decoding.
 
@@ -65,6 +73,7 @@ import argparse
 import contextlib
 import dataclasses
 import time
+import warnings
 from collections import deque
 from typing import Optional
 
@@ -89,8 +98,8 @@ class ServeConfig:
     field names, defaults and validation, plus ``device``. ``image_size``
     is the reference's 64: ``main()``'s ``--image-size`` and
     ``chip_smoke.py`` ask for the paper's 224 explicitly. ``placed=None``
-    does not place (placement is not ported; the reference places
-    automatically when it has one device per stage)."""
+    places when there is one device per (stage, replica), as in the
+    reference; ``placed=True`` without them raises its ``ValueError``."""
     arch: str
     mode: str = "throughput"            # "latency" | "throughput"
     continuous: bool = False
@@ -148,7 +157,8 @@ class ServeConfig:
             raise ValueError(f"n_requests={self.n_requests}: need >= 1")
 
 
-_PLACEMENT = "ROADMAP Queue 1 item 9, per-stage weight placement"
+_PLACEMENT = ("ROADMAP Queue 1 item 9, second half: the placed tier "
+              "across devices and the mesh tooling")
 
 
 def serve(cfg: ServeConfig) -> dict:
@@ -347,6 +357,8 @@ def latency_request(cfg: ServeConfig, *, capture: bool = True,
             static_in.copy_(img)
             cuda_graph.replay()
             return static_out.cpu()
+        # the graph reads the weights' addresses: they live as long as it
+        request.params = params
     else:
         def request(img: torch.Tensor) -> torch.Tensor:
             return forward(img).cpu()
@@ -475,21 +487,22 @@ def _plan_cnn_serving(arch: str, *, n_stages: int, n_replicas: int,
     return cfg, params, plan, n_replicas, total_bytes
 
 
-def _check_placement(placed, n_stages: int, n_replicas: int,
-                     dev: torch.device) -> None:
-    """``placed=True``: the reference's ``ValueError`` when the devices
-    cannot hold one stage each, else ``NotImplementedError`` (per-stage
-    placement is not ported)."""
-    if not placed:
-        return
+def _placement(placed, n_stages: int, n_replicas: int,
+               dev: torch.device) -> bool:
+    """Whether to run the even ``(S, width)`` placed buffer: with
+    ``placed=None`` when the devices of ``dev``'s kind hold one (stage,
+    replica) each, as in the reference; ``placed=True`` without them
+    raises the reference's ``ValueError``."""
     n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
     need = n_stages * n_replicas
-    if n_dev < need:
+    if placed is None:
+        return n_dev >= need
+    if placed and n_dev < need:
         raise ValueError(
             f"placed=True needs >= {need} devices ({n_stages} stages x "
             f"{n_replicas} replicas), have {n_dev}; drop "
             "placement/replication")
-    raise NotImplementedError(f"placed=True: {_PLACEMENT}")
+    return bool(placed)
 
 
 def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
@@ -508,6 +521,13 @@ def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
     ``pipeline.pipeline_step_hetero``, each stage on its own CUDA stream
     (``streams=False``: all on one stream). A stage runs only on the
     ticks where its slot holds a microbatch (M x S x R stage runs).
+
+    Weights: with one device per (stage, replica) (``placed=None`` and
+    S = R = 1 on one card, or ``placed=True``) the placed stage programs
+    read the rows of the even ``(S, width)`` buffer
+    (``PlacedParams.pack()``, leaves 16-byte aligned), as the
+    reference's placed path; otherwise the stage programs close over one
+    device copy of the stored weights, as the reference's do.
 
     On the card the whole batch, from a static device input to the
     logits, is captured as one CUDA graph after an eager warm-up on a
@@ -540,7 +560,7 @@ def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
         if verbose:
             print(f"[serve] autotuned n_microbatches={n_microbatches}")
     s = plan["n_stages"]
-    _check_placement(placed, s, r, dev)
+    use_placed = _placement(placed, s, r, dev)
     if images is None:
         images = torch.randn((batch, image_size, image_size, 3),
                              generator=torch.Generator().manual_seed(seed))
@@ -552,9 +572,19 @@ def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
                          n_replicas=r)
     lead = (r, n_microbatches) if r > 1 else (n_microbatches,)
     mb_shape = tuple(x_mb.shape[len(lead):])
-    dparams = cnn.params_to(quantize_tree(native, quantize), dev)
-    stage_fns, pack_in, unpack_out, width = cnn.stage_programs(
-        cfg, dparams, plan["stage_of"], mb_shape, quantize=quantize)
+    rows = None
+    if use_placed:
+        stage_fns, pack_in, unpack_out, width, pparams = cnn.stage_programs(
+            cfg, native, plan["stage_of"], mb_shape, placed=True,
+            quantize=quantize, align=pp.ALIGN)
+        rows = tuple(pparams.pack().to(dev))
+        placed_bytes = pparams.width
+    else:
+        dparams = cnn.params_to(quantize_tree(native, quantize), dev)
+        stage_fns, pack_in, unpack_out, width = cnn.stage_programs(
+            cfg, dparams, plan["stage_of"], mb_shape, quantize=quantize)
+        # what placement WOULD hold per device
+        placed_bytes = int(plan["placed_bytes_per_device"])
     cuda = dev.type == "cuda"
     slots = pp.slot_streams(s, r, dev) if streams and cuda else None
 
@@ -562,8 +592,9 @@ def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
         wires = torch.zeros(lead + (mb_shape[0], width), device=dev)
         for idx in np.ndindex(*lead):
             pack_in(xmb[idx], out=wires[idx])
-        outs = pp.pipeline_apply_gspmd_hetero(stage_fns, wires, n_stages=s,
-                                        n_replicas=r, streams=slots)
+        outs = pp.pipeline_apply_gspmd_hetero(
+            stage_fns, wires, n_stages=s, n_replicas=r, streams=slots,
+            stage_params=rows)
         return pp.concat_hetero_outputs(outs, unpack_out, n_microbatches,
                                         n_replicas=r)
 
@@ -605,7 +636,6 @@ def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
 
     ims_per_s = batch / max(run_s, 1e-9)
     bub = pp.bubble_fraction(n_microbatches, s)
-    placed_bytes = int(plan["placed_bytes_per_device"])
     n_streams = s * r if slots is not None else 1
     if verbose:
         rep = f" x{r} replicas" if r > 1 else ""
@@ -614,13 +644,14 @@ def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
               f"{'CUDA graph' if graph else 'eager'}, "
               f"quantize={quantize}) on {dev}: {ims_per_s:.1f} im/s "
               f"(warm-up {compile_s:.2f}s, bubble {bub:.2f}, imbalance "
-              f"{plan['imbalance']:.2f}, wire {width} f32)")
+              f"{plan['imbalance']:.2f}, wire {width} f32, "
+              f"{'placed rows' if use_placed else 'closures'})")
     return {"logits": logits.numpy(), "images": images.numpy(),
             "images_per_s": ims_per_s, "compile_s": compile_s,
             "run_s": run_s, "bubble_fraction": bub, "n_stages": s,
             "n_replicas": r, "n_microbatches": n_microbatches,
             "imbalance": plan["imbalance"], "stage_of": plan["stage_of"],
-            "placed": False, "quantize": quantize, "device": str(dev),
+            "placed": use_placed, "quantize": quantize, "device": str(dev),
             "param_bytes_replicated_per_device": int(total_bytes),
             "param_bytes_placed_per_device": placed_bytes,
             "param_placement_ratio": placed_bytes / max(total_bytes, 1),
@@ -666,8 +697,23 @@ class CNNPipelineServer:
     every undelivered microbatch once nothing is in flight on the card,
     ``respawn()`` zeroes the state in place, ``purge(pred)`` drops queued
     ones. With ``plan=`` (and ``cfg=``, ``params=``) the server serves
-    that plan and those weights as given, so the tier's replicas share
-    one plan and one device copy of the weights.
+    that plan and those weights as given, and ``param_rows=`` hands it
+    rows already on the card, so the tier's replicas share one plan and
+    one set of rows.
+
+    Params (the reference's single-host branch): the stage programs are
+    PLACED (``cnn.stage_programs(placed=True)``): stage k unpacks its
+    weights from ``param_rows[k]``, a uint8 row on the card with every
+    leaf on a 16-byte boundary (``pipeline.ALIGN``), and no stage
+    program closes over a weight. With ``placed=None`` or ``False`` and
+    fewer devices than S x R the rows are ``pparams.pack_ragged()``;
+    where the devices suffice (S = R = 1 on one card) or with
+    ``placed=True`` they are the rows of the even ``(S, width)`` buffer
+    ``pparams.pack()`` (``param_buffer``), as the reference's placed
+    path; ``placed=True`` without the devices raises its
+    ``ValueError``. ``closures=True`` compiles the closure programs over
+    one device copy of the weights instead, the form the two are held
+    against.
 
     Bitwise contract: continuous serving equals isolated requests and
     the sequential forward at the same microbatch size (slots never
@@ -680,7 +726,8 @@ class CNNPipelineServer:
                  params=None, tuning_cache=None,
                  calibrate: bool = False, quantize: str = "native",
                  device="cuda", streams: bool = True, injector=None,
-                 cfg=None, plan=None):
+                 cfg=None, plan=None, param_rows=None,
+                 closures: bool = False):
         dev = resolve_device(device)
         if plan is not None:
             # the serving tier plans ONCE and hands every replica the
@@ -708,12 +755,35 @@ class CNNPipelineServer:
         self.image_size = image_size
         self.plan = plan
         self.device = dev
-        _check_placement(placed, s, r, dev)
-        self.placed = False
+        self.placed = _placement(placed, s, r, dev)
         mb_shape = (mb_size, image_size, image_size, 3)
-        dparams = cnn.params_to(quantize_tree(params, quantize), dev)
-        stage_fns, pack_in, unpack_out, width = cnn.stage_programs(
-            cfg, dparams, plan["stage_of"], mb_shape, quantize=quantize)
+        self.pparams = self.param_buffer = rows = None
+        if closures:
+            dparams = cnn.params_to(quantize_tree(params, quantize), dev)
+            stage_fns, pack_in, unpack_out, width = cnn.stage_programs(
+                cfg, dparams, plan["stage_of"], mb_shape, quantize=quantize)
+        else:
+            stage_fns, pack_in, unpack_out, width, self.pparams = \
+                cnn.stage_programs(cfg, params, plan["stage_of"], mb_shape,
+                                   placed=True, quantize=quantize,
+                                   align=pp.ALIGN)
+            rows = param_rows
+            if rows is None and self.placed:
+                self.param_buffer = self.pparams.pack().to(dev)
+                rows = tuple(self.param_buffer)
+            elif rows is None:
+                rows = tuple(row.to(dev) for row in
+                             self.pparams.pack_ragged())
+            elif len(rows) != s or any(
+                    row.numel() < w or row.device.type != dev.type
+                    for row, w in zip(rows, self.pparams.row_widths)):
+                raise ValueError(
+                    f"param_rows: {len(rows)} rows of "
+                    f"{[row.numel() for row in rows]} bytes on "
+                    f"{[str(row.device) for row in rows]}, need {s} of "
+                    f">= {list(self.pparams.row_widths)} on {dev}")
+        # the tick's params: one packed row per stage (None: closures)
+        self.param_rows = rows
         self.width = width
         lead = (r,) if r > 1 else ()
         self._img_shape = lead + mb_shape
@@ -733,14 +803,17 @@ class CNNPipelineServer:
         bufs, img, outs = self._bufs, self._img, self._out
 
         # (the tick holds no reference to the server: no cycle, so a
-        # server is freed, graphs and pools with it, when it is dropped)
+        # server is freed, graphs and pools with it, when it is dropped;
+        # the server holds the tick, and through it every tensor its
+        # captured graphs read that is not theirs: the closures' weights)
         def tick(p: int) -> None:
             src, dst = bufs[p], bufs[1 - p]
             for q in range(r):
                 pack_in(img[p][q] if r > 1 else img[p],
                         out=src[0, q] if r > 1 else src[0])
             pp.pipeline_step_hetero(stage_fns, src, None, n_stages=s,
-                                    n_replicas=r, out=dst, streams=slots)
+                                    n_replicas=r, out=dst, streams=slots,
+                                    stage_params=rows)
             for q in range(r):
                 if r > 1:
                     outs[p][q].copy_(unpack_out(dst[0, q]))
@@ -785,6 +858,7 @@ class CNNPipelineServer:
             self._step = lambda p: graphs[p].replay()
         else:
             self._step = tick
+        self._tick = tick
         self._reset()
         # FIFO of (req_id, mb_index, n_valid, images) microbatch slots; a
         # tier's slot (enqueue()) has req _EXTERNAL and its key for index
@@ -1181,7 +1255,7 @@ def _serve_cnn_continuous(arch: str, *, n_requests: int = 4,
     metrics["latency_p50_s"] = float(np.percentile(lat, 50))
     metrics["latency_p99_s"] = float(np.percentile(lat, 99))
     metrics.update(quantize=quantize, device=str(srv.device),
-                   mb_size=mb_size, streams=srv.streams,
+                   placed=srv.placed, mb_size=mb_size, streams=srv.streams,
                    captured=srv.captured, wire_width=srv.width,
                    stage_of=srv.plan["stage_of"],
                    launches_per_tick=srv.launches_per_tick)
@@ -1275,6 +1349,32 @@ def _serve_cnn_tier(arch: str, *, n_requests: int = 8, batch: int = 8,
     metrics["request_images"] = [np.asarray(x, np.float32)
                                  for x in requests]
     return metrics
+
+
+# --- deprecated per-mode entry points (use serve(ServeConfig(...))) --------
+
+def _serve_deprecated(old: str) -> None:
+    warnings.warn(f"{old}() is deprecated; use "
+                  "serve(ServeConfig(arch=..., ...)): one config, one "
+                  "dispatcher", DeprecationWarning, stacklevel=3)
+
+
+def serve_cnn(arch: str, **kw):
+    """Deprecated shim: ``serve(ServeConfig(arch, mode='throughput'))``."""
+    _serve_deprecated("serve_cnn")
+    return _serve_cnn(arch, **kw)
+
+
+def serve_cnn_continuous(arch: str, **kw):
+    """Deprecated shim: ``serve(ServeConfig(arch, continuous=True))``."""
+    _serve_deprecated("serve_cnn_continuous")
+    return _serve_cnn_continuous(arch, **kw)
+
+
+def serve_cnn_tier(arch: str, **kw):
+    """Deprecated shim: ``serve(ServeConfig(arch, tier=True))``."""
+    _serve_deprecated("serve_cnn_tier")
+    return _serve_cnn_tier(arch, **kw)
 
 
 def main(argv=None):

@@ -481,8 +481,10 @@ def stage_param_trees(g: LayerGraph, stage_of, params) -> list[dict]:
 
 def stage_programs(cfg, params, stage_of, image_shape, *,
                    graph: Optional[LayerGraph] = None,
-                   placed: bool = False, quantize: str = "native"):
-    """Compile the IR into per-stage wire programs.
+                   placed: bool = False, quantize: str = "native",
+                   align: int = 1):
+    """Compile the IR into per-stage wire programs (reference
+    ``models/cnn.py:400``).
 
     stage_of: stage id per IR node of the FUSED graph (contiguous, from
     ``planner.plan``). image_shape: (mb, H, W, 3) of ONE microbatch.
@@ -497,16 +499,20 @@ def stage_programs(cfg, params, stage_of, image_shape, *,
       stage 0 (the images rounded to bf16, as ``cnn_forward`` does).
     - unpack_out(wire): last stage's wire -> (mb, 1000) f32 logits.
 
+    ``placed=True`` compiles PLACED stage programs instead:
+    ``stage_fns[s](row, wire, out=None)`` unpacks stage s's params from
+    its own uint8 row (``pipeline.ParamFormat``: views, bit-exact, so
+    placed == closures bitwise) and closes over no weight; a fifth
+    return value, ``pipeline.PlacedParams``, plans the rows
+    (``.pack_ragged()``, or the even buffer ``.pack()``). ``align``:
+    the rows' layout (1, the reference's bytes; ``pipeline.ALIGN`` puts
+    every leaf on a 16-byte boundary, as a server's rows on the card).
+
     ``quantize`` (``core/quant.py`` store dtype) re-stores the weights
-    ONCE up front, and every stage reads that one tree. ``placed=True``
-    (per-stage placement, packed param rows) raises
-    ``NotImplementedError``: ROADMAP Queue 1 item 7."""
+    ONCE up front, so the placed trees, their formats and the closures
+    all read the same stored bits."""
     from repro_torch.core import pipeline as pp
     from repro_torch.core.quant import quantize_tree
-    if placed:
-        raise NotImplementedError(
-            "stage_programs(placed=True): per-stage weight placement, "
-            "ROADMAP Queue 1 item 7 (tier and param-blob reader)")
     g = graph if graph is not None else fused_graph_for(cfg.name)
     params = quantize_tree(params, quantize)
     slices = g.partition(list(stage_of))
@@ -520,18 +526,33 @@ def stage_programs(cfg, params, stage_of, image_shape, *,
     out_fmts = [fmt(sl.out_live) for sl in slices]
     width = max(f.width for f in in_fmts + out_fmts)
 
-    def make_stage(sl, in_fmt, out_fmt):
-        def stage(wire, out=None):
+    placed_params = None
+    if placed:
+        trees = stage_param_trees(g, stage_of, params)
+        pfmts = [pp.ParamFormat.for_tree(t, store_dtype=quantize)
+                 for t in trees]
+        pwidth = max(max((f.nbytes for f in pfmts), default=0), 1)
+        placed_params = pp.PlacedParams(formats=tuple(pfmts),
+                                        trees=tuple(trees), width=pwidth,
+                                        align=align)
+
+    def make_stage(sl, in_fmt, out_fmt, pfmt=None):
+        def run(sparams, wire, out):
             with torch.no_grad():
                 env = dict(zip(sl.in_live, in_fmt.unpack(wire)))
-                env = _interpret(g, params, None, start=sl.start,
+                env = _interpret(g, sparams, None, start=sl.start,
                                  stop=sl.stop, env=env)
                 return out_fmt.pack([env[n] for n in sl.out_live], width,
                                     out=out)
-        return stage
 
-    stage_fns = [make_stage(sl, fi, fo)
-                 for sl, fi, fo in zip(slices, in_fmts, out_fmts)]
+        if pfmt is None:
+            return lambda wire, out=None: run(params, wire, out)
+        return lambda row, wire, out=None: run(pfmt.unpack(row, align),
+                                               wire, out)
+
+    pfmts = placed_params.formats if placed else [None] * len(slices)
+    stage_fns = [make_stage(sl, fi, fo, pf)
+                 for sl, fi, fo, pf in zip(slices, in_fmts, out_fmts, pfmts)]
 
     def pack_in(images, out=None):
         return in_fmts[0].pack([images.to(torch.bfloat16)], width, out=out)
@@ -539,4 +560,81 @@ def stage_programs(cfg, params, stage_of, image_shape, *,
     def unpack_out(wire):
         return out_fmts[-1].unpack(wire)[0]
 
+    if placed:
+        return stage_fns, pack_in, unpack_out, width, placed_params
     return stage_fns, pack_in, unpack_out, width
+
+
+# ---------------------------------------------------------------------------
+# frozen pre-IR reference (regression oracle)
+# ---------------------------------------------------------------------------
+
+def cnn_forward_reference(cfg, params, images, *, device="cuda"):
+    """The reference's frozen per-model forward monoliths (reference
+    ``models/cnn.py:496``), written without the layer graph: the oracle
+    the graph interpreter is held to bit for bit, through the same node
+    executors (``conv2d``, ``depthwise``, ``fc_apply``). It equals
+    ``cnn_forward(graph=graph_for(name))``, the unfused view, bitwise. On
+    the card its depthwise nodes launch ``depthwise_conv``, its pruned
+    convs ``sparse_conv`` and its pruned classifier ``sparse_matmul``.
+    On the CPU a batch runs one image at a time, as ``run_node`` does.
+    Do not extend."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(images).to(dev).to(torch.bfloat16).contiguous()
+    with torch.inference_mode():
+        if dev.type != "cuda" and x.shape[0] > 1:
+            return torch.cat([_forward_reference(cfg.name, params, one)
+                              for one in x.split(1)])
+        return _forward_reference(cfg.name, params, x)
+
+
+def _forward_reference(name: str, params, x):
+    specs = {s.name: s for s in specs_for(name)}
+    if name == "resnet50":
+        x = conv2d(x, params["conv1"], specs["conv1"])
+        x = _maxpool_same(x, 3, 2)
+        blocks = [(3, 64, 256), (4, 128, 512), (6, 256, 1024), (3, 512, 2048)]
+        for si, (nb, _mid, _out) in enumerate(blocks):
+            for bi in range(nb):
+                pre = f"s{si}b{bi}"
+                resid = x
+                y = conv2d(x, params[f"{pre}_c1"], specs[f"{pre}_c1"])
+                y = conv2d(y, params[f"{pre}_c2"], specs[f"{pre}_c2"])
+                y = conv2d(y, params[f"{pre}_c3"], specs[f"{pre}_c3"],
+                           relu=False)
+                if bi == 0:
+                    resid = conv2d(x, params[f"{pre}_proj"],
+                                   specs[f"{pre}_proj"], relu=False)
+                x = torch.relu(y + resid)
+        x = _global_avgpool(x)
+    elif name == "mobilenet_v1":
+        x = conv2d(x, params["conv1"], specs["conv1"])
+        for i in range(len(_MBV1)):
+            x = depthwise(x, params[f"b{i}_dw"], specs[f"b{i}_dw"])
+            x = conv2d(x, params[f"b{i}_pw"], specs[f"b{i}_pw"])
+        x = _global_avgpool(x)
+    elif name == "mobilenet_v2":
+        x = conv2d(x, params["conv1"], specs["conv1"])
+        cin = 32
+        for si, (t, cout, n, stride) in enumerate(_MBV2):
+            for bi in range(n):
+                pre = f"s{si}b{bi}"
+                resid = x
+                y = x
+                if t != 1:
+                    y = conv2d(y, params[f"{pre}_exp"], specs[f"{pre}_exp"])
+                y = depthwise(y, params[f"{pre}_dw"], specs[f"{pre}_dw"])
+                y = conv2d(y, params[f"{pre}_pj"], specs[f"{pre}_pj"],
+                           relu=False)
+                s = stride if bi == 0 else 1
+                if s == 1 and cin == cout:
+                    y = y + resid
+                x = y
+                cin = cout
+        x = conv2d(x, params["conv_last"], specs["conv_last"])
+        x = _global_avgpool(x)
+    else:
+        raise ValueError(name)
+    # fc_apply is the one shared dispatch with the interpreter, as in the
+    # reference: both sides run the identical classifier matmul
+    return fc_apply(params["fc"], x)

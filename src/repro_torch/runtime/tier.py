@@ -27,9 +27,10 @@ mid-stream without draining the fleet or dropping requests:
 Three fault domains share that request-facing core (:class:`_TierBase`):
 
 - :class:`ServingTier`: the replicas in this process, on one device.
-  They share one device copy of the weights, one plan and the process's
-  one tuning cache (the kernels' plans): different plans per replica
-  would break replay bitwise. An injected failure is recovered in
+  They share one set of packed param rows on the device (each replica
+  runs placed stage programs over them), one plan and the process's one
+  tuning cache (the kernels' plans): different plans per replica would
+  break replay bitwise. An injected failure is recovered in
   process; a real CUDA fault poisons the process's context, which only
   the process tiers recover from.
 - :class:`ProcessServingTier`: each replica an OS process
@@ -44,9 +45,9 @@ and tick captures, where cuDNN chooses) under
 setting outside that scope; on the card the supervisor builds the kernels
 before it starts any worker.
 
-Not ported: per-stage placement (``placed=True``, ``lose_devices``,
-``_remesh_buffer``) needs one device per stage and raises, naming ROADMAP
-Queue 1 item 9.
+Not ported: the placed tier across devices (``placed=True``,
+``devices=``, ``lose_devices``, ``_remesh_buffer``) needs one device per
+stage and raises, naming ROADMAP Queue 1 item 9's second half.
 """
 from __future__ import annotations
 
@@ -468,12 +469,14 @@ class ServingTier(_TierBase):
     docstring for the fault model).
 
     The weights (``params``: native, on the CPU; by default drawn from
-    ``seed``) are stored at ``quantize`` and moved to ``device`` ONCE;
-    every replica serves those tensors under one plan. Each replica
+    ``seed``) are stored at ``quantize`` and packed into per-stage rows
+    on ``device`` ONCE, by the first replica (``param_rows``); every
+    replica runs its placed stage programs over those rows under one
+    plan, so R replicas hold the weights on the card once. Each replica
     captures its own two tick graphs and replays them on a stream of its
     own, so replicas overlap on the card. ``placed=True`` and
-    ``devices=`` raise ``NotImplementedError`` (placement, Queue 1
-    item 9)."""
+    ``devices=`` raise ``NotImplementedError`` (Queue 1 item 9, second
+    half)."""
 
     def __init__(self, arch: str, *, n_replicas: int = 2,
                  n_stages: int = 4, mb_size: int = 2,
@@ -505,7 +508,6 @@ class ServingTier(_TierBase):
         from repro_torch.core.device import resolve_device
         from repro_torch.core.quant import quantize_tree
         from repro_torch.launch.serve import _plan_cnn_serving
-        from repro_torch.models import cnn
         dev = resolve_device(device)
         cfg, native, self.plan, n_replicas, _ = _plan_cnn_serving(
             arch, n_stages=n_stages, n_replicas=n_replicas,
@@ -516,8 +518,10 @@ class ServingTier(_TierBase):
         self.cfg = cfg
         self.quantize = quantize
         self.device = dev
-        # one device copy of the stored weights, shared by every replica
-        self.params = cnn.params_to(quantize_tree(native, quantize), dev)
+        # the stored weights on the CPU: the first replica packs them into
+        # the rows on the card that every replica then shares
+        self.params = quantize_tree(native, quantize)
+        self.param_rows = None
         self.mb_size = mb_size
         self.image_size = image_size
         self.seed = seed
@@ -548,7 +552,8 @@ class ServingTier(_TierBase):
                 self.arch, mb_size=self.mb_size, image_size=self.image_size,
                 seed=self.seed, cfg=self.cfg, params=self.params,
                 plan=self.plan, injector=injector, quantize=self.quantize,
-                device=self.device)
+                device=self.device, param_rows=self.param_rows)
+        self.param_rows = server.param_rows
         w = ReplicaWorker(idx=idx, server=server,
                           last_heartbeat=self._clock())
         server.on_result = lambda key, logits, _w=w: \
@@ -715,7 +720,7 @@ class ServingTier(_TierBase):
 
     def lose_devices(self, lost) -> dict:
         """Permanent device loss re-plans a placed tier onto the
-        surviving devices: not ported (placement, Queue 1 item 9)."""
+        surviving devices: not ported (Queue 1 item 9, second half)."""
         raise NotImplementedError(f"lose_devices: {_PLACEMENT}")
 
     def _remesh_buffer(self, donor, devs, s):

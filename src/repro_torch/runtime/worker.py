@@ -63,58 +63,13 @@ import traceback
 import numpy as np
 import torch
 
-from repro_torch.core.quant import QuantizedWeight
-from repro_torch.models.layers import SparseWeight
+from repro_torch.core.pytree import keyed_leaves, rebuild
 from repro_torch.runtime import transport
 
 _BLOB_MAGIC = b"HPIPEPB1"
-_KEYSEP = "|"
 
 
 # --- the packed param blob -----------------------------------------------------
-
-def _children(leaf):
-    """A weight container's leaves in the reference's ``tree_flatten``
-    order, or None for a plain tensor."""
-    if isinstance(leaf, SparseWeight):
-        return [leaf.vals, leaf.idx] + (
-            [] if leaf.scale is None else [leaf.scale])
-    if isinstance(leaf, QuantizedWeight):
-        return [leaf.codes, leaf.scale]
-    return None
-
-
-def _keyed_leaves(tree, path=()):
-    """``(key, tensor)`` for every leaf of ``tree``, in the order and
-    with the key strings of JAX's ``tree_flatten_with_path``."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _keyed_leaves(tree[k], path + (f"[{k!r}]",))
-        return
-    kids = _children(tree)
-    if kids is None:
-        yield _KEYSEP.join(path), tree
-        return
-    for i, kid in enumerate(kids):
-        yield _KEYSEP.join(path + (f"[<flat index {i}>]",)), kid
-
-
-def _rebuild(tree, leaf_of, path=()):
-    """``tree`` with every leaf replaced by ``leaf_of(key)``."""
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, leaf_of, path + (f"[{k!r}]",))
-                for k, v in tree.items()}
-    kids = _children(tree)
-    if kids is None:
-        return leaf_of(_KEYSEP.join(path))
-    new = [leaf_of(_KEYSEP.join(path + (f"[<flat index {i}>]",)))
-           for i in range(len(kids))]
-    if isinstance(tree, SparseWeight):
-        return SparseWeight(new[0], new[1], tree.d_in,
-                            new[2] if len(new) > 2 else None,
-                            tree.orig_dtype)
-    return QuantizedWeight(new[0], new[1], tree.orig_dtype)
-
 
 def _leaf_bytes(t: torch.Tensor) -> tuple[np.ndarray, str]:
     """A tensor's C-order bytes as numpy, and the manifest's dtype tag."""
@@ -130,7 +85,7 @@ def write_param_blob(params, path: str) -> str:
     format). Written temp-then-rename, so workers never map a
     half-written blob."""
     leaves, manifest, off = [], [], 0
-    for key, leaf in _keyed_leaves(params):
+    for key, leaf in keyed_leaves(params):
         a, tag = _leaf_bytes(leaf)
         manifest.append({"key": key, "dtype": tag, "shape": list(a.shape),
                          "offset": off, "nbytes": int(a.nbytes)})
@@ -165,7 +120,7 @@ def read_param_blob(template, path: str):
         manifest = json.loads(f.read(mlen))
         base = f.tell()
     by_key = {m["key"]: m for m in manifest["leaves"]}
-    want = dict(_keyed_leaves(template))
+    want = dict(keyed_leaves(template))
 
     def leaf_of(key):
         m = by_key[key]
@@ -187,7 +142,7 @@ def read_param_blob(template, path: str):
                 f"template's {ref.dtype} {tuple(ref.shape)}")
         return t
 
-    return _rebuild(template, leaf_of)
+    return rebuild(template, leaf_of)
 
 
 # --- cross-host startup: fingerprint + blob-by-hash fetch --------------------

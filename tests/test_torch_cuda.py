@@ -940,6 +940,7 @@ def _tier_sequential(cfg, params, x, mb):
     setting the tier builds its replicas with."""
     from repro_torch.core.device import deterministic_convs
     x = torch.from_numpy(x)
+    params = cnn.params_to(params, "cuda")
     pad = (-len(x)) % mb
     if pad:
         x = torch.cat([x, torch.zeros((pad,) + tuple(x.shape[1:]))])
@@ -1041,3 +1042,39 @@ def test_process_and_host_tiers_bitwise_on_the_card(dev):
         proxy.close()
     for a, b in zip(want, got):
         assert (a.view("uint32") == b.view("uint32")).all()
+
+
+@pytest.mark.parametrize("quantize", ["native", "int8"])
+@pytest.mark.parametrize("arch", ["resnet50", "mobilenet_v2"])
+def test_placed_rows_equal_closures_on_the_card(dev, arch, quantize):
+    """The continuous server on its packed rows (16-byte-aligned leaves)
+    against one on closures, 64 px, mb 2, S 4: the same launches a tick
+    by name and variant, no aligned16 copy, the same logits and state
+    wires bit for bit, and the oracle bitwise the unfused view."""
+    import numpy as np
+    from repro_torch.launch import serve as port_serve
+    cfg = get_config(arch)
+    params = port_serve._init_native(cfg, 0)
+    reqs = [np.random.default_rng(i).normal(size=(3, 64, 64, 3)).astype(
+        np.float32) for i in range(2)]
+    srvs, outs = {}, {}
+    for closures in (False, True):
+        c0 = _build.ALIGN_COPIES
+        srv = port_serve.CNNPipelineServer(
+            arch, mb_size=2, n_stages=4, image_size=64, quantize=quantize,
+            params=params, closures=closures)
+        assert _build.ALIGN_COPIES == c0
+        ids = [srv.submit(x) for x in reqs]
+        srv.run()
+        outs[closures] = [srv.results(i) for i in ids]
+        srvs[closures] = srv
+    assert srvs[False].param_rows is not None
+    assert srvs[False].launches_per_tick == srvs[True].launches_per_tick
+    for a, b in zip(outs[False], outs[True]):
+        assert (a.view("uint32") == b.view("uint32")).all()
+    for a, b in zip(srvs[False]._bufs, srvs[True]._bufs):
+        assert torch.equal(a, b)
+    p_dev = cnn.params_to(params, dev)
+    x = torch.from_numpy(reqs[0][:1])
+    assert torch.equal(cnn.cnn_forward_reference(cfg, p_dev, x),
+                       cnn.cnn_forward(cfg, p_dev, x, graph=graph_for(arch)))

@@ -280,14 +280,24 @@ def test_unported_throughput_knobs_name_their_roadmap_item(kw, monkeypatch,
     the plan (and M) equal the reference planner's on the same weights
     under the same request, the calibrated plan read from the port's own
     measurements, and the logits the sequential forward's bitwise.
-    Per-stage placement still raises, naming its ROADMAP item; the tier
-    serves since it was ported, every request the sequential forward's
+    Per-stage placement with one device per stage (S = 1) now runs: the
+    placed stage program reads the row of the even (1, width) buffer,
+    and its logits are the sequential forward's bitwise; the tier serves
+    since it was ported, every request the sequential forward's
     bitwise."""
     base = dict(arch="mobilenet_v1", device="cpu", image_size=IMAGE,
                 batch=4, n_requests=2, mb_size=2, verbose=False)
     if kw.get("placed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            serve(ServeConfig(**base, **kw))
+        out = serve(ServeConfig(**base, **kw))
+        assert out["placed"] is True and out["n_stages"] == 1
+        cfg = get_config("mobilenet_v1")
+        params = port_serve._init_native(cfg, 0)
+        images = out["request_images"] if kw.get("continuous") \
+            else [out["images"]]
+        logits = out["logits"] if kw.get("continuous") else [out["logits"]]
+        for x, got in zip(images, logits):
+            np.testing.assert_array_equal(got, cnn.cnn_forward(
+                cfg, params, torch.from_numpy(x), device="cpu").numpy())
         return
     if kw.get("tier"):
         out = serve(ServeConfig(**base, **kw))

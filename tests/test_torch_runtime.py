@@ -40,6 +40,7 @@ from repro.runtime import tier as ref_tier  # noqa: E402
 from repro.runtime import transport as ref_transport  # noqa: E402
 from repro.runtime import worker as ref_worker  # noqa: E402
 from repro_torch.checkpoint import ckpt  # noqa: E402
+from repro_torch.core import pytree  # noqa: E402
 from repro_torch.core.quant import QuantizedWeight  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.models.layers import SparseWeight  # noqa: E402
@@ -500,7 +501,7 @@ def _ref_params(arch, quantize):
 def _port_leaves(tree):
     """Every leaf as (key, bits): bf16 viewed as int16."""
     out = {}
-    for key, t in worker._keyed_leaves(tree):
+    for key, t in pytree.keyed_leaves(tree):
         t = t.detach()
         out[key] = (str(t.dtype),
                     (t.view(torch.int16) if t.dtype == torch.bfloat16

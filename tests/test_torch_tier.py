@@ -272,9 +272,10 @@ def test_replan_reuses_feasible_cut():
 def test_placement_raises_naming_its_roadmap_item(ref_tier_):
     for kw in ({"placed": True}, {"devices": ["cpu"]}):
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 9"):
+                           match="ROADMAP Queue 1 item 9, second half"):
             _tier(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 9, second half"):
         ref_tier_.lose_devices(["cpu"])
     with pytest.raises(ValueError):
         _tier(heartbeat_timeout_s=0.0)
