@@ -23,7 +23,11 @@ Phases, in order; any failure raises and exits nonzero:
    that is no tile multiple), at short and odd lengths, windows and
    offsets, and on the reference's test grid, and sparse_matmul at
    SmolLM-360M's 64 x 64 FFN blocks and at 32 x 32 blocks, at M 4 to
-   2048; then the stored weights: int8 codes with their scales through
+   2048; flash_attention at D 128 (Qwen3-32B, Mistral-Nemo-12B and
+   Granite-20B's heads at T 2048, Qwen3-32B's last cache chunk: Tq 512,
+   q_offset 1536, Tk 2048; a Tk no tile multiple, a window, f32) and
+   sparse_matmul at the three models' 128 x 128 FFN blocks at M 1-8
+   ("gemv") and 2048 ("mma"); then the stored weights: int8 codes with their scales through
    sparse_conv "mma" at every ResNet-50 layer shape (residual on and
    off), the int8 classifier through "gemv", int8 dw_pw "mma" at every
    MobileNet block shape, and one "simt" shape each in int8 and in f32
@@ -72,7 +76,19 @@ Phases, in order; any failure raises and exits nonzero:
    "mma"), a prefill at T 256 held against the port's CPU forward, and
    ``serve_lm(batch=4, prompt_len=32, gen_tokens=16)`` ((32 + 16) x 96
    sparse_matmul launches, all "gemv", no flash_attention), replayed
-   teacher-forced on the CPU;
+   teacher-forced on the CPU; the continuous batcher
+   (``runtime/scheduler.ContinuousBatcher``) on SmolLM-360M, 8 slots and
+   24 requests (steps x 96 sparse_matmul "gemv", no flash), every
+   request teacher-forced alone in its own row on the card and on the
+   CPU within 3e-2 of max |logit|; Qwen3-32B at full width and depth (64
+   layers): a T 2048 prefill (64 flash "mma" + 192 sparse_matmul "mma"),
+   a decode step, layer 0's prompt in 4 chunks of 512 through the cache
+   against its one-shot prefill, ``serve_lm(use_reduced=False, batch 4,
+   32 + 16)`` and the batcher (4 slots, 8 requests, replayed on the
+   card); Mistral-Nemo-12B and Granite-20B at full width and depth (40
+   and 52 layers): a prefill and a decode step;
+   every layer of the three fed the card's own input within 1 bf16 ulp
+   of the CPU layer (a 32-token prefill and decode step 0);
 5. timings (CUDA events over CUDA-graph replays, L2-warm): each kernel at
    the main-path shapes beside its plain version, a library call that
    computes the same function (never called by the port; for dw_pw no
@@ -90,7 +106,11 @@ Phases, in order; any failure raises and exits nonzero:
    rows, the plain forward of the microbatch); the continuous server's
    images/s on rows against closures (native, mb 2, S 4, three turns
    each in alternation); SmolLM-360M's prefill latency and
-   ``serve_lm``'s times;
+   ``serve_lm``'s times; flash at D 128 and sparse_matmul at 128 x 128
+   blocks (M 4, 2048) beside their plain versions, bounds, SDPA and
+   ``torch.matmul`` on the densified weight; the large LMs' prefill
+   latencies, Qwen3-32B's ``serve_lm`` times and the batchers' tok/s and
+   TTFT;
 6. the measured cost model and the tuned kernels: for each CNN at native
    weights, ``tuning.calibrate(..., autotune=True)`` at batch 1 and at mb
    4 (the MobileNets' dw_pw also tuned at n 2, their depthwise on the
@@ -149,6 +169,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -357,6 +378,490 @@ def conv_input_elems(x_shape, idx, k: int, stride: int, bm: int) -> int:
         cols = cols[(cols >= 0) & (cols < w)]
         mask[rows[:, None], cols[None, :], q] = True
     return n * int(mask.sum()) * bm
+
+
+# The large dense LMs at full width and depth, 128-wide heads and 128 x
+# 128 FFN blocks: Qwen3-32B through prefill, the cache-chunk step,
+# serve_lm and the continuous batcher; Mistral-Nemo-12B and Granite-20B
+# through a prefill and a decode step (no depth cut: the three take ~110
+# s of the script). Every layer, fed the card's own input, is held to the
+# CPU layer at 1 bf16 ulp (a prefill of LARGE_CHECK_T tokens and decode
+# step 0).
+QWEN = "qwen3-32b"
+LARGE_LMS = ("qwen3-32b", "mistral-nemo-12b", "granite-20b")
+LARGE_CHECK_T = 32
+# the cache-chunk step: a prompt of PREFILL_T tokens in CHUNKS chunks
+CHUNKS = 4
+# the continuous batcher: slots, requests, prompt lengths and new tokens
+# ([low, high) from the seed), cache rows
+BATCHER = {LM: dict(slots=8, requests=24, prompt=(3, 65), new=(4, 33),
+                    max_seq=128),
+           QWEN: dict(slots=4, requests=8, prompt=(3, 33), new=(4, 17),
+                      max_seq=64)}
+QWEN_SERVE = dict(batch=4, prompt_len=32, gen_tokens=16, max_seq=64)
+LARGE_MM_M = (1, 2, 3, 4, 5, 6, 7, 8, PREFILL_T)   # gemv rows, then mma
+
+
+def param_bytes(tree) -> int:
+    """Bytes of every tensor of a parameter tree (a SparseWeight's vals
+    and idx)."""
+    from repro_torch.models.layers import SparseWeight
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, SparseWeight):
+        return param_bytes(tree.vals) + param_bytes(tree.idx)
+    return tree.numel() * tree.element_size()
+
+
+def flash_ops(tq: int, tk: int, h: int, d: int, causal: bool,
+              window: int, q_offset: int) -> int:
+    """Operations of one flash call on this run's masks: 4 * H * D (two
+    products of a multiply and an add) per (query, visible key) pair."""
+    qpos = torch.arange(tq) + q_offset
+    hi = torch.clamp(qpos + 1, max=tk) if causal else torch.full_like(
+        qpos, tk)
+    lo = torch.clamp(qpos - window + 1, min=0) if window else \
+        torch.zeros_like(qpos)
+    return 4 * h * d * int((hi - lo).clamp(min=0).sum())
+
+
+def large_ffn_weights(dev, seed: int) -> dict:
+    """{(arch, "w1" | "w2"): SparseWeight} at each large LM's FFN shapes
+    (w3 has w1's), drawn by the models' own law: ``dense_init``, then
+    block-balanced pruning at 128 x 128, 85%."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import to_block_balanced
+    from repro_torch.models.layers import dense_init
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name in LARGE_LMS:
+        cfg = get_config(name)
+        for w, (d_in, d_out) in (("w1", (cfg.d_model, cfg.d_ff)),
+                                 ("w2", (cfg.d_ff, cfg.d_model))):
+            out[(name, w)] = to_block_balanced(
+                dense_init(gen, (d_in, d_out), d_in), cfg.sparsity)
+    return out
+
+
+def check_lm_layers(cfg, params, layer_cpu, tokens: torch.Tensor,
+                    decode: bool, dev) -> float:
+    """Each layer on the card against the same layer on the CPU
+    (``layer_cpu(l)``: layer l's parameters there), fed the card's own
+    input: the bf16 output within 1 bf16 ulp. A prefill over ``tokens``
+    (B, T), or decode step 0 of ``tokens`` (B, 1) into a fresh cache.
+    Returns the worst error as a share of its bar."""
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import lm
+    worst = 0.0
+    b, t = tokens.shape
+    pos = torch.arange(t)[None].expand(b, t)
+    blocks = {d: lm.make_block_fn(cfg, pos.to(d)) for d in (dev, "cpu")}
+    with torch.inference_mode(), lm_layers.full_f32():
+        h = lm._embed(cfg, params, tokens.to(dev))
+        for l in range(cfg.n_layers):
+            outs = []
+            for d, p in ((dev, lm._layer(params["blocks"], l)),
+                         ("cpu", layer_cpu(l))):
+                x = h.to(d)
+                if decode:
+                    kv = torch.zeros((2, b, 8, cfg.kv_heads, cfg.head_dim),
+                                     dtype=torch.bfloat16, device=d)
+                    outs.append(lm.decode_block(cfg, p, x, kv, pos.to(d), 0))
+                else:
+                    outs.append(blocks[d](x, p)[0])
+            torch.cuda.synchronize()
+            got, want = outs[0].cpu(), outs[1]
+            what = "decode step 0" if decode else f"prefill T={t}"
+            compare(got, want, bf16_tol, f"{cfg.name} {what} layer {l}")
+            err = (got.float() - want.float()).abs()
+            share = err / bf16_tol(want.float()).clamp_min(1e-38)
+            worst = max(worst, float(share.max()))
+            h = outs[0]
+    return worst
+
+
+def batcher_requests(cfg, spec: dict, seed: int) -> list:
+    """The batcher's requests, from ``seed``: prompt lengths and new
+    tokens uniform in the spec's [low, high)."""
+    rng = np.random.default_rng(seed)
+    return [dict(rid=rid, prompt=rng.integers(
+        0, cfg.vocab_size, size=int(rng.integers(*spec["prompt"]))
+    ).astype(np.int32), max_new_tokens=int(rng.integers(*spec["new"])))
+        for rid in range(spec["requests"])]
+
+
+def run_batcher(cfg, params, reqs: list, spec: dict, dev):
+    """Serve ``reqs`` through ``ContinuousBatcher`` on the card, every
+    request submitted at the start. Returns (batcher, finished, {rid:
+    {pos: its logits (V,) on the host}}): each step's logits are copied
+    to the host for the check, beside the batcher's own argmax read."""
+    from repro_torch.runtime.scheduler import (ContinuousBatcher, Request,
+                                               make_per_slot_decode,
+                                               make_slot_cache)
+    decode = make_per_slot_decode(cfg)
+    by_req: dict = {r["rid"]: {} for r in reqs}
+    cb = None
+
+    def recording(p, cache, toks, pos):
+        lg, cache = decode(p, cache, toks, pos)
+        rows, host = lg[:, -1].float().cpu(), pos.cpu().tolist()
+        for i, st in enumerate(cb.state):
+            if st.rid >= 0:
+                by_req[st.rid][host[i]] = rows[i]
+        return lg, cache
+
+    cb = ContinuousBatcher(
+        cfg, params, slots=spec["slots"], max_seq=spec["max_seq"],
+        decode_fn=recording,
+        init_cache_fn=lambda c, s, m: make_slot_cache(c, s, m, device=dev))
+    for kw in reqs:
+        cb.submit(Request(**kw))
+    with torch.inference_mode():
+        done = cb.run()
+    torch.cuda.synchronize()
+    return cb, done, by_req
+
+
+def replay_rows(cfg, params, seqs: list, device) -> torch.Tensor:
+    """Each sequence teacher-forced in its own row of a ``decode_step``
+    batch from position 0 (its own cache row; an int position): the
+    logits (B, L, V) f32 on the host, rows past a sequence's end padded
+    with token 0 and ignored."""
+    from repro_torch.models import lm
+    n = max(len(s) for s in seqs)
+    toks = np.zeros((len(seqs), n), np.int64)
+    for r, s in enumerate(seqs):
+        toks[r, :len(s)] = s
+    cache = lm.init_cache(cfg, len(seqs), n, device=device)
+    out = []
+    with torch.inference_mode():
+        for i in range(n):
+            lg, cache = lm.decode_step(cfg, params, cache, torch.from_numpy(
+                toks[:, i:i + 1]).to(device), i)
+            out.append(lg[:, 0].float().cpu())
+    return torch.stack(out, 1)
+
+
+def check_batcher(name: str, reqs: list, done: list, by_req: dict,
+                  replays: dict, bar: float) -> dict:
+    """Every request's logits at every position it was fed against its
+    teacher-forced replay (``replays``: {where: (B, L, V)}, rows in the
+    order of ``reqs``) within ``bar`` of max |logit|; its tokens are the
+    argmax of its logits, and the replay's where the replay's top-2 gap
+    exceeds the bar. Returns the worst errors and the token count
+    checked against each replay."""
+    row = {r["rid"]: i for i, r in enumerate(reqs)}
+    worst = {w: 0.0 for w in replays}
+    gap_checked = {w: 0 for w in replays}
+    for req in done:
+        tp = len(req.prompt)
+        seq_len = tp + len(req.tokens) - 1        # positions fed
+        if sorted(by_req[req.rid]) != list(range(seq_len)):
+            raise AssertionError(f"{name} batcher request {req.rid}: fed "
+                                 f"positions {sorted(by_req[req.rid])}")
+        for p in range(seq_len):
+            got = by_req[req.rid][p]
+            if p >= tp - 1 and int(got.argmax()) != req.tokens[p - tp + 1]:
+                raise AssertionError(f"{name} batcher request {req.rid} "
+                                     f"pos {p}: token is not the argmax")
+            for where, rep in replays.items():
+                want = rep[row[req.rid], p]
+                scale = float(want.abs().max())
+                err = float((got - want).abs().max()) / scale
+                worst[where] = max(worst[where], err)
+                if not err <= bar:
+                    raise AssertionError(
+                        f"{name} batcher request {req.rid} pos {p}: vs its "
+                        f"{where} replay max |err| / max |logit| {err:.3e} "
+                        f"> {bar}")
+                top2 = want.topk(2).values
+                if p >= tp - 1 and float(top2[0] - top2[1]) > bar * scale:
+                    if int(want.argmax()) != req.tokens[p - tp + 1]:
+                        raise AssertionError(
+                            f"{name} batcher request {req.rid} pos {p}: "
+                            f"token differs from the {where} replay's where "
+                            f"its top-2 gap exceeds the bar")
+                    gap_checked[where] += 1
+    return {"worst": worst, "tokens_checked": gap_checked,
+            "tokens": sum(len(r.tokens) for r in done)}
+
+
+def large_lm_run(name: str, h) -> dict:
+    """One large dense LM at full width on the card (``h``: the launch
+    bookkeeping of ``main``): its weights from the seed, a T = 2048
+    prefill and a decode step with their launches by name and variant,
+    every layer against the CPU layer; for Qwen3-32B also the
+    cache-chunk step, ``serve_lm`` and the continuous batcher."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import lm
+    dev = h.dev
+    cfg = get_config(name)
+    n_l = cfg.n_layers
+    res = {"layers": n_l}
+    print(f"[main] {name}: d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim} ({cfg.kv_heads} KV), d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, FFN blocks {cfg.sparsity.block_m} x "
+          f"{cfg.sparsity.block_n} {cfg.sparsity.sparsity:.0%} pruned; "
+          f"{n_l} layers, the published depth (no cut)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED))
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    res["param_bytes"] = param_bytes(params)
+    # the peak of drawing the weights: each layer's tree, then the stack
+    res["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+    toks = torch.randint(0, cfg.vocab_size, (1, PREFILL_T),
+                         generator=torch.Generator().manual_seed(
+                             SEED + 19)).to(dev)
+
+    # the prompt in one forward: flash at D 128, the FFN through mma
+    prefill = make_prefill_step(cfg)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    last = prefill(params, toks)
+    torch.cuda.synchronize()
+    res["prefill_first_s"] = time.perf_counter() - t0
+    res["prefill_launches"] = h.count(
+        f"{name} prefill T={PREFILL_T}",
+        {"flash_attention": n_l, "sparse_matmul": 3 * n_l},
+        {("flash_attention", "mma"): n_l, ("sparse_matmul", "mma"): 3 * n_l})
+    if last.shape != (1, cfg.vocab_size) or not torch.isfinite(last).all():
+        raise AssertionError(f"{name} prefill: logits {tuple(last.shape)} "
+                             f"not finite (1, {cfg.vocab_size})")
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(params, toks)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    res["prefill_s_runs"] = runs
+    res["prefill_ms"] = sorted(runs)[1] * 1e3
+
+    # one decode step: the FFN through gemv, no flash
+    cache = lm.init_cache(cfg, 1, 8, device=dev)
+    ops.reset_launches()
+    lg, _ = lm.decode_step(cfg, params, cache, toks[:, :1], 0)
+    torch.cuda.synchronize()
+    res["decode_launches"] = h.count(
+        f"{name} decode step", {"sparse_matmul": 3 * n_l},
+        {("sparse_matmul", "gemv"): 3 * n_l})
+    if not torch.isfinite(lg).all():
+        raise AssertionError(f"{name} decode step: non-finite logits")
+    del cache
+
+    # every layer on the card's own input against the CPU layer
+    def layer_cpu(l):
+        return lm.params_to(lm._layer(params["blocks"], l), "cpu")
+
+    check_toks = toks[:, :LARGE_CHECK_T].cpu()
+    t0 = time.perf_counter()
+    res["layer_err"] = {
+        "prefill": check_lm_layers(cfg, params, layer_cpu, check_toks,
+                                   False, dev),
+        "decode": check_lm_layers(cfg, params, layer_cpu, check_toks[:, :1],
+                                  True, dev)}
+    res["layer_check_s"] = time.perf_counter() - t0
+    print(f"[main] {name}: weights {res['param_bytes'] / 2**30:.2f} GiB in "
+          f"{res['init_s']:.1f} s (peak {res['init_peak_bytes'] / 2**30:.2f} "
+          f"GiB); prefill T={PREFILL_T} launches "
+          f"{res['prefill_launches']}, {res['prefill_ms']:.3f} ms (median of "
+          f"3, first {res['prefill_first_s']:.3f} s); decode step launches "
+          f"{res['decode_launches']}; every layer on the card's own input "
+          f"within 1 bf16 ulp of the CPU layer (prefill T={LARGE_CHECK_T} "
+          f"worst share {res['layer_err']['prefill']:.3f}, decode step 0 "
+          f"{res['layer_err']['decode']:.3f}; {res['layer_check_s']:.1f} s)")
+    if name != QWEN:
+        del params
+        torch.cuda.empty_cache()
+        return res
+
+    # the cache-chunk step: layer 0's prompt in CHUNKS chunks into its
+    # cache (flash with q_offset over the cache prefix) against the
+    # one-shot prefill of the same layer
+    ct = PREFILL_T // CHUNKS
+    p0 = lm._layer(params["blocks"], 0)
+    with torch.inference_mode(), lm_layers.full_f32():
+        x0 = lm._embed(cfg, params, toks)
+        positions = torch.arange(PREFILL_T, device=dev)[None]
+        one = lm.make_block_fn(cfg, positions)(x0, p0)[0]
+        kv = torch.zeros((2, 1, PREFILL_T, cfg.kv_heads, cfg.head_dim),
+                         dtype=torch.bfloat16, device=dev)
+        ops.reset_launches()
+        parts = [lm.decode_block(cfg, p0, x0[:, c * ct:(c + 1) * ct], kv,
+                                 positions[:, c * ct:(c + 1) * ct], c * ct)
+                 for c in range(CHUNKS)]
+        torch.cuda.synchronize()
+    res["chunk_launches"] = h.count(
+        f"{name} layer 0 in {CHUNKS} chunks",
+        {"flash_attention": CHUNKS, "sparse_matmul": 3 * CHUNKS},
+        {("flash_attention", "mma"): CHUNKS,
+         ("sparse_matmul", "mma"): 3 * CHUNKS})
+    res["chunk_err"] = compare(torch.cat(parts, 1), one, bf16_tol,
+                               f"{name} layer 0 in {CHUNKS} chunks vs one")
+    res["chunk_bitwise"] = bool(torch.equal(torch.cat(parts, 1), one))
+    del x0, one, kv, parts
+    print(f"[main] {name} cache-chunk step: layer 0's {PREFILL_T}-token "
+          f"prompt in {CHUNKS} chunks of {ct} (q_offset 0, {ct}, ...) "
+          f"launches {res['chunk_launches']}; within 1 bf16 ulp of the "
+          f"one-shot prefill (max |err| {res['chunk_err']:.3e}, bitwise "
+          f"{res['chunk_bitwise']})")
+
+    # serve_lm at full size: the prompts stepped through the cache, then
+    # greedy decoding; every step through gemv, no flash
+    ops.reset_launches()
+    sout = serve_lm(name, use_reduced=False, params=params,
+                    generator=torch.Generator(device=dev).manual_seed(SEED),
+                    record_logits=True, verbose=False, device="cuda",
+                    **QWEN_SERVE)
+    n_steps = QWEN_SERVE["prompt_len"] + QWEN_SERVE["gen_tokens"]
+    res["serve_launches"] = h.count(
+        f"{name} serve_lm ({n_steps} decode steps)",
+        {"sparse_matmul": n_steps * 3 * n_l},
+        {("sparse_matmul", "gemv"): n_steps * 3 * n_l})
+    slog = sout["logits"]
+    if slog.shape != (QWEN_SERVE["batch"], n_steps, cfg.vocab_size) or \
+            not torch.isfinite(slog).all():
+        raise AssertionError(f"{name} serve_lm: logits {tuple(slog.shape)} "
+                             f"not finite")
+    gen_from = QWEN_SERVE["prompt_len"] - 1
+    if not np.array_equal(sout["tokens"], slog[:, gen_from:-1].argmax(
+            -1).numpy()):
+        raise AssertionError(f"{name} serve_lm: tokens are not the argmax")
+    res["serve"] = {k: sout[k] for k in ("prefill_s", "decode_s",
+                                         "tokens_per_s")}
+    print(f"[main] {name} serve_lm batch {QWEN_SERVE['batch']}, prompt "
+          f"{QWEN_SERVE['prompt_len']}, {QWEN_SERVE['gen_tokens']} tokens: "
+          f"launches {res['serve_launches']}; prefill "
+          f"{sout['prefill_s']:.4f} s, decode {sout['decode_s']:.4f} s, "
+          f"{sout['tokens_per_s']:.2f} tok/s; logits finite, tokens their "
+          f"argmax")
+    del sout, slog
+
+    res["batcher"] = batcher_phase(name, cfg, params, n_l, h)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def batcher_phase(name: str, cfg, params, n_l: int, h, params_cpu=None):
+    """The continuous batcher on ``cfg`` (BATCHER[name]): launches
+    counted over the run (steps x 3 x layers ``sparse_matmul`` gemv, no
+    flash), every request replayed alone, teacher-forced in its own
+    row, on the card (and on the CPU, given ``params_cpu``)."""
+    from repro_torch.kernels import ops
+    spec = BATCHER[name]
+    reqs = batcher_requests(cfg, spec, SEED + 17)
+    ops.reset_launches()
+    cb, done, by_req = run_batcher(cfg, params, reqs, spec, h.dev)
+    launches = h.count(f"{name} ContinuousBatcher ({cb.steps} steps)",
+                       {"sparse_matmul": cb.steps * 3 * n_l},
+                       {("sparse_matmul", "gemv"): cb.steps * 3 * n_l})
+    if len(done) != len(reqs):
+        raise AssertionError(f"{name} batcher: {len(done)} of {len(reqs)} "
+                             f"requests finished")
+    stats = cb.stats()
+    fed = {r.rid: np.concatenate([r.prompt, np.asarray(r.tokens[:-1],
+                                                       np.int32)])
+           for r in done}
+    seqs = [fed[r["rid"]] for r in reqs]
+    replays = {"card": replay_rows(cfg, params, seqs, h.dev)}
+    if params_cpu is not None:
+        replays["CPU"] = replay_rows(cfg, params_cpu, seqs, "cpu")
+    chk = check_batcher(name, reqs, done, by_req, replays, LM_SERVE_RTOL)
+    steps_alone = sum(len(s) for s in seqs)
+    print(f"[main] {name} ContinuousBatcher {spec['slots']} slots, "
+          f"{len(reqs)} requests (prompts {spec['prompt'][0]}-"
+          f"{spec['prompt'][1] - 1}, {spec['new'][0]}-{spec['new'][1] - 1} "
+          f"new tokens): {cb.steps} steps (one at a time: {steps_alone}), "
+          f"{stats['tokens']} tokens, {stats['throughput_tok_s']:.2f} tok/s, "
+          f"mean TTFT {stats['mean_ttft_s']:.4f} s, mean latency "
+          f"{stats['mean_latency_s']:.4f} s; launches {launches}; every "
+          f"request against its teacher-forced replay within "
+          f"{LM_SERVE_RTOL} of max |logit| "
+          f"({ {w: f'{e:.3e}' for w, e in chk['worst'].items()} }), tokens "
+          f"equal where the replay's top-2 gap exceeds the bar "
+          f"({chk['tokens_checked']} of {chk['tokens']})")
+    return {"spec": {k: list(v) if isinstance(v, tuple) else v
+                     for k, v in spec.items()},
+            "steps": cb.steps, "steps_one_at_a_time": steps_alone,
+            "launches": launches, "stats": stats, "check": chk}
+
+
+def large_timings(flash_inputs: dict, mm_inputs: dict) -> tuple[list, list]:
+    """The new kernel shapes timed beside their plain versions, their
+    bound and their library call: flash at D 128 (SDPA on the same
+    expanded tensors; a cache chunk takes an explicit causal mask), the
+    sparse matmul at 128 x 128 blocks (``torch.matmul`` on the densified
+    bf16 weight)."""
+    from repro_torch.core.sparsity import densify
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sparse_matmul as sm
+    flash_rows = []
+    for what, (q, k, v, kw) in flash_inputs.items():
+        b, tq, h, d = q.shape
+        tk = k.shape[1]
+        qt, kt, vt = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+        off = kw.get("q_offset", 0)
+        if off == 0 and tq == tk:
+            def lib():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+        else:
+            mask = (torch.arange(tk, device=q.device)[None, :] <=
+                    torch.arange(off, off + tq, device=q.device)[:, None])
+
+            def lib():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        plain = time_ms(lambda: fa.flash_attention_torch(q, k, v, **kw),
+                        reps=2, rounds=2)
+        lib_ms = time_ms(lib)
+        t_b, t_o = bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                         b * flash_ops(tq, tk, h, d, True, 0, off),
+                         torch.bfloat16)
+        flash_rows.append({"what": what, "shape": [b, tq, tk, h, d],
+                           "q_offset": off, "variant": fa.variant(q.dtype, d),
+                           "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+                           "bound_ms": max(t_b, t_o),
+                           "bound_by": bound_by(t_b, t_o)})
+        print(f"[time] flash_attention {what} (B {b}, Tq {tq}, Tk {tk}, H "
+              f"{h}, D {d}, bf16, causal, {flash_rows[-1]['variant']}): "
+              f"kernel {ms * 1e3:.3f} us, plain {plain * 1e3:.3f} us, SDPA "
+              f"{lib_ms * 1e3:.3f} us, bound {max(t_b, t_o) * 1e3:.3f} us "
+              f"({bound_by(t_b, t_o)})")
+    mm_rows = []
+    for (name, w, m), (x, sw) in mm_inputs.items():
+        ob, n_k, bm, bn = sw.vals.shape
+        w_dense = densify(sw)
+        ms = time_ms(lambda: sm.sparse_matmul(x, sw.vals, sw.idx))
+        plain = time_ms(lambda: sm.sparse_matmul_torch(x, sw.vals, sw.idx),
+                        reps=2 if m > 8 else 20, rounds=2 if m > 8 else 5)
+        lib_ms = time_ms(lambda: torch.matmul(x, w_dense))
+        del w_dense
+        x_elems = m * int(sw.idx.unique().numel()) * bm
+        nbytes = (x_elems * 2 + sw.vals.numel() * 2 + sw.idx.numel() * 4
+                  + m * ob * bn * 2)
+        t_b, t_o = bound(nbytes, 2 * m * ob * n_k * bm * bn, torch.bfloat16)
+        var = sm.variant(x.dtype, m, bm, bn)
+        mm_rows.append({"arch": name, "weight": w, "M": m,
+                        "vals": list(sw.vals.shape), "variant": var,
+                        "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+                        "bound_ms": max(t_b, t_o),
+                        "bound_by": bound_by(t_b, t_o)})
+        print(f"[time] sparse_matmul {name} {w} M={m} vals "
+              f"{tuple(sw.vals.shape)} bf16 ({var}): kernel "
+              f"{ms * 1e3:.3f} us, plain {plain * 1e3:.3f} us, torch.matmul "
+              f"(dense bf16) {lib_ms * 1e3:.3f} us, bound "
+              f"{max(t_b, t_o) * 1e3:.3f} us ({bound_by(t_b, t_o)})")
+    return flash_rows, mm_rows
 
 
 def main() -> int:
@@ -716,6 +1221,72 @@ def main() -> int:
           f"{SERVE['batch']}, 8, 9, 16, 100, 129 and {PREFILL_T} bf16, max |err| "
           f"(all cases) {mm_err:.3e} within tolerance; checks by variant "
           f"{ {f'{n}/{v}': c for (n, v), c in checked_variants.items()} }")
+
+    # the large dense LMs (Qwen3-32B, Mistral-Nemo-12B, Granite-20B): the
+    # flash kernel at D 128, at each one's T = 2048 prefill (k, v from its
+    # KV heads expanded), at the cache-chunk shape (the last of CHUNKS
+    # chunks of a 2048-token prompt), at a key count that is no tile
+    # multiple, windowed, and in f32; the sparse matmul at their 128 x
+    # 128 FFN blocks, M 1-8 (gemv) and 2048 (mma)
+    large_flash = []
+    for name in LARGE_LMS:
+        c = get_config(name)
+        large_flash.append((f"{name} T={PREFILL_T}",
+                            (1, PREFILL_T, PREFILL_T, c.n_heads, c.head_dim,
+                             torch.bfloat16, c.kv_heads), dict(causal=True)))
+    qc, chunk_t = get_config(QWEN), PREFILL_T // CHUNKS
+    large_flash += [
+        (f"{QWEN} chunk Tq={chunk_t} q_offset={PREFILL_T - chunk_t} "
+         f"Tk={PREFILL_T}", (1, chunk_t, PREFILL_T, qc.n_heads, qc.head_dim,
+                             torch.bfloat16, qc.kv_heads),
+         dict(causal=True, q_offset=PREFILL_T - chunk_t)),
+        ("Tq=100 Tk=1000 q_offset=900 D=128",
+         (2, 100, 1000, 8, 128, torch.bfloat16, 2),
+         dict(causal=True, q_offset=900)),
+        ("T=77 D=128 window=30 not causal",
+         (2, 77, 77, 4, 128, torch.bfloat16, 4),
+         dict(causal=False, window=30)),
+        ("T=130 D=128 window=50 f32", (1, 130, 130, 2, 128, torch.float32, 2),
+         dict(causal=True, window=50))]
+    large_flash_err, large_flash_inputs = 0.0, {}
+    for what, shape, kw in large_flash:
+        q, k, v = qkv(*shape)
+        var = fa.variant(q.dtype, q.shape[-1])
+        if var != ("mma" if q.dtype == torch.bfloat16 else "simt"):
+            raise AssertionError(f"flash_attention {what}: variant {var}")
+        got = launch_checked("flash_attention", var,
+                             lambda: fa.flash_attention(q, k, v, **kw), what)
+        want = fa.flash_attention_torch(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = bf16_tol if q.dtype == torch.bfloat16 else f32_tol
+        large_flash_err = max(large_flash_err, compare(
+            got, want, tol, f"flash_attention {what} ({var})"))
+        if what.startswith(LARGE_LMS):          # timed in phase 5
+            large_flash_inputs[what] = (q, k, v, kw)
+    flash_err = max(flash_err, large_flash_err)
+    print(f"[check] flash_attention D=128: {[c[0] for c in large_flash]}, "
+          f"max |err| {large_flash_err:.3e} within 1 bf16 ulp / 1e-5 "
+          f"relative")
+    large_w = large_ffn_weights(dev, SEED + 13)
+    large_mm_err, large_mm_inputs = 0.0, {}
+    for (name, w), sw in large_w.items():
+        for m in LARGE_MM_M:
+            x = randn((m, sw.d_in))
+            if sm.variant(x.dtype, m, *sw.vals.shape[2:]) != (
+                    "gemv" if m <= sm.SIMT_MAX_M else "mma"):
+                raise AssertionError(f"sparse_matmul {name} {w} M={m}: "
+                                     f"variant")
+            large_mm_err = max(large_mm_err, check_mm(
+                f"{name} {w} M={m}", x, sw, bf16_tol))
+            if m in (QWEN_SERVE["batch"], PREFILL_T):   # timed in phase 5
+                large_mm_inputs[(name, w, m)] = (x, sw)
+    mm_err = max(mm_err, large_mm_err)
+    print(f"[check] sparse_matmul 128x128 blocks: "
+          f"{ {f'{n} {w}': tuple(sw.vals.shape) for (n, w), sw in large_w.items()} }"
+          f" at M={LARGE_MM_M} bf16, max |err| {large_mm_err:.3e} within 1 "
+          f"bf16 ulp; checks by variant "
+          f"{ {f'{n}/{v}': c for (n, v), c in checked_variants.items()} }")
+    del large_w
 
     # stored weights: int8 codes with their scale (the int8 store) at every
     # main-path shape through the tensor-core variants, the classifier
@@ -1390,40 +1961,11 @@ def main() -> int:
         raise AssertionError(f"{LM} prefill T={CHECK_T}: card vs CPU logits "
                              f"max |err| / max |logit| {prefill_err:.3e} > "
                              f"{LM_LOGIT_RTOL}, or top-1 differs")
-    def check_lm_layers(tokens: torch.Tensor, decode: bool) -> float:
-        """Each layer on the card against the same layer on the CPU, fed
-        the card's own input: the bf16 output within 1 bf16 ulp. A
-        prefill over ``tokens`` (B, T), or decode step 0 of ``tokens``
-        (B, 1) into fresh caches. Returns the worst error as a share of
-        its bar."""
-        worst = 0.0
-        b, t = tokens.shape
-        pos = torch.arange(t)[None].expand(b, t)
-        caches = {d: lm.init_cache(lm_cfg, b, 8, device=d)["kv"]
-                  for d in (dev, "cpu")} if decode else None
-        blocks = {d: lm.make_block_fn(lm_cfg, pos.to(d))
-                  for d in (dev, "cpu")}
-        with torch.inference_mode(), lm_layers.full_f32():
-            h = lm._embed(lm_cfg, lm_params, tokens.to(dev))
-            for l in range(n_l):
-                outs = []
-                for d, params_ in ((dev, lm_params), ("cpu", lm_cpu)):
-                    p = lm._layer(params_["blocks"], l)
-                    x = h.to(d)
-                    outs.append(lm.decode_block(lm_cfg, p, x, caches[d][l],
-                                                pos.to(d), 0) if decode
-                                else blocks[d](x, p)[0])
-                torch.cuda.synchronize()
-                got, want = outs[0].cpu(), outs[1]
-                what = "decode step 0" if decode else f"prefill T={t}"
-                compare(got, want, bf16_tol, f"{LM} {what} layer {l}")
-                err = (got.float() - want.float()).abs()
-                share = err / bf16_tol(want.float()).clamp_min(1e-38)
-                worst = max(worst, float(share.max()))
-                h = outs[0]
-        return worst
+    def lm_layer_cpu(l):
+        return lm._layer(lm_cpu["blocks"], l)
 
-    layer_err = {"prefill": check_lm_layers(toks_check, decode=False)}
+    layer_err = {"prefill": check_lm_layers(lm_cfg, lm_params, lm_layer_cpu,
+                                            toks_check, False, dev)}
     prefill_s = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1458,7 +2000,8 @@ def main() -> int:
     add_variants(serve_variants)
     seq = torch.from_numpy(np.concatenate([sout["prompts"], sout["tokens"]],
                                           axis=1))
-    layer_err["decode"] = check_lm_layers(seq[:, :1], decode=True)
+    layer_err["decode"] = check_lm_layers(lm_cfg, lm_params, lm_layer_cpu,
+                                          seq[:, :1], True, dev)
     caches = [lm.init_cache(lm_cfg, SERVE["batch"], SERVE["max_seq"],
                             device="cpu") for _ in range(2)]
     serve_errs, floors, gap_checked = [], [], 0
@@ -1504,6 +2047,32 @@ def main() -> int:
           f"CPU top-2 gap exceeds the bar; decode step 0 layer by layer on "
           f"the card's own inputs within 1 bf16 ulp (worst share "
           f"{layer_err['decode']:.3f})")
+
+    def count_launches(what: str, want: dict, want_variants: dict) -> dict:
+        """The counters since the last reset, checked by name and by
+        variant, added to the run's totals; the nonzero ones."""
+        launches, variants = dict(ops.LAUNCHES), dict(ops.VARIANT_LAUNCHES)
+        check_launches(launches, want, what)
+        check_variants(variants, want_variants, what)
+        add_variants(variants)
+        for k, v in launches.items():
+            all_launches[k] = all_launches.get(k, 0) + v
+        return {k: v for k, v in launches.items() if v}
+
+    lm_h = types.SimpleNamespace(dev=dev, count=count_launches)
+    # SmolLM-360M through the continuous batcher: one decode step of all
+    # slots at a time, one cache position a slot; every request replayed
+    # alone, teacher-forced, on the card and on the CPU
+    batcher_main = {LM: batcher_phase(LM, lm_cfg, lm_params, n_l, lm_h,
+                                      params_cpu=lm_cpu)}
+    # the large dense LMs at full width, one at a time on the card
+    large_main = {}
+    for name in LARGE_LMS:
+        t0 = time.perf_counter()
+        large_main[name] = large_lm_run(name, lm_h)
+        large_main[name]["phase_s"] = time.perf_counter() - t0
+        print(f"[main] {name}: {large_main[name]['phase_s']:.1f} s")
+    batcher_main[QWEN] = large_main[QWEN].pop("batcher")
 
     # -- 5. timings at the main-path shapes -------------------------------
     rows = []
@@ -1984,6 +2553,40 @@ def main() -> int:
                          "bound_by": flash_by},
                "sparse_matmul": lm_mm_rows,
                "ffn_per_prefill": ffn_prefill}
+
+    # the large dense LMs: flash at D 128 and the sparse matmul at 128 x
+    # 128 blocks (M 4: the serve_lm batch; M 2048: the prefill), each
+    # beside its plain version, bound and library call; Qwen3-32B's
+    # prefill latency and serve_lm times, the batchers' tok/s and TTFT
+    # (phase 4's runs)
+    large_flash_rows, large_mm_rows = large_timings(large_flash_inputs,
+                                                    large_mm_inputs)
+    del large_flash_inputs, large_mm_inputs
+    for name, r in large_main.items():
+        t_flash = next(x["ms"] for x in large_flash_rows
+                       if x["what"] == f"{name} T={PREFILL_T}")
+        t_mm = {w: next(x["ms"] for x in large_mm_rows
+                        if (x["arch"], x["weight"], x["M"]) ==
+                        (name, w, PREFILL_T)) for w in ("w1", "w2")}
+        r["prefill_kernels_ms"] = {
+            "flash_attention": r["layers"] * t_flash,
+            "sparse_matmul": r["layers"] * (2 * t_mm["w1"] + t_mm["w2"])}
+        print(f"[time] {name} ({r['layers']} layers) prefill T={PREFILL_T}: "
+              f"{r['prefill_ms']:.3f} ms (median of 3); kernels: "
+              f"flash_attention x{r['layers']} "
+              f"{r['prefill_kernels_ms']['flash_attention']:.3f} ms, "
+              f"sparse_matmul x{3 * r['layers']} "
+              f"{r['prefill_kernels_ms']['sparse_matmul']:.3f} ms" +
+              ("" if "serve" not in r else
+               f"; serve_lm prefill_s {r['serve']['prefill_s']:.4f}, "
+               f"decode_s {r['serve']['decode_s']:.4f}, "
+               f"{r['serve']['tokens_per_s']:.2f} tok/s"))
+    for name, b in batcher_main.items():
+        st = b["stats"]
+        print(f"[time] {name} ContinuousBatcher: {st['throughput_tok_s']:.2f}"
+              f" tok/s, mean TTFT {st['mean_ttft_s']:.4f} s, mean latency "
+              f"{st['mean_latency_s']:.4f} s ({b['steps']} steps, "
+              f"{st['tokens']} tokens; every request submitted at the start)")
 
     # -- 6. the measured cost model and the tuned kernels -----------------
     # For each CNN at native weights: calibrate (the autotuner times every
@@ -2597,6 +3200,9 @@ def main() -> int:
         "serving": {f"{a}/{q}": row for (a, q), row in serving.items()},
         "param_bytes_stored": param_bytes, "fc_int8": fc8,
         "depthwise_layers": dw_rows, "smollm": lm_main,
+        "large_lms": large_main, "batcher": batcher_main,
+        "large_lm_kernels": {"flash": large_flash_rows,
+                             "sparse_matmul": large_mm_rows},
         "throughput": {f"{a}/{q}": dict(row, continuous={
             f"mb{mb}/{'streams' if st else 'one_stream'}": c
             for (mb, st), c in row["continuous"].items()})
@@ -2648,12 +3254,15 @@ def main() -> int:
          "bound_by": fc_by, "library_ms": fc_lib,
          "int8": fc8,
          "smollm": lm_mm_rows,
+         "large_lms": large_mm_rows,
          "note": "ms, plain_ms, bound_ms, library_ms: the ResNet-50 "
                  "classifier (M=1 f32, gemv); smollm: per call at "
                  "SmolLM-360M's FFN shapes (M=4 gemv, M=2048 mma), library "
-                 "torch.matmul on the densified bf16 weight; variants: "
-                 "launches by variant over the main paths; ptxas, hmma: "
-                 "per kernel function"},
+                 "torch.matmul on the densified bf16 weight; large_lms: "
+                 "the same at the 128x128 FFN blocks of Qwen3-32B, "
+                 "Mistral-Nemo-12B and Granite-20B (M=4 gemv, M=2048 mma); "
+                 "variants: launches by variant over the main paths; "
+                 "ptxas, hmma: per kernel function"},
         {"name": "dw_pw", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dw_pw.cu",
          "replaces": "src/repro/kernels/dw_pw_fused.py:137",
@@ -2703,11 +3312,15 @@ def main() -> int:
          "max_abs_err": flash_err, "max_err": flash_err, "ok": True,
          "ms": flash_ms, "plain_ms": flash_plain, "bound_ms": flash_bound,
          "bound_by": flash_by, "library_ms": flash_lib,
+         "large_lms": large_flash_rows,
          "note": f"ms, plain_ms, bound_ms, library_ms: one layer of a "
                  f"{LM} prefill (B=1, T={PREFILL_T}, H={n_h}, D={d_h}, "
                  f"bf16, causal; the mma variant); library: "
                  f"F.scaled_dot_product_attention on the same expanded "
-                 f"tensors; variants: launches by variant over the main "
+                 f"tensors; large_lms: the same at D=128 (a T={PREFILL_T} "
+                 f"layer of Qwen3-32B, Mistral-Nemo-12B, Granite-20B and "
+                 f"Qwen3-32B's last cache chunk, SDPA with a causal mask "
+                 f"there); variants: launches by variant over the main "
                  f"paths; ptxas, hmma: per kernel function"},
     ]
     for entry in kernels:

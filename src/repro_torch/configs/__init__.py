@@ -1,3 +1,4 @@
 from repro_torch.configs.base import (
-    ModelConfig, SparsityConfig, get_config, reduced, register,
+    CNN_SHAPES, ModelConfig, ShapeConfig, SHAPES, SparsityConfig,
+    all_configs, applicable, get_config, reduced, register,
 )

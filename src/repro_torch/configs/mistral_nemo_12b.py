@@ -1,0 +1,10 @@
+"""mistral-nemo-12b [dense] — 128k ctx. [hf:mistralai/Mistral-Nemo-Base-2407; hf]"""
+from repro_torch.configs.base import ModelConfig, SparsityConfig, register
+
+CONFIG = register(ModelConfig(
+    name="mistral-nemo-12b", family="dense",
+    n_layers=40, d_model=5120, n_heads=32, n_kv_heads=8,
+    d_ff=14336, vocab_size=131072, d_head=128,
+    rope_theta=1_000_000.0,
+    sparsity=SparsityConfig(enabled=True),
+))

@@ -16,7 +16,7 @@
 // (simt, mma) or rows spread over a block's threads (gemv).
 //
 // "gemv": M <= 8 (the ResNet-50 classifier in f32, the LM decode in
-// bf16), any blocks up to 64 x 64. Column j's surviving blocks, vals[j],
+// bf16), any blocks up to 128 x 128. Column j's surviving blocks, vals[j],
 // are one contiguous (K*bm) x bn matrix. A block of 64, 128 or 256
 // threads (about one per two rows) owns 8 of its output columns (grid
 // (ceil(bn/8), ob): 160 blocks for the classifier, 320 and 120 for
@@ -30,23 +30,32 @@
 // butterfly, then over the warps in order: one barrier, no reduction
 // across blocks, deterministic.
 //
+// "simt" and "mma" take blocks up to 128 x 128 whose sides are at most
+// 64 or multiples of 64: a block past 64 is walked as 64 x 64 sub-blocks
+// (SubBlocks). A thread block owns sbn = min(bn, 64) columns of one
+// block column (grid y = ob * bn / sbn), and its steps walk each
+// surviving block's bm / sbm sub-blocks of sbm = min(bm, 64) rows, so
+// shared memory and registers stay those of a 64 x 64 block and the
+// gathered x rows are read once per column half.
+//
 // "simt": M > 8 with f32 x or bf16 block shapes the mma variant does not
-// take. Blocks up to 64 x 64. 256 threads as 8 row groups x 32 lanes: a
-// thread owns RPT = 8 rows of x (TM = 64 rows a block) and the output
-// columns lane and lane + 32; grid (ceil(M/64), ob). Each step stages
-// one bm x bn weight block and the TM x bm gathered slice of x
+// take. 256 threads as 8 row groups x 32 lanes: a thread owns RPT = 8
+// rows of x (TM = 64 rows a block) and the output columns lane and
+// lane + 32; grid (ceil(M/64), ob * bn / sbn). Each step stages one
+// sbm x sbn weight sub-block and the TM x sbm gathered slice of x
 // (transposed, so a thread reads its rows as float4) in shared memory as
 // f32; a step's loads go to registers first, all issued together, and
 // step l+1's are issued before step l's FMAs. bn need not be a power of
-// two: every column index is checked against bn.
+// two: every column index is checked against sbn.
 //
 // "mma": bf16 x with M > 8 (the LM prefill, M = B*T), bm a multiple of
-// 16 and bn of 8, both <= 64. A block of 4 warps owns TM = 64 rows (16 a
-// warp) and one output block column j. For each surviving block l, a
-// 2-stage cp.async ring copies the gathered x slice (TM rows of bm
-// contiguous bf16 at column idx[j,l]*bm; rows >= M zero-filled) and
-// vals[j,l] (bm x bn, contiguous) into shared memory, rows padded by 8
-// elements; step l+1's copies (and its idx) are issued before step l's
+// 16 and bn of 8. A block of 4 warps owns TM = 64 rows (16 a warp) and
+// sbn columns of one output block column j. For each step (a sub-block
+// of surviving block l), a 2-stage cp.async ring copies the gathered x
+// slice (TM rows of sbm contiguous bf16 at column idx[j,l]*bm + rb; rows
+// >= M zero-filled) and the sbm x sbn sub-block of vals[j,l] into shared
+// memory, rows padded by 8 elements; step s+1's copies (and its idx) are
+// issued before step s's
 // products. A fragments of x come from ldmatrix, B fragments of the
 // weight from ldmatrix.trans, and mma.sync.m16n8k16 sums in f32 (bf16 x
 // bf16 products are exact in f32: the Pallas kernel's f32 dot of
@@ -64,7 +73,10 @@
 // x 40 = 1280 blocks (w1, w3) and 32 x 15 = 480 (w2): TM 128 would
 // leave w2 240 blocks, under two waves of 132 SMs. Each block column
 // re-reads its gathered x slices (from L2: x is 3.9 MB), so the traffic
-// that moves is L2 -> SM, ob * K * M * bm * 2 bytes a call.
+// that moves is L2 -> SM, ob * K * M * bm * 2 bytes a call. The large
+// dense LMs' 128 x 128 blocks (Qwen3-32B: w1, w3 vals (200, 6, 128,
+// 128), w2 (40, 30, 128, 128)) hold 39.3 MB a weight: 11.7 us at the
+// memory rate, the bound of a decode step's product.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,19 +90,44 @@ constexpr int VARIANT_SIMT = 0;   // the codes of _build.VARIANT_CODES
 constexpr int VARIANT_MMA = 1;
 constexpr int VARIANT_GEMV = 2;
 
-constexpr int BM_MAX = 64;
-constexpr int BN_MAX = 64;
+constexpr int BM_MAX = 128;             // the largest blocks taken
+constexpr int BN_MAX = 128;
+constexpr int SUB = 64;                 // simt and mma: the sub-block a
+                                        // step stages (a block side past
+                                        // SUB is a multiple of SUB)
 constexpr int THREADS = 256;
 constexpr int LANES = 32;               // columns lane and lane + 32
 constexpr int GROUPS = THREADS / LANES; // 8 row groups
-constexpr int W_LOADS = BM_MAX * BN_MAX / THREADS;   // 16 per thread
+constexpr int W_LOADS = SUB * SUB / THREADS;   // 16 per thread
 
 using wtypes::to_f32;
+
+// A block side the simt and mma variants take: up to SUB, or a multiple
+// of SUB up to the largest.
+__host__ __device__ constexpr bool side_ok(int b, int most) {
+  return b >= 1 && (b <= SUB || (b % SUB == 0 && b <= most));
+}
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
+
+// A block of the simt and mma variants owns the sbn = min(bn, SUB)
+// output columns n0.. of block column j; its steps walk the K surviving
+// blocks and, in each, the bm / sbm sub-blocks of sbm = min(bm, SUB)
+// rows: step s stages rows rb.. of block l.
+struct SubBlocks {
+  int sbm, sbn, n_m, j, n0;
+  __device__ SubBlocks(int bm, int bn) {
+    sbm = min(bm, SUB);
+    sbn = min(bn, SUB);
+    n_m = bm / sbm;
+    const int n_n = bn / sbn;
+    j = blockIdx.y / n_n;
+    n0 = (blockIdx.y % n_n) * sbn;
+  }
+};
 
 template <typename T, typename WT>
 __global__ void __launch_bounds__(THREADS)
@@ -101,41 +138,46 @@ sparse_matmul_simt(const T* __restrict__ x,
   constexpr int RPT = 8;                // rows a thread
   constexpr int TM = GROUPS * RPT;
   constexpr int XS = TM + 4;            // row stride of xs (floats)
-  constexpr int X_LOADS = (TM * BM_MAX + THREADS - 1) / THREADS;
-  __shared__ __align__(16) float xs[BM_MAX * XS];   // [c][m], transposed
-  __shared__ float ws[BM_MAX * BN_MAX];             // [c][col]
-  const int j = blockIdx.y;
+  constexpr int X_LOADS = (TM * SUB + THREADS - 1) / THREADS;
+  __shared__ __align__(16) float xs[SUB * XS];   // [c][m], transposed
+  __shared__ float ws[SUB * SUB];                // [c][col]
+  const SubBlocks sb(bm, bn);
+  const int j = sb.j, sbm = sb.sbm, sbn = sb.sbn;
   const int m0 = blockIdx.x * TM;
   const int tid = threadIdx.x;
   const int lane = tid % LANES;
   const int grp = tid / LANES;
 
   // This thread's shared-memory slots, the same at every step (-1:
-  // unused), and the offset in x (without the step's column block) of
-  // each of its x loads (-1: past M).
-  int w_slot[W_LOADS];
+  // unused), the offset in the sub-block of each of its weight loads,
+  // and the offset in x (without the step's columns) of each of its x
+  // loads (-1: past M).
+  int w_slot[W_LOADS], w_off[W_LOADS];
 #pragma unroll
   for (int u = 0; u < W_LOADS; ++u) {
     const int e = tid + u * THREADS;
-    w_slot[u] = e < bm * bn ? (e / bn) * BN_MAX + e % bn : -1;
+    w_slot[u] = e < sbm * sbn ? (e / sbn) * SUB + e % sbn : -1;
+    w_off[u] = (e / sbn) * bn + e % sbn;
   }
   int x_slot[X_LOADS], x_off[X_LOADS];
 #pragma unroll
   for (int u = 0; u < X_LOADS; ++u) {
     const int e = tid + u * THREADS;
-    const int mm = e / bm, c = e % bm;
-    const bool in = e < TM * bm;
+    const int mm = e / sbm, c = e % sbm;
+    const bool in = e < TM * sbm;
     x_slot[u] = in ? c * XS + mm : -1;
     x_off[u] = (in && m0 + mm < M) ? (m0 + mm) * d_in + c : -1;
   }
 
   float wv[W_LOADS], xv[X_LOADS];
-  auto load = [&](int l) {
-    const int c0 = idx[j * K + l] * bm;
-    const WT* wb = vals + ((size_t)j * K + l) * bm * bn;
+  auto load = [&](int step) {
+    const int l = step / sb.n_m, rb = (step % sb.n_m) * sbm;
+    const int c0 = idx[j * K + l] * bm + rb;
+    const WT* wb = vals + ((size_t)j * K + l) * bm * bn + (size_t)rb * bn +
+                   sb.n0;
 #pragma unroll
     for (int u = 0; u < W_LOADS; ++u)
-      wv[u] = w_slot[u] >= 0 ? to_f32(wb[tid + u * THREADS]) : 0.f;
+      wv[u] = w_slot[u] >= 0 ? to_f32(wb[w_off[u]]) : 0.f;
 #pragma unroll
     for (int u = 0; u < X_LOADS; ++u)
       xv[u] = x_off[u] >= 0 ? to_f32(x[x_off[u] + c0]) : 0.f;
@@ -144,8 +186,9 @@ sparse_matmul_simt(const T* __restrict__ x,
   float acc[RPT][2];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) acc[r][0] = acc[r][1] = 0.f;
-  if (K > 0) load(0);
-  for (int l = 0; l < K; ++l) {
+  const int steps = K * sb.n_m;
+  if (steps > 0) load(0);
+  for (int step = 0; step < steps; ++step) {
     __syncthreads();   // the previous step's tiles are consumed
 #pragma unroll
     for (int u = 0; u < W_LOADS; ++u)
@@ -154,9 +197,9 @@ sparse_matmul_simt(const T* __restrict__ x,
     for (int u = 0; u < X_LOADS; ++u)
       if (x_slot[u] >= 0) xs[x_slot[u]] = xv[u];
     __syncthreads();
-    if (l + 1 < K) load(l + 1);
+    if (step + 1 < steps) load(step + 1);
 #pragma unroll 8
-    for (int c = 0; c < bm; ++c) {
+    for (int c = 0; c < sbm; ++c) {
       float xr[RPT];
 #pragma unroll
       for (int r = 0; r < RPT; r += 4) {
@@ -164,8 +207,8 @@ sparse_matmul_simt(const T* __restrict__ x,
             *reinterpret_cast<const float4*>(&xs[c * XS + grp * RPT + r]);
         xr[r] = t.x; xr[r + 1] = t.y; xr[r + 2] = t.z; xr[r + 3] = t.w;
       }
-      const float w0 = ws[c * BN_MAX + lane];
-      const float w1 = ws[c * BN_MAX + lane + LANES];
+      const float w0 = ws[c * SUB + lane];
+      const float w1 = ws[c * SUB + lane + LANES];
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
         acc[r][0] = fmaf(xr[r], w0, acc[r][0]);
@@ -177,9 +220,9 @@ sparse_matmul_simt(const T* __restrict__ x,
   for (int r = 0; r < RPT; ++r) {
     const int m = m0 + grp * RPT + r;
     if (m >= M) continue;
-    T* row = out + (size_t)m * ob * bn + (size_t)j * bn;
-    if (lane < bn) store(&row[lane], acc[r][0]);
-    if (lane + LANES < bn) store(&row[lane + LANES], acc[r][1]);
+    T* row = out + (size_t)m * ob * bn + (size_t)j * bn + sb.n0;
+    if (lane < sbn) store(&row[lane], acc[r][0]);
+    if (lane + LANES < sbn) store(&row[lane + LANES], acc[r][1]);
   }
 }
 
@@ -187,8 +230,8 @@ sparse_matmul_simt(const T* __restrict__ x,
 
 constexpr int MMA_TM = 64;               // rows a block, 16 a warp
 constexpr int MMA_THREADS = 128;
-constexpr int XLD = BM_MAX + 8;          // row strides (elements) in
-constexpr int WLD = BN_MAX + 8;          // shared memory
+constexpr int XLD = SUB + 8;             // row strides (elements) in
+constexpr int WLD = SUB + 8;             // shared memory
 
 __global__ void __launch_bounds__(MMA_THREADS)
 sparse_matmul_mma(const __nv_bfloat16* __restrict__ x,
@@ -197,45 +240,49 @@ sparse_matmul_mma(const __nv_bfloat16* __restrict__ x,
                   __nv_bfloat16* __restrict__ out, int M, int d_in, int ob,
                   int K, int bm, int bn) {
   // stage st: the x slice at xs + st * XS, the weight block at ws + st * WS
-  constexpr int XS = MMA_TM * XLD, WS = BM_MAX * WLD;
+  constexpr int XS = MMA_TM * XLD, WS = SUB * WLD;
   __shared__ __align__(128) __nv_bfloat16 xs[2 * XS];
   __shared__ __align__(128) __nv_bfloat16 ws[2 * WS];
-  const int j = blockIdx.y;
+  const SubBlocks sb(bm, bn);
+  const int j = sb.j, sbm = sb.sbm;
   const int m0 = blockIdx.x * MMA_TM;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tg = lane % 4;
-  const int x_chunks = bm / 8, w_chunks = bn / 8;   // 16 B each, a row
-  const int n_tiles = bn / 8;
+  const int x_chunks = sbm / 8, w_chunks = sb.sbn / 8;   // 16 B each, a row
+  const int n_tiles = sb.sbn / 8;
 
-  auto load = [&](int l, int st) {
-    const int c0 = idx[j * K + l] * bm;
-    const __nv_bfloat16* wb = vals + ((size_t)j * K + l) * bm * bn;
+  auto load = [&](int step, int st) {
+    const int l = step / sb.n_m, rb = (step % sb.n_m) * sbm;
+    const int c0 = idx[j * K + l] * bm + rb;
+    const __nv_bfloat16* wb = vals + ((size_t)j * K + l) * bm * bn +
+                              (size_t)rb * bn + sb.n0;
     for (int e = tid; e < MMA_TM * x_chunks; e += MMA_THREADS) {
       const int r = e / x_chunks, c = (e % x_chunks) * 8;
       const bool in = m0 + r < M;
       tc::cp_async16(&xs[st * XS + r * XLD + c],
                      in ? x + (size_t)(m0 + r) * d_in + c0 + c : x, in);
     }
-    for (int e = tid; e < bm * w_chunks; e += MMA_THREADS) {
+    for (int e = tid; e < sbm * w_chunks; e += MMA_THREADS) {
       const int r = e / w_chunks, c = (e % w_chunks) * 8;
       tc::cp_async16(&ws[st * WS + r * WLD + c], wb + r * bn + c, true);
     }
   };
 
-  float acc[BN_MAX / 8][4];
+  float acc[SUB / 8][4];
 #pragma unroll
-  for (int n = 0; n < BN_MAX / 8; ++n)
+  for (int n = 0; n < SUB / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  if (K > 0) {
+  const int steps = K * sb.n_m;
+  if (steps > 0) {
     load(0, 0);
     tc::cp_async_commit();
   }
-  for (int l = 0; l < K; ++l) {
-    const int st = l & 1;
-    if (l + 1 < K) {
-      load(l + 1, st ^ 1);             // in flight during this step's math
+  for (int step = 0; step < steps; ++step) {
+    const int st = step & 1;
+    if (step + 1 < steps) {
+      load(step + 1, st ^ 1);          // in flight during this step's math
       tc::cp_async_commit();
       tc::cp_async_wait<1>();
     } else {
@@ -245,15 +292,15 @@ sparse_matmul_mma(const __nv_bfloat16* __restrict__ x,
     const __nv_bfloat16* xt = xs + st * XS;
     const __nv_bfloat16* wt = ws + st * WS;
 #pragma unroll
-    for (int kc = 0; kc < BM_MAX / 16; ++kc) {
-      if (kc * 16 >= bm) break;
+    for (int kc = 0; kc < SUB / 16; ++kc) {
+      if (kc * 16 >= sbm) break;
       uint32_t a[4];
       tc::ldmatrix_x4(a, &xt[(warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8) *
                                  XLD + kc * 16 + (lane / 16) * 8]);
       const __nv_bfloat16* wrow =
           &wt[(kc * 16 + ((lane / 8) % 2) * 8 + (lane % 8)) * WLD];
 #pragma unroll
-      for (int np = 0; np < BN_MAX / 16; ++np) {
+      for (int np = 0; np < SUB / 16; ++np) {
         if (2 * np + 1 < n_tiles) {      // column tiles 2np and 2np+1
           uint32_t b[4];
           tc::ldmatrix_x4_trans(b, wrow + np * 16 + (lane / 16) * 8);
@@ -276,7 +323,7 @@ sparse_matmul_mma(const __nv_bfloat16* __restrict__ x,
   for (int r = 0; r < 2; ++r) {
     const int row = warp * 16 + g + r * 8;
 #pragma unroll
-    for (int n = 0; n < BN_MAX / 8; ++n)
+    for (int n = 0; n < SUB / 8; ++n)
       if (n < n_tiles)
         *reinterpret_cast<__nv_bfloat162*>(
             &tile[row * XLD + n * 8 + 2 * tg]) =
@@ -287,7 +334,7 @@ sparse_matmul_mma(const __nv_bfloat16* __restrict__ x,
     const int r = e / w_chunks, c = (e % w_chunks) * 8;
     if (m0 + r < M)
       *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * ob * bn +
-                                (size_t)j * bn + c) =
+                                (size_t)j * bn + sb.n0 + c) =
           *reinterpret_cast<const uint4*>(&tile[r * XLD + c]);
   }
 }
@@ -420,7 +467,10 @@ template <typename T, typename WT>
 int launch_simt(const void* x, const void* vals, const void* idx, void* out,
                 int M, int d_in, int ob, int K, int bm, int bn,
                 cudaStream_t stream) {
-  dim3 grid((M + GROUPS * 8 - 1) / (GROUPS * 8), ob);
+  if (!side_ok(bm, BM_MAX) || !side_ok(bn, BN_MAX) ||
+      (size_t)ob * (bn / min(bn, SUB)) > 65535)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((M + GROUPS * 8 - 1) / (GROUPS * 8), ob * (bn / min(bn, SUB)));
   sparse_matmul_simt<T, WT><<<grid, THREADS, 0, stream>>>(
       (const T*)x, (const WT*)vals, (const int32_t*)idx, (T*)out, M, d_in,
       ob, K, bm, bn);
@@ -512,9 +562,10 @@ int launch_by_weight(const void* x, const void* vals, const void* idx,
 int launch_mma(const void* x, const void* vals, const void* idx, void* out,
                int M, int d_in, int ob, int K, int bm, int bn,
                cudaStream_t stream) {
-  if (bm % 16 || bn % 8 || bm > BM_MAX || bn > BN_MAX)
+  if (bm % 16 || bn % 8 || !side_ok(bm, BM_MAX) || !side_ok(bn, BN_MAX) ||
+      (size_t)ob * (bn / min(bn, SUB)) > 65535)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((M + MMA_TM - 1) / MMA_TM, ob);
+  dim3 grid((M + MMA_TM - 1) / MMA_TM, ob * (bn / min(bn, SUB)));
   sparse_matmul_mma<<<grid, MMA_THREADS, 0, stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)vals,
       (const int32_t*)idx, (__nv_bfloat16*)out, M, d_in, ob, K, bm, bn);
@@ -529,7 +580,8 @@ int sparse_matmul_max_bm() { return BM_MAX; }
 int sparse_matmul_max_bn() { return BN_MAX; }
 
 // x (M, d_in) f32 or bf16, M * d_in < 2^31; vals (ob,K,bm,bn) of the
-// stored type wtype (0 bf16, 1 int8 codes, 2 f32), bm, bn <= 64; idx
+// stored type wtype (0 bf16, 1 int8 codes, 2 f32), bm, bn <= 128, each
+// at most 64 or a multiple of 64 (any side for gemv); idx
 // (ob,K) int32; out (M, ob*bn) in x's dtype; all contiguous on the
 // device (16-byte aligned for mma). variant: 0 simt, 1 mma (bf16 x and
 // vals only; bm % 16 == 0, bn % 8 == 0), 2 gemv (M <= 8; bf16 or int8

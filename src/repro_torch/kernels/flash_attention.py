@@ -32,7 +32,9 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 BLOCK_Q = 64        # the CUDA kernel's query tile
 BLOCK_K = 64        # and key tile
-HEAD_DIMS = (32, 64)  # SmolLM-360M's 64; the reference kernel tests' 32
+#: SmolLM-360M's 64; the reference kernel tests' 32; Mistral-Nemo-12B,
+#: Qwen3-32B and Granite-20B's 128
+HEAD_DIMS = (32, 64, 128)
 
 
 def variant(dtype: torch.dtype, d: int) -> str:

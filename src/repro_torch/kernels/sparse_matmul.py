@@ -1,5 +1,6 @@
 """Gathered block-sparse matmul: the pruned classifier of ResNet-50 and
-the pruned FFN of the LMs (64 x 64 blocks for SmolLM-360M).
+the pruned FFN of the LMs (64 x 64 blocks for SmolLM-360M, 128 x 128
+for Mistral-Nemo-12B, Qwen3-32B and Granite-20B).
 
 ``sparse_matmul`` launches the CUDA kernel in ``csrc/sparse_matmul.cu``,
 which replaces the reference's ``kernels/sparse_matmul.py::
@@ -45,21 +46,31 @@ def sparse_matmul_torch(x, vals, idx) -> torch.Tensor:
 
 
 SIMT_MAX_M = 8     # rows up to which the gemv variant runs (decode)
+BLOCK_MAX = 128    # the largest block side the kernel takes (csrc)
+SUB_BLOCK = 64     # simt and mma walk a larger block as 64 x 64 pieces
+
+
+def side_ok(b: int) -> bool:
+    """A block side the simt and mma variants take: at most SUB_BLOCK,
+    or a multiple of it up to BLOCK_MAX (gemv takes any side up to
+    BLOCK_MAX)."""
+    return 0 < b <= BLOCK_MAX and (b <= SUB_BLOCK or b % SUB_BLOCK == 0)
 
 
 def variant(dtype: torch.dtype, m: int, bm: int, bn: int,
             w_dtype=torch.bfloat16) -> str:
     """The kernel variant for x of ``dtype`` with ``m`` rows and (bm, bn)
     weight blocks stored as ``w_dtype``: "gemv" for m <= SIMT_MAX_M
-    (f32 or bf16 x, bf16 or int8 blocks up to 64 x 64); "mma" for bf16 x
-    and bf16 blocks, bm a multiple of 16 and bn of 8, both <= 64 (the
-    mma.m16n8k16 tiles); else "simt" (f32 weights always)."""
+    (f32 or bf16 x, bf16 or int8 blocks up to 128 x 128); "mma" for bf16
+    x and bf16 blocks, bm a multiple of 16 and bn of 8, each side
+    :func:`side_ok` (the mma.m16n8k16 tiles); else "simt" (f32 weights
+    always)."""
     if w_dtype == torch.float32:
         return "simt"
     if m <= SIMT_MAX_M:
         return "gemv"
     if dtype == torch.bfloat16 and w_dtype == torch.bfloat16 and \
-            bm % 16 == 0 and bn % 8 == 0 and 0 < bm <= 64 and 0 < bn <= 64:
+            bm % 16 == 0 and bn % 8 == 0 and side_ok(bm) and side_ok(bn):
         return "mma"
     return "simt"
 
@@ -119,12 +130,15 @@ def sparse_matmul(x, vals, idx) -> torch.Tensor:
     m, d_in = x.shape
     ob, n_k, bm, bn = vals.shape
     lib, fns, max_bm, max_bn = _kernel()
+    v = variant(x.dtype, m, bm, bn, vals.dtype)
     if d_in % bm or bm > max_bm or bn > max_bn \
+            or (v != "gemv" and not (side_ok(bm) and side_ok(bn))) \
             or tuple(idx.shape) != (ob, n_k) or m * d_in >= 2 ** 31:
         raise ValueError(f"sparse_matmul: vals {tuple(vals.shape)} / idx "
                          f"{tuple(idx.shape)} do not fit x {tuple(x.shape)} "
-                         f"(bm <= {max_bm}, bn <= {max_bn})")
-    v = variant(x.dtype, m, bm, bn, vals.dtype)
+                         f"(bm, bn <= {max_bm}, {max_bn}; past "
+                         f"{SUB_BLOCK} a multiple of {SUB_BLOCK} in the "
+                         f"{v} variant)")
     if v == "mma":
         x, vals = _build.aligned16(x), _build.aligned16(vals)
     elif v == "gemv":               # 16-byte weight loads where bn % 8 == 0

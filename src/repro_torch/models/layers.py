@@ -6,9 +6,13 @@ both operands to f32, ``rms_norm`` and ``rope`` work in f32 and round
 to x's dtype, the q/k/v projections round to bf16, decode attention
 rounds the softmax to bf16 before the PV product, and the FFN's sparse
 products go through ``kernels/ops.sparse_matmul``. The prefill
-attention goes through ``kernels/ops.flash_attention``, which computes
-what the reference's Pallas flash kernel computes (p kept in f32), not
-what its XLA ``blockwise_attention`` computes (p rounded to bf16).
+attention, and a multi-token step into a KV cache (the reference's
+``kv_len`` branch, a chunk of a prompt), go through
+``kernels/ops.flash_attention``, which computes what the reference's
+Pallas flash kernel computes (p kept in f32), not what its XLA
+``blockwise_attention`` computes (p rounded to bf16). A one-token step
+takes one cache position for the batch or one a row (continuous
+batching, ``runtime/scheduler.py``).
 """
 from __future__ import annotations
 
@@ -180,11 +184,14 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, KV, D) -> (B, S, KV * n_rep, D), each KV head repeated
+    n_rep times; a copy, contiguous (with one KV head a reshape alone
+    would be a stride-0 view, which the flash kernel refuses)."""
     if n_rep == 1:
         return k
     b, s, h, d = k.shape
     return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
-        b, s, h * n_rep, d)
+        b, s, h * n_rep, d).contiguous()
 
 
 def init_attention(generator: torch.Generator, cfg,
@@ -205,15 +212,23 @@ def init_attention(generator: torch.Generator, cfg,
 
 def attention(p: dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
               causal: bool = True, window: int = 0, kv_cache=None,
-              cache_pos: Optional[int] = None):
+              cache_pos=None):
     """GQA attention. Returns (out, new_kv): the (k, v) pair of this call
-    (prefill) or the cache (decode).
+    (prefill) or the cache (a step into it).
 
     Without a cache (prefill) the whole sequence goes through
-    ``ops.flash_attention``. With a cache, one token (t == 1) is written
-    into it at ``cache_pos`` IN PLACE (the reference returns a new
-    cache; the port saves the copy) and attends by a grouped einsum over
-    the cache, in plain torch: the reference has no kernel there."""
+    ``ops.flash_attention``. With a cache (B, S, KV, Dh) the t new rows
+    are written into it IN PLACE (the reference returns a new cache; the
+    port saves the copy):
+
+    - t == 1: at ``cache_pos``, an int for the batch or a (B,) tensor,
+      one position a row; the query attends by a grouped einsum over
+      the cache, masked per row to the first ``cache_pos + 1`` keys, in
+      plain torch (the reference has no kernel there);
+    - t > 1 (the reference's ``kv_len`` branch): at rows ``cache_pos``
+      .. ``cache_pos + t - 1`` (an int); the queries attend through
+      ``ops.flash_attention`` over the cache's first ``kv_len =
+      cache_pos + t`` keys with ``q_offset = cache_pos``."""
     b, t, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     q = fdot("btd,dhk->bthk", x, p["wq"]).to(x.dtype)
@@ -230,23 +245,44 @@ def attention(p: dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
                                  _repeat_kv(v, h // kv), causal=causal,
                                  window=window)
         new_cache = (k, v)
-    else:
-        if t != 1:
-            raise NotImplementedError(
-                "a multi-token step into a KV cache (the reference's "
-                "kv_len branch of blockwise_attention): ROADMAP Queue 1, "
-                "the rest of the LM side (chunked prefill)")
+    elif t > 1:
         ck, cv = kv_cache                      # (B, S, KV, Dh)
-        ck[:, cache_pos] = k[:, 0].to(ck.dtype)
-        cv[:, cache_pos] = v[:, 0].to(cv.dtype)
-        kv_len = cache_pos + 1
+        if isinstance(cache_pos, torch.Tensor) or \
+                not 0 <= cache_pos <= ck.shape[1] - t:
+            raise ValueError(f"a {t}-token step into a cache of "
+                             f"{ck.shape[1]} rows takes one int cache_pos "
+                             f"in [0, {ck.shape[1] - t}], got {cache_pos!r}")
+        ck[:, cache_pos:cache_pos + t] = k.to(ck.dtype)
+        cv[:, cache_pos:cache_pos + t] = v.to(cv.dtype)
+        kv_len = cache_pos + t
+        o = kops.flash_attention(
+            q, _repeat_kv(ck[:, :kv_len], h // kv).contiguous(),
+            _repeat_kv(cv[:, :kv_len], h // kv).contiguous(),
+            causal=causal, window=window, q_offset=cache_pos)
+        new_cache = (ck, cv)
+    else:
+        ck, cv = kv_cache                      # (B, S, KV, Dh)
+        kpos = torch.arange(ck.shape[1], device=x.device)
+        if isinstance(cache_pos, torch.Tensor):   # one position a row
+            pos = cache_pos.to(x.device).long()
+            rows = torch.arange(b, device=x.device)
+            ck[rows, pos] = k[:, 0].to(ck.dtype)
+            cv[rows, pos] = v[:, 0].to(cv.dtype)
+            kv_len = (pos + 1)[:, None]           # (B, 1)
+            mask = kpos[None] < kv_len            # (B, S)
+            if window:
+                mask &= kpos[None] > (kv_len - 1 - window)
+            mask = mask[:, None, None, None]      # (B, 1, 1, 1, S)
+        else:
+            ck[:, cache_pos] = k[:, 0].to(ck.dtype)
+            cv[:, cache_pos] = v[:, 0].to(cv.dtype)
+            kv_len = cache_pos + 1
+            mask = kpos < kv_len
+            if window:
+                mask &= kpos > (kv_len - 1 - window)
         g = h // kv
         s = fdot("bqkgd,bskd->bkgqs", q.reshape(b, t, kv, g, dh),
                  ck) / math.sqrt(dh)
-        kpos = torch.arange(ck.shape[1], device=x.device)
-        mask = kpos < kv_len
-        if window:
-            mask &= kpos > (kv_len - 1 - window)
         s = s.masked_fill(~mask, -math.inf)
         o = fdot("bkgqs,bskd->bqkgd", torch.softmax(s, dim=-1).to(cv.dtype),
                  cv)

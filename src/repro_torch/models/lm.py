@@ -11,15 +11,23 @@ tied. The layer loop is a Python loop over views of layer l.
     init_cache(cfg, batch, max_seq)         -> decode cache (zeros)
     forward(cfg, params, tokens)            -> (logits, aux)  prefill
     decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
+    prefill_chunk(cfg, params, cache, tokens, pos) -> (logits, cache)
 
-``forward`` and ``decode_step`` run where the parameters are. The MoE,
-SSM, hybrid, encoder-decoder and VLM families, ``loss_fn`` and remat
-are not ported (ROADMAP Queue 1, the rest of the LM side).
+``forward``, ``decode_step`` and ``prefill_chunk`` run where the
+parameters are. ``decode_step`` takes one token a row, at one position
+for the batch or one a row (continuous batching,
+``runtime/scheduler.py``); ``prefill_chunk`` writes a chunk of T
+tokens at positions pos .. pos + T - 1 into the cache (the reference's
+``kv_len`` branch). The MoE, SSM, hybrid, encoder-decoder and VLM
+families raise, naming their ROADMAP item
+(``configs/base.py::UNPORTED_LM_FAMILIES``); ``loss_fn`` and remat are
+not ported (ROADMAP Queue 1 item 8e, training).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import UNPORTED_LM_FAMILIES
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import SparseWeight, tensor_from_numpy
@@ -29,9 +37,11 @@ LOGITS_MODES = ("full", "last", "hidden")
 
 def _check_family(cfg) -> None:
     if cfg.family != "dense":
+        item = UNPORTED_LM_FAMILIES.get(cfg.family,
+                                        "Queue 1, the rest of the LM side")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet: ROADMAP "
-            "Queue 1, the rest of the LM side")
+            f"{item}")
 
 
 # ---------------------------------------------------------------------------
@@ -180,9 +190,10 @@ def forward(cfg, params, tokens: torch.Tensor, *, logits_mode: str = "full"):
 # ---------------------------------------------------------------------------
 
 def decode_block(cfg, p, h: torch.Tensor, kv: torch.Tensor,
-                 positions: torch.Tensor, pos: int) -> torch.Tensor:
-    """One layer of a one-token decode: p the layer's parameters, kv its
-    cache (2, B, S, KV, Dh), written in place at ``pos``."""
+                 positions: torch.Tensor, pos) -> torch.Tensor:
+    """One layer of a step into the cache: p the layer's parameters, kv
+    its cache (2, B, S, KV, Dh), written in place at ``pos`` (an int,
+    or a (B,) tensor for a one-token step: one position a row)."""
     a, _ = L.attention(p["attn"], cfg, L.rms_norm(h, p["ln1"], cfg.norm_eps),
                        positions=positions, window=cfg.attn_window,
                        kv_cache=(kv[0], kv[1]), cache_pos=pos)
@@ -190,17 +201,54 @@ def decode_block(cfg, p, h: torch.Tensor, kv: torch.Tensor,
     return h + L.ffn(p["ffn"], L.rms_norm(h, p["ln2"], cfg.norm_eps))
 
 
-def decode_step(cfg, params, cache: dict, tokens: torch.Tensor, pos):
-    """One-token decode. tokens: (B, 1); pos: the position (int).
-
-    Returns (logits (B, 1, V) f32, cache). The cache is updated IN PLACE
-    and returned: the reference returns a new one."""
-    _check_family(cfg)
-    pos = int(pos)
+def _cache_step(cfg, params, cache, tokens, positions, pos):
     with L.full_f32():
         h = _embed(cfg, params, tokens)
-        positions = torch.full((h.shape[0], 1), pos, device=h.device)
         for l in range(cfg.n_layers):
             h = decode_block(cfg, _layer(params["blocks"], l), h,
                              cache["kv"][l], positions, pos)
         return _logits(cfg, params, h), cache
+
+
+def decode_step(cfg, params, cache: dict, tokens: torch.Tensor, pos):
+    """One-token decode. tokens: (B, 1); pos: the position, an int for
+    every row, or a (B,) integer tensor (or array), one a row.
+
+    Returns (logits (B, 1, V) f32, cache). The cache is updated IN PLACE
+    and returned: the reference returns a new one. A step of T > 1
+    tokens raises: the reference's ``decode_step`` ropes all T tokens
+    at ``pos`` (its ``positions`` broadcast one position), which no
+    caller wants; :func:`prefill_chunk` places them at pos .. pos+T-1."""
+    _check_family(cfg)
+    if tokens.shape[1] != 1:
+        raise ValueError(
+            f"decode_step takes one token a row, got {tokens.shape[1]}: the "
+            "reference ropes every token of a multi-token step at pos; "
+            "prefill_chunk writes a chunk at pos .. pos + T - 1")
+    dev = params["embed"].device
+    if isinstance(pos, int) or getattr(pos, "ndim", 1) == 0:
+        pos = int(pos)
+        positions = torch.full((tokens.shape[0], 1), pos, device=dev)
+    else:
+        pos = torch.as_tensor(pos).to(dev, torch.long)
+        if pos.shape != (tokens.shape[0],):
+            raise ValueError(f"decode_step: pos {tuple(pos.shape)} for "
+                             f"{tokens.shape[0]} rows: one position a row")
+        positions = pos[:, None]
+    return _cache_step(cfg, params, cache, tokens, positions, pos)
+
+
+def prefill_chunk(cfg, params, cache: dict, tokens: torch.Tensor,
+                  pos: int):
+    """A chunk of a prompt into the cache: tokens (B, T) at positions
+    pos .. pos + T - 1, written into the cache IN PLACE; each attends to
+    the cache's first pos + T keys through the flash kernel (the
+    reference's ``kv_len`` branch). Returns (logits (B, T, V) f32,
+    cache). The prompt in chunks gives the one-shot prefill's logits up
+    to the order of sums."""
+    _check_family(cfg)
+    pos = int(pos)
+    positions = torch.arange(pos, pos + tokens.shape[1],
+                             device=params["embed"].device)[None].expand(
+        tokens.shape[0], -1)
+    return _cache_step(cfg, params, cache, tokens, positions, pos)

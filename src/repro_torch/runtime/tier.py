@@ -108,9 +108,8 @@ class NoHealthyReplicaError(TierError):
 @dataclass
 class Request:
     """Payload-agnostic serving request: the admission/accounting core
-    shared by every workload the tier fronts (the reference's LM decode
-    ``Request`` subclasses it; ``runtime/scheduler.py`` is not ported
-    yet, ROADMAP Queue 1 item 8). The CNN tier wraps it as
+    shared by every workload the tier fronts (the LM decode ``Request``
+    of ``runtime/scheduler.py`` subclasses it). The CNN tier wraps it as
     :class:`ImageRequest`. ``deadline_s`` is a relative budget from
     ``submitted_at`` (the tier's clock, monotonic by default)."""
     rid: int

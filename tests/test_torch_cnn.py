@@ -208,7 +208,7 @@ def _ref_forward_jit(ref_cfg):
     {"mode": "throughput", "continuous": True, "tuning_cache": "c.json"},
     {"mode": "throughput", "tier": True},
     {"mode": "latency", "n_stages": 2, "calibrate": True},
-    {"arch": "mistral-nemo-12b", "mode": "latency"},
+    {"arch": "moonshot-v1-16b-a3b", "mode": "latency"},
 ], ids=["throughput", "continuous", "tier", "stages", "lm"])
 def test_unported_modes_name_their_roadmap_item(kw, weights, monkeypatch,
                                                 tmp_path):
@@ -218,7 +218,7 @@ def test_unported_modes_name_their_roadmap_item(kw, weights, monkeypatch,
     request (the calibrated one read from the port's own measurements,
     whose keys the reference reads too), and the logits the reference's
     forward within the parity bar, top-1 equal. What is still to port
-    raises, naming its ROADMAP item: the LM archs not ported. The tier
+    raises, naming its ROADMAP item: an LM family not ported. The tier
     serves since it was ported: one request of the reference's weights,
     its logits the reference forward's within the bar."""
     ref_cfg, ref_params, _, params = weights

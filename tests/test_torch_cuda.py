@@ -1078,3 +1078,146 @@ def test_placed_rows_equal_closures_on_the_card(dev, arch, quantize):
     x = torch.from_numpy(reqs[0][:1])
     assert torch.equal(cnn.cnn_forward_reference(cfg, p_dev, x),
                        cnn.cnn_forward(cfg, p_dev, x, graph=graph_for(arch)))
+
+
+# ---- the large dense LMs: flash at D 128, 128 x 128 blocks, the
+# cache-chunk step and the continuous batcher ---------------------------
+
+# (B, Tq, Tk, H, D, causal, window, q_offset): a prefill of each large
+# LM's heads at a shortened T, a cache chunk, a key count that is no
+# tile multiple, a window, one query at the end
+FLASH_D128_CASES = [
+    (1, 256, 256, 64, 128, True, 0, 0),      # Qwen3-32B's 64 heads
+    (1, 256, 256, 48, 128, True, 0, 0),      # Granite-20B's 48
+    (1, 512, 2048, 8, 128, True, 0, 1536),   # the last of 4 chunks
+    (2, 100, 1000, 4, 128, True, 0, 900),
+    (2, 77, 77, 3, 128, False, 30, 0),
+    (1, 1, 129, 2, 128, True, 0, 128),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_D128_CASES, ids=str)
+def test_flash_attention_d128_matches_plain(dev, case, dtype):
+    b, tq, tk, h, d, causal, window, q_offset = case
+    gen = torch.Generator().manual_seed(tq + tk + h)
+    q, k, v = (torch.randn((b, t, h, d), generator=gen).to(dev, dtype)
+               for t in (tq, tk, tk))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ops.reset_launches()
+    got = fa.flash_attention(q, k, v, **kw)
+    _assert_variant("flash_attention",
+                    "mma" if dtype == torch.bfloat16 else "simt")
+    want = fa.flash_attention_torch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    else:
+        _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 100, 2048])
+@pytest.mark.parametrize("d_in,d_out,bm,bn", [
+    (1280, 2560, 128, 128),      # w1 / w3 shaped: K 2 of 10
+    (2560, 1280, 128, 128),      # w2 shaped: K 3 of 20
+    (1280, 640, 128, 64),        # mixed sides
+    (640, 1280, 64, 128),
+], ids=["w1_128", "w2_128", "128x64", "64x128"])
+def test_sparse_matmul_128_blocks_match_plain(dev, d_in, d_out, bm, bn, m):
+    gen = torch.Generator().manual_seed(d_in + d_out + m)
+    sw = _weight(gen, d_in, d_out, bm, bn, 0.85, dev)
+    x = torch.randn((m, d_in), generator=gen).to(dev, torch.bfloat16)
+    var = sm.variant(x.dtype, m, bm, bn)
+    assert var == ("gemv" if m <= 8 else "mma")
+    ops.reset_launches()
+    got = sm.sparse_matmul(x, sw.vals, sw.idx)
+    _assert_variant("sparse_matmul", var)
+    want = sm.sparse_matmul_torch(x, sw.vals, sw.idx)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+    if m == 9:                   # simt at the same blocks, f32 x
+        ops.reset_launches()
+        xf = x.float()
+        got = sm.sparse_matmul(xf, sw.vals, sw.idx)
+        _assert_variant("sparse_matmul", "simt")
+        torch.testing.assert_close(
+            got, sm.sparse_matmul_torch(xf, sw.vals, sw.idx), rtol=1e-5,
+            atol=1e-5 * float(got.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "granite-20b"])
+def test_cache_chunks_and_batcher_on_card_match_cpu(dev, arch):
+    """reduced qwen3-32b (GQA, qk_norm) and granite-20b (one KV head): a
+    prefill launches one flash_attention and three sparse_matmul a
+    layer; a prompt in chunks through the cache launches the same a
+    layer for each chunk of more than one token (a one-token chunk takes
+    the decode attention and gemv) and matches the CPU's; the continuous
+    batcher launches three gemv a layer a step and no flash, and its
+    steps' logits match the CPU batcher's within 1e-2 of max |logit| for
+    as long as both fed the same tokens (a near tie may part them)."""
+    from repro_torch.runtime.scheduler import (ContinuousBatcher, Request,
+                                               make_per_slot_decode,
+                                               make_slot_cache)
+    cfg = reduced(get_config(arch))
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    cpu = lm.params_to(params, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(2))
+    n = cfg.n_layers
+    ops.reset_launches()
+    got = make_prefill_step(cfg)(params, toks.to(dev)).cpu()
+    _assert_launches({"flash_attention": n, "sparse_matmul": 3 * n})
+    want = make_prefill_step(cfg)(cpu, toks)
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+    outs = {}
+    for d, p in ((dev, params), ("cpu", cpu)):
+        cache = lm.init_cache(cfg, 2, 32, device=d)
+        ops.reset_launches()
+        lgs = [lm.prefill_chunk(cfg, p, cache, toks[:, a:b].to(d), a)[0]
+               for a, b in ((0, 9), (9, 10), (10, 24))]
+        if d == dev:
+            _assert_launches({"flash_attention": 2 * n,
+                              "sparse_matmul": 9 * n})
+            assert ops.VARIANT_LAUNCHES[("sparse_matmul", "gemv")] == 3 * n
+        outs[d if d == "cpu" else "card"] = torch.cat(lgs, 1).cpu()
+    want = outs["cpu"]
+    assert float((outs["card"] - want).abs().max()) <= \
+        1e-2 * float(want.abs().max())
+
+    logs = {}
+    for d, p in ((dev, params), ("cpu", cpu)):
+        rec = logs.setdefault(str(d), [])
+        decode = make_per_slot_decode(cfg)
+
+        def recording(p_, c_, t_, pos_, rec=rec, decode=decode):
+            lg, c_ = decode(p_, c_, t_, pos_)
+            # a copy: on the CPU the batcher's token tensor shares the
+            # host buffer it rewrites every step
+            rec.append((t_.cpu().clone(), lg[:, -1].float().cpu()))
+            return lg, c_
+        cb = ContinuousBatcher(
+            cfg, p, slots=3, max_seq=32, decode_fn=recording,
+            init_cache_fn=lambda c, s, m, d=d: make_slot_cache(c, s, m,
+                                                               device=d))
+        rng = torch.Generator().manual_seed(4)
+        for rid in range(5):
+            n_p = int(torch.randint(2, 9, (1,), generator=rng))
+            cb.submit(Request(rid=rid, prompt=torch.randint(
+                0, cfg.vocab_size, (n_p,), generator=rng).numpy().astype(
+                    "int32"), max_new_tokens=4))
+        ops.reset_launches()
+        cb.run()
+        if d == dev:
+            _assert_launches({"sparse_matmul": 3 * n * cb.steps})
+            _assert_variant("sparse_matmul", "gemv", 3 * n * cb.steps)
+    card, cpu_logs = logs[str(dev)], logs["cpu"]
+    assert len(card) == len(cpu_logs)
+    compared = 0
+    for (fed, got), (fed_cpu, want) in zip(card, cpu_logs):
+        if not torch.equal(fed, fed_cpu):
+            break
+        assert float((got - want).abs().max()) <= \
+            1e-2 * float(want.abs().max())
+        compared += 1
+    assert compared >= 8

@@ -1,10 +1,12 @@
-"""The port's plain flash attention and its 64 x 64 block-sparse matmul
-against the JAX reference on the CPU: ``flash_attention_torch`` against
+"""The port's plain flash attention and its block-sparse matmul against
+the JAX reference on the CPU: ``flash_attention_torch`` against
 ``flash_attention_pallas`` (interpret mode, its default here) and the
 XLA ``blockwise_attention`` on the reference's own test grid and
-tolerances (tests/test_kernels.py), at padded and odd lengths; and
-``sparse_matmul_torch`` at SmolLM-360M's 64 x 64 FFN blocks against the
-reference's XLA path and Pallas kernel. The CUDA kernels themselves
+tolerances (tests/test_kernels.py), at padded and odd lengths, and at
+the large dense LMs' head size 128 (a prefill and a cache chunk); and
+``sparse_matmul_torch`` at SmolLM-360M's 64 x 64 FFN blocks and at the
+large LMs' 128 x 128 blocks against the reference's XLA path and
+Pallas kernel. The CUDA kernels themselves
 are held to these plain versions on the card (tests/test_torch_cuda.py).
 """
 import math
@@ -70,6 +72,44 @@ def test_flash_attention_matches_reference(tq, tk, causal, window, dtype):
                                        **kw), TOL[dtype])
     _close(got, blockwise_attention(jq, jk, jv, block_q=32, block_k=64,
                                     **kw), TOL[dtype])
+
+
+@pytest.mark.parametrize("tq,tk,causal,window,q_offset", [
+    (128, 128, True, 0, 0),     # a prefill
+    (128, 128, False, 0, 0),
+    (64, 256, True, 0, 192),    # a cache chunk: its queries at 192..255
+    (128, 128, True, 48, 0),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_d128_matches_reference(tq, tk, causal, window,
+                                                q_offset, dtype):
+    """Head size 128 (Mistral-Nemo-12B, Qwen3-32B, Granite-20B): the
+    plain version against the Pallas kernel (interpret) and the XLA
+    twin, at the reference's own bars."""
+    q, k, v = _qkv([tq, tk, window, 128], 1, tq, tk, 2, 128, dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = fa.flash_attention_torch(_t(q), _t(k), _t(v), **kw)
+    assert got.dtype == getattr(torch, dtype) and got.shape == q.shape
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    _close(got, flash_attention_pallas(jq, jk, jv, block_q=32, block_k=64,
+                                       **kw), TOL[dtype])
+    _close(got, blockwise_attention(jq, jk, jv, block_q=32, block_k=64,
+                                    **kw), TOL[dtype])
+
+
+def test_flash_attention_d128_cache_chunk_odd_lengths():
+    """A cache chunk whose key count is no tile multiple (the reference's
+    Pallas kernel asserts tiles; its XLA twin pads): 37 queries at
+    positions 63..99 over 100 keys, and windowed."""
+    q, k, v = _qkv(5, 1, 37, 100, 2, 128, "float32")
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    for window in (0, 30):
+        kw = dict(causal=True, window=window, q_offset=63)
+        got = fa.flash_attention_torch(_t(q), _t(k), _t(v), **kw)
+        _close(got, ref_oracles.attention_ref(jq, jk, jv, **kw),
+               TOL["float32"])
+        _close(got, blockwise_attention(jq, jk, jv, block_q=32, block_k=64,
+                                        **kw), TOL["float32"])
 
 
 def test_flash_attention_padded_lengths():
@@ -190,19 +230,33 @@ def _flash_split_p(q, k, v, *, causal, window, q_offset):
     return (acc / l.clamp_min(1e-20)[..., None]).permute(0, 2, 1, 3)
 
 
-@pytest.mark.parametrize("tq,tk,causal,window", [
+SPLIT_P_CASES = [
     (128, 128, True, 0),
     (128, 128, False, 0),
     (64, 256, True, 0),
     (128, 128, True, 48),
-])
+]
+
+
+@pytest.mark.parametrize("tq,tk,causal,window", SPLIT_P_CASES)
 def test_split_p_product_computes_the_plain_function(tq, tk, causal, window):
+    _check_split_p(tq, tk, causal, window, 32, [tq, tk, window, 1])
+
+
+@pytest.mark.parametrize("tq,tk,causal,window", SPLIT_P_CASES)
+def test_split_p_product_at_d128_computes_the_plain_function(tq, tk, causal,
+                                                             window):
+    """The same at the large LMs' head size 128."""
+    _check_split_p(tq, tk, causal, window, 128, [tq, tk, window, 1, 128])
+
+
+def _check_split_p(tq, tk, causal, window, d, seed):
     """The mma variant rounds nothing the plain version keeps: its split
     p lands within the reference's bf16 bar of the Pallas kernel and
     within 2^-16 of max |o| of the plain version's f32 output, far
     below the output's bf16 ulp (2^-8 relative), so the kernel can stay
     held to the unchanged plain version at 1 bf16 ulp."""
-    q, k, v = _qkv([tq, tk, window, 1], 2, tq, tk, 3, 32, "bfloat16")
+    q, k, v = _qkv(seed, 2, tq, tk, 3, d, "bfloat16")
     kw = dict(causal=causal, window=window,
               q_offset=tk - tq if tq != tk else 0)
     got = _flash_split_p(_t(q), _t(k), _t(v), **kw)
@@ -220,6 +274,8 @@ def test_split_p_product_computes_the_plain_function(tq, tk, causal, window):
     (torch.bfloat16, 32, "mma"),
     (torch.float32, 64, "simt"),
     (torch.float32, 32, "simt"),
+    (torch.bfloat16, 128, "mma"),     # the large dense LMs
+    (torch.float32, 128, "simt"),
     (torch.bfloat16, 48, "simt"),     # no head size the kernel takes
 ])
 def test_flash_attention_variant_choice(dtype, d, want):
@@ -236,8 +292,13 @@ def test_flash_attention_variant_choice(dtype, d, want):
     (torch.bfloat16, 9, 16, 8, "mma"),       # the smallest mma tiles
     (torch.bfloat16, 9, 8, 8, "simt"),       # bm no multiple of 16
     (torch.bfloat16, 9, 48, 64, "mma"),
-    (torch.bfloat16, 9, 80, 64, "simt"),     # bm > 64
-    (torch.bfloat16, 9, 64, 72, "simt"),     # bn > 64
+    (torch.bfloat16, 9, 80, 64, "simt"),     # bm > 64, no multiple of 64
+    (torch.bfloat16, 9, 64, 72, "simt"),     # bn > 64, no multiple of 64
+    (torch.bfloat16, 2048, 128, 128, "mma"),  # the large LMs' prefill
+    (torch.bfloat16, 9, 128, 64, "mma"),
+    (torch.bfloat16, 9, 64, 128, "mma"),
+    (torch.bfloat16, 4, 128, 128, "gemv"),    # their decode
+    (torch.bfloat16, 9, 192, 64, "simt"),    # past the largest block
     (torch.float32, 9, 64, 64, "simt"),      # f32 x
     (torch.float32, 1, 32, 25, "gemv"),      # the ResNet-50 classifier
 ])
@@ -295,3 +356,51 @@ def test_sparse_matmul_64x64_blocks_match_reference(d_in, d_out, m, dtype):
         want = np.asarray(want, np.float32)
         assert (np.abs(got.float().numpy() - want) <= tol(want)).all()
     assert torch.equal(got, sm.sparse_matmul_torch(_t(x), sw.vals, sw.idx))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [4, 40])
+@pytest.mark.parametrize("d_in,d_out", [(1280, 768), (768, 1280)],
+                         ids=["w1", "w2"])
+def test_sparse_matmul_128x128_blocks_match_reference(d_in, d_out, m, dtype):
+    """The large dense LMs' FFN blocks, 128 x 128 at 85% sparsity (the
+    reference's ``SparsityConfig`` default), at narrow widths: K 2 of 10
+    input blocks (w1 / w3) and 1 of 6 (w2), pruned by the reference."""
+    rng = np.random.default_rng([d_in, m, 128])
+    w = _cast(rng.uniform(-1, 1, (d_in, d_out)) / math.sqrt(d_in),
+              "bfloat16")
+    rsw = ref_sparsity.to_block_balanced(
+        jnp.asarray(w), RefSparsityConfig(enabled=True))
+    sw = params_from_numpy({"w": {"vals": np.asarray(rsw.vals),
+                                  "idx": np.asarray(rsw.idx),
+                                  "d_in": rsw.d_in}}, device="cpu")["w"]
+    assert tuple(sw.vals.shape) == (d_out // 128, {1280: 2, 768: 1}[d_in],
+                                    128, 128)
+    x = _cast(rng.normal(size=(m, d_in)), dtype)
+    got = ops.sparse_matmul(_t(x), sw)
+    assert got.dtype == getattr(torch, dtype)
+    if dtype == "float32":
+        tol = lambda r: 1e-5 * np.abs(r) + 1e-5 * float(np.abs(r).max())  # noqa: E731
+    else:
+        tol = _bf16_tol
+    with ref_ops.config(impl="xla"):
+        want_xla = ref_ops.sparse_matmul(jnp.asarray(x), rsw)
+    for want in (sparse_matmul_pallas(jnp.asarray(x), rsw.vals, rsw.idx,
+                                      block_m_x=4), want_xla):
+        want = np.asarray(want, np.float32)
+        assert (np.abs(got.float().numpy() - want) <= tol(want)).all()
+    assert torch.equal(got, sm.sparse_matmul_torch(_t(x), sw.vals, sw.idx))
+
+
+def test_sparse_matmul_wrapper_refuses_blocks_the_kernel_lacks(monkeypatch):
+    """Past 64 a side the simt and mma variants take only multiples of
+    64, up to 128; the wrapper checks before it launches (no card
+    needed: the library is stubbed)."""
+    monkeypatch.setattr(sm, "_kernel", lambda: (None, {}, 128, 128))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    for m, bm, bn in ((9, 96, 64), (9, 64, 192), (4, 192, 64)):
+        x = torch.zeros((m, 4 * bm), dtype=torch.bfloat16)
+        vals = torch.zeros((2, 1, bm, bn), dtype=torch.bfloat16)
+        idx = torch.zeros((2, 1), dtype=torch.int32)
+        with pytest.raises(ValueError, match="do not fit"):
+            sm.sparse_matmul(x, vals, idx)

@@ -1,7 +1,9 @@
-"""The port's dense LM (``reduced(smollm-360m)``) against the JAX
+"""The port's dense LMs (``reduced(smollm-360m)``, and reduced
+``qwen3-32b``, ``mistral-nemo-12b`` and ``granite-20b``) against the JAX
 reference on the CPU, on the reference's own weights carried across
 with ``lm.params_from_numpy``: configs, the weight bridge, each layer,
-the prefill forward, decode steps, forward-vs-decode consistency and
+the prefill forward, decode steps, a multi-token step into a KV cache
+(the reference's ``kv_len`` branch), forward-vs-decode consistency and
 ``serve_lm``.
 
 Bars. The two frameworks do the same f32 sums and bf16 rounds in other
@@ -50,10 +52,15 @@ def _numpy_tree(tree):
     return np.asarray(tree)
 
 
+#: the large dense LMs, reduced: 128-wide heads at full size, GQA 8 / 8 /
+#: MQA 1 (2 / 2 / 1 reduced), qk_norm for Qwen3
+LARGE = ["qwen3-32b", "mistral-nemo-12b", "granite-20b"]
+
+
 @functools.lru_cache(maxsize=None)
-def _model(tie_embeddings: bool = True):
+def _model(tie_embeddings: bool = True, arch: str = ARCH):
     """(reference cfg, port cfg, reference params, port params)."""
-    rcfg, cfg = (dataclasses.replace(reduced_(get(ARCH)),
+    rcfg, cfg = (dataclasses.replace(reduced_(get(arch)),
                                      tie_embeddings=tie_embeddings)
                  for reduced_, get in ((ref_reduced, ref_get_config),
                                        (reduced, get_config)))
@@ -87,9 +94,8 @@ def _layer0(rparams, params):
     return rp, lm._layer(params["blocks"], 0)
 
 
-@pytest.mark.parametrize("size", ["full", "reduced"])
-def test_config_matches_reference_field_for_field(size):
-    ref, port = ref_get_config(ARCH), get_config(ARCH)
+def _check_config_fields(arch, size):
+    ref, port = ref_get_config(arch), get_config(arch)
     if size == "reduced":
         ref, port = ref_reduced(ref), reduced(port)
     ref_fields = {f.name: f for f in dataclasses.fields(ref)}
@@ -108,12 +114,28 @@ def test_config_matches_reference_field_for_field(size):
     assert (port.kv_heads, port.head_dim) == (ref.kv_heads, ref.head_dim)
 
 
-@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "rwkv6-1.6b",
+@pytest.mark.parametrize("size", ["full", "reduced"])
+def test_config_matches_reference_field_for_field(size):
+    _check_config_fields(ARCH, size)
+
+
+@pytest.mark.parametrize("arch", LARGE)
+@pytest.mark.parametrize("size", ["full", "reduced"])
+def test_large_lm_configs_match_reference_field_for_field(size, arch):
+    _check_config_fields(arch, size)
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "rwkv6-1.6b",
                                   "granite-moe-3b-a800m", "whisper-large-v3"])
 def test_unported_lm_archs_name_their_roadmap_item(arch):
+    """Every arch is registered, as in the reference; a family whose
+    model code is not ported raises where that code would run, naming
+    its ROADMAP item."""
+    cfg = get_config(arch)
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1, the rest of the LM side"):
-        get_config(arch)
+                       match="ROADMAP Queue 1, the rest of the LM side "
+                             r"\(item 8[cd]"):
+        lm.init_params(cfg, torch.Generator())
 
 
 def _port_leaves(tree, path=()):
@@ -139,8 +161,21 @@ def _ref_leaves(tree):
 
 
 def test_params_from_numpy_round_trips_bit_for_bit():
-    _, _, rparams, params = _model()
+    _check_round_trip(ARCH)
+
+
+@pytest.mark.parametrize("arch", LARGE)
+def test_large_lm_params_from_numpy_round_trip_bit_for_bit(arch):
+    """The reference's trees, qwen3's q_norm / k_norm and the untied
+    heads of the large LMs among them."""
+    _check_round_trip(arch)
+
+
+def _check_round_trip(arch):
+    _, cfg, rparams, params = _model(arch=arch)
     port, ref = _port_leaves(params), _ref_leaves(rparams)
+    assert (("blocks", "attn", "q_norm") in port) == cfg.qk_norm
+    assert ("head" in port) == (not cfg.tie_embeddings)
     assert set(port) == set(ref)
     assert port[("blocks", "ffn", "w1", "vals")].dim() == 5   # (L, ob, K, ..)
     for key, want in ref.items():
@@ -242,16 +277,118 @@ def test_attention_decode_matches_reference(window, qk_norm):
     _within(nv, rv, rtol=2 ** -7)
 
 
+@pytest.mark.parametrize("qk_norm", [False, True])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5),
+                                           (False, 0)])
+@pytest.mark.parametrize("cache_pos,t", [(0, 7), (4, 7), (9, 2), (3, 13)])
+def test_multi_token_step_into_a_cache_matches_reference(cache_pos, t,
+                                                         causal, window,
+                                                         qk_norm):
+    """The reference's ``kv_len`` branch: t tokens (1 < t < S) written
+    into a cache of S = 16 rows at ``cache_pos`` and attending over its
+    first ``cache_pos + t`` rows, at cache_pos 0 and > 0, causal,
+    windowed and not causal. The port attends through the flash kernel
+    (p in f32), the reference through its XLA ``blockwise_attention`` (p
+    rounded to bf16): the output is held to the prefill's bar, 1e-2 of
+    max |out|; the cache rows to 1 bf16 ulp (the same projections and
+    rope), the rows outside the chunk untouched."""
+    rcfg, cfg, rparams, params = _model()
+    rp, p = _layer0(rparams, params)
+    rng = np.random.default_rng([cache_pos, t, window, int(causal)])
+    if qk_norm:
+        rcfg, cfg, rp, p = _with_qk_norm(rcfg, cfg, rp, p, rng)
+    s = 16
+    ck = _cast(rng.normal(size=(2, s, cfg.kv_heads, cfg.head_dim)))
+    cv = _cast(rng.normal(size=(2, s, cfg.kv_heads, cfg.head_dim)))
+    x = _cast(rng.normal(size=(2, t, cfg.d_model)))
+    pos = np.tile(np.arange(cache_pos, cache_pos + t, dtype=np.int32), (2, 1))
+    cache = (_t(ck), _t(cv))
+    ops.reset_launches()
+    got, (nk, nv) = L.attention(p["attn"], cfg, _t(x),
+                                positions=torch.from_numpy(pos),
+                                causal=causal, window=window, kv_cache=cache,
+                                cache_pos=cache_pos)
+    assert nk is cache[0] and nv is cache[1]       # written in place
+    assert not any(ops.LAUNCHES.values())         # CPU: the plain flash
+    want, (rk, rv) = ref_layers.attention(
+        rp["attn"], rcfg, jnp.asarray(x), positions=jnp.asarray(pos),
+        causal=causal, window=window,
+        kv_cache=(jnp.asarray(ck), jnp.asarray(cv)),
+        cache_pos=jnp.int32(cache_pos))
+    assert got.dtype == torch.bfloat16
+    _within(got, want)
+    _within(nk, rk, rtol=2 ** -7)
+    _within(nv, rv, rtol=2 ** -7)
+    outside = np.r_[0:cache_pos, cache_pos + t:s]
+    np.testing.assert_array_equal(nk[:, outside].view(torch.int16).numpy(),
+                                  ck[:, outside].view(np.int16))
+
+
+@pytest.mark.parametrize("kv,n_rep", [(1, 48), (8, 8), (2, 1)])
+def test_repeat_kv_gives_the_flash_kernel_contiguous_heads(kv, n_rep):
+    """Granite-20B's one KV head repeated 48 times would be a stride-0
+    view after a reshape alone; the CUDA kernel takes contiguous
+    tensors only, so the expansion is a copy."""
+    k = torch.randn(2, 5, kv, 16)
+    out = L._repeat_kv(k, n_rep)
+    assert out.is_contiguous() and out.shape == (2, 5, kv * n_rep, 16)
+    assert torch.equal(out, k.repeat_interleave(n_rep, dim=2))
+
+
 def test_multi_token_step_into_a_cache_raises():
+    """A chunk that does not fit the cache, and per-row positions for a
+    chunk (a one-token step's alone), are refused."""
     _, cfg, _, params = _model()
     p = lm._layer(params["blocks"], 0)
     cache = lm.init_cache(cfg, 1, 8, device="cpu")["kv"][0]
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1, the rest of the LM side"):
-        L.attention(p["attn"], cfg, torch.zeros(1, 2, cfg.d_model,
-                                                dtype=torch.bfloat16),
-                    positions=torch.zeros(1, 2, dtype=torch.long),
-                    kv_cache=(cache[0], cache[1]), cache_pos=0)
+    x = torch.zeros(1, 2, cfg.d_model, dtype=torch.bfloat16)
+    for pos in (7, -1, torch.tensor([0])):
+        with pytest.raises(ValueError, match="one int cache_pos"):
+            L.attention(p["attn"], cfg, x,
+                        positions=torch.zeros(1, 2, dtype=torch.long),
+                        kv_cache=(cache[0], cache[1]), cache_pos=pos)
+
+
+def test_decode_step_refuses_a_multi_token_step():
+    """The reference's ``decode_step`` broadcasts one position over all T
+    tokens (ropes each at pos); the port refuses T > 1 and points at
+    ``prefill_chunk``, which places them at pos .. pos + T - 1."""
+    _, cfg, _, params = _model()
+    cache = lm.init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(ValueError, match="one token a row"):
+        lm.decode_step(cfg, params, cache, torch.zeros(1, 3, dtype=torch.long),
+                       0)
+    with pytest.raises(ValueError, match="one position a row"):
+        lm.decode_step(cfg, params, cache, torch.zeros(1, 1, dtype=torch.long),
+                       torch.tensor([0, 1]))
+
+
+@pytest.mark.parametrize("arch", [ARCH, "qwen3-32b"])
+def test_prefill_in_chunks_matches_the_one_shot_prefill(arch):
+    """The prompt in chunks through the cache (``prefill_chunk``) gives
+    the one-shot forward's logits, and the reference forward's within
+    the bar; the cache rows equal the reference decode loop's."""
+    rcfg, cfg, rparams, params = _model(arch=arch)
+    toks = _tokens(21, 2, 14, cfg.vocab_size)
+    full, _ = lm.forward(cfg, params, torch.from_numpy(toks))
+    cache = lm.init_cache(cfg, 2, 16, device="cpu")
+    outs = []
+    for a, b in ((0, 5), (5, 6), (6, 14)):
+        lg, cache = lm.prefill_chunk(cfg, params, cache,
+                                     torch.from_numpy(toks[:, a:b]), a)
+        assert lg.shape == (2, b - a, cfg.vocab_size)
+        outs.append(lg)
+    chunked = torch.cat(outs, 1)
+    torch.testing.assert_close(chunked, full, rtol=0, atol=1e-2 * float(
+        full.abs().max()))
+    want, _ = ref_lm.forward(rcfg, rparams, jnp.asarray(toks))
+    _within(chunked, want)
+    step = jax.jit(lambda p, c, tk, i: ref_lm.decode_step(rcfg, p, c, tk, i))
+    rcache = ref_lm.init_cache(rcfg, 2, 16)
+    for i in range(14):
+        _, rcache = step(rparams, rcache, jnp.asarray(toks[:, i:i + 1]),
+                         jnp.int32(i))
+    _within(cache["kv"], rcache["kv"])
 
 
 @pytest.mark.parametrize("sparse", [True, False])
@@ -303,6 +440,30 @@ def test_decode_steps_match_reference():
         got, cache = decode(params, cache, torch.from_numpy(toks[:, i:i + 1]),
                             i)
         assert got.shape == (2, 1, cfg.vocab_size)
+        _within(got, want)
+    _within(cache["kv"], rcache["kv"])
+
+
+@pytest.mark.parametrize("arch", LARGE)
+def test_large_lm_forward_and_decode_match_reference(arch):
+    """Reduced Qwen3-32B (qk_norm, rope 1e6), Mistral-Nemo-12B (rope 1e6)
+    and Granite-20B (MQA): the prefill forward and decode steps against
+    the reference's, within the bar."""
+    rcfg, cfg, rparams, params = _model(arch=arch)
+    assert cfg.head_dim == 32 and (cfg.qk_norm, cfg.rope_theta) == (
+        rcfg.qk_norm, rcfg.rope_theta)
+    toks = _tokens(31, 2, 10, cfg.vocab_size)
+    got, _ = lm.forward(cfg, params, torch.from_numpy(toks))
+    want, _ = ref_lm.forward(rcfg, rparams, jnp.asarray(toks))
+    _within(got, want)
+    step = jax.jit(lambda p, c, tk, i: ref_lm.decode_step(rcfg, p, c, tk, i))
+    rcache = ref_lm.init_cache(rcfg, 2, 16)
+    cache = lm.init_cache(cfg, 2, 16, device="cpu")
+    for i in range(10):
+        want, rcache = step(rparams, rcache, jnp.asarray(toks[:, i:i + 1]),
+                            jnp.int32(i))
+        got, cache = lm.decode_step(cfg, params, cache,
+                                    torch.from_numpy(toks[:, i:i + 1]), i)
         _within(got, want)
     _within(cache["kv"], rcache["kv"])
 
@@ -359,6 +520,19 @@ def test_serve_dispatches_an_lm_arch_to_serve_lm():
     assert out["tokens"].shape == (2, 16) and out["device"] == "cpu"
     with pytest.raises(ValueError, match="max_seq"):
         serve_lm(ARCH, prompt_len=100, gen_tokens=40, device="cpu")
+
+
+@pytest.mark.parametrize("arch", LARGE)
+def test_serve_takes_the_large_lms(arch):
+    """``serve`` and ``serve_lm`` run the large dense LMs (reduced here;
+    ``use_reduced=False`` on the card): greedy tokens from the decode
+    path, no kernel launched on the CPU."""
+    ops.reset_launches()
+    out = serve(ServeConfig(arch=arch, batch=2, device="cpu", verbose=False))
+    assert out["tokens"].shape == (2, 16) and out["device"] == "cpu"
+    assert not any(ops.LAUNCHES.values())
+    cfg = reduced(get_config(arch))
+    assert (out["tokens"] >= 0).all() and (out["tokens"] < cfg.vocab_size).all()
 
 
 @pytest.mark.parametrize("entry", ["serve_lm", "init_cache",
