@@ -88,7 +88,26 @@ Phases, in order; any failure raises and exits nonzero:
    card); Mistral-Nemo-12B and Granite-20B at full width and depth (40
    and 52 layers): a prefill and a decode step;
    every layer of the three fed the card's own input within 1 bf16 ulp
-   of the CPU layer (a 32-token prefill and decode step 0);
+   of the CPU layer (a 32-token prefill and decode step 0); then the MoE
+   LMs and the VLM at full width and depth: granite-moe-3b-a800m (32
+   layers, 40 experts top-8) through a T 2048 prefill (32 flash "mma",
+   no sparse_matmul: its blocks hold experts, torch products under
+   ``fdot``'s f32 rule), a batch-4 decode step (the rows routed
+   together), ``serve_lm(use_reduced=False, batch 4, 32 + 16)`` and the
+   continuous batcher (8 slots, 24 requests; one routing group a slot;
+   each request held to its teacher-forced replay in the batcher's
+   shapes: the same experts and the same bits at every position fed);
+   layer 0's experts give the same bits twice at the prefill's and the
+   step's shapes;
+   moonshot-v1-16b-a3b (48 layers, 64 experts top-6, 28.06B
+   parameters) through a prefill (48 flash) and a batch-4 step;
+   llava-next-mistral-7b (32 layers) through a prefill of 576 patch
+   embeddings and 1472 tokens (32 flash + 96 sparse_matmul "mma") and a
+   batch-4 step (96 "gemv"); the share of expert assignments dropped at
+   the prefill and the step; every layer against the CPU layer (an MoE
+   layer in two halves, the experts fed the card's attention output on
+   both devices: expert ids and kept assignments equal and the output
+   within 1 bf16 ulp at every token clear of a near tie);
 5. timings (CUDA events over CUDA-graph replays, L2-warm): each kernel at
    the main-path shapes beside its plain version, a library call that
    computes the same function (never called by the port; for dw_pw no
@@ -108,9 +127,11 @@ Phases, in order; any failure raises and exits nonzero:
    each in alternation); SmolLM-360M's prefill latency and
    ``serve_lm``'s times; flash at D 128 and sparse_matmul at 128 x 128
    blocks (M 4, 2048) beside their plain versions, bounds, SDPA and
-   ``torch.matmul`` on the densified weight; the large LMs' prefill
-   latencies, Qwen3-32B's ``serve_lm`` times and the batchers' tok/s and
-   TTFT;
+   ``torch.matmul`` on the densified weight (also at the MoE LMs' and
+   the VLM's prefill shapes: flash at D 64 and 128, llava's FFN); the
+   large LMs' prefill latencies, Qwen3-32B's ``serve_lm`` times and the
+   batchers' tok/s and TTFT; the MoE LMs' and the VLM's prefill and
+   decode-step latencies and granite-moe's ``serve_lm`` times;
 6. the measured cost model and the tuned kernels: for each CNN at native
    weights, ``tuning.calibrate(..., autotune=True)`` at batch 1 and at mb
    4 (the MobileNets' dw_pw also tuned at n 2, their depthwise on the
@@ -160,6 +181,7 @@ Serving alone, on the card's machine from the root of a checkout:
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -400,6 +422,27 @@ BATCHER = {LM: dict(slots=8, requests=24, prompt=(3, 65), new=(4, 33),
                       max_seq=64)}
 QWEN_SERVE = dict(batch=4, prompt_len=32, gen_tokens=16, max_seq=64)
 LARGE_MM_M = (1, 2, 3, 4, 5, 6, 7, 8, PREFILL_T)   # gemv rows, then mma
+# The MoE LMs and the VLM at full width and depth: granite-moe-3b-a800m
+# (40 experts top-8, f 512, D 64) through a prefill, a batch-4 decode
+# step, serve_lm and the continuous batcher (BATCHER[LM]'s spec: one
+# routing group a slot); moonshot-v1-16b-a3b (64 experts top-6, f 1408,
+# D 128; 28.06B parameters) through a prefill and a batch-4 step;
+# llava-next-mistral-7b through a prefill of its 576 patch embeddings
+# (drawn from the seed) and 1472 tokens, and a batch-4 step. Every layer
+# on the card's own input against the CPU layer; an MoE layer in two
+# halves, attention, then the experts fed the card's attention output
+# on both devices, held at the tokens clear of a near routing tie
+# (checks.clear(route, MOE_TIE_MARGIN)).
+GRANITE_MOE = "granite-moe-3b-a800m"
+MOE_LMS = (GRANITE_MOE, "moonshot-v1-16b-a3b")
+VLM = "llava-next-mistral-7b"
+BATCHER[GRANITE_MOE] = dict(BATCHER[LM])
+MOE_SERVE = dict(QWEN_SERVE)
+STEP_BATCH = 4
+# the models whose T = PREFILL_T flash (and 128 x 128 FFN) shapes phase 3
+# checks and phase 5 times
+PREFILL_LMS = LARGE_LMS + MOE_LMS + (VLM,)
+FFN_128_LMS = LARGE_LMS + (VLM,)
 
 
 def param_bytes(tree) -> int:
@@ -426,7 +469,8 @@ def flash_ops(tq: int, tk: int, h: int, d: int, causal: bool,
 
 
 def large_ffn_weights(dev, seed: int) -> dict:
-    """{(arch, "w1" | "w2"): SparseWeight} at each large LM's FFN shapes
+    """{(arch, "w1" | "w2"): SparseWeight} at the FFN shapes of each
+    large dense LM and the VLM
     (w3 has w1's), drawn by the models' own law: ``dense_init``, then
     block-balanced pruning at 128 x 128, 85%."""
     from repro_torch.configs import get_config
@@ -434,7 +478,7 @@ def large_ffn_weights(dev, seed: int) -> dict:
     from repro_torch.models.layers import dense_init
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = {}
-    for name in LARGE_LMS:
+    for name in FFN_128_LMS:
         cfg = get_config(name)
         for w, (d_in, d_out) in (("w1", (cfg.d_model, cfg.d_ff)),
                                  ("w2", (cfg.d_ff, cfg.d_model))):
@@ -443,40 +487,106 @@ def large_ffn_weights(dev, seed: int) -> dict:
     return out
 
 
-def check_lm_layers(cfg, params, layer_cpu, tokens: torch.Tensor,
-                    decode: bool, dev) -> float:
+def check_lm_layers(cfg, params, layer_cpu, chains: dict, dev, *,
+                    moe_log: dict | None = None) -> dict:
     """Each layer on the card against the same layer on the CPU
-    (``layer_cpu(l)``: layer l's parameters there), fed the card's own
-    input: the bf16 output within 1 bf16 ulp. A prefill over ``tokens``
-    (B, T), or decode step 0 of ``tokens`` (B, 1) into a fresh cache.
-    Returns the worst error as a share of its bar."""
+    (``layer_cpu(l)``: layer l's parameters there, fetched once for all
+    chains), fed the card's own input: the bf16 output within 1 bf16
+    ulp. ``chains``: {name: (tokens, decode, patches)}, a prefill over
+    tokens (B, T) (a VLM's patches (B, Vt, d) in front), or decode step
+    0 of tokens (B, 1) into a fresh cache. An MoE layer is held in two
+    halves: the attention half, then the experts fed the card's
+    attention output on both devices; there the expert ids and kept
+    assignments are equal and the output within 1 bf16 ulp at every
+    token clear of a near tie (``checks.clear(route, MOE_TIE_MARGIN)``; each
+    layer's excluded tokens and drops go to ``moe_log[name]``). Returns
+    {name: the worst error as a share of its bar}."""
+    from repro_torch import checks
     from repro_torch.models import layers as lm_layers
     from repro_torch.models import lm
-    worst = 0.0
-    b, t = tokens.shape
-    pos = torch.arange(t)[None].expand(b, t)
-    blocks = {d: lm.make_block_fn(cfg, pos.to(d)) for d in (dev, "cpu")}
+    worst = {name: 0.0 for name in chains}
+
+    def held(name, what, got, want, rows=None):
+        got, want = got.float(), want.float()
+        if rows is not None:
+            got = got.reshape(-1, got.shape[-1])[rows]
+            want = want.reshape(-1, want.shape[-1])[rows]
+            if not rows.any():
+                return
+        compare(got, want, bf16_tol, f"{cfg.name} {what}")
+        share = (got - want).abs() / bf16_tol(want).clamp_min(1e-38)
+        worst[name] = max(worst[name], float(share.max()))
+
+    state = {}
     with torch.inference_mode(), lm_layers.full_f32():
-        h = lm._embed(cfg, params, tokens.to(dev))
+        for name, (tokens, decode, patches) in chains.items():
+            h = lm._embed(cfg, params, tokens.to(dev))
+            if patches is not None:
+                h = lm._prefix(cfg, h, {"patches": patches.to(dev)})
+            b, t = h.shape[:2]
+            pos = torch.arange(t)[None].expand(b, t)
+            state[name] = [h, decode, pos, [
+                lm.make_block_fn(cfg, pos.to(d)) for d in (dev, "cpu")],
+                "decode step 0" if decode else f"prefill T={t}"]
         for l in range(cfg.n_layers):
-            outs = []
-            for d, p in ((dev, lm._layer(params["blocks"], l)),
-                         ("cpu", layer_cpu(l))):
-                x = h.to(d)
-                if decode:
-                    kv = torch.zeros((2, b, 8, cfg.kv_heads, cfg.head_dim),
-                                     dtype=torch.bfloat16, device=d)
-                    outs.append(lm.decode_block(cfg, p, x, kv, pos.to(d), 0))
-                else:
-                    outs.append(blocks[d](x, p)[0])
-            torch.cuda.synchronize()
-            got, want = outs[0].cpu(), outs[1]
-            what = "decode step 0" if decode else f"prefill T={t}"
-            compare(got, want, bf16_tol, f"{cfg.name} {what} layer {l}")
-            err = (got.float() - want.float()).abs()
-            share = err / bf16_tol(want.float()).clamp_min(1e-38)
-            worst = max(worst, float(share.max()))
-            h = outs[0]
+            layer = ((dev, lm._layer(params["blocks"], l)),
+                     ("cpu", layer_cpu(l)))
+            for name, st in state.items():
+                h, decode, pos, blocks, what = st
+                b = h.shape[0]
+                what = f"{what} layer {l}"
+                fresh_kv = (lambda d: torch.zeros(
+                    (2, b, 8, cfg.kv_heads, cfg.head_dim),
+                    dtype=torch.bfloat16, device=d))
+                if "moe" not in layer[0][1]:
+                    outs = []
+                    for (d, p), block in zip(layer, blocks):
+                        x = h.to(d)
+                        outs.append(lm.decode_block(cfg, p, x, fresh_kv(d),
+                                                    pos.to(d), 0)
+                                    if decode else block(x, p)[0])
+                    torch.cuda.synchronize()
+                    held(name, what, outs[0].cpu(), outs[1])
+                    st[0] = outs[0]
+                    continue
+                halves = []
+                for d, p in layer:
+                    x = h.to(d)
+                    kw = dict(positions=pos.to(d), window=cfg.attn_window)
+                    if decode:
+                        kv = fresh_kv(d)
+                        kw.update(kv_cache=(kv[0], kv[1]), cache_pos=0)
+                    a, _ = lm_layers.attention(p["attn"], cfg,
+                                               lm_layers.rms_norm(
+                                                   x, p["ln1"], cfg.norm_eps),
+                                               **kw)
+                    halves.append(x + a)
+                torch.cuda.synchronize()
+                held(name, f"{what} attention half", halves[0].cpu(),
+                     halves[1])
+                outs, routes = [], []
+                for d, p in layer:
+                    with lm_layers.record_moe() as rec:
+                        outs.append(lm._mlp(cfg, p, halves[0].to(d))[0])
+                    routes += rec
+                torch.cuda.synchronize()
+                clear = checks.clear(routes[1], checks.MOE_TIE_MARGIN)[0]
+                ids = [r.eidx[0].cpu().sort(-1).values[clear] for r in routes]
+                kept = [r.kept[0].cpu()[clear] for r in routes]
+                if not (torch.equal(*ids) and torch.equal(*kept)):
+                    raise AssertionError(
+                        f"{cfg.name} {what}: the card routes "
+                        f"{int((ids[0] != ids[1]).any(-1).sum())} clear "
+                        f"tokens to other experts, keeps other assignments "
+                        f"at {int((kept[0] != kept[1]).any(-1).sum())}")
+                held(name, f"{what} experts", outs[0].cpu(), outs[1],
+                     rows=clear)
+                if moe_log is not None:
+                    moe_log[name].append({
+                        "layer": l, "tokens": int(clear.numel()),
+                        "excluded": int((~clear).sum()),
+                        "dropped": int(routes[1].dropped)})
+                st[0] = outs[0]
     return worst
 
 
@@ -490,24 +600,42 @@ def batcher_requests(cfg, spec: dict, seed: int) -> list:
         for rid in range(spec["requests"])]
 
 
+def step_routes(routes: list):
+    """The routes of one decode step of one token a row, layer by layer:
+    each row's sorted expert ids (B, L, k) on the host, or None without
+    experts."""
+    if not routes:
+        return None
+    return torch.stack([r.eidx.reshape(-1, r.eidx.shape[-1]).sort(-1).values
+                        for r in routes], 1).cpu()
+
+
 def run_batcher(cfg, params, reqs: list, spec: dict, dev):
     """Serve ``reqs`` through ``ContinuousBatcher`` on the card, every
     request submitted at the start. Returns (batcher, finished, {rid:
-    {pos: its logits (V,) on the host}}): each step's logits are copied
-    to the host for the check, beside the batcher's own argmax read."""
+    {pos: its logits (V,) on the host}}, {rid: {pos: its sorted expert
+    ids (L, k)}} for an MoE model): each step's logits are
+    copied to the host for the check, beside the batcher's own argmax
+    read."""
+    from repro_torch.models import layers as lm_layers
     from repro_torch.runtime.scheduler import (ContinuousBatcher, Request,
                                                make_per_slot_decode,
                                                make_slot_cache)
     decode = make_per_slot_decode(cfg)
     by_req: dict = {r["rid"]: {} for r in reqs}
+    routed: dict = {r["rid"]: {} for r in reqs}
     cb = None
 
     def recording(p, cache, toks, pos):
-        lg, cache = decode(p, cache, toks, pos)
+        with lm_layers.record_moe() as routes:
+            lg, cache = decode(p, cache, toks, pos)
         rows, host = lg[:, -1].float().cpu(), pos.cpu().tolist()
+        step = step_routes(routes)
         for i, st in enumerate(cb.state):
             if st.rid >= 0:
                 by_req[st.rid][host[i]] = rows[i]
+                if step is not None:
+                    routed[st.rid][host[i]] = step[i]
         return lg, cache
 
     cb = ContinuousBatcher(
@@ -519,27 +647,71 @@ def run_batcher(cfg, params, reqs: list, spec: dict, dev):
     with torch.inference_mode():
         done = cb.run()
     torch.cuda.synchronize()
-    return cb, done, by_req
+    cb.decode_fn = None            # the closure holds cb: break the cycle
+    return cb, done, by_req, routed
 
 
-def replay_rows(cfg, params, seqs: list, device) -> torch.Tensor:
+def replay_rows(cfg, params, seqs: list, device, *,
+                group: int | None = None, max_seq: int | None = None):
     """Each sequence teacher-forced in its own row of a ``decode_step``
-    batch from position 0 (its own cache row; an int position): the
-    logits (B, L, V) f32 on the host, rows past a sequence's end padded
-    with token 0 and ignored."""
+    batch from position 0 (its own cache row): (the logits (B, L, V) f32
+    on the host, positions past a sequence's end padded and ignored; for
+    an MoE model each row's sorted expert ids (B, L, layers, k), else
+    None). A dense model takes all rows in one batch at an int position.
+    An MoE model takes a (B,) position (each row routed alone, as the
+    batcher routes a slot). Rows go in batches of ``group`` (default:
+    all of them) over a cache of ``max_seq`` positions (default: the
+    longest sequence); given the batcher's slots and max_seq, each step
+    has the batcher's shapes, so a row's sums run in the batcher's order
+    and give its bits."""
+    from repro_torch.models import layers as lm_layers
     from repro_torch.models import lm
+    moe = cfg.family == "moe"
     n = max(len(s) for s in seqs)
-    toks = np.zeros((len(seqs), n), np.int64)
-    for r, s in enumerate(seqs):
-        toks[r, :len(s)] = s
-    cache = lm.init_cache(cfg, len(seqs), n, device=device)
-    out = []
-    with torch.inference_mode():
-        for i in range(n):
-            lg, cache = lm.decode_step(cfg, params, cache, torch.from_numpy(
-                toks[:, i:i + 1]).to(device), i)
-            out.append(lg[:, 0].float().cpu())
-    return torch.stack(out, 1)
+    group, max_seq = group or len(seqs), max_seq or n
+    logits, ids = [], []
+    for g0 in range(0, len(seqs), group):
+        part = seqs[g0:g0 + group]
+        toks = np.zeros((group, n), np.int64)
+        for r, s in enumerate(part):
+            toks[r, :len(s)] = s
+        cache = lm.init_cache(cfg, group, max_seq, device=device)
+        out, out_ids = [], []
+        with torch.inference_mode():
+            for i in range(max(len(s) for s in part)):
+                pos = torch.full((group,), i, device=device) if moe else i
+                with lm_layers.record_moe() as routes:
+                    lg, cache = lm.decode_step(
+                        cfg, params, cache,
+                        torch.from_numpy(toks[:, i:i + 1]).to(device), pos)
+                out.append(lg[:, 0].float().cpu())
+                step = step_routes(routes)
+                if step is not None:
+                    out_ids.append(step)
+        pad = n - len(out)
+        lg = torch.stack(out, 1)[:len(part)]
+        logits.append(F.pad(lg, (0, 0, 0, pad)))
+        if out_ids:
+            got = torch.stack(out_ids, 1)[:len(part)]
+            ids.append(F.pad(got, (0, 0, 0, 0, 0, pad), value=-1))
+    return torch.cat(logits), (torch.cat(ids) if ids else None)
+
+
+def routing_equal(name: str, reqs: list, routed: dict, replay_ids) -> int:
+    """Every request the batcher and its replay (in the batcher's shapes)
+    route to the same experts in every layer at every position it was
+    fed; returns the positions compared."""
+    compared = 0
+    for row, r in enumerate(reqs):
+        for p, ids in sorted(routed[r["rid"]].items()):
+            differ = (ids != replay_ids[row, p]).any(-1)
+            if differ.any():
+                raise AssertionError(
+                    f"{name} batcher request {r['rid']} pos {p}: the batcher "
+                    f"and its replay route it to other experts from layer "
+                    f"{int(differ.nonzero()[0, 0])}")
+            compared += 1
+    return compared
 
 
 def check_batcher(name: str, reqs: list, done: list, by_req: dict,
@@ -548,11 +720,12 @@ def check_batcher(name: str, reqs: list, done: list, by_req: dict,
     teacher-forced replay (``replays``: {where: (B, L, V)}, rows in the
     order of ``reqs``) within ``bar`` of max |logit|; its tokens are the
     argmax of its logits, and the replay's where the replay's top-2 gap
-    exceeds the bar. Returns the worst errors and the token count
-    checked against each replay."""
+    exceeds the bar. Returns the worst errors, the token count checked
+    and the positions bitwise the replay's, against each replay."""
     row = {r["rid"]: i for i, r in enumerate(reqs)}
     worst = {w: 0.0 for w in replays}
     gap_checked = {w: 0 for w in replays}
+    bitwise = {w: 0 for w in replays}
     for req in done:
         tp = len(req.prompt)
         seq_len = tp + len(req.tokens) - 1        # positions fed
@@ -566,6 +739,7 @@ def check_batcher(name: str, reqs: list, done: list, by_req: dict,
                                      f"pos {p}: token is not the argmax")
             for where, rep in replays.items():
                 want = rep[row[req.rid], p]
+                bitwise[where] += int(torch.equal(got, want))
                 scale = float(want.abs().max())
                 err = float((got - want).abs().max()) / scale
                 worst[where] = max(worst[where], err)
@@ -583,7 +757,8 @@ def check_batcher(name: str, reqs: list, done: list, by_req: dict,
                             f"its top-2 gap exceeds the bar")
                     gap_checked[where] += 1
     return {"worst": worst, "tokens_checked": gap_checked,
-            "tokens": sum(len(r.tokens) for r in done)}
+            "tokens": sum(len(r.tokens) for r in done),
+            "positions_bitwise": bitwise}
 
 
 def large_lm_run(name: str, h) -> dict:
@@ -607,16 +782,21 @@ def large_lm_run(name: str, h) -> dict:
           f"{cfg.vocab_size}, FFN blocks {cfg.sparsity.block_m} x "
           f"{cfg.sparsity.block_n} {cfg.sparsity.sparsity:.0%} pruned; "
           f"{n_l} layers, the published depth (no cut)")
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
         SEED))
     torch.cuda.synchronize()
     res["init_s"] = time.perf_counter() - t0
     res["param_bytes"] = param_bytes(params)
-    # the peak of drawing the weights: each layer's tree, then the stack
+    # the peak of drawing the weights (the stack allocated once, one
+    # layer's tree at a time drawn into it), and what it added to what
+    # the script held before
     res["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["held_before_bytes"] = before
     toks = torch.randint(0, cfg.vocab_size, (1, PREFILL_T),
                          generator=torch.Generator().manual_seed(
                              SEED + 19)).to(dev)
@@ -662,15 +842,15 @@ def large_lm_run(name: str, h) -> dict:
 
     check_toks = toks[:, :LARGE_CHECK_T].cpu()
     t0 = time.perf_counter()
-    res["layer_err"] = {
-        "prefill": check_lm_layers(cfg, params, layer_cpu, check_toks,
-                                   False, dev),
-        "decode": check_lm_layers(cfg, params, layer_cpu, check_toks[:, :1],
-                                  True, dev)}
+    res["layer_err"] = check_lm_layers(
+        cfg, params, layer_cpu, {"prefill": (check_toks, False, None),
+                                 "decode": (check_toks[:, :1], True, None)},
+        dev)
     res["layer_check_s"] = time.perf_counter() - t0
     print(f"[main] {name}: weights {res['param_bytes'] / 2**30:.2f} GiB in "
           f"{res['init_s']:.1f} s (peak {res['init_peak_bytes'] / 2**30:.2f} "
-          f"GiB); prefill T={PREFILL_T} launches "
+          f"GiB, of it {res['held_before_bytes'] / 2**30:.2f} GiB held before"
+          f"); prefill T={PREFILL_T} launches "
           f"{res['prefill_launches']}, {res['prefill_ms']:.3f} ms (median of "
           f"3, first {res['prefill_first_s']:.3f} s); decode step launches "
           f"{res['decode_launches']}; every layer on the card's own input "
@@ -752,17 +932,22 @@ def large_lm_run(name: str, h) -> dict:
 
 def batcher_phase(name: str, cfg, params, n_l: int, h, params_cpu=None):
     """The continuous batcher on ``cfg`` (BATCHER[name]): launches
-    counted over the run (steps x 3 x layers ``sparse_matmul`` gemv, no
-    flash), every request replayed alone, teacher-forced in its own
-    row, on the card (and on the CPU, given ``params_cpu``)."""
+    counted over the run (steps x 3 x layers ``sparse_matmul`` gemv for
+    a pruned FFN, nothing hand-written for MoE experts; no flash), every
+    request replayed alone, teacher-forced in its own row, on the card
+    (and on the CPU, given ``params_cpu``). An MoE model's card replay
+    runs in the batcher's shapes (its slots, its max_seq, one routing
+    group a row): every fed position routed alike and bitwise the
+    batcher's."""
     from repro_torch.kernels import ops
     spec = BATCHER[name]
     reqs = batcher_requests(cfg, spec, SEED + 17)
     ops.reset_launches()
-    cb, done, by_req = run_batcher(cfg, params, reqs, spec, h.dev)
+    cb, done, by_req, routed = run_batcher(cfg, params, reqs, spec, h.dev)
+    ffn = cb.steps * 3 * n_l if "ffn" in params["blocks"] else 0
     launches = h.count(f"{name} ContinuousBatcher ({cb.steps} steps)",
-                       {"sparse_matmul": cb.steps * 3 * n_l},
-                       {("sparse_matmul", "gemv"): cb.steps * 3 * n_l})
+                       {"sparse_matmul": ffn},
+                       {("sparse_matmul", "gemv"): ffn} if ffn else {})
     if len(done) != len(reqs):
         raise AssertionError(f"{name} batcher: {len(done)} of {len(reqs)} "
                              f"requests finished")
@@ -771,11 +956,24 @@ def batcher_phase(name: str, cfg, params, n_l: int, h, params_cpu=None):
                                                        np.int32)])
            for r in done}
     seqs = [fed[r["rid"]] for r in reqs]
-    replays = {"card": replay_rows(cfg, params, seqs, h.dev)}
+    moe = "moe" in params["blocks"]
+    shapes = dict(group=spec["slots"], max_seq=spec["max_seq"]) if moe \
+        else {}
+    replays = {}
+    replays["card"], replay_ids = replay_rows(cfg, params, seqs, h.dev,
+                                              **shapes)
     if params_cpu is not None:
-        replays["CPU"] = replay_rows(cfg, params_cpu, seqs, "cpu")
+        replays["CPU"] = replay_rows(cfg, params_cpu, seqs, "cpu")[0]
     chk = check_batcher(name, reqs, done, by_req, replays, LM_SERVE_RTOL)
     steps_alone = sum(len(s) for s in seqs)
+    if moe:
+        chk["positions_routed_alike"] = routing_equal(name, reqs, routed,
+                                                      replay_ids)
+        if chk["positions_bitwise"]["card"] != steps_alone:
+            raise AssertionError(
+                f"{name} batcher: {chk['positions_bitwise']['card']} of "
+                f"{steps_alone} fed positions bitwise their replay's in the "
+                f"batcher's shapes")
     print(f"[main] {name} ContinuousBatcher {spec['slots']} slots, "
           f"{len(reqs)} requests (prompts {spec['prompt'][0]}-"
           f"{spec['prompt'][1] - 1}, {spec['new'][0]}-{spec['new'][1] - 1} "
@@ -787,11 +985,230 @@ def batcher_phase(name: str, cfg, params, n_l: int, h, params_cpu=None):
           f"{LM_SERVE_RTOL} of max |logit| "
           f"({ {w: f'{e:.3e}' for w, e in chk['worst'].items()} }), tokens "
           f"equal where the replay's top-2 gap exceeds the bar "
-          f"({chk['tokens_checked']} of {chk['tokens']})")
+          f"({chk['tokens_checked']} of {chk['tokens']})" +
+          ("" if not moe else
+           f"; each slot routed alone; the replay in the batcher's shapes "
+           f"routes all {chk['positions_routed_alike']} fed positions "
+           f"alike and gives their bits ({chk['positions_bitwise']})"))
     return {"spec": {k: list(v) if isinstance(v, tuple) else v
                      for k, v in spec.items()},
             "steps": cb.steps, "steps_one_at_a_time": steps_alone,
             "launches": launches, "stats": stats, "check": chk}
+
+
+def dropped_share(routes: list) -> float:
+    """Expert assignments dropped (their expert full) over those made,
+    across ``routes`` (``MoERoute`` s)."""
+    made = sum(r.eidx.numel() for r in routes)
+    return sum(int(r.dropped) for r in routes) / max(made, 1)
+
+
+def moe_vlm_run(name: str, h) -> dict:
+    """An MoE LM or the VLM at full width and depth on the card (``h``:
+    the launch bookkeeping of ``main``): its weights from the seed (their
+    bytes and the peak of drawing them), a T = PREFILL_T prefill (the
+    VLM: its patch embeddings, drawn from the seed, in front of PREFILL_T
+    - vision_tokens tokens) and a batch-4 decode step at one int
+    position (the 4 rows routed together), each with its launches by
+    name and variant, its time and the share of expert assignments
+    dropped; every layer against the CPU layer; for granite-moe also
+    ``serve_lm`` and the continuous batcher (one routing group a
+    slot)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import lm
+    dev = h.dev
+    cfg = get_config(name)
+    n_l, vt = cfg.n_layers, cfg.vision_tokens
+    moe = cfg.family == "moe"
+    ffn = 0 if moe else 3 * n_l                 # sparse_matmul a prefill
+    res = {"layers": n_l, "family": cfg.family}
+    print(f"[main] {name} ({cfg.family}): d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim} ({cfg.kv_heads} KV), "
+          + (f"{cfg.n_experts} experts top-{cfg.top_k}, expert FFN "
+             f"{cfg.moe_d_ff}" if moe else
+             f"d_ff {cfg.d_ff}, FFN blocks {cfg.sparsity.block_m} x "
+             f"{cfg.sparsity.block_n} {cfg.sparsity.sparsity:.0%} pruned, "
+             f"{vt} patch embeddings a prompt") +
+          f", vocab {cfg.vocab_size}; {n_l} layers, the published depth "
+          f"(no cut)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res["held_before_bytes"] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED))
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    res["param_bytes"] = param_bytes(params)
+    res["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["card_bytes"] = torch.cuda.get_device_properties(dev).total_memory
+    toks = torch.randint(0, cfg.vocab_size, (1, PREFILL_T - vt),
+                         generator=torch.Generator().manual_seed(
+                             SEED + 19)).to(dev)
+    extra = {}
+    if vt:
+        extra["patches"] = torch.randn(
+            (1, vt, cfg.d_model), device=dev, generator=torch.Generator(
+                device=dev).manual_seed(SEED + 23)).to(torch.bfloat16)
+
+    # the prompt in one forward: flash (and the VLM's FFN through mma)
+    prefill = make_prefill_step(cfg)
+    ops.reset_launches()
+    with lm_layers.record_moe() as routes:
+        t0 = time.perf_counter()
+        last = prefill(params, toks, **extra)
+        torch.cuda.synchronize()
+    res["prefill_first_s"] = time.perf_counter() - t0
+    res["prefill_launches"] = h.count(
+        f"{name} prefill T={PREFILL_T}",
+        {"flash_attention": n_l, "sparse_matmul": ffn},
+        {("flash_attention", "mma"): n_l,
+         **({("sparse_matmul", "mma"): ffn} if ffn else {})})
+    res["prefill_dropped"] = dropped_share(routes) if moe else None
+    del routes
+    if last.shape != (1, cfg.vocab_size) or not torch.isfinite(last).all():
+        raise AssertionError(f"{name} prefill: logits {tuple(last.shape)} "
+                             f"not finite (1, {cfg.vocab_size})")
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(params, toks, **extra)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    res["prefill_s_runs"] = runs
+    res["prefill_ms"] = sorted(runs)[1] * 1e3
+
+    # one decode step at batch 4, one int position: the rows routed
+    # together (the VLM's FFN through gemv), then three more timed
+    step_toks = torch.randint(0, cfg.vocab_size, (STEP_BATCH, 1),
+                              generator=torch.Generator().manual_seed(
+                                  SEED + 29)).to(dev)
+    cache = lm.init_cache(cfg, STEP_BATCH, 8, device=dev)
+    ops.reset_launches()
+    with torch.inference_mode(), lm_layers.record_moe() as routes:
+        lg, _ = lm.decode_step(cfg, params, cache, step_toks, 0)
+    torch.cuda.synchronize()
+    res["decode_launches"] = h.count(
+        f"{name} decode step (batch {STEP_BATCH})", {"sparse_matmul": ffn},
+        {("sparse_matmul", "gemv"): ffn} if ffn else {})
+    res["step_dropped"] = dropped_share(routes) if moe else None
+    res["step_cap"] = routes[0].cap if moe else None
+    del routes
+    if lg.shape != (STEP_BATCH, 1, cfg.vocab_size) or \
+            not torch.isfinite(lg).all():
+        raise AssertionError(f"{name} decode step: logits not finite")
+    runs = []
+    with torch.inference_mode():
+        for i in range(1, 4):
+            t0 = time.perf_counter()
+            lm.decode_step(cfg, params, cache, step_toks, i)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+    res["step_ms"] = sorted(runs)[1] * 1e3
+    del cache, lg
+
+    # the MoE combine adds in one fixed order: layer 0's experts on the
+    # prompt's normed embeddings give the same bits twice, at the
+    # prefill's shape and at the batch-4 step's
+    if moe:
+        p0 = lm._layer(params["blocks"], 0)
+        with torch.inference_mode():
+            x0 = lm_layers.rms_norm(lm._embed(cfg, params, toks), p0["ln2"],
+                                    cfg.norm_eps)
+            for x in (x0, x0[0, :STEP_BATCH, None]):
+                a, b = (lm_layers.moe(p0["moe"], cfg, x)[0] for _ in range(2))
+                torch.cuda.synchronize()
+                if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+                    raise AssertionError(
+                        f"{name} layer 0 experts at {tuple(x.shape)}: two "
+                        f"runs give other bits")
+        res["combine_bitwise"] = True
+        del x0, a, b
+
+    # every layer on the card's own input against the CPU layer (a VLM
+    # prompt: half patches, half tokens)
+    def layer_cpu(l):
+        return lm.params_to(lm._layer(params["blocks"], l), "cpu")
+
+    ct = LARGE_CHECK_T
+    check_toks = toks[:, :ct // 2 if vt else ct].cpu()
+    patches = extra["patches"][:, :ct // 2] if vt else None
+    moe_log = {"prefill": [], "decode": []}
+    t0 = time.perf_counter()
+    res["layer_err"] = check_lm_layers(
+        cfg, params, layer_cpu, {"prefill": (check_toks, False, patches),
+                                 "decode": (check_toks[:, :1], True, None)},
+        dev, moe_log=moe_log)
+    res["layer_check_s"] = time.perf_counter() - t0
+    res["layer_moe"] = moe_log
+    excluded = {k: [r["excluded"] for r in v] for k, v in moe_log.items()}
+    print(f"[main] {name}: weights {res['param_bytes'] / 2**30:.2f} GiB in "
+          f"{res['init_s']:.1f} s (init peak "
+          f"{res['init_peak_bytes'] / 2**30:.2f} GiB of "
+          f"{res['card_bytes'] / 2**30:.2f}, of it "
+          f"{res['held_before_bytes'] / 2**30:.2f} GiB held before); "
+          f"prefill T={PREFILL_T}"
+          + (f" ({vt} patches + {PREFILL_T - vt} tokens)" if vt else "") +
+          f" launches {res['prefill_launches']}, {res['prefill_ms']:.3f} ms "
+          f"(median of 3, first {res['prefill_first_s']:.3f} s); decode step "
+          f"batch {STEP_BATCH} launches {res['decode_launches']}, "
+          f"{res['step_ms']:.3f} ms (median of 3)" +
+          (f"; assignments dropped: prefill {res['prefill_dropped']:.4f}, "
+           f"batch-{STEP_BATCH} step {res['step_dropped']:.4f} (cap "
+           f"{res['step_cap']}); layer 0's experts the same bits twice at "
+           f"(1, {PREFILL_T - vt}) and ({STEP_BATCH}, 1) tokens"
+           if moe else "") +
+          f"; every layer on the card's own input within 1 bf16 ulp of the "
+          f"CPU layer (prefill T={ct} worst share "
+          f"{res['layer_err']['prefill']:.3f}, decode step 0 "
+          f"{res['layer_err']['decode']:.3f}; {res['layer_check_s']:.1f} s)"
+          + (f"; MoE halves: tokens excluded by the tie margin a layer "
+             f"{excluded} of {ct} / 1, routing equal elsewhere"
+             if moe else ""))
+    if name != GRANITE_MOE:
+        del params
+        torch.cuda.empty_cache()
+        return res
+
+    # serve_lm at full size: the prompts stepped through the cache, the
+    # batch's 4 rows routed together each step, then greedy decoding
+    ops.reset_launches()
+    sout = serve_lm(name, use_reduced=False, params=params,
+                    generator=torch.Generator(device=dev).manual_seed(SEED),
+                    record_logits=True, verbose=False, device=dev,
+                    **MOE_SERVE)
+    n_steps = MOE_SERVE["prompt_len"] + MOE_SERVE["gen_tokens"]
+    res["serve_launches"] = h.count(
+        f"{name} serve_lm ({n_steps} decode steps)", {}, {})
+    slog = sout["logits"]
+    if slog.shape != (MOE_SERVE["batch"], n_steps, cfg.vocab_size) or \
+            not torch.isfinite(slog).all():
+        raise AssertionError(f"{name} serve_lm: logits {tuple(slog.shape)} "
+                             f"not finite")
+    gen_from = MOE_SERVE["prompt_len"] - 1
+    if not np.array_equal(sout["tokens"], slog[:, gen_from:-1].argmax(
+            -1).numpy()):
+        raise AssertionError(f"{name} serve_lm: tokens are not the argmax")
+    res["serve"] = {k: sout[k] for k in ("prefill_s", "decode_s",
+                                         "tokens_per_s")}
+    print(f"[main] {name} serve_lm batch {MOE_SERVE['batch']}, prompt "
+          f"{MOE_SERVE['prompt_len']}, {MOE_SERVE['gen_tokens']} tokens: "
+          f"launches {res['serve_launches'] or 'none'} (no hand-written "
+          f"kernel in an MoE decode step); TTFT (the prompts' "
+          f"{MOE_SERVE['prompt_len']} steps and the first argmax) "
+          f"{sout['prefill_s']:.4f} s, decode "
+          f"{sout['decode_s']:.4f} s, {sout['tokens_per_s']:.2f} tok/s; "
+          f"logits finite, tokens their argmax")
+    del sout, slog
+    res["batcher"] = batcher_phase(name, cfg, params, n_l, h)
+    del params
+    torch.cuda.empty_cache()
+    return res
 
 
 def large_timings(flash_inputs: dict, mm_inputs: dict) -> tuple[list, list]:
@@ -1229,7 +1646,7 @@ def main() -> int:
     # multiple, windowed, and in f32; the sparse matmul at their 128 x
     # 128 FFN blocks, M 1-8 (gemv) and 2048 (mma)
     large_flash = []
-    for name in LARGE_LMS:
+    for name in PREFILL_LMS:
         c = get_config(name)
         large_flash.append((f"{name} T={PREFILL_T}",
                             (1, PREFILL_T, PREFILL_T, c.n_heads, c.head_dim,
@@ -1261,10 +1678,11 @@ def main() -> int:
         tol = bf16_tol if q.dtype == torch.bfloat16 else f32_tol
         large_flash_err = max(large_flash_err, compare(
             got, want, tol, f"flash_attention {what} ({var})"))
-        if what.startswith(LARGE_LMS):          # timed in phase 5
+        if what.startswith(PREFILL_LMS):        # timed in phase 5
             large_flash_inputs[what] = (q, k, v, kw)
     flash_err = max(flash_err, large_flash_err)
-    print(f"[check] flash_attention D=128: {[c[0] for c in large_flash]}, "
+    print(f"[check] flash_attention at the large, MoE and VLM prefills (D "
+          f"64 and 128) and D=128 odd shapes: {[c[0] for c in large_flash]}, "
           f"max |err| {large_flash_err:.3e} within 1 bf16 ulp / 1e-5 "
           f"relative")
     large_w = large_ffn_weights(dev, SEED + 13)
@@ -1964,8 +2382,8 @@ def main() -> int:
     def lm_layer_cpu(l):
         return lm._layer(lm_cpu["blocks"], l)
 
-    layer_err = {"prefill": check_lm_layers(lm_cfg, lm_params, lm_layer_cpu,
-                                            toks_check, False, dev)}
+    layer_err = check_lm_layers(lm_cfg, lm_params, lm_layer_cpu,
+                                {"prefill": (toks_check, False, None)}, dev)
     prefill_s = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2000,8 +2418,9 @@ def main() -> int:
     add_variants(serve_variants)
     seq = torch.from_numpy(np.concatenate([sout["prompts"], sout["tokens"]],
                                           axis=1))
-    layer_err["decode"] = check_lm_layers(lm_cfg, lm_params, lm_layer_cpu,
-                                          seq[:, :1], True, dev)
+    layer_err.update(check_lm_layers(lm_cfg, lm_params, lm_layer_cpu,
+                                     {"decode": (seq[:, :1], True, None)},
+                                     dev))
     caches = [lm.init_cache(lm_cfg, SERVE["batch"], SERVE["max_seq"],
                             device="cpu") for _ in range(2)]
     serve_errs, floors, gap_checked = [], [], 0
@@ -2073,6 +2492,14 @@ def main() -> int:
         large_main[name]["phase_s"] = time.perf_counter() - t0
         print(f"[main] {name}: {large_main[name]['phase_s']:.1f} s")
     batcher_main[QWEN] = large_main[QWEN].pop("batcher")
+    # the MoE LMs and the VLM at full width, one at a time on the card
+    moe_main = {}
+    for name in MOE_LMS + (VLM,):
+        t0 = time.perf_counter()
+        moe_main[name] = moe_vlm_run(name, lm_h)
+        moe_main[name]["phase_s"] = time.perf_counter() - t0
+        print(f"[main] {name}: {moe_main[name]['phase_s']:.1f} s")
+    batcher_main[GRANITE_MOE] = moe_main[GRANITE_MOE].pop("batcher")
 
     # -- 5. timings at the main-path shapes -------------------------------
     rows = []
@@ -2580,6 +3007,25 @@ def main() -> int:
               ("" if "serve" not in r else
                f"; serve_lm prefill_s {r['serve']['prefill_s']:.4f}, "
                f"decode_s {r['serve']['decode_s']:.4f}, "
+               f"{r['serve']['tokens_per_s']:.2f} tok/s"))
+    for name, r in moe_main.items():
+        t_flash = next(x["ms"] for x in large_flash_rows
+                       if x["what"] == f"{name} T={PREFILL_T}")
+        r["prefill_kernels_ms"] = {"flash_attention": r["layers"] * t_flash}
+        if name in FFN_128_LMS:
+            t_mm = {w: next(x["ms"] for x in large_mm_rows
+                            if (x["arch"], x["weight"], x["M"]) ==
+                            (name, w, PREFILL_T)) for w in ("w1", "w2")}
+            r["prefill_kernels_ms"]["sparse_matmul"] = r["layers"] * (
+                2 * t_mm["w1"] + t_mm["w2"])
+        print(f"[time] {name} ({r['layers']} layers) prefill T={PREFILL_T}: "
+              f"{r['prefill_ms']:.3f} ms (median of 3); kernels: " +
+              ", ".join(f"{k} {v:.3f} ms" for k, v in
+                        r["prefill_kernels_ms"].items()) +
+              f"; decode step batch {STEP_BATCH} {r['step_ms']:.3f} ms" +
+              ("" if "serve" not in r else
+               f"; serve_lm TTFT {r['serve']['prefill_s']:.4f} s, decode_s "
+               f"{r['serve']['decode_s']:.4f}, "
                f"{r['serve']['tokens_per_s']:.2f} tok/s"))
     for name, b in batcher_main.items():
         st = b["stats"]
@@ -3201,6 +3647,7 @@ def main() -> int:
         "param_bytes_stored": param_bytes, "fc_int8": fc8,
         "depthwise_layers": dw_rows, "smollm": lm_main,
         "large_lms": large_main, "batcher": batcher_main,
+        "moe_vlm": moe_main,
         "large_lm_kernels": {"flash": large_flash_rows,
                              "sparse_matmul": large_mm_rows},
         "throughput": {f"{a}/{q}": dict(row, continuous={
@@ -3260,7 +3707,8 @@ def main() -> int:
                  "SmolLM-360M's FFN shapes (M=4 gemv, M=2048 mma), library "
                  "torch.matmul on the densified bf16 weight; large_lms: "
                  "the same at the 128x128 FFN blocks of Qwen3-32B, "
-                 "Mistral-Nemo-12B and Granite-20B (M=4 gemv, M=2048 mma); "
+                 "Mistral-Nemo-12B, Granite-20B and llava-next-mistral-7b "
+                 "(M=4 gemv, M=2048 mma); "
                  "variants: launches by variant over the main paths; "
                  "ptxas, hmma: per kernel function"},
         {"name": "dw_pw", "route": "cuda",
@@ -3317,11 +3765,13 @@ def main() -> int:
                  f"{LM} prefill (B=1, T={PREFILL_T}, H={n_h}, D={d_h}, "
                  f"bf16, causal; the mma variant); library: "
                  f"F.scaled_dot_product_attention on the same expanded "
-                 f"tensors; large_lms: the same at D=128 (a T={PREFILL_T} "
-                 f"layer of Qwen3-32B, Mistral-Nemo-12B, Granite-20B and "
-                 f"Qwen3-32B's last cache chunk, SDPA with a causal mask "
-                 f"there); variants: launches by variant over the main "
-                 f"paths; ptxas, hmma: per kernel function"},
+                 f"tensors; large_lms: the same at a T={PREFILL_T} layer "
+                 f"of Qwen3-32B, Mistral-Nemo-12B, Granite-20B, "
+                 f"granite-moe-3b-a800m (D=64), moonshot-v1-16b-a3b and "
+                 f"llava-next-mistral-7b, and at Qwen3-32B's last cache "
+                 f"chunk (SDPA with a causal mask there); variants: "
+                 f"launches by variant over the main paths; ptxas, hmma: "
+                 f"per kernel function"},
     ]
     for entry in kernels:
         name = entry["name"]

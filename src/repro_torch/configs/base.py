@@ -3,8 +3,8 @@ reference's ``src/repro/configs/base.py``, every field and helper).
 
 Every architecture the reference registers is a ``ModelConfig`` here,
 with the reference's values; every input shape of its (arch x shape)
-grid is a ``ShapeConfig``. The MoE, SSM, hybrid, encoder-decoder and
-VLM fields are data: the families that read them are not ported yet,
+grid is a ``ShapeConfig``. The SSM, hybrid and encoder-decoder fields
+are data: the families that read them are not ported yet,
 and their model code raises where it would run (``models/lm.py``),
 naming the ROADMAP item in :data:`UNPORTED_LM_FAMILIES`."""
 from __future__ import annotations
@@ -178,11 +178,9 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
 #: item that ports each (``models/lm.py`` raises naming it)
 _LM_SIDE = "Queue 1, the rest of the LM side"
 UNPORTED_LM_FAMILIES = {
-    "moe": f"{_LM_SIDE} (item 8c, MoE)",
     "ssm": f"{_LM_SIDE} (item 8d, rwkv6, SSM)",
     "hybrid": f"{_LM_SIDE} (item 8d, zamba2, hybrid)",
     "audio": f"{_LM_SIDE} (item 8d, whisper, encoder-decoder)",
-    "vlm": f"{_LM_SIDE} (item 8d, llava, VLM)",
 }
 
 _REGISTRY: dict[str, ModelConfig] = {}

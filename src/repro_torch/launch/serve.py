@@ -222,7 +222,14 @@ def serve_lm(arch: str, *, batch: int = 4, prompt_len: int = 32,
     with ``seed``). ``prompts``: (B, T) token ids; by default drawn from
     the same generator, (batch, prompt_len). ``record_logits`` also
     returns every step's logits, (B, T + gen_tokens, V) f32, kept on the
-    device until the end. Times end in a device synchronisation."""
+    device until the end. Times end in a device synchronisation.
+
+    Every step is ``decode_step`` at one int position for the batch, so
+    an MoE model routes the batch's B tokens of a step together (one
+    capacity a step), as the reference's ``serve_lm`` does. A VLM is
+    served on its tokens alone: the reference draws patch embeddings
+    here, but its decode step never reads them, so the port draws
+    none."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if use_reduced:

@@ -10,11 +10,14 @@ from repro_torch.models import lm
 
 
 def make_prefill_step(cfg):
-    """``prefill(params, tokens) -> (B, V)`` next-token logits (f32): one
-    forward over the whole prompt, its attention through the flash
-    kernel."""
-    def prefill(params, tokens):
-        logits, _ = lm.forward(cfg, params, tokens, logits_mode="last")
+    """``prefill(params, tokens, **extra) -> (B, V)`` next-token logits
+    (f32): one forward over the whole prompt, its attention through the
+    flash kernel. ``extra``: ``patches=(B, Vt, d)`` for a VLM, in front
+    of the tokens (the reference's prefill takes ``T - vision_tokens``
+    tokens)."""
+    def prefill(params, tokens, **extra):
+        logits, _ = lm.forward(cfg, params, tokens, extra=extra or None,
+                               logits_mode="last")
         return logits
 
     return prefill

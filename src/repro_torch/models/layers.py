@@ -311,3 +311,191 @@ def ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(linear(x, p["w1"]).float()).to(x.dtype)
     h = h * linear(x, p["w3"])
     return linear(h, p["w2"])
+
+
+# ---------------------------------------------------------------------------
+# MoE (token-choice top-k, capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def init_moe(generator: torch.Generator, cfg, dtype=torch.bfloat16) -> dict:
+    """The router (d, e) in f32; the experts' w1, w3 (e, d, f) and w2
+    (e, f, d) at ``dtype``; each drawn by ``dense_init`` with the
+    reference's fan-in, in the reference's order."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    return {"router": dense_init(generator, (d, e), d, torch.float32),
+            "w1": dense_init(generator, (e, d, f), d, dtype),
+            "w3": dense_init(generator, (e, d, f), d, dtype),
+            "w2": dense_init(generator, (e, f, d), f, dtype)}
+
+
+# The reference's data-parallel degree for MoE dispatch: the routing
+# groups ``moe`` takes when its caller names none.
+_MOE = {"dp": 1}
+
+
+def set_moe_dp(dp: int) -> None:
+    """Set the ``groups`` of every later ``moe`` call that names none."""
+    _MOE["dp"] = max(int(dp), 1)
+
+
+@dataclass
+class MoERoute:
+    """One routing of G groups of n tokens each (tensors on the tokens'
+    device).
+
+    probs: (G, n, e) f32 router softmax; gate, eidx: (G, n, k) the top-k
+    (descending) and their ids, gates renormalised; cap: the slots an
+    expert has in a group; offsets: (G, e + 1) each expert's first
+    position among the assignments sorted by expert (stably, so in token
+    order); order: (G, n * k) the flat assignments (token-major) in that
+    order, rank: (G, n * k) each one's position in it; tok_for_slot:
+    (G, e, cap) the token in each slot, n where the slot is empty."""
+    probs: torch.Tensor
+    gate: torch.Tensor
+    eidx: torch.Tensor
+    cap: int
+    offsets: torch.Tensor
+    order: torch.Tensor
+    rank: torch.Tensor
+    tok_for_slot: torch.Tensor
+
+    @property
+    def counts(self) -> torch.Tensor:
+        """(G, e) assignments each expert was chosen for."""
+        return self.offsets[:, 1:] - self.offsets[:, :-1]
+
+    @property
+    def kept(self) -> torch.Tensor:
+        """(G, n, k) whether each assignment got a slot (the others are
+        dropped: their expert was full)."""
+        first = torch.gather(self.offsets, 1, self.eidx.flatten(1))
+        return (self.rank - first < self.cap).reshape(self.eidx.shape)
+
+    @property
+    def dropped(self) -> torch.Tensor:
+        """Assignments dropped, over the groups (a device scalar)."""
+        return (self.counts - self.cap).clamp_min(0).sum()
+
+
+def moe_route(router: torch.Tensor, cfg, xg: torch.Tensor,
+              capacity_factor: float) -> MoERoute:
+    """The reference's ``_moe_local`` routing for each of G groups of
+    tokens, xg (G, n, d): f32 router logits, softmax, top-k, gates
+    renormalised by max(sum, 1e-9), cap = max(min(int(cf * n * k / e),
+    n), 1), a stable sort of the flat expert ids, per-expert offsets by
+    a left ``searchsorted``, the (e, cap) slot table."""
+    g, n, _ = xg.shape
+    e, k = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(fdot("gnd,de->gne", xg, router), dim=-1)
+    gate, eidx = torch.topk(probs, k, dim=-1)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = max(min(int(capacity_factor * n * k / e), n), 1)
+    nk = n * k
+    sorted_e, order = torch.sort(eidx.reshape(g, nk), dim=-1, stable=True)
+    experts = torch.arange(e + 1, device=xg.device)
+    offsets = torch.searchsorted(sorted_e, experts.expand(g, e + 1)
+                                 .contiguous())
+    slot = offsets[:, :-1, None] + torch.arange(cap, device=xg.device)
+    valid = slot < offsets[:, 1:, None]
+    sorted_tok = order // k
+    tok = torch.gather(sorted_tok, 1, slot.clamp(0, nk - 1).reshape(g, -1))
+    tok_for_slot = torch.where(valid, tok.reshape(g, e, cap), n)
+    return MoERoute(probs, gate, eidx, cap, offsets, order,
+                    torch.argsort(order, dim=-1), tok_for_slot)
+
+
+_MOE_RECORD: list = []
+
+
+@contextlib.contextmanager
+def record_moe():
+    """Collect the :class:`MoERoute` of every ``moe`` call in scope, in
+    call order (the routes stay on their device: nothing is read back)."""
+    routes: list = []
+    _MOE_RECORD.append(routes)
+    try:
+        yield routes
+    finally:
+        _MOE_RECORD.remove(routes)
+
+
+def _moe_groups(p: dict, cfg, xg: torch.Tensor, capacity_factor: float):
+    """Route and run G groups of tokens, xg (G, n, d). Returns (out (G,
+    n, d) at x's dtype, aux (G,) f32).
+
+    Each expert runs on its whole (G * cap)-row buffer, empty slots on
+    the zero pad row, as in the reference. The products keep the
+    reference's dtype boundaries: silu of buf @ w1 in f32 rounded to x's
+    dtype, times buf @ w3, then @ w2, each an f32 sum rounded once
+    (``fdot``); each slot's output times its gate, rounded. The combine
+    gathers each token's kept slots in ascending expert order and adds
+    them in f32 one at a time (the order of the reference's scatter-add
+    on the CPU), then rounds once: no atomics, so the bits do not change
+    from run to run."""
+    g, n, d = xg.shape
+    e, k = cfg.n_experts, cfg.top_k
+    r = moe_route(p["router"], cfg, xg, capacity_factor)
+    for routes in _MOE_RECORD:
+        routes.append(r)
+    cap, dt, dev = r.cap, xg.dtype, xg.device
+    tok = r.tok_for_slot
+    x_pad = torch.cat([xg, xg.new_zeros((g, 1, d))], dim=1)
+    buf = torch.gather(x_pad, 1, tok.reshape(g, e * cap, 1).expand(
+        g, e * cap, d))
+    buf = buf.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    h = F.silu(fdot("ecd,edf->ecf", buf, p["w1"]).to(dt).float()).to(dt)
+    h = h * fdot("ecd,edf->ecf", buf, p["w3"]).to(dt)
+    out_e = fdot("ecf,efd->ecd", h, p["w2"]).to(dt)
+    out_e = out_e.reshape(e, g, cap, d).transpose(0, 1)       # (G, e, cap, d)
+    # each slot's gate: the gate of the assignment sorted into it
+    slot = r.offsets[:, :-1, None] + torch.arange(cap, device=dev)
+    g_sorted = torch.gather(r.gate.reshape(g, -1), 1, r.order)
+    g_slot = torch.where(tok < n, torch.gather(
+        g_sorted, 1, slot.clamp(0, n * k - 1).reshape(g, -1)).reshape(
+        g, e, cap), 0.0)
+    contrib = (out_e * g_slot[..., None].to(dt)).reshape(g * e * cap, d)
+    # combine: each token's assignments by ascending expert id
+    eids, j = torch.sort(r.eidx, dim=-1)                       # (G, n, k)
+    a = torch.arange(n, device=dev)[None, :, None] * k + j
+    c = torch.gather(r.rank, 1, a.reshape(g, -1)).reshape(g, n, k) - \
+        torch.gather(r.offsets, 1, eids.reshape(g, -1)).reshape(g, n, k)
+    kept = c < cap
+    row = (torch.arange(g, device=dev)[:, None, None] * e + eids) * cap + \
+        c.clamp(max=cap - 1)
+    acc = torch.zeros((g, n, d), dtype=torch.float32, device=dev)
+    for m in range(k):
+        v = contrib[row[:, :, m]].float()
+        acc = acc + torch.where(kept[:, :, m, None], v, 0.0)
+    # load-balance aux loss (Switch-style), per group
+    counts = r.counts.float()
+    ce = counts / counts.sum(-1, keepdim=True).clamp_min(1.0) * e
+    aux = (r.probs.mean(1) * ce).sum(-1)
+    return acc.to(dt), aux
+
+
+def _moe_local(p: dict, cfg, x: torch.Tensor,
+               capacity_factor: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_moe_local``: x's B * T tokens routed together.
+    Returns (out (B, T, d), aux)."""
+    return moe(p, cfg, x, capacity_factor=capacity_factor, groups=1)
+
+
+def moe(p: dict, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25,
+        groups: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE with capacity dispatch. x: (B, T, d).
+    Returns (out, aux).
+
+    ``groups`` contiguous groups of the flattened tokens are routed each
+    alone, each with its own capacity, and aux is their mean (the
+    reference's dp > 1 branch); when B * T is no multiple of it, all
+    tokens are routed together. A call that names no ``groups`` takes
+    ``set_moe_dp``'s. ``decode_step`` with one position a row passes
+    groups=B: each row alone, as the reference's batcher routes a slot
+    (its decode is vmapped over the slots)."""
+    b, t, d = x.shape
+    g = _MOE["dp"] if groups is None else groups
+    if g < 1 or (b * t) % g:
+        g = 1
+    out, aux = _moe_groups(p, cfg, x.reshape(g, b * t // g, d),
+                           capacity_factor)
+    return out.reshape(b, t, d), aux.mean()

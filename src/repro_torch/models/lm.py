@@ -1,15 +1,18 @@
-"""Dense language model on the port (counterpart of the reference's
-``src/repro/models/lm.py``, dense family only).
+"""Language models on the port (counterpart of the reference's
+``src/repro/models/lm.py``): the dense, MoE and VLM families.
 
 The parameters keep the reference's layout: ``embed`` (V, d), the layer
 stack ``blocks`` with a leading L axis on every leaf (a sparse FFN
 weight is one ``SparseWeight`` with vals (L, ob, K, bm, bn) and idx
-(L, ob, K)), ``final_norm``, and ``head`` when the embeddings are not
-tied. The layer loop is a Python loop over views of layer l.
+(L, ob, K); an MoE block's ``moe`` holds the f32 router (L, d, e) and
+the experts (L, e, d, f) / (L, e, f, d)), ``final_norm``, and ``head``
+when the embeddings are not tied. The layer loop is a Python loop over
+views of layer l. A VLM is the dense family with patch embeddings in
+front of the tokens.
 
     init_params(cfg, generator)             -> params
     init_cache(cfg, batch, max_seq)         -> decode cache (zeros)
-    forward(cfg, params, tokens)            -> (logits, aux)  prefill
+    forward(cfg, params, tokens, extra=)    -> (logits, aux)  prefill
     decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
     prefill_chunk(cfg, params, cache, tokens, pos) -> (logits, cache)
 
@@ -18,12 +21,16 @@ parameters are. ``decode_step`` takes one token a row, at one position
 for the batch or one a row (continuous batching,
 ``runtime/scheduler.py``); ``prefill_chunk`` writes a chunk of T
 tokens at positions pos .. pos + T - 1 into the cache (the reference's
-``kv_len`` branch). The MoE, SSM, hybrid, encoder-decoder and VLM
-families raise, naming their ROADMAP item
+``kv_len`` branch). An MoE layer routes the tokens of one call together
+(capacity per call), except in a step with one position a row, which
+routes each row alone (``layers.moe``). The SSM, hybrid and
+encoder-decoder families raise, naming their ROADMAP item
 (``configs/base.py::UNPORTED_LM_FAMILIES``); ``loss_fn`` and remat are
 not ported (ROADMAP Queue 1 item 8e, training).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -35,8 +42,12 @@ from repro_torch.models.layers import SparseWeight, tensor_from_numpy
 LOGITS_MODES = ("full", "last", "hidden")
 
 
+#: the families the port runs, and the block each stacks
+BLOCK_KINDS = {"dense": "dense", "vlm": "dense", "moe": "moe"}
+
+
 def _check_family(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in BLOCK_KINDS:
         item = UNPORTED_LM_FAMILIES.get(cfg.family,
                                         "Queue 1, the rest of the LM side")
         raise NotImplementedError(
@@ -50,24 +61,54 @@ def _check_family(cfg) -> None:
 
 def _init_block(cfg, generator: torch.Generator) -> dict:
     d = cfg.d_model
-    sp = cfg.sparsity if cfg.sparsity.enabled else None
     ones = lambda: torch.ones((d,), dtype=torch.bfloat16,  # noqa: E731
                               device=generator.device)
-    return {"ln1": ones(),
-            "attn": L.init_attention(generator, cfg),
-            "ln2": ones(),
-            "ffn": L.init_ffn(generator, d, cfg.d_ff, sp)}
+    block = {"ln1": ones(), "attn": L.init_attention(generator, cfg),
+             "ln2": ones()}
+    if BLOCK_KINDS[cfg.family] == "moe":
+        block["moe"] = L.init_moe(generator, cfg)
+    else:
+        sp = cfg.sparsity if cfg.sparsity.enabled else None
+        block["ffn"] = L.init_ffn(generator, d, cfg.d_ff, sp)
+    return block
 
 
-def _stack(trees: list):
-    """Stack L per-layer trees into one tree with a leading L axis."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    if isinstance(first, SparseWeight):
-        return SparseWeight(torch.stack([t.vals for t in trees]),
-                            torch.stack([t.idx for t in trees]), first.d_in)
-    return torch.stack(trees)
+def _empty_stack(tree, n: int):
+    """An uninitialised tree like ``tree`` with a leading axis of n."""
+    if isinstance(tree, dict):
+        return {k: _empty_stack(v, n) for k, v in tree.items()}
+    if isinstance(tree, SparseWeight):
+        return SparseWeight(_empty_stack(tree.vals, n),
+                            _empty_stack(tree.idx, n), tree.d_in)
+    return tree.new_empty((n,) + tuple(tree.shape))
+
+
+def _copy_into(dst, src) -> None:
+    """Copy a tree into views of the same structure (``_layer``'s)."""
+    if isinstance(src, dict):
+        for k, v in src.items():
+            _copy_into(dst[k], v)
+    elif isinstance(src, SparseWeight):
+        if src.d_in != dst.d_in:
+            raise ValueError(f"sparse weight d_in {src.d_in} != {dst.d_in}")
+        dst.vals.copy_(src.vals)
+        dst.idx.copy_(src.idx)
+    else:
+        dst.copy_(src)
+
+
+def _init_blocks(cfg, generator: torch.Generator) -> dict:
+    """The layer stack: layer l's tree drawn (layer by layer, in the
+    reference's order of leaves) and copied into slice l of a stack
+    allocated once, so the peak holds the stack and one layer, not two
+    copies of the stack."""
+    first = _init_block(cfg, generator)
+    blocks = _empty_stack(first, cfg.n_layers)
+    _copy_into(_layer(blocks, 0), first)
+    del first
+    for l in range(1, cfg.n_layers):
+        _copy_into(_layer(blocks, l), _init_block(cfg, generator))
+    return blocks
 
 
 def _layer(tree, l: int):
@@ -87,8 +128,7 @@ def init_params(cfg, generator: torch.Generator) -> dict:
     d = cfg.d_model
     p = {
         "embed": L.dense_init(generator, (cfg.vocab_size, d), d),
-        "blocks": _stack([_init_block(cfg, generator)
-                          for _ in range(cfg.n_layers)]),
+        "blocks": _init_blocks(cfg, generator),
         "final_norm": torch.ones((d,), dtype=torch.bfloat16,
                                  device=generator.device),
     }
@@ -125,7 +165,8 @@ def params_to(tree, device):
 
 
 def init_cache(cfg, batch: int, max_seq: int, *, device="cuda") -> dict:
-    """Zeroed decode cache: kv (L, 2, B, S, KV, Dh) bf16."""
+    """Zeroed decode cache: kv (L, 2, B, S, KV, Dh) bf16 (every family
+    the port runs)."""
     _check_family(cfg)
     return {"kv": torch.zeros(
         (cfg.n_layers, 2, batch, max_seq, cfg.kv_heads, cfg.head_dim),
@@ -146,38 +187,77 @@ def _logits(cfg, params, h: torch.Tensor) -> torch.Tensor:
     return L.fdot("btd,dv->btv", h, w)
 
 
+def _mlp(cfg, p, h: torch.Tensor, groups=None):
+    """The block's second half: h + ffn or h + moe of the normed h.
+    Returns (h, aux); aux is None without experts. ``groups``: MoE
+    routing groups (``layers.moe``)."""
+    hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        mo, aux = L.moe(p["moe"], cfg, hn, groups=groups)
+        return h + mo, aux
+    return h + L.ffn(p["ffn"], hn), None
+
+
 def make_block_fn(cfg, positions: torch.Tensor):
     """Per-layer block function ``(h, p) -> (h, aux)`` over the whole
-    sequence; aux is 0 for the dense family."""
+    sequence; aux is the MoE load-balance loss, 0 for a dense block."""
     _check_family(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=positions.device)
+    zero = torch.zeros((), dtype=torch.float32, device=positions.device)
 
     def block(h, p):
         a, _ = L.attention(p["attn"], cfg,
                            L.rms_norm(h, p["ln1"], cfg.norm_eps),
                            positions=positions, window=cfg.attn_window)
-        h = h + a
-        h = h + L.ffn(p["ffn"], L.rms_norm(h, p["ln2"], cfg.norm_eps))
-        return h, aux
+        h, aux = _mlp(cfg, p, h + a)
+        return h, zero if aux is None else aux
 
     return block
 
 
-def forward(cfg, params, tokens: torch.Tensor, *, logits_mode: str = "full"):
+def _prefix(cfg, h: torch.Tensor, extra: Optional[dict]) -> torch.Tensor:
+    """A VLM's patch embeddings (B, Vt, d), cast to h's dtype, in front
+    of the token embeddings; every other family takes no extra input."""
+    extra = extra or {}
+    if cfg.family != "vlm":
+        if extra:
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} takes no "
+                             f"extra inputs, got {sorted(extra)}")
+        return h
+    if set(extra) != {"patches"}:
+        raise ValueError(f"{cfg.name}: a VLM forward takes extra="
+                         f"{{'patches': (B, Vt, d)}}, got {sorted(extra)}")
+    patches = torch.as_tensor(extra["patches"]).to(h.device)
+    if patches.dim() != 3 or patches.shape[0] != h.shape[0] or \
+            patches.shape[2] != h.shape[2]:
+        raise ValueError(f"{cfg.name}: patches {tuple(patches.shape)} for "
+                         f"tokens of {tuple(h.shape[:2])}: expected (B, Vt, "
+                         f"{h.shape[2]})")
+    return torch.cat([patches.to(h.dtype), h], dim=1)
+
+
+def forward(cfg, params, tokens: torch.Tensor, *,
+            extra: Optional[dict] = None, logits_mode: str = "full"):
     """Full-sequence forward -> (logits | hidden, aux).
 
+    extra: {"patches": (B, Vt, d)} for a VLM: the patch embeddings go in
+    front of the tokens, positions run over Vt + T, and the output
+    covers both. aux: the sum over layers of the MoE load-balance loss
+    (0 for the dense family).
     logits_mode: "full" (B, T, V) f32 | "last" (B, V) f32 | "hidden"
     (B, T, d)."""
     if logits_mode not in LOGITS_MODES:
         raise ValueError(f"logits_mode={logits_mode!r}: expected one of "
                          f"{LOGITS_MODES}")
     with L.full_f32():
-        h = _embed(cfg, params, tokens)
+        h = _prefix(cfg, _embed(cfg, params, tokens), extra)
         b, t, _ = h.shape
         positions = torch.arange(t, device=h.device)[None].expand(b, t)
         block = make_block_fn(cfg, positions)
+        auxs = []
         for l in range(cfg.n_layers):
-            h, aux = block(h, _layer(params["blocks"], l))
+            h, aux_l = block(h, _layer(params["blocks"], l))
+            auxs.append(aux_l)
+        aux = torch.stack(auxs).sum()
         if logits_mode == "hidden":
             return h, aux
         if logits_mode == "last":
@@ -193,12 +273,16 @@ def decode_block(cfg, p, h: torch.Tensor, kv: torch.Tensor,
                  positions: torch.Tensor, pos) -> torch.Tensor:
     """One layer of a step into the cache: p the layer's parameters, kv
     its cache (2, B, S, KV, Dh), written in place at ``pos`` (an int,
-    or a (B,) tensor for a one-token step: one position a row)."""
+    or a (B,) tensor for a one-token step: one position a row). An MoE
+    layer routes the call's B * T tokens together at an int ``pos``,
+    and each row alone at a (B,) one (the reference's batcher vmaps its
+    decode over the slots, so each slot is routed alone, with a
+    capacity of its own)."""
     a, _ = L.attention(p["attn"], cfg, L.rms_norm(h, p["ln1"], cfg.norm_eps),
                        positions=positions, window=cfg.attn_window,
                        kv_cache=(kv[0], kv[1]), cache_pos=pos)
-    h = h + a
-    return h + L.ffn(p["ffn"], L.rms_norm(h, p["ln2"], cfg.norm_eps))
+    groups = h.shape[0] if isinstance(pos, torch.Tensor) else None
+    return _mlp(cfg, p, h + a, groups)[0]
 
 
 def _cache_step(cfg, params, cache, tokens, positions, pos):
@@ -244,8 +328,12 @@ def prefill_chunk(cfg, params, cache: dict, tokens: torch.Tensor,
     pos .. pos + T - 1, written into the cache IN PLACE; each attends to
     the cache's first pos + T keys through the flash kernel (the
     reference's ``kv_len`` branch). Returns (logits (B, T, V) f32,
-    cache). The prompt in chunks gives the one-shot prefill's logits up
-    to the order of sums."""
+    cache). For the dense family the prompt in chunks gives the one-shot
+    prefill's logits up to the order of sums. Not for MoE: a chunk's B *
+    T tokens are routed together, with a capacity of their own, so where
+    an expert overflows, the chunks drop other assignments than the
+    one-shot forward does; a chunk equals the reference's layers run on
+    that chunk, not the reference's forward over the whole prompt."""
     _check_family(cfg)
     pos = int(pos)
     positions = torch.arange(pos, pos + tokens.shape[1],

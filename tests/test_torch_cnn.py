@@ -208,7 +208,7 @@ def _ref_forward_jit(ref_cfg):
     {"mode": "throughput", "continuous": True, "tuning_cache": "c.json"},
     {"mode": "throughput", "tier": True},
     {"mode": "latency", "n_stages": 2, "calibrate": True},
-    {"arch": "moonshot-v1-16b-a3b", "mode": "latency"},
+    {"arch": "rwkv6-1.6b", "mode": "latency"},
 ], ids=["throughput", "continuous", "tier", "stages", "lm"])
 def test_unported_modes_name_their_roadmap_item(kw, weights, monkeypatch,
                                                 tmp_path):

@@ -125,8 +125,8 @@ def test_large_lm_configs_match_reference_field_for_field(size, arch):
     _check_config_fields(arch, size)
 
 
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "rwkv6-1.6b",
-                                  "granite-moe-3b-a800m", "whisper-large-v3"])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b",
+                                  "whisper-large-v3"])
 def test_unported_lm_archs_name_their_roadmap_item(arch):
     """Every arch is registered, as in the reference; a family whose
     model code is not ported raises where that code would run, naming
@@ -134,7 +134,7 @@ def test_unported_lm_archs_name_their_roadmap_item(arch):
     cfg = get_config(arch)
     with pytest.raises(NotImplementedError,
                        match="ROADMAP Queue 1, the rest of the LM side "
-                             r"\(item 8[cd]"):
+                             r"\(item 8d"):
         lm.init_params(cfg, torch.Generator())
 
 
