@@ -27,7 +27,12 @@ Phases, in order; any failure raises and exits nonzero:
    Granite-20B's heads at T 2048, Qwen3-32B's last cache chunk: Tq 512,
    q_offset 1536, Tk 2048; a Tk no tile multiple, a window, f32) and
    sparse_matmul at the three models' 128 x 128 FFN blocks at M 1-8
-   ("gemv") and 2048 ("mma"); then the stored weights: int8 codes with their scales through
+   ("gemv") and 2048 ("mma"); flash_attention at D 112 (zamba2-7b's
+   heads: T 2048 under its window of 4096, a window shorter than T, a
+   windowed cache chunk with q_offset, f32) and at whisper-large-v3's
+   shapes (D 64: non-causal 1500 x 1500, causal 448, cross 448 x 1500),
+   sparse_matmul at whisper's 64 x 64 FFN blocks (M 1-4, 448, 1500) and
+   zamba2's 128 x 128 ones (M 1-4, 2048); then the stored weights: int8 codes with their scales through
    sparse_conv "mma" at every ResNet-50 layer shape (residual on and
    off), the int8 classifier through "gemv", int8 dw_pw "mma" at every
    MobileNet block shape, and one "simt" shape each in int8 and in f32
@@ -99,15 +104,31 @@ Phases, in order; any failure raises and exits nonzero:
    shapes: the same experts and the same bits at every position fed);
    layer 0's experts give the same bits twice at the prefill's and the
    step's shapes;
-   moonshot-v1-16b-a3b (48 layers, 64 experts top-6, 28.06B
-   parameters) through a prefill (48 flash) and a batch-4 step;
+   moonshot-v1-16b-a3b (24 of its 48 layers, 64 experts top-6: a depth
+   cut, ``DEPTH``) through a prefill (24 flash) and a batch-4 step;
    llava-next-mistral-7b (32 layers) through a prefill of 576 patch
    embeddings and 1472 tokens (32 flash + 96 sparse_matmul "mma") and a
    batch-4 step (96 "gemv"); the share of expert assignments dropped at
    the prefill and the step; every layer against the CPU layer (an MoE
    layer in two halves, the experts fed the card's attention output on
    both devices: expert ids and kept assignments equal and the output
-   within 1 bf16 ulp at every token clear of a near tie);
+   within 1 bf16 ulp at every token clear of a near tie); then the
+   recurrent and encoder-decoder LMs at full width and depth:
+   rwkv6-1.6b (24 layers) through a T 2048 prefill (no hand-written
+   kernel: its chunked WKV and dense projections are plain torch), a
+   batch-4 decode step, ``serve_lm`` and the continuous batcher (8
+   slots, 24 requests, the admitted slot's state zeroed; every request
+   within 3e-2 of its teacher-forced replay); zamba2-7b (81 Mamba2
+   layers, 13 shared-attention sites) through a T 2048 prefill (13 flash
+   "mma" at D 112, 39 sparse_matmul "mma"), a batch-4 step (39 "gemv"),
+   ``serve_lm`` and the batcher; whisper-large-v3 (32 + 32 layers)
+   through a prefill of 1500 frames and 448 tokens (96 flash: 32
+   non-causal 1500 x 1500, 32 causal, 32 cross 448 x 1500; 192
+   sparse_matmul "mma" at 64 x 64), ``lm.fill_cross_kv`` and a batch-4
+   step on the filled cache (96 "gemv"), ``serve_lm`` with the encoder's
+   fill; every layer of the three, with its state, on the card's own
+   input within 1 bf16 ulp of the CPU layer, and the chunked WKV and SSD
+   scans alone at T 2048 from a carried state within 1e-4 of the CPU's;
 5. timings (CUDA events over CUDA-graph replays, L2-warm): each kernel at
    the main-path shapes beside its plain version, a library call that
    computes the same function (never called by the port; for dw_pw no
@@ -131,7 +152,11 @@ Phases, in order; any failure raises and exits nonzero:
    the VLM's prefill shapes: flash at D 64 and 128, llava's FFN); the
    large LMs' prefill latencies, Qwen3-32B's ``serve_lm`` times and the
    batchers' tok/s and TTFT; the MoE LMs' and the VLM's prefill and
-   decode-step latencies and granite-moe's ``serve_lm`` times;
+   decode-step latencies and granite-moe's ``serve_lm`` times; flash
+   at zamba2's D 112 prefill and whisper's three shapes, sparse_matmul
+   at their FFN blocks (SDPA with the same masks, ``torch.matmul`` on the
+   densified weight), the three models' prefill and step latencies and
+   ``serve_lm`` times, the batchers' tok/s and TTFT;
 6. the measured cost model and the tuned kernels: for each CNN at native
    weights, ``tuning.calibrate(..., autotune=True)`` at batch 1 and at mb
    4 (the MobileNets' dw_pw also tuned at n 2, their depthwise on the
@@ -181,6 +206,7 @@ Serving alone, on the card's machine from the root of a checkout:
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -272,6 +298,12 @@ def f32_tol(ref: torch.Tensor) -> torch.Tensor:
     """f32 sums in another order: rtol 1e-5 plus 1e-5 of the output's
     scale."""
     return 1e-5 * ref.abs() + 1e-5 * float(ref.abs().max())
+
+
+def scan_tol(ref: torch.Tensor) -> torch.Tensor:
+    """A chunked scan's f32 sums in another order: 1e-4 of the output's
+    max."""
+    return torch.full_like(ref, 1e-4 * float(ref.abs().max()))
 
 
 def compare(got: torch.Tensor, ref: torch.Tensor, tol_fn, what: str) -> float:
@@ -426,7 +458,8 @@ LARGE_MM_M = (1, 2, 3, 4, 5, 6, 7, 8, PREFILL_T)   # gemv rows, then mma
 # (40 experts top-8, f 512, D 64) through a prefill, a batch-4 decode
 # step, serve_lm and the continuous batcher (BATCHER[LM]'s spec: one
 # routing group a slot); moonshot-v1-16b-a3b (64 experts top-6, f 1408,
-# D 128; 28.06B parameters) through a prefill and a batch-4 step;
+# D 128; 28.06B parameters at its 48 layers, 24 run: ``DEPTH``) through
+# a prefill and a batch-4 step;
 # llava-next-mistral-7b through a prefill of its 576 patch embeddings
 # (drawn from the seed) and 1472 tokens, and a batch-4 step. Every layer
 # on the card's own input against the CPU layer; an MoE layer in two
@@ -434,7 +467,13 @@ LARGE_MM_M = (1, 2, 3, 4, 5, 6, 7, 8, PREFILL_T)   # gemv rows, then mma
 # on both devices, held at the tokens clear of a near routing tie
 # (checks.clear(route, MOE_TIE_MARGIN)).
 GRANITE_MOE = "granite-moe-3b-a800m"
-MOE_LMS = (GRANITE_MOE, "moonshot-v1-16b-a3b")
+MOONSHOT = "moonshot-v1-16b-a3b"
+MOE_LMS = (GRANITE_MOE, MOONSHOT)
+# Depth cuts of earlier paths, to keep the script well inside its time
+# limit as it grows: moonshot runs 24 of its 48 layers (at full depth
+# its CPU layer check alone took 56-112 s of a 538-851 s script, and
+# its full-depth weights came to 52.27 GiB, measured on one H100).
+DEPTH = {MOONSHOT: 24}
 VLM = "llava-next-mistral-7b"
 BATCHER[GRANITE_MOE] = dict(BATCHER[LM])
 MOE_SERVE = dict(QWEN_SERVE)
@@ -443,6 +482,31 @@ STEP_BATCH = 4
 # checks and phase 5 times
 PREFILL_LMS = LARGE_LMS + MOE_LMS + (VLM,)
 FFN_128_LMS = LARGE_LMS + (VLM,)
+# The recurrent and encoder-decoder LMs at full width and depth:
+# rwkv6-1.6b (24 layers, d 2048, 32 heads of 64; its chunked WKV and its
+# dense projections are plain torch: no hand-written kernel), zamba2-7b
+# (81 Mamba2 layers, the shared attention block after every 6th: 13
+# sites, flash at D 112 with its window of 4096, its FFN pruned at 128 x
+# 128) and whisper-large-v3 (32 encoder and 32 decoder layers, d 1280,
+# 20 heads of 64: flash non-causal over the 1500 frames, causal over the
+# tokens and across, Tq 448 x Tk 1500; the FFNs pruned at 64 x 64), each
+# through a prefill (whisper: 1500 frames and its published 448 decoder
+# positions), a batch-4 decode step (whisper's on a cross_kv filled by
+# its encoder), serve_lm (whisper's with the encoder's fill) and, for
+# rwkv6 and zamba2, the continuous batcher (BATCHER[LM]'s spec; the
+# admitted slot's recurrent state zeroed); every layer, with its state,
+# on the card's own input against the CPU layer.
+RWKV, ZAMBA, WHISPER = "rwkv6-1.6b", "zamba2-7b", "whisper-large-v3"
+STATE_LMS = (RWKV, ZAMBA, WHISPER)
+WHISPER_T = 448          # whisper's max_target_positions
+BATCHER[RWKV] = dict(BATCHER[LM])
+BATCHER[ZAMBA] = dict(BATCHER[LM])
+STATE_SERVE = dict(QWEN_SERVE)
+# sparse_matmul rows phase 3 checks at the new FFN shapes: gemv at the
+# decode rows, mma at whisper's decoder (448) and encoder (1500) rows and
+# zamba2's prefill (2048)
+STATE_MM_M = {WHISPER: (1, 2, 3, 4, WHISPER_T, 1500),
+              ZAMBA: (1, 2, 3, 4, PREFILL_T)}
 
 
 def param_bytes(tree) -> int:
@@ -468,17 +532,18 @@ def flash_ops(tq: int, tk: int, h: int, d: int, causal: bool,
     return 4 * h * d * int((hi - lo).clamp(min=0).sum())
 
 
-def large_ffn_weights(dev, seed: int) -> dict:
+def large_ffn_weights(dev, seed: int, names=FFN_128_LMS) -> dict:
     """{(arch, "w1" | "w2"): SparseWeight} at the FFN shapes of each
-    large dense LM and the VLM
-    (w3 has w1's), drawn by the models' own law: ``dense_init``, then
-    block-balanced pruning at 128 x 128, 85%."""
+    arch of ``names`` (by default the large dense LMs and the VLM; w3
+    has w1's), drawn by the models' own law: ``dense_init``, then
+    block-balanced pruning at the config's blocks (128 x 128, whisper's
+    64 x 64), 85%."""
     from repro_torch.configs import get_config
     from repro_torch.core.sparsity import to_block_balanced
     from repro_torch.models.layers import dense_init
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = {}
-    for name in FFN_128_LMS:
+    for name in names:
         cfg = get_config(name)
         for w, (d_in, d_out) in (("w1", (cfg.d_model, cfg.d_ff)),
                                  ("w2", (cfg.d_ff, cfg.d_model))):
@@ -930,21 +995,39 @@ def large_lm_run(name: str, h) -> dict:
     return res
 
 
+def ffn_per_step(cfg, params) -> int:
+    """``sparse_matmul`` launches of one decode step: three for each
+    pruned FFN it runs (every layer's; zamba2's shared block's at each
+    of its sites; none for MoE experts or rwkv6's channel-mix)."""
+    from repro_torch.models import lm
+    if "ffn" in params["blocks"]:
+        return 3 * cfg.n_layers
+    if "shared" in params:
+        return 3 * sum(lm.attn_flags(cfg))
+    return 0
+
+
 def batcher_phase(name: str, cfg, params, n_l: int, h, params_cpu=None):
     """The continuous batcher on ``cfg`` (BATCHER[name]): launches
-    counted over the run (steps x 3 x layers ``sparse_matmul`` gemv for
-    a pruned FFN, nothing hand-written for MoE experts; no flash), every
+    counted over the run (steps x ``ffn_per_step`` ``sparse_matmul``
+    gemv; no flash), every
     request replayed alone, teacher-forced in its own row, on the card
     (and on the CPU, given ``params_cpu``). An MoE model's card replay
     runs in the batcher's shapes (its slots, its max_seq, one routing
     group a row): every fed position routed alike and bitwise the
-    batcher's."""
+    batcher's. So does a recurrent model's (rwkv6, zamba2), from the zero
+    state its slot is reset to: its per-token norm of the scan's output
+    (ln_x, the gated norm) carries a bf16 rounding that a product of
+    other rows sums the other way to unit scale (24 rows against the
+    batcher's 8 parted by 3.02e-2 of max |logit| at a request's 5th
+    position, measured on one H100), so the shapes are kept and the
+    positions bitwise the batcher's are counted."""
     from repro_torch.kernels import ops
     spec = BATCHER[name]
     reqs = batcher_requests(cfg, spec, SEED + 17)
     ops.reset_launches()
     cb, done, by_req, routed = run_batcher(cfg, params, reqs, spec, h.dev)
-    ffn = cb.steps * 3 * n_l if "ffn" in params["blocks"] else 0
+    ffn = cb.steps * ffn_per_step(cfg, params)
     launches = h.count(f"{name} ContinuousBatcher ({cb.steps} steps)",
                        {"sparse_matmul": ffn},
                        {("sparse_matmul", "gemv"): ffn} if ffn else {})
@@ -957,8 +1040,9 @@ def batcher_phase(name: str, cfg, params, n_l: int, h, params_cpu=None):
            for r in done}
     seqs = [fed[r["rid"]] for r in reqs]
     moe = "moe" in params["blocks"]
-    shapes = dict(group=spec["slots"], max_seq=spec["max_seq"]) if moe \
-        else {}
+    same_shapes = moe or cfg.family in ("ssm", "hybrid")
+    shapes = dict(group=spec["slots"], max_seq=spec["max_seq"]) \
+        if same_shapes else {}
     replays = {}
     replays["card"], replay_ids = replay_rows(cfg, params, seqs, h.dev,
                                               **shapes)
@@ -986,10 +1070,13 @@ def batcher_phase(name: str, cfg, params, n_l: int, h, params_cpu=None):
           f"({ {w: f'{e:.3e}' for w, e in chk['worst'].items()} }), tokens "
           f"equal where the replay's top-2 gap exceeds the bar "
           f"({chk['tokens_checked']} of {chk['tokens']})" +
-          ("" if not moe else
-           f"; each slot routed alone; the replay in the batcher's shapes "
+          (f"; each slot routed alone; the replay in the batcher's shapes "
            f"routes all {chk['positions_routed_alike']} fed positions "
-           f"alike and gives their bits ({chk['positions_bitwise']})"))
+           f"alike and gives their bits ({chk['positions_bitwise']})" if moe
+           else f"; the slot's state zeroed at admission; the replay in the "
+           f"batcher's shapes from the zero state gives the bits of "
+           f"{chk['positions_bitwise']['card']} of {steps_alone} fed "
+           f"positions" if same_shapes else ""))
     return {"spec": {k: list(v) if isinstance(v, tuple) else v
                      for k, v in spec.items()},
             "steps": cb.steps, "steps_one_at_a_time": steps_alone,
@@ -1022,10 +1109,14 @@ def moe_vlm_run(name: str, h) -> dict:
     from repro_torch.models import lm
     dev = h.dev
     cfg = get_config(name)
+    published = cfg.n_layers
+    if name in DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH[name])
     n_l, vt = cfg.n_layers, cfg.vision_tokens
     moe = cfg.family == "moe"
     ffn = 0 if moe else 3 * n_l                 # sparse_matmul a prefill
-    res = {"layers": n_l, "family": cfg.family}
+    res = {"layers": n_l, "published_layers": published,
+           "family": cfg.family}
     print(f"[main] {name} ({cfg.family}): d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads of {cfg.head_dim} ({cfg.kv_heads} KV), "
           + (f"{cfg.n_experts} experts top-{cfg.top_k}, expert FFN "
@@ -1033,8 +1124,10 @@ def moe_vlm_run(name: str, h) -> dict:
              f"d_ff {cfg.d_ff}, FFN blocks {cfg.sparsity.block_m} x "
              f"{cfg.sparsity.block_n} {cfg.sparsity.sparsity:.0%} pruned, "
              f"{vt} patch embeddings a prompt") +
-          f", vocab {cfg.vocab_size}; {n_l} layers, the published depth "
-          f"(no cut)")
+          f", vocab {cfg.vocab_size}; " +
+          (f"{n_l} of its {published} layers (depth cut: DEPTH)"
+           if n_l < published else
+           f"{n_l} layers, the published depth (no cut)"))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1211,12 +1304,384 @@ def moe_vlm_run(name: str, h) -> dict:
     return res
 
 
+def check_state_layers(cfg, params, toks, frames, dev) -> dict:
+    """Each layer of a recurrent or encoder-decoder LM on the card
+    against the same layer on the CPU, fed the card's own input, with its
+    state: a prefill over ``toks`` (1, T) from the zero state and decode
+    step 0 of its first token. The bf16 output and every state within 1
+    bf16 ulp: an f32 state (rwkv6's WKV, Mamba2's SSM) sums products of
+    the layer's bf16 projections, which the two devices, summing in other
+    orders, may round to either side (the scans themselves are held at
+    1e-4 of their max on identical inputs: ``check_scans``). zamba2's shared block after each flagged layer (the prefill
+    through flash, the step against a fresh ring); whisper's encoder
+    layers over ``frames`` (1, Te, d) first, its decoder layers then
+    attending to the card's encoder output (at step 0 through cross
+    keys and values each device computes from it). Returns {"prefill",
+    "decode": the worst error as a share of its bar}."""
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import lm
+    kind = lm.BLOCK_KINDS[cfg.family]
+    worst = {"prefill": 0.0, "decode": 0.0}
+
+    def held(chain, what, got, want):
+        got, want = got.cpu().float(), want.float()
+        compare(got, want, bf16_tol, f"{cfg.name} {chain} {what}")
+        share = (got - want).abs() / bf16_tol(want).clamp_min(1e-38)
+        worst[chain] = max(worst[chain], float(share.max()))
+
+    devs = (dev, torch.device("cpu"))
+    with torch.inference_mode(), lm_layers.full_f32():
+        enc = None
+        if kind == "encdec":
+            te = frames.shape[1]
+            h = frames.to(dev)
+            for l in range(cfg.encoder_layers):
+                p_dev = lm._layer(params["encoder"]["blocks"], l)
+                ps = (p_dev, lm.params_to(p_dev, "cpu"))
+                outs = [lm.encoder_block_fn(cfg, torch.arange(
+                    te, device=d)[None])(h.to(d), p) for d, p in zip(devs, ps)]
+                torch.cuda.synchronize()
+                held("prefill", f"encoder layer {l}", outs[0], outs[1])
+                h = outs[0]
+            enc = lm_layers.rms_norm(h, params["encoder"]["norm"],
+                                     cfg.norm_eps)
+        shared = {"shared": (params["shared"], lm.params_to(
+            params["shared"], "cpu"))} if "shared" in params else {}
+        state = {"prefill": lm._embed(cfg, params, toks.to(dev)),
+                 "decode": lm._embed(cfg, params, toks[:, :1].to(dev))}
+        for l, flag in enumerate(lm.attn_flags(cfg)):
+            p_dev = lm._layer(params["blocks"], l)
+            ps = (p_dev, lm.params_to(p_dev, "cpu"))
+            for chain, h in state.items():
+                b, t = h.shape[:2]
+                outs = []
+                for d, p in zip(devs, ps):
+                    x = h.to(d)
+                    pos = torch.arange(t, device=d)[None].expand(b, t)
+                    if kind in ("rwkv", "mamba"):
+                        st = None
+                        if chain == "decode":
+                            c0 = lm.init_cache(cfg, b, 8, device=d)
+                            st = {k: v[0] for k, v in c0.items()
+                                  if k in lm.RECURRENT_LEAVES}
+                        block = lm.rwkv_block if kind == "rwkv" else \
+                            lm.mamba_block
+                        outs.append(block(cfg, p, x, st))
+                    elif chain == "decode":
+                        kv = torch.zeros((2, b, 8, cfg.kv_heads,
+                                          cfg.head_dim), dtype=torch.bfloat16,
+                                         device=d)
+                        ckv = torch.stack(lm_layers.cross_kv(p["cross"],
+                                                             enc.to(d)))
+                        outs.append((lm.decode_block(cfg, p, x, kv, pos, 0,
+                                                     ckv), {}))
+                    else:
+                        outs.append((lm.make_block_fn(cfg, pos, enc.to(d))(
+                            x, p)[0], {}))
+                torch.cuda.synchronize()
+                (got, gst), (want, wst) = outs
+                held(chain, f"layer {l}", got, want)
+                for k in wst:
+                    held(chain, f"layer {l} state {k}", gst[k], wst[k])
+                state[chain] = got
+            if not flag:
+                continue
+            for chain, h in state.items():
+                b, t = h.shape[:2]
+                outs = []
+                for i, d in enumerate(devs):
+                    sp = {"shared": shared["shared"][i]}
+                    x = h.to(d)
+                    pos = torch.arange(t, device=d)[None].expand(b, t)
+                    if chain == "prefill":
+                        outs.append(lm.shared_attn_block(cfg, sp, x, pos))
+                    else:
+                        ring = torch.zeros((2, b, 8, cfg.kv_heads,
+                                            cfg.head_dim),
+                                           dtype=torch.bfloat16, device=d)
+                        outs.append(lm.ring_attn_block(cfg, sp, x, pos, ring,
+                                                       0))
+                torch.cuda.synchronize()
+                held(chain, f"shared block after layer {l}", outs[0], outs[1])
+                state[chain] = outs[0]
+    return worst
+
+
+def check_scans(cfg, dev) -> float:
+    """The model's scan alone (rwkv6's chunked WKV, Mamba2's chunked SSD)
+    at its main-path shape (B 1, T PREFILL_T, the config's heads and
+    state), from a carried state, on the card against the CPU on the
+    same f32 inputs: output and final state within 1e-4 of their max.
+    Both sum in f32 over a chunk's positions and the state's channels in
+    other orders; the CPU tests hold each scan within 1e-4 of an f64
+    token-by-token recurrence (tests/test_torch_rwkv.py, _zamba.py), and
+    at 1e-5 Mamba2's output missed by one element of 2^21 (2.8e-3,
+    measured on one H100). Returns the worst error as a share of the
+    bar."""
+    from repro_torch.models import layers as lm_layers
+    gen = torch.Generator().manual_seed(SEED + 37)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen) * scale
+
+    t = PREFILL_T
+    if cfg.family == "ssm":
+        h, dh = cfg.n_heads, cfg.head_dim
+        args = [randn(1, t, h, dh) for _ in range(3)] + [
+            -torch.exp(torch.rand((1, t, h, dh), generator=gen) * 4 - 8),
+            randn(h, dh, scale=0.5)]
+        kw = {"S0": randn(1, h, dh, dh, scale=0.1)}
+        scan = lm_layers.rwkv6_wkv_chunked
+    else:
+        nh, dh = lm_layers._mamba_heads(cfg)
+        n = cfg.ssm_state
+        args = [randn(1, t, nh, dh),
+                torch.nn.functional.softplus(randn(1, t, nh)),
+                torch.log(torch.arange(1, nh + 1, dtype=torch.float32)),
+                randn(1, t, n), randn(1, t, n)]
+        kw = {"h0": randn(1, nh, n, dh, scale=0.1)}
+        scan = lm_layers.mamba2_chunked
+    worst = 0.0
+    with torch.inference_mode(), lm_layers.full_f32():
+        got = scan(*(a.to(dev) for a in args),
+                   **{k: v.to(dev) for k, v in kw.items()})
+        want = scan(*args, **kw)
+        torch.cuda.synchronize()
+        for what, g, w in zip(("output", "state"), got, want):
+            compare(g.cpu(), w, scan_tol, f"{cfg.name} scan {what}")
+            worst = max(worst, float(((g.cpu() - w).abs() / scan_tol(
+                w)).max()))
+    return worst
+
+
+def state_lm_run(name: str, h) -> dict:
+    """One recurrent or encoder-decoder LM at full width and depth on the
+    card (``h``: the launch bookkeeping of ``main``): its weights from
+    the seed (their bytes and the peak of drawing them), a prefill
+    (rwkv6 and zamba2: PREFILL_T tokens; whisper: its 1500 frames, drawn
+    from the seed, and WHISPER_T tokens) and a batch-4 decode step (the
+    recurrent families from the zero state; whisper's on a cross_kv that
+    ``lm.fill_cross_kv`` filled from batch-4 frames), each with its
+    launches by name and variant and its time; every layer with its
+    state against the CPU layer; ``serve_lm`` (whisper's with the
+    encoder's fill); for rwkv6 and zamba2 the continuous batcher."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import lm
+    dev = h.dev
+    cfg = get_config(name)
+    n_l, ne = cfg.n_layers, cfg.encoder_layers
+    audio = cfg.family == "audio"
+    sites = sum(lm.attn_flags(cfg))
+    # launches: flash at each attention (zamba2's sites; whisper's
+    # encoder layers, and twice a decoder layer), sparse_matmul three a
+    # pruned FFN (zamba2's sites; whisper's encoder and decoder layers)
+    flash = ne + 2 * n_l if audio else sites
+    mm_prefill = 3 * (ne + n_l) if audio else 3 * sites
+    mm_step = 3 * n_l if audio else 3 * sites
+    res = {"layers": n_l, "family": cfg.family, "encoder_layers": ne,
+           "attn_sites": sites}
+    t_tok = WHISPER_T if audio else PREFILL_T
+
+    def count(key, what, want, want_variants):
+        """``h.count`` (the counters since the reset, checked by name and
+        by variant), and the variants kept as ``<key>_variants``."""
+        res[f"{key}_variants"] = variant_str(dict(ops.VARIANT_LAUNCHES))
+        return h.count(what, want, want_variants)
+
+    def launched(key) -> str:
+        n = res[f"{key}_launches"]
+        return f"{n} by variant {res[f'{key}_variants']}" if n else "none"
+
+    print(f"[main] {name} ({cfg.family}): d_model {cfg.d_model}, "
+          + {"ssm": f"{cfg.n_heads} WKV heads of {cfg.head_dim}, d_ff "
+                    f"{cfg.d_ff} (channel-mix, dense)",
+             "hybrid": f"Mamba2 d_inner {cfg.ssm_expand * cfg.d_model}, "
+                       f"state {cfg.ssm_state}, {sites} shared-attention "
+                       f"sites ({cfg.n_heads} heads of {cfg.head_dim}, "
+                       f"window {cfg.attn_window}, FFN {cfg.d_ff} in "
+                       f"{cfg.sparsity.block_m} x {cfg.sparsity.block_n} "
+                       f"blocks)",
+             "audio": f"{ne} encoder layers over {cfg.encoder_seq} frames, "
+                      f"{cfg.n_heads} heads of {cfg.head_dim}, FFN "
+                      f"{cfg.d_ff} in {cfg.sparsity.block_m} x "
+                      f"{cfg.sparsity.block_n} blocks"}[cfg.family] +
+          f", vocab {cfg.vocab_size}; {n_l} layers, the published depth "
+          f"(no cut)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res["held_before_bytes"] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED))
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    res["param_bytes"] = param_bytes(params)
+    res["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["card_bytes"] = torch.cuda.get_device_properties(dev).total_memory
+    toks = torch.randint(0, cfg.vocab_size, (1, t_tok),
+                         generator=torch.Generator().manual_seed(
+                             SEED + 19)).to(dev)
+    frame_gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+
+    def draw_frames(b):
+        return torch.randn((b, cfg.encoder_seq, cfg.d_model), device=dev,
+                           generator=frame_gen).to(torch.bfloat16)
+
+    extra = {"frames": draw_frames(1)} if audio else {}
+
+    # the prompt in one forward
+    prefill = make_prefill_step(cfg)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    last = prefill(params, toks, **extra)
+    torch.cuda.synchronize()
+    res["prefill_first_s"] = time.perf_counter() - t0
+    what = f"{name} prefill " + (f"{cfg.encoder_seq} frames + {t_tok} "
+                                 f"tokens" if audio else f"T={t_tok}")
+    res["prefill_launches"] = count("prefill", 
+        what, {"flash_attention": flash, "sparse_matmul": mm_prefill},
+        {("flash_attention", "mma"): flash,
+         ("sparse_matmul", "mma"): mm_prefill} if flash else {})
+    if last.shape != (1, cfg.vocab_size) or not torch.isfinite(last).all():
+        raise AssertionError(f"{name} prefill: logits {tuple(last.shape)} "
+                             f"not finite (1, {cfg.vocab_size})")
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(params, toks, **extra)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    res["prefill_s_runs"] = runs
+    res["prefill_ms"] = sorted(runs)[1] * 1e3
+
+    # one decode step at batch 4 (whisper's on the encoder's fill), then
+    # three more timed
+    step_toks = torch.randint(0, cfg.vocab_size, (STEP_BATCH, 1),
+                              generator=torch.Generator().manual_seed(
+                                  SEED + 29)).to(dev)
+    cache = lm.init_cache(cfg, STEP_BATCH, 8, device=dev)
+    if audio:
+        ops.reset_launches()
+        with torch.inference_mode():
+            lm.fill_cross_kv(cfg, params, cache, draw_frames(STEP_BATCH))
+        torch.cuda.synchronize()
+        res["fill_launches"] = count("fill", 
+            f"{name} fill_cross_kv (batch {STEP_BATCH})",
+            {"flash_attention": ne, "sparse_matmul": 3 * ne},
+            {("flash_attention", "mma"): ne, ("sparse_matmul", "mma"): 3 * ne})
+        if not cache["cross_kv"].any():
+            raise AssertionError(f"{name}: cross_kv not filled")
+    ops.reset_launches()
+    with torch.inference_mode():
+        lg, _ = lm.decode_step(cfg, params, cache, step_toks, 0)
+    torch.cuda.synchronize()
+    res["decode_launches"] = count("decode", 
+        f"{name} decode step (batch {STEP_BATCH})", {"sparse_matmul": mm_step},
+        {("sparse_matmul", "gemv"): mm_step} if mm_step else {})
+    if lg.shape != (STEP_BATCH, 1, cfg.vocab_size) or \
+            not torch.isfinite(lg).all():
+        raise AssertionError(f"{name} decode step: logits not finite")
+    runs = []
+    with torch.inference_mode():
+        for i in range(1, 4):
+            t0 = time.perf_counter()
+            lm.decode_step(cfg, params, cache, step_toks, i)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+    res["step_ms"] = sorted(runs)[1] * 1e3
+    del cache, lg
+
+    # every layer with its state on the card's own input against the CPU
+    # layer (whisper: LARGE_CHECK_T frames and tokens)
+    ct = LARGE_CHECK_T
+    t0 = time.perf_counter()
+    res["layer_err"] = check_state_layers(
+        cfg, params, toks[:, :ct].cpu(),
+        extra["frames"][:, :ct] if audio else None, dev)
+    res["layer_check_s"] = time.perf_counter() - t0
+    res["scan_err"] = None if audio else check_scans(cfg, dev)
+    print(f"[main] {name}: weights {res['param_bytes'] / 2**30:.2f} GiB in "
+          f"{res['init_s']:.1f} s (init peak "
+          f"{res['init_peak_bytes'] / 2**30:.2f} GiB of "
+          f"{res['card_bytes'] / 2**30:.2f}, of it "
+          f"{res['held_before_bytes'] / 2**30:.2f} GiB held before); "
+          f"{what} launches {launched('prefill')}"
+          + (" (no hand-written kernel: the chunked WKV and the dense "
+             "projections are plain torch)" if cfg.family == "ssm" else "")
+          + f", {res['prefill_ms']:.3f} ms (median of 3, first "
+          f"{res['prefill_first_s']:.3f} s)"
+          + (f"; fill_cross_kv batch {STEP_BATCH} launches "
+             f"{launched('fill')}" if audio else "") +
+          f"; decode step batch {STEP_BATCH} launches "
+          f"{launched('decode')}, "
+          f"{res['step_ms']:.3f} ms "
+          f"(median of 3); every layer with its state on the card's own "
+          f"input within 1 bf16 ulp of the CPU layer (prefill T={ct} worst "
+          f"share {res['layer_err']['prefill']:.3f}, decode step 0 "
+          f"{res['layer_err']['decode']:.3f}; {res['layer_check_s']:.1f} s)"
+          + ("" if audio else f"; the scan alone at T={PREFILL_T} from a "
+             f"carried state within 1e-4 of max of the CPU's (worst share "
+             f"{res['scan_err']:.3f})"))
+
+    # serve_lm at full size: whisper's encoder fills cross_kv first (in
+    # prefill_s), the prompts stepped through the cache, greedy decoding
+    n_steps = STATE_SERVE["prompt_len"] + STATE_SERVE["gen_tokens"]
+    enc = {"flash_attention": ne, "sparse_matmul": 3 * ne}
+    want = {"sparse_matmul": n_steps * mm_step + enc["sparse_matmul"],
+            "flash_attention": enc["flash_attention"]}
+    want_var = {("sparse_matmul", "gemv"): n_steps * mm_step}
+    if audio:
+        want_var.update({("flash_attention", "mma"): ne,
+                         ("sparse_matmul", "mma"): 3 * ne})
+    ops.reset_launches()
+    sout = serve_lm(name, use_reduced=False, params=params,
+                    generator=torch.Generator(device=dev).manual_seed(SEED),
+                    record_logits=True, verbose=False, device=dev,
+                    **STATE_SERVE)
+    res["serve_launches"] = count("serve", 
+        f"{name} serve_lm ({n_steps} decode steps"
+        + (", the encoder's fill" if audio else "") + ")", want,
+        {k: v for k, v in want_var.items() if v})
+    slog = sout["logits"]
+    if slog.shape != (STATE_SERVE["batch"], n_steps, cfg.vocab_size) or \
+            not torch.isfinite(slog).all():
+        raise AssertionError(f"{name} serve_lm: logits {tuple(slog.shape)} "
+                             f"not finite")
+    gen_from = STATE_SERVE["prompt_len"] - 1
+    if not np.array_equal(sout["tokens"], slog[:, gen_from:-1].argmax(
+            -1).numpy()):
+        raise AssertionError(f"{name} serve_lm: tokens are not the argmax")
+    res["serve"] = {k: sout[k] for k in ("prefill_s", "decode_s",
+                                         "tokens_per_s")}
+    print(f"[main] {name} serve_lm batch {STATE_SERVE['batch']}, prompt "
+          f"{STATE_SERVE['prompt_len']}, {STATE_SERVE['gen_tokens']} tokens"
+          + (f" (the encoder over {cfg.encoder_seq} frames a row fills "
+             f"cross_kv first)" if audio else "") +
+          f": launches {launched('serve')}; TTFT (the "
+          f"prompts' {STATE_SERVE['prompt_len']} steps"
+          + (", the encoder" if audio else "") + " and the first argmax) "
+          f"{sout['prefill_s']:.4f} s, decode {sout['decode_s']:.4f} s, "
+          f"{sout['tokens_per_s']:.2f} tok/s; logits finite, tokens their "
+          f"argmax")
+    del sout, slog
+    if not audio:
+        res["batcher"] = batcher_phase(name, cfg, params, n_l, h)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def large_timings(flash_inputs: dict, mm_inputs: dict) -> tuple[list, list]:
     """The new kernel shapes timed beside their plain versions, their
-    bound and their library call: flash at D 128 (SDPA on the same
-    expanded tensors; a cache chunk takes an explicit causal mask), the
-    sparse matmul at 128 x 128 blocks (``torch.matmul`` on the densified
-    bf16 weight)."""
+    bound and their library call: flash (SDPA on the same expanded
+    tensors: ``is_causal`` for a causal prefill, no mask for non-causal
+    attention, an explicit mask for a cache chunk or a window), the
+    sparse matmul (``torch.matmul`` on the densified bf16 weight)."""
     from repro_torch.core.sparsity import densify
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import sparse_matmul as sm
@@ -1226,31 +1691,40 @@ def large_timings(flash_inputs: dict, mm_inputs: dict) -> tuple[list, list]:
         tk = k.shape[1]
         qt, kt, vt = (t.permute(0, 2, 1, 3) for t in (q, k, v))
         off = kw.get("q_offset", 0)
-        if off == 0 and tq == tk:
-            def lib():
-                return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True)
-        else:
-            mask = (torch.arange(tk, device=q.device)[None, :] <=
-                    torch.arange(off, off + tq, device=q.device)[:, None])
+        causal, window = kw.get("causal", True), kw.get("window", 0)
+        qpos = torch.arange(off, off + tq, device=q.device)[:, None]
+        kpos = torch.arange(tk, device=q.device)[None, :]
+        # a window no query reaches past masks nothing
+        reach = window if window and window < off + tq else 0
+        mask = None
+        if causal and (off or tq != tk or reach):
+            mask = kpos <= qpos
+        if reach:
+            near = kpos > qpos - reach
+            mask = near if mask is None else mask & near
 
-            def lib():
-                return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      attn_mask=mask)
+        def lib():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None)
         ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
         plain = time_ms(lambda: fa.flash_attention_torch(q, k, v, **kw),
                         reps=2, rounds=2)
         lib_ms = time_ms(lib)
         t_b, t_o = bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
-                         b * flash_ops(tq, tk, h, d, True, 0, off),
+                         b * flash_ops(tq, tk, h, d, causal, reach, off),
                          torch.bfloat16)
         flash_rows.append({"what": what, "shape": [b, tq, tk, h, d],
-                           "q_offset": off, "variant": fa.variant(q.dtype, d),
+                           "q_offset": off, "causal": causal,
+                           "window": window,
+                           "variant": fa.variant(q.dtype, d),
                            "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
                            "bound_ms": max(t_b, t_o),
                            "bound_by": bound_by(t_b, t_o)})
+        masks = ("causal" if causal else "not causal") + (
+            f", window {window}" if window else "")
         print(f"[time] flash_attention {what} (B {b}, Tq {tq}, Tk {tk}, H "
-              f"{h}, D {d}, bf16, causal, {flash_rows[-1]['variant']}): "
+              f"{h}, D {d}, bf16, {masks}, {flash_rows[-1]['variant']}): "
               f"kernel {ms * 1e3:.3f} us, plain {plain * 1e3:.3f} us, SDPA "
               f"{lib_ms * 1e3:.3f} us, bound {max(t_b, t_o) * 1e3:.3f} us "
               f"({bound_by(t_b, t_o)})")
@@ -1705,6 +2179,77 @@ def main() -> int:
           f"bf16 ulp; checks by variant "
           f"{ {f'{n}/{v}': c for (n, v), c in checked_variants.items()} }")
     del large_w
+
+    # the recurrent and encoder-decoder LMs: flash at zamba2's D 112 (its
+    # T = 2048 prefill under its window of 4096, a window shorter than T,
+    # a cache chunk with q_offset, f32) and at whisper's three shapes (D
+    # 64: the encoder's non-causal 1500 x 1500, whose keys end 28 into a
+    # tile; the decoder's causal 448; cross-attention 448 x 1500); the
+    # sparse matmul at whisper's 64 x 64 FFN blocks (M 1-4 gemv, 448 and
+    # 1500 mma) and zamba2's 128 x 128 ones (M 1-4, 2048)
+    zc, wc = get_config(ZAMBA), get_config(WHISPER)
+    zs = (zc.n_heads, zc.head_dim, torch.bfloat16, zc.kv_heads)
+    ws = (wc.n_heads, wc.head_dim, torch.bfloat16, wc.kv_heads)
+    te = wc.encoder_seq
+    state_flash = [
+        (f"{ZAMBA} T={PREFILL_T} window={zc.attn_window}",
+         (1, PREFILL_T, PREFILL_T) + zs,
+         dict(causal=True, window=zc.attn_window)),
+        (f"{ZAMBA} heads T=1000 window=300", (1, 1000, 1000) + zs,
+         dict(causal=True, window=300)),
+        (f"{ZAMBA} heads chunk Tq=256 q_offset=768 Tk=1024 window=512",
+         (1, 256, 1024) + zs, dict(causal=True, window=512, q_offset=768)),
+        ("T=130 D=112 window=50 f32", (1, 130, 130, 2, 112, torch.float32,
+                                       2), dict(causal=True, window=50)),
+        (f"{WHISPER} encoder {te}x{te}", (1, te, te) + ws,
+         dict(causal=False)),
+        (f"{WHISPER} decoder T={WHISPER_T}", (1, WHISPER_T, WHISPER_T) + ws,
+         dict(causal=True)),
+        (f"{WHISPER} cross {WHISPER_T}x{te}", (1, WHISPER_T, te) + ws,
+         dict(causal=False)),
+    ]
+    timed_state_flash = (f"{ZAMBA} T=", WHISPER)
+    state_flash_err, state_flash_inputs = 0.0, {}
+    for what, shape, kw in state_flash:
+        q, k, v = qkv(*shape)
+        var = fa.variant(q.dtype, q.shape[-1])
+        if var != ("mma" if q.dtype == torch.bfloat16 else "simt"):
+            raise AssertionError(f"flash_attention {what}: variant {var}")
+        got = launch_checked("flash_attention", var,
+                             lambda: fa.flash_attention(q, k, v, **kw), what)
+        want = fa.flash_attention_torch(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = bf16_tol if q.dtype == torch.bfloat16 else f32_tol
+        state_flash_err = max(state_flash_err, compare(
+            got, want, tol, f"flash_attention {what} ({var})"))
+        if what.startswith(timed_state_flash):   # timed in phase 5
+            state_flash_inputs[what] = (q, k, v, kw)
+    flash_err = max(flash_err, state_flash_err)
+    print(f"[check] flash_attention at D 112 ({ZAMBA}) and at {WHISPER}'s "
+          f"encoder, decoder and cross shapes: {[c[0] for c in state_flash]}"
+          f", max |err| {state_flash_err:.3e} within 1 bf16 ulp / 1e-5 "
+          f"relative")
+    state_w = large_ffn_weights(dev, SEED + 31, names=(WHISPER, ZAMBA))
+    state_mm_err, state_mm_inputs = 0.0, {}
+    for (name, w), sw in state_w.items():
+        for m in STATE_MM_M[name]:
+            x = randn((m, sw.d_in))
+            if sm.variant(x.dtype, m, *sw.vals.shape[2:]) != (
+                    "gemv" if m <= sm.SIMT_MAX_M else "mma"):
+                raise AssertionError(f"sparse_matmul {name} {w} M={m}: "
+                                     f"variant")
+            state_mm_err = max(state_mm_err, check_mm(
+                f"{name} {w} M={m}", x, sw, bf16_tol))
+            if m == STEP_BATCH or m > sm.SIMT_MAX_M:   # timed in phase 5
+                state_mm_inputs[(name, w, m)] = (x, sw)
+    mm_err = max(mm_err, state_mm_err)
+    print(f"[check] sparse_matmul at {WHISPER}'s 64x64 and {ZAMBA}'s 128x128 "
+          f"FFN blocks: "
+          f"{ {f'{n} {w}': tuple(sw.vals.shape) for (n, w), sw in state_w.items()} }"
+          f" at M={STATE_MM_M}, bf16, max |err| {state_mm_err:.3e} within 1 "
+          f"bf16 ulp; checks by variant "
+          f"{ {f'{n}/{v}': c for (n, v), c in checked_variants.items()} }")
+    del state_w
 
     # stored weights: int8 codes with their scale (the int8 store) at every
     # main-path shape through the tensor-core variants, the classifier
@@ -2500,6 +3045,15 @@ def main() -> int:
         moe_main[name]["phase_s"] = time.perf_counter() - t0
         print(f"[main] {name}: {moe_main[name]['phase_s']:.1f} s")
     batcher_main[GRANITE_MOE] = moe_main[GRANITE_MOE].pop("batcher")
+    # the recurrent and encoder-decoder LMs at full width, one at a time
+    state_main = {}
+    for name in STATE_LMS:
+        t0 = time.perf_counter()
+        state_main[name] = state_lm_run(name, lm_h)
+        state_main[name]["phase_s"] = time.perf_counter() - t0
+        print(f"[main] {name}: {state_main[name]['phase_s']:.1f} s")
+    for name in (RWKV, ZAMBA):
+        batcher_main[name] = state_main[name].pop("batcher")
 
     # -- 5. timings at the main-path shapes -------------------------------
     rows = []
@@ -3027,6 +3581,43 @@ def main() -> int:
                f"; serve_lm TTFT {r['serve']['prefill_s']:.4f} s, decode_s "
                f"{r['serve']['decode_s']:.4f}, "
                f"{r['serve']['tokens_per_s']:.2f} tok/s"))
+    # the recurrent and encoder-decoder LMs: flash at zamba2's D 112 and
+    # whisper's shapes, the sparse matmul at their FFN blocks, each beside
+    # its plain version, bound and library call; then each model's prefill
+    # and decode-step latency with its kernels' share, and serve_lm
+    state_flash_rows, state_mm_rows = large_timings(state_flash_inputs,
+                                                    state_mm_inputs)
+    del state_flash_inputs, state_mm_inputs
+    t_fl = {r["what"]: r["ms"] for r in state_flash_rows}
+    t_mm = {(r["arch"], r["weight"], r["M"]): r["ms"] for r in state_mm_rows}
+    for name, r in state_main.items():
+        if name == ZAMBA:
+            sites = r["attn_sites"]
+            r["prefill_kernels_ms"] = {
+                "flash_attention": sites * t_fl[
+                    f"{ZAMBA} T={PREFILL_T} window={zc.attn_window}"],
+                "sparse_matmul": sites * (2 * t_mm[(ZAMBA, "w1", PREFILL_T)]
+                                          + t_mm[(ZAMBA, "w2", PREFILL_T)])}
+        elif name == WHISPER:
+            n, ne = r["layers"], r["encoder_layers"]
+            r["prefill_kernels_ms"] = {
+                "flash_attention": ne * t_fl[f"{WHISPER} encoder {te}x{te}"]
+                + n * (t_fl[f"{WHISPER} decoder T={WHISPER_T}"]
+                       + t_fl[f"{WHISPER} cross {WHISPER_T}x{te}"]),
+                "sparse_matmul": ne * (2 * t_mm[(WHISPER, "w1", te)]
+                                       + t_mm[(WHISPER, "w2", te)])
+                + n * (2 * t_mm[(WHISPER, "w1", WHISPER_T)]
+                       + t_mm[(WHISPER, "w2", WHISPER_T)])}
+        else:
+            r["prefill_kernels_ms"] = {}
+        print(f"[time] {name} ({r['layers']} layers) prefill: "
+              f"{r['prefill_ms']:.3f} ms (median of 3); kernels: " +
+              (", ".join(f"{k} {v:.3f} ms" for k, v in
+                         r["prefill_kernels_ms"].items()) or "none") +
+              f"; decode step batch {STEP_BATCH} {r['step_ms']:.3f} ms; "
+              f"serve_lm TTFT {r['serve']['prefill_s']:.4f} s, decode_s "
+              f"{r['serve']['decode_s']:.4f}, "
+              f"{r['serve']['tokens_per_s']:.2f} tok/s")
     for name, b in batcher_main.items():
         st = b["stats"]
         print(f"[time] {name} ContinuousBatcher: {st['throughput_tok_s']:.2f}"
@@ -3647,9 +4238,11 @@ def main() -> int:
         "param_bytes_stored": param_bytes, "fc_int8": fc8,
         "depthwise_layers": dw_rows, "smollm": lm_main,
         "large_lms": large_main, "batcher": batcher_main,
-        "moe_vlm": moe_main,
+        "moe_vlm": moe_main, "state_lms": state_main,
         "large_lm_kernels": {"flash": large_flash_rows,
                              "sparse_matmul": large_mm_rows},
+        "state_lm_kernels": {"flash": state_flash_rows,
+                             "sparse_matmul": state_mm_rows},
         "throughput": {f"{a}/{q}": dict(row, continuous={
             f"mb{mb}/{'streams' if st else 'one_stream'}": c
             for (mb, st), c in row["continuous"].items()})
@@ -3702,13 +4295,16 @@ def main() -> int:
          "int8": fc8,
          "smollm": lm_mm_rows,
          "large_lms": large_mm_rows,
+         "state_lms": state_mm_rows,
          "note": "ms, plain_ms, bound_ms, library_ms: the ResNet-50 "
                  "classifier (M=1 f32, gemv); smollm: per call at "
                  "SmolLM-360M's FFN shapes (M=4 gemv, M=2048 mma), library "
                  "torch.matmul on the densified bf16 weight; large_lms: "
                  "the same at the 128x128 FFN blocks of Qwen3-32B, "
                  "Mistral-Nemo-12B, Granite-20B and llava-next-mistral-7b "
-                 "(M=4 gemv, M=2048 mma); "
+                 "(M=4 gemv, M=2048 mma); state_lms: whisper-large-v3's "
+                 "64x64 blocks (M=4 gemv, M=448 and 1500 mma) and "
+                 "zamba2-7b's 128x128 (M=4, 2048); "
                  "variants: launches by variant over the main paths; "
                  "ptxas, hmma: per kernel function"},
         {"name": "dw_pw", "route": "cuda",
@@ -3761,6 +4357,7 @@ def main() -> int:
          "ms": flash_ms, "plain_ms": flash_plain, "bound_ms": flash_bound,
          "bound_by": flash_by, "library_ms": flash_lib,
          "large_lms": large_flash_rows,
+         "state_lms": state_flash_rows,
          "note": f"ms, plain_ms, bound_ms, library_ms: one layer of a "
                  f"{LM} prefill (B=1, T={PREFILL_T}, H={n_h}, D={d_h}, "
                  f"bf16, causal; the mma variant); library: "
@@ -3769,7 +4366,11 @@ def main() -> int:
                  f"of Qwen3-32B, Mistral-Nemo-12B, Granite-20B, "
                  f"granite-moe-3b-a800m (D=64), moonshot-v1-16b-a3b and "
                  f"llava-next-mistral-7b, and at Qwen3-32B's last cache "
-                 f"chunk (SDPA with a causal mask there); variants: "
+                 f"chunk (SDPA with a causal mask there); state_lms: "
+                 f"zamba2-7b's D=112 T={PREFILL_T} prefill under its "
+                 f"window and whisper-large-v3's encoder (non-causal "
+                 f"1500x1500), decoder (causal 448) and cross (448x1500) "
+                 f"shapes; variants: "
                  f"launches by variant over the main paths; ptxas, hmma: "
                  f"per kernel function"},
     ]

@@ -3,10 +3,8 @@ reference's ``src/repro/configs/base.py``, every field and helper).
 
 Every architecture the reference registers is a ``ModelConfig`` here,
 with the reference's values; every input shape of its (arch x shape)
-grid is a ``ShapeConfig``. The SSM, hybrid and encoder-decoder fields
-are data: the families that read them are not ported yet,
-and their model code raises where it would run (``models/lm.py``),
-naming the ROADMAP item in :data:`UNPORTED_LM_FAMILIES`."""
+grid is a ``ShapeConfig``. Every LM family has its model code in
+``models/lm.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -174,14 +172,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     )
 
 
-#: the LM families whose model code is not ported yet, with the ROADMAP
-#: item that ports each (``models/lm.py`` raises naming it)
-_LM_SIDE = "Queue 1, the rest of the LM side"
-UNPORTED_LM_FAMILIES = {
-    "ssm": f"{_LM_SIDE} (item 8d, rwkv6, SSM)",
-    "hybrid": f"{_LM_SIDE} (item 8d, zamba2, hybrid)",
-    "audio": f"{_LM_SIDE} (item 8d, whisper, encoder-decoder)",
-}
+#: the LM families whose model code is not ported yet, each with the
+#: ROADMAP item that ports it: none (``models/lm.py::BLOCK_KINDS`` holds
+#: every LM family of the registry)
+UNPORTED_LM_FAMILIES: dict[str, str] = {}
 
 _REGISTRY: dict[str, ModelConfig] = {}
 

@@ -32,9 +32,11 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 BLOCK_Q = 64        # the CUDA kernel's query tile
 BLOCK_K = 64        # and key tile
-#: SmolLM-360M's 64; the reference kernel tests' 32; Mistral-Nemo-12B,
-#: Qwen3-32B and Granite-20B's 128
-HEAD_DIMS = (32, 64, 128)
+#: SmolLM-360M's and whisper-large-v3's 64; the reference kernel tests'
+#: 32; zamba2-7b's 112; Mistral-Nemo-12B, Qwen3-32B and Granite-20B's 128.
+#: The Pallas kernel's blocks span the whole head, so it takes any D; the
+#: wrapper pads none (a copy the plain version does not make)
+HEAD_DIMS = (32, 64, 112, 128)
 
 
 def variant(dtype: torch.dtype, d: int) -> str:

@@ -167,9 +167,9 @@ def serve(cfg: ServeConfig) -> dict:
     mode the config names: ``latency`` (batch 1, p50/p99), or
     ``throughput`` through the fault-tolerant tier (``tier`` / ``procs``
     / ``hosts``), the continuous (``continuous``) or the one-shot
-    batched executor. An LM arch runs ``serve_lm`` (reduced size, as the
-    reference's dispatch does); an LM arch that is not ported raises
-    ``NotImplementedError``."""
+    batched executor. An LM arch (every family: dense, MoE, VLM, rwkv6,
+    zamba2, whisper) runs ``serve_lm`` (reduced size, as the reference's
+    dispatch does)."""
     if get_config(cfg.arch).family != "cnn":
         return serve_lm(cfg.arch, batch=cfg.batch, seed=cfg.seed,
                         verbose=cfg.verbose, device=cfg.device)
@@ -211,7 +211,7 @@ def _sync(dev: torch.device) -> None:
 def serve_lm(arch: str, *, batch: int = 4, prompt_len: int = 32,
              gen_tokens: int = 16, max_seq: int = 128,
              use_reduced: bool = True, seed: int = 0, verbose: bool = True,
-             prompts=None, params=None, generator=None,
+             prompts=None, params=None, generator=None, frames=None,
              record_logits: bool = False, device="cuda") -> dict:
     """Step a batch of prompts through the decode path (filling the KV
     cache), then decode ``gen_tokens`` greedily. Returns tokens and
@@ -229,7 +229,16 @@ def serve_lm(arch: str, *, batch: int = 4, prompt_len: int = 32,
     capacity a step), as the reference's ``serve_lm`` does. A VLM is
     served on its tokens alone: the reference draws patch embeddings
     here, but its decode step never reads them, so the port draws
-    none."""
+    none.
+
+    Whisper (the audio family): ``frames`` (B, Te, d), by default drawn
+    from the generator after the prompts (bf16, standard normal); the
+    encoder runs over them and fills the cache's ``cross_kv``
+    (``lm.fill_cross_kv``) before the prompt, inside ``prefill_s``. A
+    deliberate difference: the reference draws frames here too but runs
+    no encoder, so its decode attends over a zero ``cross_kv`` and its
+    tokens come from zeros; the port's come from the encoder (ROADMAP
+    Queue 3 item 4)."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if use_reduced:
@@ -247,11 +256,16 @@ def serve_lm(arch: str, *, batch: int = 4, prompt_len: int = 32,
         raise ValueError(f"prompt_len {prompt_len}, gen_tokens {gen_tokens}: "
                          f"need >= 1 each, and their sum <= max_seq "
                          f"{max_seq}")
+    if cfg.family == "audio" and frames is None:
+        frames = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                             generator=gen, device=dev).to(torch.bfloat16)
     cache = lm.init_cache(cfg, batch, max_seq, device=dev)
     steps = []
 
     _sync(dev)
     t0 = time.perf_counter()
+    if cfg.family == "audio":
+        lm.fill_cross_kv(cfg, params, cache, frames)
     logits = None
     for i in range(prompt_len):
         logits, cache = lm.decode_step(cfg, params, cache,

@@ -14,7 +14,8 @@ def make_prefill_step(cfg):
     (f32): one forward over the whole prompt, its attention through the
     flash kernel. ``extra``: ``patches=(B, Vt, d)`` for a VLM, in front
     of the tokens (the reference's prefill takes ``T - vision_tokens``
-    tokens)."""
+    tokens); ``frames=(B, Te, d)`` for whisper, which its encoder runs
+    over and its decoder attends to."""
     def prefill(params, tokens, **extra):
         logits, _ = lm.forward(cfg, params, tokens, extra=extra or None,
                                logits_mode="last")

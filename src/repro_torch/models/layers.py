@@ -1,5 +1,6 @@
-"""Weight containers, initializers and the dense LM's layers
-(counterpart of the reference's ``src/repro/models/layers.py``).
+"""Weight containers, initializers and the LM layers (counterpart of
+the reference's ``src/repro/models/layers.py``): attention, the FFN,
+MoE, cross-attention, Mamba2 and RWKV6.
 
 The LM layers keep the reference's dtype boundaries: ``fdot`` upcasts
 both operands to f32, ``rms_norm`` and ``rope`` work in f32 and round
@@ -12,7 +13,11 @@ attention, and a multi-token step into a KV cache (the reference's
 Pallas flash kernel computes (p kept in f32), not what its XLA
 ``blockwise_attention`` computes (p rounded to bf16). A one-token step
 takes one cache position for the batch or one a row (continuous
-batching, ``runtime/scheduler.py``).
+batching, ``runtime/scheduler.py``). Cross-attention goes through the
+flash kernel with causal=False. The RWKV6 and Mamba2 scans (chunked,
+and their one-token steps) are plain torch in f32, as the reference
+computes them in plain ``jnp`` outside any Pallas kernel; their
+projections are dense ``linear`` products.
 """
 from __future__ import annotations
 
@@ -143,11 +148,11 @@ def accum_dtype(dtype):
         _ACCUM["dtype"] = prev
 
 
-def fdot(expr: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """einsum with both operands upcast to the accumulation dtype (f32:
+def fdot(expr: str, *operands: torch.Tensor) -> torch.Tensor:
+    """einsum with every operand upcast to the accumulation dtype (f32:
     the reference's ``fdot`` at its default); an f32 result."""
     ad = _ACCUM["dtype"]
-    return torch.einsum(expr, a.to(ad), b.to(ad)).float()
+    return torch.einsum(expr, *(a.to(ad) for a in operands)).float()
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -499,3 +504,302 @@ def moe(p: dict, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25,
     out, aux = _moe_groups(p, cfg, x.reshape(g, b * t // g, d),
                            capacity_factor)
     return out.reshape(b, t, d), aux.mean()
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (the encoder-decoder family)
+# ---------------------------------------------------------------------------
+
+def cross_kv(p: dict, enc: torch.Tensor):
+    """The cross-attention keys and values of encoder output enc (B, Te,
+    d): enc @ wk and enc @ wv, each rounded to enc's dtype, no rope (as
+    the reference's ``cross_attention`` computes them)."""
+    return (fdot("btd,dhk->bthk", enc, p["wk"]).to(enc.dtype),
+            fdot("btd,dhk->bthk", enc, p["wv"]).to(enc.dtype))
+
+
+def cross_attention(p: dict, cfg, x: torch.Tensor,
+                    enc: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention over encoder output enc (B, Te, d):
+    every query sees every encoder row, through ``ops.flash_attention``
+    with causal=False (Tq != Tk)."""
+    h, kv = cfg.n_heads, cfg.kv_heads
+    q = fdot("btd,dhk->bthk", x, p["wq"]).to(x.dtype)
+    k, v = cross_kv(p, enc)
+    o = kops.flash_attention(q, _repeat_kv(k, h // kv),
+                             _repeat_kv(v, h // kv), causal=False)
+    return fdot("bthk,hkd->btd", o, p["wo"]).to(x.dtype)
+
+
+def cross_decode(p: dict, cfg, x: torch.Tensor, ck: torch.Tensor,
+                 cv: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention against the cached encoder keys and values
+    ck, cv (B, Te, KV, Dh), in plain torch (the reference's
+    ``_cross_decode``: scores in f32, the softmax rounded to bf16 before
+    the PV product)."""
+    h, kv, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    q = fdot("btd,dhk->bthk", x, p["wq"]).to(x.dtype)
+    k, v = _repeat_kv(ck, h // kv), _repeat_kv(cv, h // kv)
+    s = fdot("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
+    o = fdot("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1).to(v.dtype),
+             v).to(x.dtype)
+    return fdot("bthk,hkd->btd", o, p["wo"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD, chunked scan) — h_t = exp(a dt) h_{t-1} + dt * B_t x_t
+# ---------------------------------------------------------------------------
+
+def _mamba_heads(cfg) -> tuple[int, int]:
+    d_in = cfg.ssm_expand * cfg.d_model
+    nh = d_in // cfg.head_dim if d_in % cfg.head_dim == 0 else cfg.n_heads
+    return nh, d_in // nh
+
+
+def init_mamba2(generator: torch.Generator, cfg,
+                dtype=torch.bfloat16) -> dict:
+    """The reference's Mamba2 mixer: separate in-projections for z, the
+    conv channels (x, B, C) and dt, the depthwise conv taps, f32
+    ``A_log`` (log 1..H), ``D`` (ones) and ``dt_bias`` (zeros), the gated
+    norm and the out-projection; drawn in the order of its leaves."""
+    d = cfg.d_model
+    d_in, n = cfg.ssm_expand * d, cfg.ssm_state
+    nh, _ = _mamba_heads(cfg)
+    dev = generator.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "in_z": dense_init(generator, (d, d_in), d, dtype),
+        "in_xbc": dense_init(generator, (d, d_in + 2 * n), d, dtype),
+        "in_dt": dense_init(generator, (d, nh), d, dtype),
+        "conv_w": dense_init(generator, (cfg.ssm_conv, d_in + 2 * n),
+                             cfg.ssm_conv, dtype),
+        "A_log": torch.log(torch.arange(1, nh + 1, **f32)),
+        "D": torch.ones((nh,), **f32),
+        "dt_bias": torch.zeros((nh,), **f32),
+        "norm": torch.ones((d_in,), dtype=dtype, device=dev),
+        "out_proj": dense_init(generator, (d_in, d), d_in, dtype),
+    }
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
+                 state: Optional[torch.Tensor]):
+    """Depthwise causal conv1d. xbc: (B, T, C), w: (W, C), state: (B, W-1,
+    C) or None (zeros). Summed tap by tap in xbc's dtype, each product
+    and partial sum rounded, as the reference sums them (its Python
+    ``sum`` over bf16 products). Returns (out, the new state)."""
+    width, t = w.shape[0], xbc.shape[1]
+    pad = xbc.new_zeros((xbc.shape[0], width - 1, xbc.shape[2])) \
+        if state is None else state.to(xbc.dtype)
+    xp = torch.cat([pad, xbc], dim=1)
+    out = xp[:, :t] * w[0]
+    for i in range(1, width):
+        out = out + xp[:, i:i + t] * w[i]
+    return out, (xp[:, -(width - 1):] if width > 1 else pad)
+
+
+def mamba2_chunked(x_h, dt, a_log, B, C, *, chunk: int = 128, h0=None):
+    """Chunked SSD scan, in f32 (the reference's formulation).
+
+    x_h: (B, T, H, Dh); dt: (B, T, H) > 0; a_log: (H,) (A = -exp); B, C:
+    (B, T, N); h0: (B, H, N, Dh) or None (zeros). Returns (y (B, T, H,
+    Dh), h_last (B, H, N, Dh)). Within a chunk the decay exponent is
+    masked to -1e9 above the diagonal (not the exponential: exp of the
+    growing exponent would overflow); across chunks the state is carried
+    chunk by chunk."""
+    b, t, h, dh = x_h.shape
+    n = B.shape[-1]
+    nc = -(-t // chunk)
+    pad = nc * chunk - t
+    x_h = F.pad(x_h, (0, 0, 0, 0, 0, pad)).float()
+    dt = F.pad(dt, (0, 0, 0, pad))
+    Bm = F.pad(B, (0, 0, 0, pad)).float()
+    Cm = F.pad(C, (0, 0, 0, pad)).float()
+    la = dt * -torch.exp(a_log)[None, None, :]              # log decay a step
+    xc = x_h.reshape(b, nc, chunk, h, dh)
+    dtc = dt.reshape(b, nc, chunk, h)
+    Bc = Bm.reshape(b, nc, chunk, n)
+    Cc = Cm.reshape(b, nc, chunk, n)
+    cum = torch.cumsum(la.reshape(b, nc, chunk, h), dim=2)  # (B, nc, L, H)
+    # intra-chunk: y[t] += C_t . sum_{s<=t} exp(cum_t - cum_s) dt_s B_s x_s
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B, nc, L, L, H)
+    below = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                  device=x_h.device))
+    decay = torch.exp(torch.where(below[None, None, :, :, None], seg, -1e9))
+    cb = fdot("bctn,bcsn->bcts", Cc, Bc)
+    att = cb[..., None] * decay * dtc[:, :, None, :, :]
+    y = fdot("bctsh,bcshd->bcthd", att, xc)
+    # chunk states: h_c = sum_s exp(cum_L - cum_s) dt_s B_s x_s
+    dec_end = torch.exp(cum[:, :, -1:, :] - cum)
+    states = fdot("bcsn,bcsh,bcshd->bchnd", Bc, dec_end * dtc, xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])               # (B, nc, H)
+    hprev = x_h.new_zeros((b, h, n, dh)) if h0 is None else h0.float()
+    starts = []
+    for c in range(nc):
+        starts.append(hprev)
+        hprev = hprev * chunk_decay[:, c, :, None, None] + states[:, c]
+    y = y + fdot("bctn,bcth,bchnd->bcthd", Cc, torch.exp(cum),
+                 torch.stack(starts, 1))
+    return y.reshape(b, nc * chunk, h, dh)[:, :t], hprev
+
+
+def mamba2_forward(p: dict, cfg, x: torch.Tensor, *, state=None,
+                   chunk: int = 128):
+    """The Mamba2 mixer. state: None (zeros; a prefill) or {"conv": (B,
+    W-1, C), "ssm": (B, H, N, Dh) f32}. One token with a state takes the
+    recurrent step, more tokens the chunked scan from the state. Returns
+    (y, new_state)."""
+    b, t, d = x.shape
+    nh, dh = _mamba_heads(cfg)
+    d_in, n = cfg.ssm_expand * d, cfg.ssm_state
+    z = linear(x, p["in_z"])
+    xbc, new_conv = _causal_conv(linear(x, p["in_xbc"]), p["conv_w"],
+                                 None if state is None else state["conv"])
+    xbc = F.silu(xbc.float()).to(x.dtype)
+    x_h = xbc[..., :d_in].reshape(b, t, nh, dh)
+    Bm, Cm = xbc[..., d_in:d_in + n], xbc[..., d_in + n:]
+    dt = F.softplus(linear(x, p["in_dt"]).float() + p["dt_bias"])
+    if state is not None and t == 1:
+        # the recurrent step
+        dt1 = dt[:, 0]                                       # (B, H)
+        decay = torch.exp(dt1 * -torch.exp(p["A_log"])[None])
+        upd = fdot("bn,bh,bhd->bhnd", Bm[:, 0], dt1, x_h[:, 0])
+        hT = state["ssm"] * decay[:, :, None, None] + upd
+        y = fdot("bn,bhnd->bhd", Cm[:, 0], hT)[:, None]      # (B, 1, H, Dh)
+    else:
+        y, hT = mamba2_chunked(x_h, dt, p["A_log"], Bm, Cm, chunk=chunk,
+                               h0=None if state is None else state["ssm"])
+    y = y + x_h.float() * p["D"][None, None, :, None]
+    y = y.reshape(b, t, d_in).to(x.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm"], cfg.norm_eps)
+    return linear(y, p["out_proj"]), {"conv": new_conv, "ssm": hT}
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch) — data-dependent per-channel decay, chunked WKV
+# ---------------------------------------------------------------------------
+
+def init_rwkv6(generator: torch.Generator, cfg,
+               dtype=torch.bfloat16) -> dict:
+    """The reference's RWKV6 time-mix: f32 ``t_mix`` (N(0, 0.02^2), five
+    mixes), the r, k, v, g, o projections, the f32 decay LoRA of width
+    max(d // 16, 32) with its bias (-6), the f32 ``bonus_u`` (zeros) and
+    the output norm; drawn in the order of its leaves."""
+    d = cfg.d_model
+    lora = max(d // 16, 32)
+    dev = generator.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    p = {"t_mix": torch.randn((5, d), generator=generator, **f32) * 0.02}
+    for name in ("wr", "wk", "wv", "wg", "wo"):
+        p[name] = dense_init(generator, (d, d), d, dtype)
+    p["decay_w1"] = dense_init(generator, (d, lora), d, torch.float32)
+    p["decay_w2"] = dense_init(generator, (lora, d), lora, torch.float32)
+    p["decay_bias"] = torch.full((d,), -6.0, **f32)
+    p["bonus_u"] = torch.zeros((cfg.n_heads, cfg.head_dim), **f32)
+    p["ln_x"] = torch.ones((d,), dtype=dtype, device=dev)
+    return p
+
+
+def rwkv6_wkv_chunked(r, k, v, logw, u, *, chunk: int = 64, S0=None):
+    """Chunked WKV, in f32 (the reference's formulation, exp(cum - logw)
+    and exp(-cum) as written). r, k, v, logw: (B, T, H, Dh), logw < 0
+    the per-key-channel log decay; u: (H, Dh) bonus; S0: (B, H, Dk, Dv)
+    or None (zeros). o_t = r_t . (S_{t-1} + diag(u) k_t v_t^T), S_t =
+    diag(w_t) S_{t-1} + k_t v_t^T. Returns (o (B, T, H, Dh), S_T)."""
+    b, t, h, dh = r.shape
+    nc = -(-t // chunk)
+    pad = nc * chunk - t
+
+    def chunks(a):
+        return F.pad(a, (0, 0, 0, 0, 0, pad)).float().reshape(
+            b, nc, chunk, h, dh)
+
+    r, k, v, logw = (chunks(a) for a in (r, k, v, logw))
+    cum = torch.cumsum(logw, dim=2)                          # (B, nc, L, H, Dh)
+    # intra-chunk: o_t += sum_{s<t} (r_t exp(cum_{t-1} - cum_s)) . k_s v_s
+    ri = r * torch.exp(cum - logw)
+    ki = k * torch.exp(-cum)
+    att = fdot("bclhd,bcmhd->bchlm", ri, ki)                 # (B, nc, H, L, L)
+    strict = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=r.device), diagonal=-1)
+    att = torch.where(strict[None, None, None], att, 0.0)
+    o = fdot("bchlm,bcmhd->bclhd", att, v)
+    # the bonus: (r_t . (u * k_t)) v_t
+    o = o + fdot("bclhd,bclhd->bclh", r, u[None, None, None] * k)[..., None] \
+        * v
+    # chunk states, then the carry from chunk to chunk
+    states = fdot("bclhd,bclhe->bchde",
+                  k * torch.exp(cum[:, :, -1:] - cum), v)    # (B, nc, H, Dk, Dv)
+    chunk_decay = torch.exp(cum[:, :, -1])                   # (B, nc, H, Dh)
+    S = r.new_zeros((b, h, dh, dh)) if S0 is None else S0.float()
+    starts = []
+    for c in range(nc):
+        starts.append(S)
+        S = S * chunk_decay[:, c, ..., None] + states[:, c]
+    o = o + fdot("bclhd,bchde->bclhe", ri, torch.stack(starts, 1))
+    return o.reshape(b, nc * chunk, h, dh)[:, :t], S
+
+
+def rwkv6_forward(p: dict, cfg, x: torch.Tensor, *, state=None,
+                  chunk: int = 64):
+    """RWKV6 time-mix. state: None (zeros) or {"x_prev": (B, 1, d),
+    "wkv": (B, H, Dh, Dh) f32}; one token with a state takes the
+    recurrent step, more tokens the chunked WKV from the state. Returns
+    (out, {"x_prev": x's last row, "wkv": the state after x})."""
+    b, t, d = x.shape
+    h, dh = cfg.n_heads, cfg.head_dim
+    if state is None:
+        x_prev, S0 = x.new_zeros((b, 1, d)), None
+    else:
+        x_prev, S0 = state["x_prev"].to(x.dtype), state["wkv"]
+    xs = torch.cat([x_prev, x[:, :-1]], dim=1)               # shifted
+    mix = torch.sigmoid(p["t_mix"])                           # (5, d)
+
+    def mx(i):
+        return (x.float() * mix[i] + xs.float() * (1 - mix[i])).to(x.dtype)
+
+    r = linear(mx(0), p["wr"]).reshape(b, t, h, dh)
+    kk = linear(mx(1), p["wk"]).reshape(b, t, h, dh)
+    v = linear(mx(2), p["wv"]).reshape(b, t, h, dh)
+    g = linear(mx(3), p["wg"])
+    dec = fdot("btd,dl->btl", mx(4).float(), p["decay_w1"])
+    dec = fdot("btl,ld->btd", torch.tanh(dec), p["decay_w2"])
+    logw = -torch.exp((dec + p["decay_bias"]).clamp(-20.0, 4.0))
+    logw = logw.reshape(b, t, h, dh)
+    if state is not None and t == 1:
+        r1, k1, v1 = (a[:, 0].float() for a in (r, kk, v))
+        S = state["wkv"]                                      # (B, H, Dk, Dv)
+        o = fdot("bhd,bhde->bhe", r1, S) + \
+            fdot("bhd,bhd,bhe->bhe", r1, p["bonus_u"][None] * k1, v1)
+        ST = S * torch.exp(logw[:, 0])[..., None] + fdot("bhd,bhe->bhde",
+                                                         k1, v1)
+        o = o[:, None]
+    else:
+        o, ST = rwkv6_wkv_chunked(r, kk, v, logw, p["bonus_u"], chunk=chunk,
+                                  S0=S0)
+    o = rms_norm(o.reshape(b, t, d).to(x.dtype), p["ln_x"], cfg.norm_eps)
+    out = linear(o * F.silu(g.float()).to(x.dtype), p["wo"])
+    return out, {"x_prev": x[:, -1:], "wkv": ST}
+
+
+def init_rwkv_cmix(generator: torch.Generator, cfg,
+                   dtype=torch.bfloat16) -> dict:
+    """The reference's RWKV channel-mix: f32 ``c_mix`` (N(0, 0.02^2)),
+    wk (d, f) and wv (f, d)."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {"c_mix": torch.randn((2, d), generator=generator,
+                                 dtype=torch.float32,
+                                 device=generator.device) * 0.02,
+            "wk": dense_init(generator, (d, f), d, dtype),
+            "wv": dense_init(generator, (f, d), f, dtype)}
+
+
+def rwkv_cmix(p: dict, x: torch.Tensor, x_prev=None):
+    """RWKV channel-mix. Returns (out, x's last row)."""
+    b, t, d = x.shape
+    if x_prev is None:
+        x_prev = x.new_zeros((b, 1, d))
+    xs = torch.cat([x_prev.to(x.dtype), x[:, :-1]], dim=1)
+    mix = torch.sigmoid(p["c_mix"])
+    xk = (x.float() * mix[0] + xs.float() * (1 - mix[0])).to(x.dtype)
+    k = torch.square(torch.relu(linear(xk, p["wk"]).float())).to(x.dtype)
+    return linear(k, p["wv"]), x[:, -1:]

@@ -1,40 +1,48 @@
 """Language models on the port (counterpart of the reference's
-``src/repro/models/lm.py``): the dense, MoE and VLM families.
+``src/repro/models/lm.py``): the dense, MoE, VLM, SSM (rwkv6), hybrid
+(zamba2) and encoder-decoder (whisper) families.
 
 The parameters keep the reference's layout: ``embed`` (V, d), the layer
 stack ``blocks`` with a leading L axis on every leaf (a sparse FFN
 weight is one ``SparseWeight`` with vals (L, ob, K, bm, bn) and idx
 (L, ob, K); an MoE block's ``moe`` holds the f32 router (L, d, e) and
-the experts (L, e, d, f) / (L, e, f, d)), ``final_norm``, and ``head``
-when the embeddings are not tied. The layer loop is a Python loop over
-views of layer l. A VLM is the dense family with patch embeddings in
-front of the tokens.
+the experts (L, e, d, f) / (L, e, f, d)), ``final_norm``, ``head``
+when the embeddings are not tied, ``shared`` (one dense block) for the
+hybrid family and ``encoder`` (``blocks``, ``norm``) for the
+encoder-decoder one. The layer loop is a Python loop over views of
+layer l. A VLM is the dense family with patch embeddings in front of
+the tokens; whisper's decoder blocks add cross-attention over the
+encoder's output of the frames; zamba2 runs its one shared attention
+block after every ``hybrid_attn_every``-th Mamba2 layer.
 
     init_params(cfg, generator)             -> params
     init_cache(cfg, batch, max_seq)         -> decode cache (zeros)
     forward(cfg, params, tokens, extra=)    -> (logits, aux)  prefill
     decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
     prefill_chunk(cfg, params, cache, tokens, pos) -> (logits, cache)
+    fill_cross_kv(cfg, params, cache, frames)    -> cache     (whisper)
 
 ``forward``, ``decode_step`` and ``prefill_chunk`` run where the
 parameters are. ``decode_step`` takes one token a row, at one position
 for the batch or one a row (continuous batching,
 ``runtime/scheduler.py``); ``prefill_chunk`` writes a chunk of T
-tokens at positions pos .. pos + T - 1 into the cache (the reference's
-``kv_len`` branch). An MoE layer routes the tokens of one call together
-(capacity per call), except in a step with one position a row, which
-routes each row alone (``layers.moe``). The SSM, hybrid and
-encoder-decoder families raise, naming their ROADMAP item
-(``configs/base.py::UNPORTED_LM_FAMILIES``); ``loss_fn`` and remat are
-not ported (ROADMAP Queue 1 item 8e, training).
+tokens at positions pos .. pos + T - 1 into the KV cache (the
+reference's ``kv_len`` branch; the dense and MoE families). An MoE
+layer routes the tokens of one call together (capacity per call),
+except in a step with one position a row, which routes each row alone
+(``layers.moe``). The recurrent caches (rwkv6's token shifts and WKV
+state, zamba2's conv and SSM states) carry a whole prompt: stepping it
+through ``decode_step`` gives ``forward``'s logits up to the order of
+f32 sums. ``loss_fn`` and remat are not ported (ROADMAP Queue 1 item
+8e, training).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import UNPORTED_LM_FAMILIES
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import SparseWeight, tensor_from_numpy
@@ -43,29 +51,43 @@ LOGITS_MODES = ("full", "last", "hidden")
 
 
 #: the families the port runs, and the block each stacks
-BLOCK_KINDS = {"dense": "dense", "vlm": "dense", "moe": "moe"}
+BLOCK_KINDS = {"dense": "dense", "vlm": "dense", "moe": "moe",
+               "ssm": "rwkv", "hybrid": "mamba", "audio": "encdec"}
+#: the recurrent leaves of the decode caches, each (L, B, ...): the
+#: batch axis is 1
+RECURRENT_LEAVES = ("x_prev_t", "x_prev_c", "wkv", "conv", "ssm")
 
 
 def _check_family(cfg) -> None:
     if cfg.family not in BLOCK_KINDS:
-        item = UNPORTED_LM_FAMILIES.get(cfg.family,
-                                        "Queue 1, the rest of the LM side")
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet: ROADMAP "
-            f"{item}")
+            f"{cfg.name}: family {cfg.family!r} is no LM family the port "
+            f"runs ({sorted(BLOCK_KINDS)})")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _init_block(cfg, generator: torch.Generator) -> dict:
+def _init_block(cfg, generator: torch.Generator,
+                kind: Optional[str] = None) -> dict:
+    """One block of ``kind`` (by default the family's), its leaves drawn
+    in the reference's order."""
+    kind = kind or BLOCK_KINDS[cfg.family]
     d = cfg.d_model
     ones = lambda: torch.ones((d,), dtype=torch.bfloat16,  # noqa: E731
                               device=generator.device)
-    block = {"ln1": ones(), "attn": L.init_attention(generator, cfg),
-             "ln2": ones()}
-    if BLOCK_KINDS[cfg.family] == "moe":
+    if kind == "rwkv":
+        return {"ln1": ones(), "tmix": L.init_rwkv6(generator, cfg),
+                "ln2": ones(), "cmix": L.init_rwkv_cmix(generator, cfg)}
+    if kind == "mamba":
+        return {"ln1": ones(), "mamba": L.init_mamba2(generator, cfg)}
+    block = {"ln1": ones(), "attn": L.init_attention(generator, cfg)}
+    if kind == "encdec":             # whisper's decoder block
+        block["ln_c"] = ones()
+        block["cross"] = L.init_attention(generator, cfg)
+    block["ln2"] = ones()
+    if kind == "moe":
         block["moe"] = L.init_moe(generator, cfg)
     else:
         sp = cfg.sparsity if cfg.sparsity.enabled else None
@@ -97,17 +119,18 @@ def _copy_into(dst, src) -> None:
         dst.copy_(src)
 
 
-def _init_blocks(cfg, generator: torch.Generator) -> dict:
-    """The layer stack: layer l's tree drawn (layer by layer, in the
-    reference's order of leaves) and copied into slice l of a stack
-    allocated once, so the peak holds the stack and one layer, not two
-    copies of the stack."""
-    first = _init_block(cfg, generator)
-    blocks = _empty_stack(first, cfg.n_layers)
+def _init_blocks(cfg, generator: torch.Generator, kind: str,
+                 n: int) -> dict:
+    """A stack of n blocks of ``kind``: layer l's tree drawn (layer by
+    layer, in the reference's order of leaves) and copied into slice l
+    of a stack allocated once, so the peak holds the stack and one
+    layer, not two copies of the stack."""
+    first = _init_block(cfg, generator, kind)
+    blocks = _empty_stack(first, n)
     _copy_into(_layer(blocks, 0), first)
     del first
-    for l in range(1, cfg.n_layers):
-        _copy_into(_layer(blocks, l), _init_block(cfg, generator))
+    for l in range(1, n):
+        _copy_into(_layer(blocks, l), _init_block(cfg, generator, kind))
     return blocks
 
 
@@ -123,17 +146,26 @@ def _layer(tree, l: int):
 def init_params(cfg, generator: torch.Generator) -> dict:
     """Random parameters drawn from ``generator``, made on its device.
     The reference's laws (``dense_init``, block-balanced pruning of the
-    FFN); torch's numbers are not ``jax.random``'s."""
+    FFN, the recurrent families' f32 leaves); torch's numbers are not
+    ``jax.random``'s."""
     _check_family(cfg)
     d = cfg.d_model
+    ones = lambda: torch.ones((d,), dtype=torch.bfloat16,  # noqa: E731
+                              device=generator.device)
     p = {
         "embed": L.dense_init(generator, (cfg.vocab_size, d), d),
-        "blocks": _init_blocks(cfg, generator),
-        "final_norm": torch.ones((d,), dtype=torch.bfloat16,
-                                 device=generator.device),
+        "blocks": _init_blocks(cfg, generator, BLOCK_KINDS[cfg.family],
+                               cfg.n_layers),
+        "final_norm": ones(),
     }
     if not cfg.tie_embeddings:
         p["head"] = L.dense_init(generator, (d, cfg.vocab_size), d)
+    if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+        p["shared"] = _init_block(cfg, generator, "dense")
+    if cfg.family == "audio":
+        p["encoder"] = {"blocks": _init_blocks(cfg, generator, "dense",
+                                               cfg.encoder_layers),
+                        "norm": ones()}
     return p
 
 
@@ -164,13 +196,46 @@ def params_to(tree, device):
     return tree.to(device)
 
 
+def attn_flags(cfg) -> list:
+    """Per layer: whether the hybrid family's shared attention block runs
+    after it ((l + 1) % hybrid_attn_every == 0); all False elsewhere."""
+    every = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+    return [bool(every) and (l + 1) % every == 0
+            for l in range(cfg.n_layers)]
+
+
 def init_cache(cfg, batch: int, max_seq: int, *, device="cuda") -> dict:
-    """Zeroed decode cache: kv (L, 2, B, S, KV, Dh) bf16 (every family
-    the port runs)."""
+    """Zeroed decode cache, the reference's leaves: kv (L, 2, B, S, KV,
+    Dh) bf16 (dense, MoE, VLM; whisper also cross_kv (L, 2, B, Te, KV,
+    Dh)); rwkv6: x_prev_t, x_prev_c (L, B, 1, d) bf16 and wkv (L, B, H,
+    Dh, Dh) f32; zamba2: conv (L, B, W - 1, d_in + 2N) bf16, ssm (L, B,
+    H, N, Dh) f32 and attn_kv (sites, 2, B, min(window, S), KV, Dh), a
+    ring of the last keys for each shared-attention site."""
     _check_family(cfg)
-    return {"kv": torch.zeros(
-        (cfg.n_layers, 2, batch, max_seq, cfg.kv_heads, cfg.head_dim),
-        dtype=torch.bfloat16, device=resolve_device(device))}
+    dev = resolve_device(device)
+    bf, f32 = (dict(dtype=t, device=dev) for t in (torch.bfloat16,
+                                                    torch.float32))
+    n_l, d, kvh, dh = cfg.n_layers, cfg.d_model, cfg.kv_heads, cfg.head_dim
+    f = cfg.family
+    if f == "ssm":
+        return {"x_prev_t": torch.zeros((n_l, batch, 1, d), **bf),
+                "x_prev_c": torch.zeros((n_l, batch, 1, d), **bf),
+                "wkv": torch.zeros((n_l, batch, cfg.n_heads, dh, dh), **f32)}
+    if f == "hybrid":
+        nh, hdh = L._mamba_heads(cfg)
+        n = cfg.ssm_state
+        ring = min(cfg.attn_window or max_seq, max_seq)
+        sites = max(sum(attn_flags(cfg)), 1)
+        return {"conv": torch.zeros((n_l, batch, cfg.ssm_conv - 1,
+                                     cfg.ssm_expand * d + 2 * n), **bf),
+                "ssm": torch.zeros((n_l, batch, nh, n, hdh), **f32),
+                "attn_kv": torch.zeros((sites, 2, batch, ring, kvh, dh),
+                                       **bf)}
+    cache = {"kv": torch.zeros((n_l, 2, batch, max_seq, kvh, dh), **bf)}
+    if f == "audio":
+        cache["cross_kv"] = torch.zeros(
+            (n_l, 2, batch, cfg.encoder_seq, kvh, dh), **bf)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -198,41 +263,129 @@ def _mlp(cfg, p, h: torch.Tensor, groups=None):
     return h + L.ffn(p["ffn"], hn), None
 
 
-def make_block_fn(cfg, positions: torch.Tensor):
+def rwkv_block(cfg, p, h: torch.Tensor, state: Optional[dict] = None):
+    """One rwkv6 layer over h (B, T, d) from ``state`` ({"x_prev_t",
+    "x_prev_c", "wkv"}, one layer's cache rows; None: zeros). Returns (h,
+    the state after h)."""
+    a, st = L.rwkv6_forward(
+        p["tmix"], cfg, L.rms_norm(h, p["ln1"], cfg.norm_eps),
+        state=None if state is None else {"x_prev": state["x_prev_t"],
+                                          "wkv": state["wkv"]})
+    h = h + a
+    c, xc = L.rwkv_cmix(p["cmix"], L.rms_norm(h, p["ln2"], cfg.norm_eps),
+                        x_prev=None if state is None else state["x_prev_c"])
+    return h + c, {"x_prev_t": st["x_prev"], "x_prev_c": xc,
+                   "wkv": st["wkv"]}
+
+
+def mamba_block(cfg, p, h: torch.Tensor, state: Optional[dict] = None):
+    """One Mamba2 layer over h (B, T, d) from ``state`` ({"conv", "ssm"},
+    one layer's cache rows; None: zeros). Returns (h, the state after
+    h)."""
+    m, st = L.mamba2_forward(p["mamba"], cfg,
+                             L.rms_norm(h, p["ln1"], cfg.norm_eps),
+                             state=state)
+    return h + m, st
+
+
+def shared_attn_block(cfg, params, h: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+    """zamba2's shared block over a whole sequence: windowed attention
+    (``cfg.attn_window``) through the flash kernel, then the pruned
+    FFN."""
+    p = params["shared"]
+    a, _ = L.attention(p["attn"], cfg, L.rms_norm(h, p["ln1"], cfg.norm_eps),
+                       positions=positions, window=cfg.attn_window)
+    return _mlp(cfg, p, h + a)[0]
+
+
+def make_block_fn(cfg, positions: torch.Tensor,
+                  enc_out: Optional[torch.Tensor] = None):
     """Per-layer block function ``(h, p) -> (h, aux)`` over the whole
-    sequence; aux is the MoE load-balance loss, 0 for a dense block."""
+    sequence from a zero state; aux is the MoE load-balance loss, 0
+    otherwise. ``enc_out``: the encoder's output, which whisper's
+    decoder blocks attend to."""
     _check_family(cfg)
+    kind = BLOCK_KINDS[cfg.family]
     zero = torch.zeros((), dtype=torch.float32, device=positions.device)
 
     def block(h, p):
+        if kind == "rwkv":
+            return rwkv_block(cfg, p, h)[0], zero
+        if kind == "mamba":
+            return mamba_block(cfg, p, h)[0], zero
         a, _ = L.attention(p["attn"], cfg,
                            L.rms_norm(h, p["ln1"], cfg.norm_eps),
                            positions=positions, window=cfg.attn_window)
-        h, aux = _mlp(cfg, p, h + a)
+        h = h + a
+        if kind == "encdec":
+            h = h + L.cross_attention(
+                p["cross"], cfg, L.rms_norm(h, p["ln_c"], cfg.norm_eps),
+                enc_out)
+        h, aux = _mlp(cfg, p, h)
         return h, zero if aux is None else aux
 
     return block
 
 
-def _prefix(cfg, h: torch.Tensor, extra: Optional[dict]) -> torch.Tensor:
-    """A VLM's patch embeddings (B, Vt, d), cast to h's dtype, in front
-    of the token embeddings; every other family takes no extra input."""
+def encoder_block_fn(cfg, positions: torch.Tensor):
+    """Whisper's encoder block ``(h, p) -> h``: non-causal attention
+    (through the flash kernel), then the pruned FFN."""
+    def block(h, p):
+        a, _ = L.attention(p["attn"], cfg,
+                           L.rms_norm(h, p["ln1"], cfg.norm_eps),
+                           positions=positions, causal=False)
+        return _mlp(cfg, p, h + a)[0]
+
+    return block
+
+
+def run_encoder(cfg, params, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over frame embeddings (B, Te, d) (the
+    reference's ``_run_encoder``): its blocks, then its norm."""
+    b, te, _ = frames.shape
+    block = encoder_block_fn(cfg, torch.arange(te, device=frames.device)[
+        None].expand(b, te))
+    h = frames
+    for l in range(cfg.encoder_layers):
+        h = block(h, _layer(params["encoder"]["blocks"], l))
+    return L.rms_norm(h, params["encoder"]["norm"], cfg.norm_eps)
+
+
+#: the extra input each family takes, in front of (vlm) or beside
+#: (audio) the tokens
+_EXTRA = {"vlm": "patches", "audio": "frames"}
+
+
+def _extra_input(cfg, h: torch.Tensor, extra: Optional[dict]):
+    """The family's extra input, (B, n, d) on h's device at h's dtype:
+    a VLM's patch embeddings or whisper's frames (which the reference
+    takes as given: its callers give bf16); None for every other family,
+    which takes none."""
     extra = extra or {}
-    if cfg.family != "vlm":
+    key = _EXTRA.get(cfg.family)
+    if key is None:
         if extra:
             raise ValueError(f"{cfg.name}: family {cfg.family!r} takes no "
                              f"extra inputs, got {sorted(extra)}")
-        return h
-    if set(extra) != {"patches"}:
-        raise ValueError(f"{cfg.name}: a VLM forward takes extra="
-                         f"{{'patches': (B, Vt, d)}}, got {sorted(extra)}")
-    patches = torch.as_tensor(extra["patches"]).to(h.device)
-    if patches.dim() != 3 or patches.shape[0] != h.shape[0] or \
-            patches.shape[2] != h.shape[2]:
-        raise ValueError(f"{cfg.name}: patches {tuple(patches.shape)} for "
-                         f"tokens of {tuple(h.shape[:2])}: expected (B, Vt, "
+        return None
+    if set(extra) != {key}:
+        raise ValueError(f"{cfg.name}: a {cfg.family} forward takes extra="
+                         f"{{'{key}': (B, n, d)}}, got {sorted(extra)}")
+    x = torch.as_tensor(extra[key]).to(h.device)
+    if x.dim() != 3 or x.shape[0] != h.shape[0] or x.shape[2] != h.shape[2]:
+        raise ValueError(f"{cfg.name}: {key} {tuple(x.shape)} for tokens "
+                         f"of {tuple(h.shape[:2])}: expected (B, n, "
                          f"{h.shape[2]})")
-    return torch.cat([patches.to(h.dtype), h], dim=1)
+    return x.to(h.dtype)
+
+
+def _prefix(cfg, h: torch.Tensor, extra: Optional[dict]) -> torch.Tensor:
+    """A VLM's patch embeddings (B, Vt, d), cast to h's dtype, in front
+    of the token embeddings; whisper's frames are checked and go to the
+    encoder, not in front; every other family takes no extra input."""
+    x = _extra_input(cfg, h, extra)
+    return torch.cat([x, h], dim=1) if cfg.family == "vlm" else h
 
 
 def forward(cfg, params, tokens: torch.Tensor, *,
@@ -241,22 +394,32 @@ def forward(cfg, params, tokens: torch.Tensor, *,
 
     extra: {"patches": (B, Vt, d)} for a VLM: the patch embeddings go in
     front of the tokens, positions run over Vt + T, and the output
-    covers both. aux: the sum over layers of the MoE load-balance loss
-    (0 for the dense family).
+    covers both; {"frames": (B, Te, d)} for whisper: the encoder runs
+    over them and every decoder layer attends to its output. aux: the
+    sum over layers of the MoE load-balance loss (0 for the other
+    families).
     logits_mode: "full" (B, T, V) f32 | "last" (B, V) f32 | "hidden"
     (B, T, d)."""
     if logits_mode not in LOGITS_MODES:
         raise ValueError(f"logits_mode={logits_mode!r}: expected one of "
                          f"{LOGITS_MODES}")
     with L.full_f32():
-        h = _prefix(cfg, _embed(cfg, params, tokens), extra)
+        h = _embed(cfg, params, tokens)
+        enc_out = None
+        if cfg.family == "audio":
+            frames = _extra_input(cfg, h, extra)
+            enc_out = run_encoder(cfg, params, frames)
+        else:
+            h = _prefix(cfg, h, extra)
         b, t, _ = h.shape
         positions = torch.arange(t, device=h.device)[None].expand(b, t)
-        block = make_block_fn(cfg, positions)
+        block = make_block_fn(cfg, positions, enc_out)
         auxs = []
-        for l in range(cfg.n_layers):
+        for l, shared in enumerate(attn_flags(cfg)):
             h, aux_l = block(h, _layer(params["blocks"], l))
             auxs.append(aux_l)
+            if shared:
+                h = shared_attn_block(cfg, params, h, positions)
         aux = torch.stack(auxs).sum()
         if logits_mode == "hidden":
             return h, aux
@@ -269,28 +432,133 @@ def forward(cfg, params, tokens: torch.Tensor, *,
 # decode
 # ---------------------------------------------------------------------------
 
+def fill_cross_kv(cfg, params, cache: dict, frames) -> dict:
+    """Run whisper's encoder over ``frames`` (B, Te, d) and write each
+    decoder layer's cross-attention keys and values of its output into
+    ``cache["cross_kv"]`` IN PLACE (enc @ wk, enc @ wv, no rope, as the
+    reference's ``cross_attention`` computes them). Returns the cache.
+
+    The reference never fills it: its ``init_cache`` zeroes cross_kv
+    and its ``serve_lm`` draws frames but runs no encoder, so its decode
+    attends over zeros. A deliberate difference (ROADMAP Queue 3 item
+    4): the port's decode then attends over the encoder's output, as the
+    reference's ``forward(extra={"frames"})`` does."""
+    if cfg.family != "audio":
+        raise ValueError(f"{cfg.name}: fill_cross_kv is for the audio "
+                         f"family, not {cfg.family!r}")
+    ckv = cache["cross_kv"]
+    frames = torch.as_tensor(frames).to(ckv.device)
+    if tuple(frames.shape) != (ckv.shape[2], ckv.shape[3], cfg.d_model):
+        raise ValueError(f"{cfg.name}: frames {tuple(frames.shape)} for a "
+                         f"cache of {ckv.shape[2]} rows and "
+                         f"{ckv.shape[3]} encoder positions: expected "
+                         f"({ckv.shape[2]}, {ckv.shape[3]}, {cfg.d_model})")
+    with L.full_f32():
+        enc = run_encoder(cfg, params, frames.to(torch.bfloat16))
+        for l in range(cfg.n_layers):
+            k, v = L.cross_kv(_layer(params["blocks"], l)["cross"], enc)
+            ckv[l, 0].copy_(k)
+            ckv[l, 1].copy_(v)
+    return cache
+
+
 def decode_block(cfg, p, h: torch.Tensor, kv: torch.Tensor,
-                 positions: torch.Tensor, pos) -> torch.Tensor:
-    """One layer of a step into the cache: p the layer's parameters, kv
-    its cache (2, B, S, KV, Dh), written in place at ``pos`` (an int,
-    or a (B,) tensor for a one-token step: one position a row). An MoE
-    layer routes the call's B * T tokens together at an int ``pos``,
-    and each row alone at a (B,) one (the reference's batcher vmaps its
-    decode over the slots, so each slot is routed alone, with a
-    capacity of its own)."""
+                 positions: torch.Tensor, pos,
+                 cross_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One attention layer of a step into the cache: p the layer's
+    parameters, kv its cache (2, B, S, KV, Dh), written in place at
+    ``pos`` (an int, or a (B,) tensor for a one-token step: one position
+    a row); ``cross_kv`` (2, B, Te, KV, Dh): whisper's encoder keys and
+    values, attended to after the self-attention. An MoE layer routes
+    the call's B * T tokens together at an int ``pos``, and each row
+    alone at a (B,) one (the reference's batcher vmaps its decode over
+    the slots, so each slot is routed alone, with a capacity of its
+    own)."""
     a, _ = L.attention(p["attn"], cfg, L.rms_norm(h, p["ln1"], cfg.norm_eps),
                        positions=positions, window=cfg.attn_window,
                        kv_cache=(kv[0], kv[1]), cache_pos=pos)
+    h = h + a
+    if "cross" in p:
+        h = h + L.cross_decode(p["cross"], cfg,
+                               L.rms_norm(h, p["ln_c"], cfg.norm_eps),
+                               cross_kv[0], cross_kv[1])
     groups = h.shape[0] if isinstance(pos, torch.Tensor) else None
-    return _mlp(cfg, p, h + a, groups)[0]
+    return _mlp(cfg, p, h, groups)[0]
+
+
+def ring_attn_block(cfg, params, h: torch.Tensor, positions: torch.Tensor,
+                    kv: torch.Tensor, pos) -> torch.Tensor:
+    """zamba2's shared block for one token against its ring of the last
+    ``w`` keys, kv (2, B, w, KV, Dh) (the reference's
+    ``_ring_attn_block``): k and v, roped at their absolute position, are
+    written IN PLACE at slot pos % w; the query attends to the slots up
+    to min(pos, w - 1), in plain torch (the reference has no kernel
+    there). ``pos``: an int for the batch or a (B,) tensor, one a row."""
+    p = params["shared"]
+    pa = p["attn"]
+    x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    b = x.shape[0]
+    nh, kvh, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    q = L.fdot("btd,dhk->bthk", x, pa["wq"]).to(x.dtype)
+    k = L.fdot("btd,dhk->bthk", x, pa["wk"]).to(x.dtype)
+    v = L.fdot("btd,dhk->bthk", x, pa["wv"]).to(x.dtype)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, pa["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, pa["k_norm"], cfg.norm_eps)
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    ck, cv = kv[0], kv[1]                              # (B, w, KV, Dh)
+    w = ck.shape[1]
+    slot = torch.arange(w, device=x.device)
+    if isinstance(pos, torch.Tensor):                  # one position a row
+        pos = pos.to(x.device).long()
+        rows = torch.arange(b, device=x.device)
+        ck[rows, pos % w] = k[:, 0].to(ck.dtype)
+        cv[rows, pos % w] = v[:, 0].to(cv.dtype)
+        valid = slot[None] <= pos.clamp(max=w - 1)[:, None]     # (B, w)
+    else:
+        ck[:, pos % w] = k[:, 0].to(ck.dtype)
+        cv[:, pos % w] = v[:, 0].to(cv.dtype)
+        valid = (slot <= min(pos, w - 1))[None]                  # (1, w)
+    kk, vv = L._repeat_kv(ck, nh // kvh), L._repeat_kv(cv, nh // kvh)
+    s = L.fdot("bqhd,bkhd->bhqk", q, kk) / math.sqrt(dh)
+    s = s.masked_fill(~valid[:, None, None, :], -math.inf)
+    o = L.fdot("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1).to(vv.dtype),
+               vv).to(x.dtype)
+    a = L.fdot("bthk,hkd->btd", o, pa["wo"]).to(x.dtype)
+    return _mlp(cfg, p, h + a)[0]
 
 
 def _cache_step(cfg, params, cache, tokens, positions, pos):
     with L.full_f32():
         h = _embed(cfg, params, tokens)
+        ckv = cache.get("cross_kv")
         for l in range(cfg.n_layers):
             h = decode_block(cfg, _layer(params["blocks"], l), h,
-                             cache["kv"][l], positions, pos)
+                             cache["kv"][l], positions, pos,
+                             None if ckv is None else ckv[l])
+        return _logits(cfg, params, h), cache
+
+
+def _state_step(cfg, params, cache, tokens, positions, pos):
+    """A step of the recurrent families: each layer from its cache rows,
+    its new state copied back IN PLACE; zamba2's shared block against
+    its site's ring after the flagged layers."""
+    rwkv = BLOCK_KINDS[cfg.family] == "rwkv"
+    leaves = ("x_prev_t", "x_prev_c", "wkv") if rwkv else ("conv", "ssm")
+    with L.full_f32():
+        h = _embed(cfg, params, tokens)
+        site = 0
+        for l, shared in enumerate(attn_flags(cfg)):
+            p = _layer(params["blocks"], l)
+            state = {k: cache[k][l] for k in leaves}
+            h, new = (rwkv_block if rwkv else mamba_block)(cfg, p, h, state)
+            for k in leaves:
+                cache[k][l].copy_(new[k])
+            if shared:
+                h = ring_attn_block(cfg, params, h, positions,
+                                    cache["attn_kv"][site], pos)
+                site += 1
         return _logits(cfg, params, h), cache
 
 
@@ -302,7 +570,10 @@ def decode_step(cfg, params, cache: dict, tokens: torch.Tensor, pos):
     and returned: the reference returns a new one. A step of T > 1
     tokens raises: the reference's ``decode_step`` ropes all T tokens
     at ``pos`` (its ``positions`` broadcast one position), which no
-    caller wants; :func:`prefill_chunk` places them at pos .. pos+T-1."""
+    caller wants; :func:`prefill_chunk` places them at pos .. pos+T-1.
+    rwkv6 takes no position; zamba2's shared block takes it for its
+    ring; whisper's decoder attends to ``cache["cross_kv"]``
+    (:func:`fill_cross_kv` fills it)."""
     _check_family(cfg)
     if tokens.shape[1] != 1:
         raise ValueError(
@@ -319,7 +590,9 @@ def decode_step(cfg, params, cache: dict, tokens: torch.Tensor, pos):
             raise ValueError(f"decode_step: pos {tuple(pos.shape)} for "
                              f"{tokens.shape[0]} rows: one position a row")
         positions = pos[:, None]
-    return _cache_step(cfg, params, cache, tokens, positions, pos)
+    step = _state_step if BLOCK_KINDS[cfg.family] in ("rwkv", "mamba") \
+        else _cache_step
+    return step(cfg, params, cache, tokens, positions, pos)
 
 
 def prefill_chunk(cfg, params, cache: dict, tokens: torch.Tensor,
@@ -333,8 +606,14 @@ def prefill_chunk(cfg, params, cache: dict, tokens: torch.Tensor,
     T tokens are routed together, with a capacity of their own, so where
     an expert overflows, the chunks drop other assignments than the
     one-shot forward does; a chunk equals the reference's layers run on
-    that chunk, not the reference's forward over the whole prompt."""
+    that chunk, not the reference's forward over the whole prompt. The
+    SSM, hybrid and encoder-decoder families raise: the reference has
+    no chunked prefill for them (ROADMAP Queue 1 item 8f)."""
     _check_family(cfg)
+    if BLOCK_KINDS[cfg.family] not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: prefill_chunk takes the dense and MoE families, "
+            f"not {cfg.family!r}: ROADMAP Queue 1 item 8f")
     pos = int(pos)
     positions = torch.arange(pos, pos + tokens.shape[1],
                              device=params["embed"].device)[None].expand(

@@ -7,7 +7,10 @@ for the longest one of a batch. Every step is one ``decode_step`` of
 shape (slots, 1) with one cache position a slot: a slot still in its
 prompt consumes its next prompt token, a generating slot the token it
 sampled. Admission and retirement live in the host's buffers (numpy,
-as in the reference); each step reads the argmax back once.
+as in the reference); each step reads the argmax back once. Admission
+zeroes the slot's recurrent state (rwkv6, zamba2), which the reference
+carries over from the slot's previous request; an audio config
+(whisper) is refused.
 """
 from __future__ import annotations
 
@@ -58,6 +61,11 @@ class ContinuousBatcher:
 
     def __init__(self, cfg, params, *, slots: int, max_seq: int,
                  decode_fn: Callable, init_cache_fn: Callable):
+        if cfg.family == "audio":
+            raise NotImplementedError(
+                f"{cfg.name}: the batcher takes no audio requests (a "
+                f"Request carries no frames to fill its slot's cross_kv): "
+                f"ROADMAP Queue 1 item 8f")
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -88,6 +96,22 @@ class ContinuousBatcher:
                                       prompt=req.prompt, prompt_idx=0)
             self.active[req.rid] = req
             self._next_tok[i, 0] = req.prompt[0]
+            self._reset_slot(i)
+
+    def _reset_slot(self, i: int) -> None:
+        """Zero slot i's rows of every recurrent leaf of the cache (rwkv6's
+        token shifts and WKV state, zamba2's conv and SSM states), so the
+        admitted request starts from the zero state ``serve_lm`` starts
+        from. A KV cache needs nothing: rows past the new position are
+        masked, and the request overwrites the others before it reads
+        them. The reference resets only the slot's position, so its
+        recurrent state runs on from the slot's previous request (or from
+        the token-0 steps of a free slot): a deliberate difference
+        (ROADMAP Queue 3 item 4)."""
+        from repro_torch.models.lm import RECURRENT_LEAVES
+        for name in RECURRENT_LEAVES:
+            if name in self.cache:
+                self.cache[name][:, i].zero_()
 
     @property
     def busy(self) -> bool:
@@ -160,7 +184,8 @@ def make_per_slot_decode(cfg):
     """``decode(params, cache, tokens (S, 1), pos (S,))``: ``decode_step``
     with one cache position a slot. The reference vmaps its decode over
     the slot axis; the port's ``decode_step`` takes the (S,) positions
-    itself (a per-row KV write, mask and rope)."""
+    itself (a per-row KV or ring write, mask and rope; rwkv6 takes no
+    position)."""
     from repro_torch.models import lm
 
     def per_slot(params, cache, toks, pos):

@@ -90,8 +90,9 @@ def test_unknown_arch_raises_keyerror():
 
 
 def test_unported_families_name_their_roadmap_item():
+    """Every LM family of the registry is ported: none is left to name
+    a ROADMAP item, and the model code takes each."""
+    from repro_torch.models import lm
     families = {c.family for c in base.all_configs().values()}
-    assert families - {"dense", "cnn", "moe", "vlm"} == \
-        set(base.UNPORTED_LM_FAMILIES)
-    for item in base.UNPORTED_LM_FAMILIES.values():
-        assert item.startswith("Queue 1, the rest of the LM side (item 8")
+    assert families - {"cnn"} == set(lm.BLOCK_KINDS)
+    assert base.UNPORTED_LM_FAMILIES == {}

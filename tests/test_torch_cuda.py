@@ -1313,3 +1313,173 @@ def test_moe_and_vlm_models_on_card_match_cpu(dev, arch):
     _assert_launches({"sparse_matmul": ffn})
     _assert_variant("sparse_matmul", "gemv", ffn)
     assert torch.isfinite(step).all()
+
+
+# ---- the recurrent and encoder-decoder families ----------------------------
+
+# (B, Tq, Tk, H, D, causal, window, q_offset): zamba2's shared attention
+# at D 112 (a prefill under its window of 4096, a window shorter than T,
+# a cache chunk with q_offset, a key count that is no tile multiple, one
+# query at the end); whisper's three shapes at D 64 cut in length (the
+# encoder's non-causal 1500 x 1500 and its tail of 1500 = 23 tiles + 28,
+# the decoder's causal 448, cross-attention 448 x 1500 at q_offset 0)
+FLASH_STATE_CASES = [
+    (1, 256, 256, 32, 112, True, 4096, 0),
+    (1, 300, 300, 4, 112, True, 100, 0),
+    (1, 64, 512, 4, 112, True, 256, 448),
+    (2, 77, 77, 3, 112, False, 30, 0),
+    (1, 1, 129, 2, 112, True, 0, 128),
+    (1, 1500, 1500, 2, 64, False, 0, 0),
+    (1, 448, 448, 4, 64, True, 0, 0),
+    (1, 448, 1500, 4, 64, False, 0, 0),
+    (2, 37, 150, 3, 64, False, 0, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_STATE_CASES, ids=str)
+def test_flash_attention_d112_and_cross_shapes_match_plain(dev, case, dtype):
+    b, tq, tk, h, d, causal, window, q_offset = case
+    gen = torch.Generator().manual_seed(tq + tk + h + d)
+    q = torch.randn((b, tq, h, d), generator=gen).to(dev, dtype)
+    k, v = (torch.randn((b, tk, h, d), generator=gen).to(dev, dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ops.reset_launches()
+    got = fa.flash_attention(q, k, v, **kw)
+    _assert_variant("flash_attention",
+                    "mma" if dtype == torch.bfloat16 else "simt")
+    want = fa.flash_attention_torch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    else:
+        _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 448, 1500])
+@pytest.mark.parametrize("d_in,d_out", [(1280, 5120), (5120, 1280)],
+                         ids=["w1", "w2"])
+def test_sparse_matmul_whisper_64_blocks_match_plain(dev, d_in, d_out, m):
+    """whisper-large-v3's FFN at its 64 x 64 blocks: 3 of 20 input
+    blocks kept (w1 / w3), 12 of 80 (w2); gemv at decode rows, mma at
+    the decoder's 448 and the encoder's 1500 rows."""
+    gen = torch.Generator().manual_seed(d_in + m)
+    sw = _weight(gen, d_in, d_out, 64, 64, 0.85, dev)
+    assert sw.vals.shape[1] == (3 if d_in == 1280 else 12)
+    x = torch.randn((m, d_in), generator=gen).to(dev, torch.bfloat16)
+    var = sm.variant(x.dtype, m, 64, 64)
+    assert var == ("gemv" if m <= 8 else "mma")
+    ops.reset_launches()
+    got = sm.sparse_matmul(x, sw.vals, sw.idx)
+    _assert_variant("sparse_matmul", var)
+    want = sm.sparse_matmul_torch(x, sw.vals, sw.idx)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_state_layer_on_card_matches_cpu(dev, arch):
+    """Layer 0 of reduced rwkv6 and zamba2 on the card against the CPU
+    layer on the same input: a 100-token prefill from a zero state and a
+    one-token step from its state; the bf16 output and the states within
+    1 bf16 ulp (an f32 state sums products of bf16 projections, which
+    the two devices may round to either side); the chunked scan alone on
+    the same f32 inputs within 1e-4 of its max (the CPU tests' bar
+    against an f64 recurrence). rwkv6 launches nothing
+    hand-written; zamba2's shared block runs flash at the reduced head
+    size (32) and its pruned FFN through sparse_matmul."""
+    from repro_torch.models import layers as L
+    cfg = reduced(get_config(arch))
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    p = lm._layer(params["blocks"], 0)
+    p_cpu = lm.params_to(p, "cpu")
+    block = lm.rwkv_block if cfg.family == "ssm" else lm.mamba_block
+    x = torch.randn((2, 101, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)).bfloat16()
+    ops.reset_launches()
+    outs = [block(cfg, pp, xx[:, :100]) for pp, xx in ((p, x.to(dev)),
+                                                       (p_cpu, x))]
+    steps = [block(cfg, pp, xx[:, 100:], st) for (pp, xx), (_, st) in zip(
+        ((p, x.to(dev)), (p_cpu, x)), outs)]
+    torch.cuda.synchronize()
+    _assert_launches({})
+    for (got, gst), (want, wst) in (outs, steps):
+        _bf16_close(got.cpu(), want)
+        for k, v in wst.items():
+            _bf16_close(gst[k].cpu(), v)
+    gen = torch.Generator().manual_seed(4)
+    if cfg.family == "ssm":
+        h, dh = cfg.n_heads, cfg.head_dim
+        args = [torch.randn((1, 150, h, dh), generator=gen)
+                for _ in range(3)] + [
+            -torch.exp(torch.rand((1, 150, h, dh), generator=gen) * 4 - 8),
+            torch.randn((h, dh), generator=gen)]
+        scan = L.rwkv6_wkv_chunked
+    else:
+        nh, dh = L._mamba_heads(cfg)
+        n = cfg.ssm_state
+        args = [torch.randn((1, 150, nh, dh), generator=gen),
+                torch.rand((1, 150, nh), generator=gen),
+                torch.log(torch.arange(1, nh + 1, dtype=torch.float32)),
+                torch.randn((1, 150, n), generator=gen),
+                torch.randn((1, 150, n), generator=gen)]
+        scan = L.mamba2_chunked
+    with L.full_f32():
+        got = scan(*(a.to(dev) for a in args))
+        want = scan(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
+    if cfg.family == "hybrid":
+        h = x[:, :100].to(dev)
+        pos = torch.arange(100, device=dev)[None].expand(2, 100)
+        ops.reset_launches()
+        got = lm.shared_attn_block(cfg, params, h, pos)
+        _assert_launches({"flash_attention": 1, "sparse_matmul": 3})
+        want = lm.shared_attn_block(cfg, lm.params_to(params, "cpu"),
+                                    h.cpu(), pos.cpu())
+        _bf16_close(got.cpu(), want)
+
+
+def test_whisper_on_card_matches_cpu_and_uses_the_kernels(dev):
+    """Reduced whisper: a prefill launches one flash (non-causal) and
+    three sparse_matmul "mma" per encoder layer, two flash (causal
+    self-attention, cross-attention) and three "mma" per decoder layer;
+    filling cross_kv runs the encoder's share; a decode step on the
+    filled cache three "gemv" a decoder layer; the logits within 1e-2 of
+    max |logit| of the CPU's."""
+    cfg = reduced(get_config("whisper-large-v3"))
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    cpu = lm.params_to(params, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(2))
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                         generator=torch.Generator().manual_seed(3)).bfloat16()
+    n, ne = cfg.n_layers, cfg.encoder_layers
+    ops.reset_launches()
+    got, _ = lm.forward(cfg, params, toks.to(dev),
+                        extra={"frames": frames.to(dev)})
+    _assert_launches({"flash_attention": ne + 2 * n,
+                      "sparse_matmul": 3 * (ne + n)})
+    _assert_variant("flash_attention", "mma", ne + 2 * n)
+    _assert_variant("sparse_matmul", "mma", 3 * (ne + n))
+    want, _ = lm.forward(cfg, cpu, toks, extra={"frames": frames})
+    assert float((got.cpu() - want).abs().max()) <= \
+        1e-2 * float(want.abs().max())
+    cache = lm.init_cache(cfg, 2, 8, device=dev)
+    ops.reset_launches()
+    lm.fill_cross_kv(cfg, params, cache, frames.to(dev))
+    _assert_launches({"flash_attention": ne, "sparse_matmul": 3 * ne})
+    ops.reset_launches()
+    step, _ = lm.decode_step(cfg, params, cache, toks[:, :1].to(dev), 0)
+    _assert_launches({"sparse_matmul": 3 * n})
+    _assert_variant("sparse_matmul", "gemv", 3 * n)
+    cache_cpu = lm.fill_cross_kv(cfg, cpu, lm.init_cache(cfg, 2, 8,
+                                                         device="cpu"),
+                                 frames)
+    want, _ = lm.decode_step(cfg, cpu, cache_cpu, toks[:, :1], 0)
+    assert float((step.cpu() - want).abs().max()) <= \
+        1e-2 * float(want.abs().max())

@@ -97,6 +97,43 @@ def test_flash_attention_d128_matches_reference(tq, tk, causal, window,
                                     **kw), TOL[dtype])
 
 
+@pytest.mark.parametrize("tq,tk,causal,window,q_offset", [
+    (128, 128, True, 0, 0),     # a prefill
+    (128, 128, True, 48, 0),    # zamba2's window, shorter than T
+    (64, 256, True, 32, 192),   # a cache chunk, windowed
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_d112_matches_reference(tq, tk, causal, window,
+                                                q_offset, dtype):
+    """Head size 112 (zamba2-7b's shared attention): the plain version
+    against the Pallas kernel (interpret; its blocks span the whole
+    head, so it takes D 112 as it is) and the XLA twin, at the
+    reference's own bars."""
+    q, k, v = _qkv([tq, tk, window, 112], 1, tq, tk, 2, 112, dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = fa.flash_attention_torch(_t(q), _t(k), _t(v), **kw)
+    assert got.dtype == getattr(torch, dtype) and got.shape == q.shape
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    _close(got, flash_attention_pallas(jq, jk, jv, block_q=32, block_k=64,
+                                       **kw), TOL[dtype])
+    _close(got, blockwise_attention(jq, jk, jv, block_q=32, block_k=64,
+                                    **kw), TOL[dtype])
+
+
+@pytest.mark.parametrize("tq,tk", [(100, 100), (37, 150), (150, 37)])
+def test_flash_attention_not_causal_cross_lengths(tq, tk):
+    """whisper's shapes in small: non-causal attention with Tq != Tk
+    (cross-attention, 448 x 1500 at full size) and a key count that is
+    no tile multiple (1500), at q_offset 0."""
+    q, k, v = _qkv([tq, tk, 64], 1, tq, tk, 3, 64, "float32")
+    got = fa.flash_attention_torch(_t(q), _t(k), _t(v), causal=False)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    _close(got, ref_oracles.attention_ref(jq, jk, jv, causal=False),
+           TOL["float32"])
+    _close(got, blockwise_attention(jq, jk, jv, causal=False, block_q=32,
+                                    block_k=64), TOL["float32"])
+
+
 def test_flash_attention_d128_cache_chunk_odd_lengths():
     """A cache chunk whose key count is no tile multiple (the reference's
     Pallas kernel asserts tiles; its XLA twin pads): 37 queries at
@@ -250,6 +287,13 @@ def test_split_p_product_at_d128_computes_the_plain_function(tq, tk, causal,
     _check_split_p(tq, tk, causal, window, 128, [tq, tk, window, 1, 128])
 
 
+@pytest.mark.parametrize("tq,tk,causal,window", SPLIT_P_CASES)
+def test_split_p_product_at_d112_computes_the_plain_function(tq, tk, causal,
+                                                             window):
+    """The same at zamba2's head size 112."""
+    _check_split_p(tq, tk, causal, window, 112, [tq, tk, window, 1, 112])
+
+
 def _check_split_p(tq, tk, causal, window, d, seed):
     """The mma variant rounds nothing the plain version keeps: its split
     p lands within the reference's bf16 bar of the Pallas kernel and
@@ -276,6 +320,8 @@ def _check_split_p(tq, tk, causal, window, d, seed):
     (torch.float32, 32, "simt"),
     (torch.bfloat16, 128, "mma"),     # the large dense LMs
     (torch.float32, 128, "simt"),
+    (torch.bfloat16, 112, "mma"),     # zamba2's shared attention
+    (torch.float32, 112, "simt"),
     (torch.bfloat16, 48, "simt"),     # no head size the kernel takes
 ])
 def test_flash_attention_variant_choice(dtype, d, want):

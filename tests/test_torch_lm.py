@@ -128,14 +128,20 @@ def test_large_lm_configs_match_reference_field_for_field(size, arch):
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b",
                                   "whisper-large-v3"])
 def test_unported_lm_archs_name_their_roadmap_item(arch):
-    """Every arch is registered, as in the reference; a family whose
-    model code is not ported raises where that code would run, naming
-    its ROADMAP item."""
-    cfg = get_config(arch)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1, the rest of the LM side "
-                             r"\(item 8d"):
-        lm.init_params(cfg, torch.Generator())
+    """Every arch is registered, as in the reference, and the SSM,
+    hybrid and encoder-decoder families, which raised here naming their
+    ROADMAP item until they were ported, now init: ``init_params`` at
+    ``reduced()`` size gives the reference's tree of shapes and dtypes
+    (the shared block and the encoder among them)."""
+    rcfg, cfg = ref_reduced(ref_get_config(arch)), reduced(get_config(arch))
+    rparams = jax.jit(lambda k: ref_lm.init_params(rcfg, k))(
+        jax.random.PRNGKey(0))
+    port = _port_leaves(lm.init_params(cfg, torch.Generator().manual_seed(0)))
+    ref = _ref_leaves(rparams)
+    assert set(port) == set(ref)
+    for key, want in ref.items():
+        assert tuple(port[key].shape) == want.shape, key
+        assert str(port[key].dtype).split(".")[1] == want.dtype.name, key
 
 
 def _port_leaves(tree, path=()):
