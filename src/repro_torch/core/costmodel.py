@@ -1,7 +1,9 @@
 """Per-layer analytic throughput model (paper Sec. IV): the CNN part of
 the reference's ``src/repro/core/costmodel.py``, which the planner's
 stage costs and weight budget read, and the measured model's
-calibration fit (``fit_scale_factors``).
+calibration fit (``fit_scale_factors``), and the LM part the stage
+planner of training reads (``lm_block_flops``, ``_logits_flops``,
+``lm_decode_flops``: the reference's formulas, the same floats).
 
 HPIPE stages process one output line (1 x W x Co) at a time; a layer with
 ``n_channel_splits = s`` partitions each output channel's surviving
@@ -168,3 +170,78 @@ def fit_scale_factors(measured_us, analytic_cycles, kinds) -> dict:
         ratios.setdefault(k, []).append(r)
         ratios.setdefault("*", []).append(r)
     return {k: float(np.exp(np.mean(v))) for k, v in ratios.items()}
+
+
+# --- LM-family: FLOPs per block kind (for pipeline stage assignment) -------
+
+def lm_block_flops(cfg, seq: int, batch: int, layer_idx: int) -> float:
+    """Forward FLOPs of layer ``layer_idx`` for one (batch, seq) slab.
+
+    Heterogeneous per layer for hybrid archs (HPIPE's whole point)."""
+    d, dh = cfg.d_model, cfg.head_dim
+    t = seq * batch
+    f = cfg.family
+    dens = (1.0 - cfg.sparsity.sparsity) if cfg.sparsity.enabled else 1.0
+    attn_proj = 2 * t * d * dh * (cfg.n_heads + 2 * cfg.kv_heads) \
+        + 2 * t * dh * cfg.n_heads * d
+    attn_sdpa = 4 * t * seq * cfg.n_heads * dh     # scores + pv
+    if cfg.attn_window:
+        attn_sdpa = 4 * t * min(seq, cfg.attn_window) * cfg.n_heads * dh
+    if f in ("dense", "vlm", "audio"):
+        ffn = 6 * t * d * cfg.d_ff * dens
+        return attn_proj + attn_sdpa + ffn
+    if f == "moe":
+        ffn = 6 * t * d * cfg.moe_d_ff * cfg.top_k * dens
+        router = 2 * t * d * cfg.n_experts
+        return attn_proj + attn_sdpa + ffn + router
+    if f == "ssm":      # rwkv6
+        tmix = 2 * t * d * (4 * d) * dens
+        wkv = 4 * t * dh * dh * cfg.n_heads
+        cmix = 2 * t * d * (2 * cfg.d_ff) * dens
+        return tmix + wkv + cmix
+    if f == "hybrid":   # zamba2: mamba layer (+ shared attn block at sites)
+        d_in = cfg.ssm_expand * d
+        proj = 2 * t * d * (2 * d_in + 2 * cfg.ssm_state) * dens \
+            + 2 * t * d_in * d * dens
+        ssd = 6 * t * d_in * cfg.ssm_state
+        cost = proj + ssd
+        if cfg.hybrid_attn_every and (layer_idx + 1) % cfg.hybrid_attn_every == 0:
+            cost += attn_proj + attn_sdpa + 6 * t * d * cfg.d_ff * dens
+        return cost
+    raise ValueError(f)
+
+
+def _logits_flops(cfg, tokens: int) -> float:
+    return 2.0 * tokens * cfg.d_model * cfg.vocab_size
+
+
+def lm_decode_flops(cfg, kv_len: int, batch: int, layer_idx: int) -> float:
+    """One-token decode FLOPs for layer ``layer_idx`` (cache len kv_len)."""
+    d, dh = cfg.d_model, cfg.head_dim
+    t = batch
+    f = cfg.family
+    dens = (1.0 - cfg.sparsity.sparsity) if cfg.sparsity.enabled else 1.0
+    attn_proj = 2 * t * d * dh * (cfg.n_heads + 2 * cfg.kv_heads) \
+        + 2 * t * dh * cfg.n_heads * d
+    win = min(kv_len, cfg.attn_window) if cfg.attn_window else kv_len
+    attn_sdpa = 4 * t * win * cfg.n_heads * dh
+    if f in ("dense", "vlm", "audio"):
+        ffn = 6 * t * d * cfg.d_ff * dens
+        extra = attn_proj + attn_sdpa          # audio: + cross attn
+        if f == "audio":
+            extra += attn_proj + 4 * t * cfg.encoder_seq * cfg.n_heads * dh
+        return extra + ffn
+    if f == "moe":
+        return attn_proj + attn_sdpa + 6 * t * d * cfg.moe_d_ff * cfg.top_k \
+            * dens + 2 * t * d * cfg.n_experts
+    if f == "ssm":      # rwkv6 single step: proj + state update
+        return 2 * t * d * 4 * d * dens + 4 * t * cfg.n_heads * dh * dh \
+            + 2 * t * d * 2 * cfg.d_ff * dens
+    if f == "hybrid":
+        d_in = cfg.ssm_expand * d
+        cost = 2 * t * d * (2 * d_in + 2 * cfg.ssm_state) * dens \
+            + 2 * t * d_in * d * dens + 6 * t * d_in * cfg.ssm_state
+        if cfg.hybrid_attn_every and (layer_idx + 1) % cfg.hybrid_attn_every == 0:
+            cost += attn_proj + attn_sdpa + 6 * t * d * cfg.d_ff * dens
+        return cost
+    raise ValueError(f)

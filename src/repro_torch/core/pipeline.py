@@ -39,13 +39,24 @@ is handed ``stage_params[k]``, one uint8 row that it unpacks its weights
 from (:class:`ParamFormat`), so no stage program closes over a weight.
 Meshes (per-stage placement across devices) are not ported: one card
 holds every row.
+
+Training (the HPIPE layer pipeline applied to an LM's train step,
+``launch/steps.make_pipeline_train_step``): :func:`stack_stages` re-packs
+(L, ...)-stacked layer params into (S, Lmax, ...) per-stage stacks with a
+validity mask, :func:`make_stage_fn` turns a per-layer block into a stage
+program over its valid layers, and :func:`pipeline_apply_gspmd` runs M
+microbatches through the S stages in M + S - 1 ticks, the stages of a
+tick in turn, under autograd (the shard_map ``pipeline_apply`` and
+``mesh=`` wait for ROADMAP Queue 1 item 9's second half).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core import pytree
 from repro_torch.core.quant import quantize_tree
@@ -390,10 +401,7 @@ def _check_hetero_params(stage_fns, n_stages, stage_params, mesh):
     if len(stage_fns) != n_stages:
         raise ValueError(f"{len(stage_fns)} stage programs for "
                          f"{n_stages} stages")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: one card has no device mesh (ROADMAP Queue 1 item 9, "
-            "second half: the mesh tooling and the placed tier)")
+    _no_mesh(mesh)
     placed = stage_params is not None
     ragged = placed and isinstance(stage_params, (tuple, list))
     if ragged and len(stage_params) != n_stages:
@@ -534,3 +542,136 @@ def pipeline_apply_gspmd_hetero(stage_fns: Sequence, x_wire: torch.Tensor,
                              emit=emit, streams=streams, active=active,
                              stage_params=stage_params)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# the stage-pipelined train step (LM layer stacks)
+# ---------------------------------------------------------------------------
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh=: one card has no device mesh (ROADMAP Queue 1 item 9, "
+            "second half: the mesh tooling and the placed tier)")
+
+
+def stack_stages(blocks, stage_of: list, n_stages: int):
+    """Re-pack per-layer stacked params (leading L axis) into per-stage
+    stacks (S, Lmax, ...), zero-padded, with a validity mask (S, Lmax)
+    (numpy bool, on the host). A SparseWeight stacks its vals and idx; a
+    Python list (a host-side per-layer value, zamba2's ``_attn_flag``)
+    becomes S lists of Lmax, padded with 0.
+
+    Every stage must own at least one layer: an empty stage would run as
+    a silent identity and waste a pipeline rung (``planner.assign_stages``
+    clamps)."""
+    n_l = len(stage_of)
+    per_stage = [[l for l in range(n_l) if stage_of[l] == s]
+                 for s in range(n_stages)]
+    empty = [s for s, g in enumerate(per_stage) if not g]
+    if empty:
+        raise ValueError(
+            f"stage(s) {empty} own no layers ({n_l} layers over {n_stages} "
+            "stages); clamp n_stages to max(stage_of)+1 or rebalance")
+    lmax = max(len(g) for g in per_stage)
+
+    def leaf(a):
+        if isinstance(a, list):
+            return [[a[l] for l in g] + [0] * (lmax - len(g))
+                    for g in per_stage]
+        out = a.new_zeros((n_stages, lmax) + tuple(a.shape[1:]))
+        for s, g in enumerate(per_stage):
+            out[s, :len(g)] = a[torch.tensor(g, device=a.device)]
+        return out
+
+    def tree(t):
+        if isinstance(t, dict):
+            return {k: tree(v) for k, v in t.items()}
+        if isinstance(t, pytree.SparseWeight):
+            return pytree.SparseWeight(leaf(t.vals), leaf(t.idx), t.d_in)
+        return leaf(t)
+
+    mask = np.zeros((n_stages, lmax), bool)
+    for s, g in enumerate(per_stage):
+        mask[s, :len(g)] = True
+    return tree(blocks), mask
+
+
+def index_tree(tree, i: int):
+    """Entry i of every leaf's leading axis (views; list entries)."""
+    if isinstance(tree, dict):
+        return {k: index_tree(v, i) for k, v in tree.items()}
+    if isinstance(tree, pytree.SparseWeight):
+        return pytree.SparseWeight(tree.vals[i], tree.idx[i], tree.d_in)
+    return tree[i]
+
+
+def make_stage_fn(block_fn: Callable) -> Callable:
+    """A per-layer ``block_fn(params_l, x) -> x`` as a stage program
+    ``stage_fn(stage_params, mask, x)`` over the stage's (Lmax, ...)
+    stack: each layer whose mask entry is true, in order; the padding
+    layers do not run (the mask is on the host)."""
+
+    def stage_fn(stage_params, mask, x):
+        for l, valid in enumerate(mask):
+            if valid:
+                x = block_fn(index_tree(stage_params, l), x)
+        return x
+
+    return stage_fn
+
+
+def pipeline_apply_gspmd(stage_fn: Callable, stage_params, mask, x_mb, *,
+                         n_stages: int, stage_axis: str = "pod",
+                         mesh=None, data_axis: str = "data",
+                         remat: bool = True) -> torch.Tensor:
+    """The reference's ``pipeline_apply_gspmd`` on one card: x_mb (M,
+    mb, ...) through S stages in M + S - 1 ticks; at tick i stage k runs
+    microbatch i - k where 0 <= i - k < M (the reference runs every
+    stage each tick and discards the idle ones' outputs: the same
+    results), the stages of a tick in turn, each stage program under a
+    checkpoint when ``remat`` (the reference's ``jax.checkpoint``).
+    ``stage_params``: (S, Lmax, ...) stacks (:func:`stack_stages`);
+    ``mask``: (S, Lmax) host bools. Returns (M, mb, ...)."""
+    _no_mesh(mesh)
+    m, s = x_mb.shape[0], n_stages
+    fn = stage_fn
+    if remat:
+        def fn(p, msk, x):
+            return _ckpt.checkpoint(stage_fn, p, msk, x, use_reentrant=False)
+    stages = [index_tree(stage_params, k) for k in range(s)]
+    masks = [list(np.asarray(mask)[k]) for k in range(s)]
+    held = [None] * s                   # each stage's input this tick
+    outs = [None] * m
+    for i in range(m + s - 1):
+        if i < m:
+            held[0] = x_mb[i]
+        ys = [None] * s
+        for k in range(s):
+            if 0 <= i - k < m:
+                ys[k] = fn(stages[k], masks[k], held[k])
+        if i - (s - 1) >= 0:
+            outs[i - (s - 1)] = ys[s - 1]
+        held = [None] + ys[:-1]          # stage k -> k + 1
+    return torch.stack(outs)
+
+
+def sequential_apply(stage_fn: Callable, stage_params, mask, x_mb, *,
+                     n_stages: int, remat: bool = True, **_) -> torch.Tensor:
+    """What :func:`pipeline_apply_gspmd` computes, without the pipeline:
+    each microbatch through every stage in order, then the next (each
+    stage program under a checkpoint when ``remat``). The comparison the
+    pipelined step is held to, bit for bit."""
+    fn = stage_fn
+    if remat:
+        def fn(p, msk, x):
+            return _ckpt.checkpoint(stage_fn, p, msk, x, use_reentrant=False)
+    stages = [index_tree(stage_params, k) for k in range(n_stages)]
+    masks = [list(np.asarray(mask)[k]) for k in range(n_stages)]
+    outs = []
+    for i in range(x_mb.shape[0]):
+        h = x_mb[i]
+        for k in range(n_stages):
+            h = fn(stages[k], masks[k], h)
+        outs.append(h)
+    return torch.stack(outs)

@@ -13,6 +13,9 @@ reference's ``src/repro/core/planner.py`` for the CNNs.
    device (``core/tuning.py``).
 3. ``plan()``: the front door: the fixed-depth cut, the (stages,
    replicas) co-plan of ``n_devices`` and its degradation re-plan.
+4. ``plan_lm_stages()``: an LM's layers cut into pipeline stages by
+   their forward FLOPs (the stage-pipelined train step,
+   ``launch/steps.make_pipeline_train_step``).
 
 On one card the stages are CUDA streams (``core/pipeline.py``); a
 co-plan over ``torch.cuda.device_count()`` devices gives S = 1, R = 1
@@ -27,7 +30,8 @@ from typing import Any, Optional
 
 import numpy as np
 
-from repro_torch.core.costmodel import (OpCost, node_weight_bytes,
+from repro_torch.core.costmodel import (OpCost, lm_block_flops,
+                                        node_weight_bytes,
                                         op_cost_conv_sparse, op_cost_dense,
                                         op_cost_dw, op_cost_from_sparse,
                                         op_cost_fused_dw_pw)
@@ -181,6 +185,23 @@ def assign_stages(costs: np.ndarray, n_stages: int, *,
     for s in range(n_stages):
         stage_of += [s] * (bounds[s + 1] - bounds[s])
     return stage_of
+
+
+def plan_lm_stages(cfg, seq: int, batch: int, n_stages: int) -> dict:
+    """HPIPE stage assignment for an LM arch: balance per-layer FLOPs
+    (heterogeneous for hybrid/MoE) across pipeline stages."""
+    costs = np.array([lm_block_flops(cfg, seq, batch, l)
+                      for l in range(cfg.n_layers)])
+    stage_of = assign_stages(costs, n_stages)
+    stage_cost = np.zeros(n_stages)
+    for l, s in enumerate(stage_of):
+        stage_cost[s] += costs[l]
+    return {
+        "stage_of": stage_of,
+        "stage_cost": stage_cost,
+        "imbalance": float(stage_cost.max() / max(stage_cost.mean(), 1.0)),
+        "layer_flops": costs,
+    }
 
 
 def cnn_op_costs(cfg, params) -> list[OpCost]:

@@ -18,6 +18,11 @@ the tail of the last tile is masked, not asserted away. The mma
 variant's P V product keeps p's f32 value as two bf16 terms, p_hi =
 bf16(p) and p_lo = bf16(p - p_hi) (p to ~2^-17 relative), so it
 computes the same function to far below the output's bf16 rounding.
+
+Training: :class:`FlashAttentionFn` wraps the kernel for autograd. Its
+backward is the plain :func:`flash_attention_backward_torch` (the
+reference's Pallas kernel has no backward either), which recomputes the
+probabilities in f32 under the same mask, a query chunk at a time.
 """
 from __future__ import annotations
 
@@ -99,6 +104,83 @@ def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
         out[:, :, q0:q0 + n] = (acc / l.clamp_min(1e-20)[..., None]).to(
             q.dtype)
     return out.permute(0, 2, 1, 3).contiguous()
+
+
+#: query rows the plain backward takes at a time: (B, H, 512, Tk) f32
+#: score tensors, not (B, H, Tq, Tk)
+BWD_CHUNK = 512
+
+
+def flash_attention_backward_torch(q, k, v, dout, causal: bool = True,
+                                   window: int = 0, q_offset: int = 0):
+    """The gradients (dq, dk, dv) of :func:`flash_attention_torch` for
+    the output gradient ``dout`` (q's layout). The probabilities are
+    recomputed in f32 under the forward's mask, BWD_CHUNK query rows at a
+    time over the keys they can see (``kv_tile_range``):
+    p = softmax(q k^T / sqrt(D)), dp = dout v^T, ds = p (dp - rowsum(p
+    dp)), dq = ds k / sqrt(D), dk = ds^T q / sqrt(D), dv = p^T dout.
+    Products in f32; dk and dv summed over the chunks in order (no
+    atomics: the same bits every run); each gradient in its input's
+    dtype."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qf = q.permute(0, 2, 1, 3).float()                     # (B, H, Tq, D)
+    kf = k.permute(0, 2, 1, 3).float()
+    vf = v.permute(0, 2, 1, 3).float()
+    dof = dout.permute(0, 2, 1, 3).float()
+    dq = torch.zeros((b, h, tq, d), device=q.device)
+    dk = torch.zeros((b, h, tk, d), device=q.device)
+    dv = torch.zeros((b, h, tk, d), device=q.device)
+    for q0 in range(0, tq, BWD_CHUNK):
+        n = min(BWD_CHUNK, tq - q0)
+        t_begin, t_end = kv_tile_range(q_offset + q0, q_offset + q0 + n - 1,
+                                       tk, causal=causal, window=window)
+        k0, k1 = t_begin * BLOCK_K, min(t_end * BLOCK_K, tk)
+        if k0 >= k1:
+            continue
+        qpos = q_offset + torch.arange(q0, q0 + n, device=q.device)
+        kpos = torch.arange(k0, k1, device=q.device)
+        mask = torch.ones((n, k1 - k0), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        qi, doi = qf[:, :, q0:q0 + n], dof[:, :, q0:q0 + n]
+        kk, vv = kf[:, :, k0:k1], vf[:, :, k0:k1]
+        s = torch.where(mask, (qi @ kk.transpose(-1, -2)) * scale, NEG_INF)
+        p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)),
+                        0.0)
+        p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+        dp = doi @ vv.transpose(-1, -2)
+        ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+        dq[:, :, q0:q0 + n] = (ds @ kk) * scale
+        dk[:, :, k0:k1] += (ds.transpose(-1, -2) @ qi) * scale
+        dv[:, :, k0:k1] += p.transpose(-1, -2) @ doi
+    return tuple(g.permute(0, 2, 1, 3).to(t.dtype).contiguous()
+                 for g, t in ((dq, q), (dk, k), (dv, v)))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The CUDA kernel under autograd: forward :func:`flash_attention`
+    (launches or raises), backward :func:`flash_attention_backward_torch`.
+    q, k, v are saved after the launch, so a recomputation (activation
+    checkpointing) launches the kernel again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        grads = flash_attention_backward_torch(q, k, v, dout, *ctx.mask)
+        return tuple(g if need else None for g, need in zip(
+            grads, ctx.needs_input_grad[:3])) + (None, None, None)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -5,6 +5,13 @@ PyTorch version, a CUDA tensor to the hand-written kernel, which
 launches or raises. There is no fallback from one to the other and no
 switch that sends a CUDA tensor down the plain path.
 
+Under autograd a CUDA tensor goes through the kernel's
+``torch.autograd.Function`` (``sparse_matmul.SparseMatmulFn``,
+``flash_attention.FlashAttentionFn``): the forward is the kernel, the
+backward a plain function beside the plain version (the reference has no
+backward kernel). A CPU tensor's plain version differentiates through
+autograd as it is.
+
 ``LAUNCHES`` counts kernel launches by name (a plain int each, reset
 with ``reset_launches``): the CUDA wrappers add one per launch, so a
 run can show that its main path went through the kernels.
@@ -131,7 +138,7 @@ def sparse_matmul(x: torch.Tensor, sw) -> torch.Tensor:
         raise ValueError(f"sparse_matmul: x has {d_in} features, the "
                          f"weight takes {sw.d_in}")
     xm = x.reshape(-1, d_in).contiguous()
-    fn = _sm.sparse_matmul if _route(x, "sparse_matmul") \
+    fn = _sm.SparseMatmulFn.apply if _route(x, "sparse_matmul") \
         else _sm.sparse_matmul_torch
     y = fn(xm, sw.vals, sw.idx)
     if sw.scale is not None:
@@ -221,6 +228,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     (the LM prefill's attention): q (B, Tq, H, D), k and v (B, Tk, H, D)
     with GQA already expanded; query t sits at ``q_offset + t``. The
     output has q's layout and dtype."""
-    fn = _fa.flash_attention if _route(q, "flash_attention") \
-        else _fa.flash_attention_torch
-    return fn(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    if _route(q, "flash_attention"):
+        return _fa.FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
+    return _fa.flash_attention_torch(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)

@@ -15,11 +15,19 @@ check every variant is held to on the card.
 Stored weights: bf16 vals, int8 codes (gemv, simt; the caller applies
 the scale to the output, as the reference does outside its Pallas
 kernel, ``ops.py:135-144``) or f32 vals (simt).
+
+Training: :class:`SparseMatmulFn` wraps the kernel for autograd. Its
+backward is the plain :func:`sparse_matmul_backward_torch` (the
+reference has no backward kernel: it trains through its XLA twin), which
+keeps the weight sparse and sums in a fixed order, so a step gives the
+same bits every time.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+
+import numpy as np
 
 import torch
 
@@ -43,6 +51,89 @@ def sparse_matmul_torch(x, vals, idx) -> torch.Tensor:
         xg = xb[:, idx[:, l].long()]                          # (M, ob, bm)
         acc += torch.einsum("tjb,jbn->tjn", xg.to(ad), vals[:, l].to(ad))
     return acc.reshape(m, ob * bn).float().to(x.dtype)
+
+
+def transposed_index(idx: torch.Tensor, n_in: int):
+    """For each of the n_in input blocks, the (j, k) pairs with
+    idx[j, k] == it, in ascending j: (jt, kt, valid), each (n_in, R) with
+    R the most pairs any input block has (at least 1); padded slots hold
+    (0, 0) and valid False. Built on the host once per weight (a read
+    of idx back, the first time) and kept on idx's base tensor, keyed by
+    the view's offset and shape and idx's version."""
+    base = idx if idx._base is None else idx._base
+    key = (idx.storage_offset(), tuple(idx.shape), n_in, idx._version)
+    cache = getattr(base, "_repro_transposed", None)
+    if cache is None:
+        cache = {}
+        base._repro_transposed = cache
+    if key not in cache:
+        ids = idx.cpu().numpy()
+        pairs = [[] for _ in range(n_in)]
+        for j in range(ids.shape[0]):
+            for k in range(ids.shape[1]):
+                pairs[int(ids[j, k])].append((j, k))
+        r = max(1, max(len(p) for p in pairs))
+        jt = np.zeros((n_in, r), np.int64)
+        kt = np.zeros((n_in, r), np.int64)
+        valid = np.zeros((n_in, r), bool)
+        for i, pr in enumerate(pairs):
+            for c, (j, k) in enumerate(pr):
+                jt[i, c], kt[i, c], valid[i, c] = j, k, True
+        cache[key] = tuple(torch.from_numpy(a).to(idx.device)
+                           for a in (jt, kt, valid))
+    return cache[key]
+
+
+def sparse_matmul_backward_torch(x, vals, idx, dy):
+    """The gradients of :func:`sparse_matmul_torch`: (dx, dvals) for
+    y = x @ W and its output gradient dy (M, ob * bn); idx gets none.
+
+    dvals[j, k] = x[:, idx[j,k]*bm:+bm]^T @ dy[:, j*bn:+bn] and dx the
+    transposed block product: input block i sums dy[:, j-block] @
+    vals[j, k]^T over the (j, k) that read it (:func:`transposed_index`),
+    in ascending j. Sums in f32 (f64 on the CPU, rounded once, as the
+    forward: ``_build.plain_acc``); dx in x's dtype, dvals in vals'. No
+    dense (d_in, d_out) weight, no scatter-add and no atomics: each
+    output element is summed in one fixed order."""
+    m, d_in = x.shape
+    ob, n_k, bm, bn = vals.shape
+    n_in = d_in // bm
+    ad = _build.plain_acc(x)
+    xb = x.reshape(m, n_in, bm).to(ad)
+    dyb = dy.reshape(m, ob, bn).to(ad)
+    dvals = torch.empty(vals.shape, dtype=vals.dtype, device=vals.device)
+    for l in range(n_k):
+        xg = xb[:, idx[:, l].long()]                          # (M, ob, bm)
+        dvals[:, l] = torch.einsum("tjb,tjn->jbn", xg, dyb).to(vals.dtype)
+    del xb
+    jt, kt, valid = transposed_index(idx, n_in)
+    vf = vals.to(ad)
+    dx = torch.zeros((m, n_in, bm), dtype=ad, device=x.device)
+    for r in range(jt.shape[1]):
+        w = torch.where(valid[:, r, None, None], vf[jt[:, r], kt[:, r]], 0.0)
+        dx += torch.einsum("tin,ibn->tib", dyb[:, jt[:, r]], w)
+    return dx.reshape(m, d_in).float().to(x.dtype), dvals
+
+
+class SparseMatmulFn(torch.autograd.Function):
+    """The CUDA kernel under autograd: forward :func:`sparse_matmul`
+    (launches or raises), backward :func:`sparse_matmul_backward_torch`.
+    Its inputs are saved after the launch, so a recomputation (activation
+    checkpointing) launches the kernel again."""
+
+    @staticmethod
+    def forward(ctx, x, vals, idx):
+        y = sparse_matmul(x, vals, idx)
+        ctx.save_for_backward(x, vals, idx)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, vals, idx = ctx.saved_tensors
+        dx, dvals = sparse_matmul_backward_torch(x, vals, idx,
+                                                 dy.contiguous())
+        return (dx if ctx.needs_input_grad[0] else None,
+                dvals if ctx.needs_input_grad[1] else None, None)
 
 
 SIMT_MAX_M = 8     # rows up to which the gemv variant runs (decode)

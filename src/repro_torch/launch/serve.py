@@ -212,13 +212,14 @@ def serve_lm(arch: str, *, batch: int = 4, prompt_len: int = 32,
              gen_tokens: int = 16, max_seq: int = 128,
              use_reduced: bool = True, seed: int = 0, verbose: bool = True,
              prompts=None, params=None, generator=None, frames=None,
-             record_logits: bool = False, device="cuda") -> dict:
+             record_logits: bool = False, device="cuda", cfg=None) -> dict:
     """Step a batch of prompts through the decode path (filling the KV
     cache), then decode ``gen_tokens`` greedily. Returns tokens and
     timings.
 
-    ``params``: the model's parameters (on ``device``); by default drawn
-    from ``generator`` (by default ``torch.Generator(device)`` seeded
+    ``cfg``: a config to serve instead of ``arch``'s (a depth cut, as
+    ``launch.train.train`` takes one). ``params``: the model's parameters
+    (on ``device``); by default drawn from ``generator`` (by default ``torch.Generator(device)`` seeded
     with ``seed``). ``prompts``: (B, T) token ids; by default drawn from
     the same generator, (batch, prompt_len). ``record_logits`` also
     returns every step's logits, (B, T + gen_tokens, V) f32, kept on the
@@ -240,9 +241,10 @@ def serve_lm(arch: str, *, batch: int = 4, prompt_len: int = 32,
     tokens come from zeros; the port's come from the encoder (ROADMAP
     Queue 3 item 4)."""
     dev = resolve_device(device)
-    cfg = get_config(arch)
-    if use_reduced:
-        cfg = reduced(cfg)
+    if cfg is None:
+        cfg = get_config(arch)
+        if use_reduced:
+            cfg = reduced(cfg)
     gen = generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(seed)
     if params is None:

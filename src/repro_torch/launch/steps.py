@@ -1,12 +1,78 @@
-"""LM step functions for serving (counterpart of the reference's
-``src/repro/launch/steps.py``, prefill and decode; training is not
-ported, ROADMAP Queue 1, the rest of the LM side).
+"""LM step functions (counterpart of the reference's
+``src/repro/launch/steps.py``): train, prefill and decode, and the
+stage-pipelined train step (HPIPE's layer pipeline applied to training).
 
-The reference's ``remat`` and ``unroll`` knobs shape a traced program;
-the port runs eagerly and has neither."""
+The reference's ``unroll`` shapes a traced program and the port runs
+eagerly, so it has none; ``remat`` is :func:`repro_torch.models.lm.
+remat_wrap`'s. A train step takes the gradient of every floating leaf
+(``torch.autograd.grad``; an integer leaf such as a SparseWeight's idx
+gets None, JAX's float0) and runs the forward and the backward under
+``layers.full_f32()``, so no f32 product, forward or backward, takes
+TF32 on the card. The hand-written kernels run in the forward and in
+each recomputation; their backwards are plain torch
+(``kernels/ops.py``)."""
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import pipeline as pp
+from repro_torch.core import planner
+from repro_torch.core import pytree
+from repro_torch.models import layers as L
 from repro_torch.models import lm
+from repro_torch.optim import adamw
+
+
+def _trainable(tree):
+    """``tree`` with every floating leaf a fresh autograd leaf that
+    shares its storage, and the list of those leaves in
+    ``core/pytree.leaves`` order."""
+    leaves = []
+
+    def mark(t):
+        if t.is_floating_point():
+            t = t.detach().requires_grad_(True)
+            leaves.append(t)
+        return t
+
+    flat = dict(pytree.keyed_leaves(tree))
+    return pytree.rebuild(tree, lambda key: mark(flat[key])), leaves
+
+
+def value_and_grad(loss_of, params):
+    """(loss_of's outputs, grads): ``loss_of(params) -> (loss, metrics)``
+    and the gradient of the loss for every floating leaf (zeros where
+    the loss does not reach a leaf, None for integer leaves), as a tree
+    of the params' keys (weight containers as ``pytree.SparseLeaves``)."""
+    with L.full_f32():
+        p, leaves = _trainable(params)
+        loss, metrics = loss_of(p)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    by_id = {id(t): g if g is not None else torch.zeros_like(t)
+             for t, g in zip(leaves, grads)}
+    grad_tree = pytree.map_leaves(lambda t: by_id.get(id(t)), p)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), \
+        grad_tree
+
+
+def make_train_step(cfg, opt_cfg: Optional[adamw.AdamWConfig] = None, *,
+                    remat: str = "full"):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: ``lm.loss_fn``'s gradient, then AdamW. metrics: "loss",
+    "aux", "grad_norm", "lr"."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+
+    def train_step(params, opt_state, batch):
+        (_, metrics), grads = value_and_grad(
+            lambda p: lm.loss_fn(cfg, p, batch, remat=remat), params)
+        params, opt_state, om = adamw.update(opt_cfg, params, grads,
+                                             opt_state)
+        return params, opt_state, {**metrics, **om}
+
+    return train_step
 
 
 def make_prefill_step(cfg):
@@ -30,3 +96,103 @@ def make_decode_step(cfg):
         return lm.decode_step(cfg, params, cache, tokens, pos)
 
     return decode
+
+
+# --- HPIPE pipelined training ---------------------------------------------
+
+def make_pipeline_train_step(cfg, mesh, shape,
+                             opt_cfg: Optional[adamw.AdamWConfig] = None, *,
+                             n_stages: int, n_microbatches: int = 8,
+                             stage_axis: str = "pod"):
+    """The reference's ``make_pipeline_train_step`` on one card: the
+    block stack runs through the layer pipeline
+    (``pipeline.pipeline_apply_gspmd``: M microbatches, S stages in turn
+    each tick, M + S - 1 ticks), cut by ``planner.plan_lm_stages`` at
+    ``shape``'s sequence and global batch. ``mesh`` must be None (the
+    reference takes S from its mesh's ``stage_axis``; here ``n_stages``).
+
+    Returns (train_step, restructure, planout):
+    ``restructure(params) -> (sparams, mask)`` moves the (L, ...)-stacked
+    blocks to (S, Lmax, ...) stages under ``sparams["staged"]`` and gives
+    the (S, Lmax) host mask; ``train_step(sparams, mask, opt_state,
+    batch) -> (sparams, opt_state, metrics)`` with the reference's loss,
+    the mean nll of a full ``log_softmax`` (no chunks, no aux). zamba2's
+    ``_attn_flag`` (the reference folds it into the staged params as an
+    int32 array) stays on the host: S lists of Lmax ints, joined to each
+    stage's params as the stage runs; each flag is its site's number + 1,
+    and each site runs the shared block on its own slice of a stack of
+    the shared params, so each site's gradient sums its microbatches
+    alone and the sites are added in order: the shared block's gradient
+    does not depend on how the stages cut the layers.
+
+    ``train_step.value_and_grad(sparams, mask, batch, executor=)`` gives
+    ((loss, metrics), grads) without the update; ``executor=
+    pipeline.sequential_apply`` runs the same microbatches through the
+    stages in order, without the pipeline."""
+    pp._no_mesh(mesh)
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    planout = planner.plan_lm_stages(cfg, shape.seq_len, shape.global_batch,
+                                     n_stages)
+    stage_of = planout["stage_of"]
+    flags, n_sites = None, 0
+    if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+        site = []
+        for f in lm.attn_flags(cfg):
+            n_sites += f
+            site.append(n_sites if f else 0)
+        flags = pp.stack_stages({"_attn_flag": site}, stage_of,
+                                n_stages)[0]["_attn_flag"]
+
+    def restructure(params):
+        staged, mask = pp.stack_stages(dict(params["blocks"]), stage_of,
+                                       n_stages)
+        rest = {k: v for k, v in params.items() if k != "blocks"}
+        return {"staged": staged, **rest}, mask
+
+    def loss(ps, mask, batch, executor=pp.pipeline_apply_gspmd):
+        dev = ps["embed"].device
+        with L.full_f32():
+            h = lm._embed(cfg, ps, torch.as_tensor(batch["tokens"]))
+            if cfg.family == "vlm":
+                h = torch.cat([torch.as_tensor(batch["patches"]).to(
+                    dev, h.dtype), h], dim=1)
+            b, t, _ = h.shape
+            positions = torch.arange(t, device=dev)[None]   # microbatch-safe
+            shared_at = None
+            if n_sites:
+                sites = pytree.map_leaves(
+                    lambda t: torch.stack([t] * n_sites), ps["shared"])
+                sites = pytree.rebuild(ps["shared"], dict(
+                    pytree.keyed_leaves(sites)).get)
+
+                def shared_at(flag):
+                    return {"shared": pp.index_tree(sites, flag - 1)}
+            block_fn = lm.make_pipeline_block_fn(cfg, ps, positions,
+                                                 shared_at=shared_at)
+            stage_fn = pp.make_stage_fn(block_fn)
+            staged = ps["staged"] if flags is None else dict(
+                ps["staged"], _attn_flag=flags)
+            out = executor(
+                stage_fn, staged, mask, pp.microbatch(h, n_microbatches),
+                n_stages=n_stages, stage_axis=stage_axis)
+            logits = lm._logits(cfg, ps, out.reshape(b, t, -1))
+            labels = torch.as_tensor(batch["labels"]).to(dev).long()
+            if cfg.family == "vlm":
+                logits = logits[:, -labels.shape[1]:]
+            logp = F.log_softmax(logits, dim=-1)
+            nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+            value = nll.mean()
+            return value, {"loss": value}
+
+    def grads(sparams, mask, batch, *, executor=pp.pipeline_apply_gspmd):
+        return value_and_grad(lambda p: loss(p, mask, batch, executor),
+                              sparams)
+
+    def train_step(sparams, mask, opt_state, batch):
+        (_, metrics), g = grads(sparams, mask, batch)
+        sparams, opt_state, om = adamw.update(opt_cfg, sparams, g,
+                                              opt_state)
+        return sparams, opt_state, {**metrics, **om}
+
+    train_step.value_and_grad = grads
+    return train_step, restructure, planout

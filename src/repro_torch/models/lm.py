@@ -21,6 +21,7 @@ block after every ``hybrid_attn_every``-th Mamba2 layer.
     decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
     prefill_chunk(cfg, params, cache, tokens, pos) -> (logits, cache)
     fill_cross_kv(cfg, params, cache, frames)    -> cache     (whisper)
+    loss_fn(cfg, params, batch, remat=)     -> (loss, metrics) training
 
 ``forward``, ``decode_step`` and ``prefill_chunk`` run where the
 parameters are. ``decode_step`` takes one token a row, at one position
@@ -33,21 +34,32 @@ except in a step with one position a row, which routes each row alone
 (``layers.moe``). The recurrent caches (rwkv6's token shifts and WKV
 state, zamba2's conv and SSM states) carry a whole prompt: stepping it
 through ``decode_step`` gives ``forward``'s logits up to the order of
-f32 sums. ``loss_fn`` and remat are not ported (ROADMAP Queue 1 item
-8e, training).
+f32 sums.
+
+Training: ``loss_fn`` is the reference's: the hidden states, then a
+cross entropy over sequence chunks (:func:`chunked_softmax_xent`, each
+chunk checkpointed so neither the (B, T, V) f32 logits nor their log
+softmax are stored), the MoE aux loss added at 0.01. ``forward``'s
+``remat`` recomputes each block in the backward ("full") or keeps the
+matmul outputs of each block ("dots"), with ``torch.utils.checkpoint``
+(non-reentrant); the values are the same bits as "none".
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import SparseWeight, tensor_from_numpy
 
 LOGITS_MODES = ("full", "last", "hidden")
+REMAT_MODES = ("none", "full", "dots")
 
 
 #: the families the port runs, and the block each stacks
@@ -328,6 +340,30 @@ def make_block_fn(cfg, positions: torch.Tensor,
     return block
 
 
+def make_pipeline_block_fn(cfg, shared_params, positions: torch.Tensor, *,
+                           shared_at=None):
+    """Block function ``(p, h) -> h`` for the stage pipeline (the
+    reference's): p is one layer's parameters; zamba2's shared block runs
+    after it where p carries a true ``"_attn_flag"``, a host-side int (no
+    flag is read back from the card); the aux loss is dropped.
+    ``shared_at(flag)``: the params (with "shared") that site's shared
+    block runs on; by default ``shared_params`` at every site."""
+    block = make_block_fn(cfg, positions)
+
+    def fn(p, h):
+        flag = p.get("_attn_flag") if isinstance(p, dict) else None
+        if flag is not None:
+            p = {k: v for k, v in p.items() if k != "_attn_flag"}
+        h2, _ = block(h, p)
+        if flag:
+            h2 = shared_attn_block(
+                cfg, shared_params if shared_at is None else shared_at(flag),
+                h2, positions)
+        return h2
+
+    return fn
+
+
 def encoder_block_fn(cfg, positions: torch.Tensor):
     """Whisper's encoder block ``(h, p) -> h``: non-causal attention
     (through the flash kernel), then the pruned FFN."""
@@ -388,8 +424,33 @@ def _prefix(cfg, h: torch.Tensor, extra: Optional[dict]) -> torch.Tensor:
     return torch.cat([x, h], dim=1) if cfg.family == "vlm" else h
 
 
+#: the products whose outputs remat="dots" keeps: those without batch
+#: dimensions (the reference's ``dots_with_no_batch_dims_saveable``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(fn, remat: str):
+    """``fn`` run under activation checkpointing: "none" (as it is),
+    "full" (nothing inside it kept for the backward: recomputed) or
+    "dots" (the outputs of its unbatched matmuls kept, the rest
+    recomputed)."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat={remat!r}: expected one of {REMAT_MODES}")
+    if remat == "none":
+        return fn
+    kw = {} if remat == "full" else {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _dots_policy)}
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
 def forward(cfg, params, tokens: torch.Tensor, *,
-            extra: Optional[dict] = None, logits_mode: str = "full"):
+            extra: Optional[dict] = None, logits_mode: str = "full",
+            remat: str = "none"):
     """Full-sequence forward -> (logits | hidden, aux).
 
     extra: {"patches": (B, Vt, d)} for a VLM: the patch embeddings go in
@@ -399,7 +460,11 @@ def forward(cfg, params, tokens: torch.Tensor, *,
     sum over layers of the MoE load-balance loss (0 for the other
     families).
     logits_mode: "full" (B, T, V) f32 | "last" (B, V) f32 | "hidden"
-    (B, T, d)."""
+    (B, T, d).
+    remat: "none" | "full" | "dots" (:func:`remat_wrap`, per layer with
+    zamba2's shared block after it); the reference defaults to "full",
+    which only changes what a backward recomputes, so the port's serving
+    calls default to "none"."""
     if logits_mode not in LOGITS_MODES:
         raise ValueError(f"logits_mode={logits_mode!r}: expected one of "
                          f"{LOGITS_MODES}")
@@ -414,12 +479,18 @@ def forward(cfg, params, tokens: torch.Tensor, *,
         b, t, _ = h.shape
         positions = torch.arange(t, device=h.device)[None].expand(b, t)
         block = make_block_fn(cfg, positions, enc_out)
-        auxs = []
-        for l, shared in enumerate(attn_flags(cfg)):
+
+        def layer(h, l, shared):
             h, aux_l = block(h, _layer(params["blocks"], l))
-            auxs.append(aux_l)
             if shared:
                 h = shared_attn_block(cfg, params, h, positions)
+            return h, aux_l
+
+        layer = remat_wrap(layer, remat)
+        auxs = []
+        for l, shared in enumerate(attn_flags(cfg)):
+            h, aux_l = layer(h, l, shared)
+            auxs.append(aux_l)
         aux = torch.stack(auxs).sum()
         if logits_mode == "hidden":
             return h, aux
@@ -619,3 +690,53 @@ def prefill_chunk(cfg, params, cache: dict, tokens: torch.Tensor,
                              device=params["embed"].device)[None].expand(
         tokens.shape[0], -1)
     return _cache_step(cfg, params, cache, tokens, positions, pos)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def chunked_softmax_xent(cfg, params, h: torch.Tensor, labels: torch.Tensor,
+                         *, n_chunks: int = 16):
+    """Cross entropy without keeping (B, T, V) logits: the sequence in
+    ``n_chunks`` chunks (fewer where T does not divide), each chunk's
+    logits, log softmax and picked labels under a checkpoint, so the
+    backward recomputes them chunk by chunk. Labels < 0 are masked.
+    Returns (sum of nll, number of labels counted), f32 scalars."""
+    b, t, d = h.shape
+    while t % n_chunks:
+        n_chunks -= 1
+    c = t // n_chunks
+
+    def chunk(hh, ll):
+        logp = F.log_softmax(_logits(cfg, params, hh), dim=-1)
+        nll = -torch.gather(logp, -1, ll.clamp_min(0)[..., None])[..., 0]
+        mask = (ll >= 0).float()
+        return (nll * mask).sum(), mask.sum()
+
+    s = n = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        cs, cn = ckpt.checkpoint(chunk, h[:, i * c:(i + 1) * c],
+                                 labels[:, i * c:(i + 1) * c],
+                                 use_reentrant=False)
+        s, n = s + cs, n + cn
+    return s, n
+
+
+def loss_fn(cfg, params, batch: dict, *, remat: str = "full"):
+    """batch: {"tokens": (B, T), "labels": (B, T)} and, by family,
+    "patches" (B, Vt, d) (VLM: its positions carry no loss) or "frames"
+    (B, Te, d) (whisper). Returns (loss + 0.01 * aux, {"loss", "aux"}):
+    the mean nll over labels >= 0 and the MoE load-balance loss."""
+    dev = params["embed"].device
+    extra = {k: batch[k] for k in ("frames", "patches") if k in batch}
+    labels = torch.as_tensor(batch["labels"]).to(dev).long()
+    with L.full_f32():
+        h, aux = forward(cfg, params, torch.as_tensor(batch["tokens"]),
+                         extra=extra or None, remat=remat,
+                         logits_mode="hidden")
+        if cfg.family == "vlm":                # the image prefix: no loss
+            h = h[:, -labels.shape[1]:]
+        s, n = chunked_softmax_xent(cfg, params, h, labels)
+        loss = s / n.clamp_min(1.0)
+        return loss + 0.01 * aux, {"loss": loss, "aux": aux}

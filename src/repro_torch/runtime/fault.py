@@ -12,10 +12,15 @@ port's copy of the serving part of the reference's
   :func:`truncate_frames`): network faults at frame granularity for the
   host tier.
 
-The training and mesh functions of the reference's module
-(``run_with_restarts``, ``remesh``, ``compress_grads``,
-``decompress_grads``, ``init_error``) are not ported yet: ROADMAP Queue 1
-items 8 (training) and 9 (mesh).
+Training (torch imported where they run):
+
+- :func:`run_with_restarts`: the checkpoint / restart loop;
+- :func:`compress_grads` / :func:`decompress_grads` /
+  :func:`init_error`: per-leaf symmetric int8 gradients with error
+  feedback.
+
+``remesh`` is not ported: ROADMAP Queue 1 item 9, second half (the mesh
+tooling).
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import socket
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 
@@ -41,6 +46,52 @@ class FailureInjector:
         if step in self.fail_at_steps and step not in self._fired:
             self._fired.add(step)
             raise InjectedFailure(f"injected failure at step {step}")
+
+
+def run_with_restarts(make_state: Callable[[], Any],
+                      step_fn: Callable[[Any, int], Any],
+                      *, n_steps: int, ckpt_dir: str, ckpt_every: int = 10,
+                      max_restarts: int = 5,
+                      injector: Optional[FailureInjector] = None,
+                      saver=None):
+    """Generic resilient loop: state = step_fn(state, step); checkpoints
+    every ``ckpt_every``; on failure, restores the latest checkpoint and
+    resumes (replaying at most ckpt_every-1 steps). Returns (state,
+    restart_count, steps_executed)."""
+    from repro_torch.checkpoint import ckpt
+    if saver is None:
+        saver = ckpt.AsyncSaver()
+    restarts = 0
+    executed = 0
+    state = make_state()
+    start = 0
+    last = ckpt.latest_step(ckpt_dir)
+    if last is not None:
+        state, start = ckpt.restore(state, ckpt_dir, last)
+        start += 1
+    step = start
+    while step < n_steps:
+        try:
+            if injector is not None:
+                injector.maybe_fail(step)
+            state = step_fn(state, step)
+            executed += 1
+            if step % ckpt_every == 0:
+                saver.save(state, ckpt_dir, step)
+            step += 1
+        except InjectedFailure:
+            restarts += 1
+            if restarts > max_restarts:
+                raise
+            saver.wait()
+            last = ckpt.latest_step(ckpt_dir)
+            if last is None:                      # failed before 1st ckpt
+                state, step = make_state(), 0
+            else:
+                state, last_step = ckpt.restore(make_state(), ckpt_dir, last)
+                step = last_step + 1
+    saver.wait()
+    return state, restarts, executed
 
 
 @dataclass
@@ -463,3 +514,51 @@ class NetFaultProxy:
         except OSError as e:
             self.frames_forwarded[direction] -= 1
             raise _DropConn from e
+
+
+# --- gradient compression (int8 + error feedback) ---------------------------
+
+def compress_grads(grads, error):
+    """Per-leaf symmetric int8 quantization with error feedback (the
+    reference's). Returns ((q_grads, scales), new_error): each floating
+    leaf g + e as int8 codes round(x / s) clipped to +-127 with s =
+    max(|x|.max() / 127, 1e-12) (f32, round half to even), the error x -
+    q * s; a leaf with no gradient (None) gives None, scale 1 and no
+    error."""
+    import torch
+
+    from repro_torch.core import pytree
+
+    def one(g, e):
+        if g is None or not g.is_floating_point():
+            return (g, torch.ones((), dtype=torch.float32), None)
+        gf = g.float() + e
+        scale = torch.clamp(gf.abs().max() / 127.0, min=1e-12)
+        q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+        return (q, scale, gf - q.float() * scale)
+
+    triples = pytree.map_leaves(one, grads, error)
+    q, s, e = (pytree.map_leaves(lambda t, i=i: t[i], triples)
+               for i in range(3))
+    return (q, s), e
+
+
+def decompress_grads(qg):
+    """int8 codes times their scale, in f32; other leaves as they are."""
+    import torch
+
+    from repro_torch.core import pytree
+    q, s = qg
+    return pytree.map_leaves(
+        lambda qq, ss: qq.float() * ss
+        if qq is not None and qq.dtype == torch.int8 else qq, q, s)
+
+
+def init_error(grads_like):
+    """Zero f32 error of every gradient leaf's shape (None stays None)."""
+    import torch
+
+    from repro_torch.core import pytree
+    return pytree.map_leaves(
+        lambda g: None if g is None else torch.zeros(
+            g.shape, dtype=torch.float32, device=g.device), grads_like)

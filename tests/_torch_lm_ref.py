@@ -1,16 +1,19 @@
 """Helpers shared by the port's state-family LM tests
-(tests/test_torch_rwkv.py, test_torch_zamba.py, test_torch_whisper.py):
-the reference's weights carried across, inputs made with numpy, the
-bars, and the continuous batcher driven on both packages."""
+(tests/test_torch_rwkv.py, test_torch_zamba.py, test_torch_whisper.py)
+and its training tests (tests/test_torch_train*.py): the reference's
+weights carried across, inputs made with numpy, the bars, and the
+continuous batcher driven on both packages."""
 import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_config as ref_get_config
 from repro.configs import reduced as ref_reduced
+from repro.kernels import ref as ref_kref
 from repro.models import layers as ref_layers
 from repro.models import lm as ref_lm
 from repro.runtime import scheduler as ref_sched
@@ -335,3 +338,110 @@ def first_wave(reqs: list, slots: int) -> list:
     """The rids admitted at the first step: each starts from the zero
     state in both batchers."""
     return [r["rid"] for r in reqs[:slots]]
+
+
+#: the LM archs every training test runs, at ``reduced()`` size
+TRAIN_LMS = ["smollm-360m", "qwen3-32b", "mistral-nemo-12b", "granite-20b",
+             "granite-moe-3b-a800m", "moonshot-v1-16b-a3b",
+             "llava-next-mistral-7b", "rwkv6-1.6b", "zamba2-7b",
+             "whisper-large-v3"]
+
+
+def train_batch(cfg, b=2, t=16, seed=3, masked=()):
+    """A training batch for both packages: numpy tokens and labels
+    (labels -1 at ``masked`` positions of row 0) and the family's extra
+    input (bf16 patches or frames). Returns (port batch, reference
+    batch)."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, t), np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (b, t), np.int32)}
+    batch["labels"][0, list(masked)] = -1
+    if cfg.family == "vlm":
+        batch["patches"] = bf16(rng.standard_normal(
+            (b, cfg.vision_tokens, cfg.d_model)))
+    if cfg.family == "audio":
+        batch["frames"] = bf16(rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)))
+    port = {k: t_(v) if k in ("patches", "frames") else v
+            for k, v in batch.items()}
+    return port, {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def attention_as_pallas(monkeypatch):
+    """Patch, in this test process, the reference's model attention to
+    what its Pallas flash kernel computes (p in f32; its test oracle
+    ``kernels/ref.py::attention_ref``), which is what the port's kernel
+    computes: the reference's XLA twin ``blockwise_attention`` rounds p
+    to bf16 before the PV product."""
+    def attention(q, k, v, *, causal, window=0, q_offset=0, kv_len=None,
+                  **_):
+        assert kv_len is None                  # training: no cache
+        return ref_kref.attention_ref(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset)
+    monkeypatch.setattr(ref_layers, "blockwise_attention", attention)
+
+
+def bf16_ulp(w):
+    """The bf16 spacing at each value of w (f32 holding bf16 values)."""
+    a = np.abs(np.asarray(w, np.float64))
+    return np.where(a > 0, 2.0 ** (np.floor(np.log2(np.where(a > 0, a, 1)))
+                                   - 7), 2.0 ** -133)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread while a module's tests run (a module
+    that imports this fixture): the suite runs files side by side in
+    worker processes, and a full torch thread pool in each oversubscribes
+    the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# --- the loss and its gradients against the reference ----------------------
+# (tests/test_torch_train_loss.py states the bars and why)
+LOSS_RTOL = 1e-4
+GRAD_RTOL = 5e-2
+
+
+def _ref_grads(rcfg, rparams, rbatch):
+    (_, _), g = jax.jit(jax.value_and_grad(
+        lambda p: ref_lm.loss_fn(rcfg, p, rbatch, remat="none"),
+        has_aux=True, allow_int=True))(rparams)
+    return {"|".join(str(p) for p in path): np.asarray(
+        jnp.asarray(leaf).astype(jnp.float32))
+        for path, leaf in jax.tree_util.tree_leaves_with_path(g)
+        if jnp.issubdtype(leaf.dtype, jnp.floating)}
+
+
+def check_loss_and_grads(arch: str, monkeypatch) -> None:
+    """``lm.loss_fn`` (remat "none", B 2, T 16) and its gradients on the
+    port against the reference: the loss within LOSS_RTOL of the
+    reference run op by op with its attention as its Pallas kernel
+    computes it, each floating leaf's gradient within GRAD_RTOL relative
+    L2 of the jitted reference's (the worst printed)."""
+    from repro_torch.core import pytree
+    from repro_torch.launch import steps
+    rcfg, cfg, rparams, params = model(arch)
+    batch, rbatch = train_batch(cfg)
+    (loss, metrics), grads = steps.value_and_grad(
+        lambda p: lm.loss_fn(cfg, p, batch, remat="none"), params)
+    rgrads = _ref_grads(rcfg, rparams, rbatch)
+    attention_as_pallas(monkeypatch)
+    want, _ = eager(ref_lm.loss_fn, rcfg, rparams, rbatch, remat="none")
+    assert abs(float(loss) - float(want)) <= LOSS_RTOL * abs(float(want))
+    if cfg.family == "moe":
+        assert float(metrics["aux"]) > 0
+    worst = 0.0
+    flat = {k: g for k, g in pytree.keyed_leaves(grads) if g is not None}
+    assert set(flat) == set(rgrads)
+    for key, g in flat.items():
+        w = rgrads[key]
+        rel = float(np.linalg.norm(g.float().numpy() - w) /
+                    max(np.linalg.norm(w), 1e-30))
+        worst = max(worst, rel)
+        assert rel <= GRAD_RTOL, (key, rel)
+    print(f"{arch}: loss {float(loss):.6f} vs {float(want):.6f}; worst "
+          f"gradient relative L2 {worst:.3e}")

@@ -1483,3 +1483,100 @@ def test_whisper_on_card_matches_cpu_and_uses_the_kernels(dev):
     want, _ = lm.decode_step(cfg, cpu, cache_cpu, toks[:, :1], 0)
     assert float((step.cpu() - want).abs().max()) <= \
         1e-2 * float(want.abs().max())
+
+
+# --- training: the kernels under autograd (their Functions) ----------------
+
+def _grads_through(fn, inputs, dout):
+    """(out, grads of every input) of ``fn(*inputs)`` for ``dout``."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    assert out.grad_fn is not None, "no autograd history on the output"
+    return out.detach(), torch.autograd.grad(out, leaves, dout)
+
+
+@pytest.mark.parametrize("m,d_in,d_out,block", [
+    (512, 960, 2560, 64), (512, 2560, 960, 64), (100, 256, 128, 32)])
+def test_sparse_matmul_function_grads_match_plain(dev, m, d_in, d_out,
+                                                  block):
+    """``ops.sparse_matmul`` on CUDA tensors (the kernel's Function)
+    against autograd through the plain version on the card: forward and
+    dx, dvals within 1 bf16 ulp; one mma launch, none in the backward."""
+    gen = torch.Generator().manual_seed(m + d_in)
+    sw = _weight(gen, d_in, d_out, block, block, 0.85, dev)
+    x = (torch.randn((m, d_in), generator=gen) / 4).to(torch.bfloat16).to(dev)
+    dy = torch.randn((m, d_out), generator=gen).to(torch.bfloat16).to(dev)
+    ops.reset_launches()
+    with lm.L.full_f32():
+        out, (dx, dv) = _grads_through(
+            lambda a, v: ops.sparse_matmul(a, lm.SparseWeight(
+                v, sw.idx, sw.d_in)), (x, sw.vals), dy)
+        want, (wdx, wdv) = _grads_through(
+            lambda a, v: sm.sparse_matmul_torch(a, v, sw.idx), (x, sw.vals),
+            dy)
+    torch.cuda.synchronize()
+    _assert_launches({"sparse_matmul": 1})
+    _assert_variant("sparse_matmul", "mma")
+    for got, ref in ((out, want), (dx, wdx), (dv, wdv)):
+        _bf16_close(got, ref)
+    bx, bv = sm.sparse_matmul_backward_torch(x, sw.vals, sw.idx, dy)
+    assert torch.equal(bx, dx) and torch.equal(bv, dv)   # deterministic
+
+
+@pytest.mark.parametrize("b,t,h,causal,window,q_offset,tk", [
+    (1, 4096, 15, True, 0, 0, 4096), (2, 300, 4, True, 64, 0, 300),
+    (1, 128, 4, True, 0, 192, 320), (2, 77, 4, False, 0, 0, 150)])
+def test_flash_attention_function_grads_match_plain(dev, b, t, h, causal,
+                                                    window, q_offset, tk):
+    """``ops.flash_attention`` on CUDA tensors (the kernel's Function)
+    against autograd through the plain version on the card, D 64: the
+    output and dq, dk, dv within 1 bf16 ulp; one mma launch."""
+    gen = torch.Generator().manual_seed(t + h)
+    q, k, v, do = (torch.randn((b, n, h, 64), generator=gen).to(
+        torch.bfloat16).to(dev) for n in (t, tk, tk, t))
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    ops.reset_launches()
+    with lm.L.full_f32():
+        out, grads = _grads_through(
+            lambda a, bb, c: ops.flash_attention(a, bb, c, **mask),
+            (q, k, v), do)
+        want, wgrads = _grads_through(
+            lambda a, bb, c: fa.flash_attention_torch(a, bb, c, **mask),
+            (q, k, v), do)
+    torch.cuda.synchronize()
+    _assert_launches({"flash_attention": 1})
+    _assert_variant("flash_attention", "mma")
+    _bf16_close(out, want)
+    for got, ref in zip(grads, wgrads):
+        _bf16_close(got, ref)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """Reduced SmolLM-360M: one ``make_train_step`` (remat "full") on the
+    card and on the CPU from the same weights and tokens: the loss within
+    1e-3, the kernels launched twice a layer (forward and recompute), and
+    a second run on the card the same bits."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    cfg = reduced(get_config("smollm-360m"))
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+             for k in ("tokens", "labels")}
+    step = make_train_step(cfg)
+    _, _, cpu = step(params, adamw.init(params), batch)
+    card = lm.params_to(params, dev)
+    outs = []
+    for _ in range(2):
+        ops.reset_launches()
+        p, st, met = step(card, adamw.init(card),
+                          {k: v.to(dev) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        _assert_launches({"flash_attention": 2 * cfg.n_layers,
+                          "sparse_matmul": 6 * cfg.n_layers})
+        outs.append((met, p))
+    assert abs(float(outs[0][0]["loss"]) - float(cpu["loss"])) <= \
+        1e-3 * float(cpu["loss"])
+    from repro_torch.core import pytree
+    for a, b_ in zip(pytree.leaves(outs[0][1]), pytree.leaves(outs[1][1])):
+        assert torch.equal(a, b_)
