@@ -212,9 +212,27 @@ Phases, in order; any failure raises and exits nonzero:
    replicas are) against the tier at R 1, R 2 and R 2 with replica 0
    failed at its tick 120 on the same stream served 8 times, three times
    each, in turns, and the failure's cost in ms; a ``[tier]`` line each;
+7b. the mesh tooling and the placed tier (``placed_tier_run``,
+   ``dryrun_lines``): ResNet-50 at 224 px, S 4 x R 2 on 8 device slots
+   of the card (``launch.mesh.device_slots``), each replica's even param
+   buffer placed on its 4 slots: phase 7's 16 requests through it equal
+   the unplaced tier's logits bit for bit; the same stream with 4 slots
+   lost after 2 scheduler rounds (``lose_devices``: the cut reused, one
+   replica respawned on slots {0, 1, 6, 7}, its buffer re-placed by
+   ``_remesh_buffer``) and with 5 lost (3 survivors: a new cut, every
+   replica rebuilt), each bit for bit the no-failure run; each tier's
+   launches exactly 4 forwards' a server it built (2 warm-up ticks, 2
+   captures); images/s placed and unplaced in turns, the re-plan's and
+   the remesh's times, the loss to the first recovered result; then the
+   analytic dry run (``launch.dryrun.run_cell``) of every applicable
+   (arch, shape) at 16 x 16 and 2 x 16 x 16 on the H100's numbers, one
+   line each, and ResNet-50's placed pipeline cell on 4 slots. (Phase 4's
+   training path also runs the pipelined step on a stage mesh of 4 slots:
+   bit for bit the mesh-less step, its launches counted; phase 5 times
+   the plain backwards' library calls and states their bounds.)
 8. one ``{"kernels": [...]}`` line (each kernel with the knobs it was
-   tuned to, and its launches in the tier phase), then the device line
-   last.
+   tuned to, its launches in the tier phase and in phase 7b and the
+   mesh step), then the device line last.
 
 Per-layer numbers are also written to ``build/chip_smoke.json``.
 
@@ -2115,7 +2133,41 @@ def train_run(h) -> dict:
     if pipe_err > PIPE_LOSS_RTOL:
         raise AssertionError(f"pipelined loss {float(l_pipe)} vs "
                              f"make_train_step's {float(l_chunk)}")
-    del g_pipe, g_seq
+    del g_seq
+    # the same step on a stage mesh of 4 slots of the card: S from the
+    # mesh's "pod" axis, stage s on slot s; bit for bit the mesh-less step
+    from repro_torch.launch.mesh import device_slots, make_stage_mesh
+    mesh = make_stage_mesh(pt["stages"], stage_axis="pod",
+                           devices=device_slots(pt["stages"], dev))
+    ts_m, _, plan_m = steps.make_pipeline_train_step(
+        cfg, mesh, shape, opt_cfg, n_microbatches=pt["microbatches"])
+    if plan_m["stage_of"] != plan["stage_of"]:
+        raise AssertionError("the mesh step's cut differs from n_stages'")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    (l_mesh, _), g_mesh = ts_m.value_and_grad(sp, mask, bp)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    mesh_launches = h.count(
+        f"{LM} pipelined value_and_grad on a stage mesh of "
+        f"{pt['stages']} slots", mb_launch,
+        {(n, "mma"): c for n, c in mb_launch.items()})
+    if float(l_mesh) != float(l_pipe):
+        raise AssertionError(f"mesh step loss {float(l_mesh)} != mesh-less "
+                             f"{float(l_pipe)}")
+    flat_pipe = dict(pytree.keyed_leaves(g_pipe))
+    for key, g in pytree.keyed_leaves(g_mesh):
+        if (g is None) != (flat_pipe[key] is None) or (
+                g is not None and not torch.equal(g, flat_pipe[key])):
+            raise AssertionError(f"mesh step gradient {key} != mesh-less")
+    res["mesh_step"] = {"slots": [str(sl) for sl in mesh.devices.ravel()],
+                        "loss": float(l_mesh), "value_and_grad_s": mesh_s,
+                        "launches": mesh_launches}
+    print(f"[main] {LM} make_pipeline_train_step on a stage mesh of "
+          f"{pt['stages']} slots of {dev} (S from the mesh's pod axis): "
+          f"loss and every gradient bit for bit the mesh-less step's; "
+          f"launches {mesh_launches}; value_and_grad {mesh_s:.3f} s")
+    del g_pipe, g_mesh
     opt_p = adamw.init(sp)
     pipe_s = []
     for _ in range(2):
@@ -2293,6 +2345,7 @@ def train_timings(res: dict, n_l: int) -> dict:
         dy = inputs[f"dy_{w}"]
         bwd[w] = time_ms(lambda: sm.sparse_matmul_backward_torch(
             x, sw.vals, sw.idx, dy), reps=2, rounds=2)
+    bwd_rows = backward_bounds(q, k, v, do, inputs, bwd)
     fwd = {"flash_attention": flash_rows[0]["ms"]}
     for row in mm_rows:
         fwd[row["weight"]] = row["ms"]
@@ -2303,7 +2356,9 @@ def train_timings(res: dict, n_l: int) -> dict:
     backward_ms = n_l * (bwd["flash_attention"] + 2 * bwd["w1"] + bwd["w2"])
     step_ms = statistics.median(res["step_s"]) * 1e3
     res["times"] = {"flash": flash_rows, "sparse_matmul": mm_rows,
-                    "plain_backward_ms": bwd, "kernel_forward_ms_a_step":
+                    "plain_backward_ms": bwd,
+                    "plain_backward_rows": bwd_rows,
+                    "kernel_forward_ms_a_step":
                     kernel_ms, "plain_backward_ms_a_step": backward_ms,
                     "step_ms": step_ms}
     print(f"[time] plain backwards at the training shapes: flash_attention "
@@ -2324,6 +2379,77 @@ def train_timings(res: dict, n_l: int) -> dict:
           f"T={PIPE_TRAIN['seq']} B={PIPE_TRAIN['batch']}: "
           f"{', '.join(f'{s:.3f}' for s in res['pipeline']['step_s'])} s")
     return res["times"]
+
+
+def time_eager_ms(fn, reps: int = 5) -> float:
+    """Device time of one ``fn()`` run eagerly: CUDA events around
+    ``reps`` calls after two warm-ups (for work a CUDA graph cannot hold,
+    such as an autograd backward; at these sizes, milliseconds a call,
+    the host's launches do not hold the device back)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def backward_bounds(q, k, v, do, inputs: dict, bwd: dict) -> dict:
+    """The plain backwards' bounds and library calls at the training
+    shapes. Flash: 10 * H * D operations a visible (query, key) pair (the
+    five products of the backward, 2.5x the forward's two), q, k, v and
+    dout read and dq, dk, dv written once, bf16; the library call
+    autograd through ``scaled_dot_product_attention`` (causal) on the same
+    tensors (a SmolLM layer's q, k and v all have its 15 heads here).
+    Sparse matmul: dx and dvals, 4 * M * K * bm * bn operations a
+    weight (two products over the kept blocks), x, dy, vals and idx read
+    and dx, dvals written once; the library call the backward of a dense
+    bf16 ``x @ W`` on the densified weight (dx and dW)."""
+    from repro_torch.core.sparsity import densify
+    b, t, h, d = q.shape
+    t_b, t_o = bound(7 * q.numel() * q.element_size(),
+                     b * flash_ops(t, t, h, d, True, 0, 0) * 5 // 2,
+                     torch.bfloat16)
+    qt, kt, vt = (x.permute(0, 2, 1, 3).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.permute(0, 2, 1, 3)
+    lib = time_eager_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))
+    rows = {"flash_attention": {
+        "shape": [b, t, h, d], "causal": True, "ms": bwd["flash_attention"],
+        "bound_ms": max(t_b, t_o), "bound_by": bound_by(t_b, t_o),
+        "library_ms": lib,
+        "library": "autograd through F.scaled_dot_product_attention"}}
+    del qt, kt, vt, out
+    for (_, w, m), (x, sw) in inputs["mm"].items():
+        ob, n_k, bm, bn = sw.vals.shape
+        dy = inputs[f"dy_{w}"]
+        nbytes = 2 * (x.numel() * x.element_size()
+                      + sw.vals.numel() * sw.vals.element_size()) + \
+            sw.idx.numel() * 4 + dy.numel() * dy.element_size()
+        t_b, t_o = bound(nbytes, 4 * m * ob * n_k * bm * bn, torch.bfloat16)
+        xg = x.detach().requires_grad_(True)
+        wg = densify(sw).detach().requires_grad_(True)
+        y = xg @ wg
+        lib = time_eager_ms(lambda: torch.autograd.grad(
+            y, (xg, wg), dy, retain_graph=True))
+        rows[f"sparse_matmul_{w}"] = {
+            "M": m, "vals": list(sw.vals.shape), "ms": bwd[w],
+            "bound_ms": max(t_b, t_o), "bound_by": bound_by(t_b, t_o),
+            "library_ms": lib,
+            "library": "autograd through a dense bf16 x @ W (densified)"}
+        del xg, wg, y
+    for name, row in rows.items():
+        print(f"[time] plain backward {name}: {row['ms']:.3f} ms, bound "
+              f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}), "
+              f"library ({row['library']}) {row['library_ms']:.3f} ms")
+    return rows
 
 
 def large_timings(flash_inputs: dict, mm_inputs: dict) -> tuple[list, list]:
@@ -2403,6 +2529,202 @@ def large_timings(flash_inputs: dict, mm_inputs: dict) -> tuple[list, list]:
               f"(dense bf16) {lib_ms * 1e3:.3f} us, bound "
               f"{max(t_b, t_o) * 1e3:.3f} us ({bound_by(t_b, t_o)})")
     return flash_rows, mm_rows
+
+
+def placed_tier_run(h) -> dict:
+    """Phase 7b, the placed tier (``h``: the card ``dev``, phase 7's
+    request ``images`` and unplaced tier's ``logits``, one ResNet-50
+    forward's launches ``per_fwd`` / ``per_fwd_v`` and the launch check
+    ``count``): ResNet-50 at 224 px, S 4 x R 2 on 8 device slots of the
+    card. The stream without a failure (== the unplaced tier bitwise);
+    with 4 slots lost after 2 rounds (the cut reused: 1 replica on slots
+    {0, 1, 6, 7}, its buffer re-placed by ``_remesh_buffer``), and with
+    5 lost (3 survivors: a new cut, everything rebuilt), each == the
+    no-failure run bitwise; images/s placed and unplaced in turns. A
+    server's warm-up runs 2 eager ticks and captures 2 (a replay runs no
+    Python), so a tier launches 4 forwards' kernels a server it built."""
+    from repro_torch.core import planner
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.runtime import tier as rt_tier
+    t_phase = time.perf_counter()
+    slots = meshlib.device_slots(2 * PIPE_S, h.dev)
+    kw = dict(n_stages=PIPE_S, mb_size=TIER_MB, image_size=IMAGE_SIZE,
+              seed=SEED, device=h.dev)
+    res, launches = {}, {}
+
+    def bitwise(a, b):
+        return len(a) == len(b) and all(
+            x.shape == y.shape and np.array_equal(
+                x.view(np.uint32), y.view(np.uint32)) for x, y in zip(a, b))
+
+    def counted(what, tier):
+        n = 4 * len(tier.workers)
+        got = h.count(what, {k: v * n for k, v in h.per_fwd.items()},
+                      {k: v * n for k, v in h.per_fwd_v.items()})
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return got
+
+    def serve(tier, lose=None):
+        rids = [tier.submit(x) for x in h.images]
+        info = {}
+        if lose is not None:
+            tier.run(max_rounds=2)             # the stream is mid-flight
+            timed = {"replan_s": [], "remesh_s": []}
+
+            def timer(fn, key):
+                def run(*a, **k):
+                    t0 = time.perf_counter()
+                    out = fn(*a, **k)
+                    torch.cuda.synchronize()
+                    timed[key].append(time.perf_counter() - t0)
+                    return out
+                return run
+            plan_fn, remesh_fn = planner.plan, tier._remesh_buffer
+            planner.plan = timer(plan_fn, "replan_s")
+            tier._remesh_buffer = timer(remesh_fn, "remesh_s")
+            t0 = time.perf_counter()
+            try:
+                info["replan"] = tier.lose_devices(lose)
+            finally:
+                planner.plan = plan_fn
+                del tier._remesh_buffer
+            info["lose_devices_s"] = time.perf_counter() - t0
+            info.update(timed)
+        m = tier.run()
+        info["metrics"] = m
+        return [tier.results(r) for r in rids], info
+
+    # no failure: the placed tier, then the unplaced one, in turns
+    rates = {"placed": [], "unplaced": []}
+    ops_reset = h.reset
+    ops_reset()
+    placed = rt_tier.ServingTier("resnet50", n_replicas=2, devices=slots,
+                                 **kw)
+    if not placed.placed or [[s_.id for s_ in w.devices]
+                             for w in placed.workers] != [[0, 1, 2, 3],
+                                                          [4, 5, 6, 7]]:
+        raise AssertionError("the placed tier's replicas are not on slots "
+                             "0-3 and 4-7")
+    launches_placed = counted("placed tier R 2 on 8 slots", placed)
+    ops_reset()
+    unplaced = rt_tier.ServingTier("resnet50", n_replicas=2, **kw)
+    counted("unplaced tier R 2", unplaced)
+    base = None
+    for label, tier in (("placed", placed), ("unplaced", unplaced),
+                        ("unplaced", unplaced), ("placed", placed)) * 2:
+        got, info = serve(tier)
+        m = info["metrics"]
+        if (m["failed"], m["respawns"]) != (0, 0):
+            raise AssertionError(f"{label} tier: {m}")
+        if base is None:
+            base = got
+        if not (bitwise(got, base) and bitwise(got, h.logits)):
+            raise AssertionError(f"{label} tier: logits differ from the "
+                                 f"unplaced tier of phase 7")
+        rates[label].append(m["images_per_s"])
+    res["images_per_s"] = rates
+    res["param_buffer_bytes_per_slot"] = \
+        placed.workers[0].server.param_buffer.nbytes_per_slot
+    del placed, unplaced
+    gc.collect()
+    print(f"[placed] ResNet-50 {IMAGE_SIZE} px, S {PIPE_S} x R 2 on 8 slots of "
+          f"{h.dev}"
+          f" (each replica's even buffer placed, "
+          f"{res['param_buffer_bytes_per_slot']} B a slot): "
+          f"{len(h.images)} requests == the unplaced tier bitwise; im/s "
+          f"in turns placed {[round(r, 1) for r in rates['placed']]}, "
+          f"unplaced {[round(r, 1) for r in rates['unplaced']]}; launches "
+          f"{launches_placed}")
+
+    # the losses: 4 slots (the cut reused), then 5 (3 survivors: rebuilt)
+    for label, lost, reused in (("8 -> 4", slots[2:6], True),
+                                ("8 -> 3", slots[3:], False)):
+        ops_reset()
+        tier = rt_tier.ServingTier("resnet50", n_replicas=2, devices=slots,
+                                   **kw)
+        got, info = serve(tier, lose=lost)
+        m, replan = info["metrics"], info["replan"]
+        what = f"placed tier, {label} slots lost after 2 rounds"
+        alive = [w for w in tier.workers if w.alive]
+        if replan["reused"] != reused or m["failed"] or \
+                tier.remeshes != (1 if reused else 0) or not \
+                m["recovered_microbatches"]:
+            raise AssertionError(f"{what}: {replan}, {m}")
+        if reused and ([sorted(s_.id for s_ in w.devices) for w in alive]
+                       != [[0, 1, 6, 7]] or replan["n_replicas"] != 1):
+            raise AssertionError(f"{what}: replicas on "
+                                 f"{[w.devices for w in alive]}")
+        if not bitwise(got, base):
+            raise AssertionError(f"{what}: logits differ from the no-failure "
+                                 f"run")
+        counted(what, tier)
+        res[label] = {
+            "reused": replan["reused"], "n_stages": tier.plan["n_stages"],
+            "n_replicas": replan["n_replicas"],
+            "alive_slots": [[s_.id for s_ in w.devices] for w in alive],
+            "replan_s": info["replan_s"], "remesh_s": info["remesh_s"],
+            "lose_devices_s": info["lose_devices_s"],
+            "loss_to_first_recovered_s": min(tier.recovery_times),
+            "recovered_microbatches": m["recovered_microbatches"],
+            "images_per_s": m["images_per_s"]}
+        r = res[label]
+        print(f"[placed] {what}: re-plan {'reused' if reused else 'a new'} "
+              f"cut, S {r['n_stages']} x R {r['n_replicas']} on slots "
+              f"{r['alive_slots']}; re-plan "
+              f"{sum(r['replan_s']) * 1e3:.2f} ms, remesh "
+              f"{sum(r['remesh_s']) * 1e3:.2f} ms, lose_devices (drain, "
+              f"re-plan, remesh, respawn) {r['lose_devices_s']:.3f} s; loss "
+              f"to the first recovered result "
+              f"{r['loss_to_first_recovered_s']:.3f} s; "
+              f"{r['recovered_microbatches']} microbatches recovered; == the "
+              f"no-failure run bitwise")
+        del tier
+        gc.collect()
+    torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[placed] phase 7b in {res['phase_s']:.1f} s; launches {launches}")
+    return res
+
+
+def dryrun_lines(dev) -> list:
+    """The analytic dry run on the H100's numbers: every applicable (arch,
+    shape) at 16 x 16 and 2 x 16 x 16, one line each, and ResNet-50's
+    placed pipeline cell on 4 slots of the card at 224 px."""
+    from repro_torch.configs import SHAPES, all_configs
+    from repro_torch.launch import dryrun
+    rows = []
+    gib = 2 ** 30
+    for arch, cfg in sorted(all_configs().items()):
+        if cfg.family == "cnn":
+            continue
+        for shape in SHAPES:
+            for mp in (False, True):
+                r = dryrun.run_cell(arch, shape, multi_pod=mp, verbose=False)
+                if r["status"] != "ok":
+                    continue
+                rows.append(r)
+                b, rf = r["per_device_bytes"], r["roofline"]
+                print(f"[dryrun] {arch} {shape} {r['mesh']}: a device holds "
+                      + ", ".join(f"{k} {v / gib:.3f}" for k, v in b.items())
+                      + f" GiB; estimate {r['hbm_est_per_device'] / gib:.2f} "
+                      f"GiB of {r['chip_hbm_bytes'] / gib:.2f} "
+                      f"({'fits' if r['hbm_ok'] else 'does not fit'}); "
+                      f"compute {rf['t_compute_s'] * 1e3:.3f} ms, memory "
+                      f"{rf['t_memory_s'] * 1e3:.3f} ms ({rf['dominant']}), "
+                      f"MFU bound {rf['mfu_bound']:.3f}")
+    cell = dryrun.run_cnn_pipeline_cell(
+        "resnet50", n_stages=PIPE_S, n_microbatches=PIPE_M, batch=PIPE_BATCH,
+        image_size=IMAGE_SIZE, device=dev, verbose=False)
+    print(f"[dryrun] resnet50 pipeline_cnn {cell['mesh']} at {IMAGE_SIZE} px "
+          f"on slots of {cell['device']}: params a slot "
+          f"{cell['param_bytes_placed_per_device']} B placed against "
+          f"{cell['param_bytes_replicated_per_device']} B replicated (ratio "
+          f"{cell['param_placement_ratio']:.3f}); wire {cell['wire_width']} "
+          f"f32, imbalance {cell['imbalance']:.3f}")
+    rows.append(cell)
+    return rows
 
 
 def main() -> int:
@@ -4883,6 +5205,19 @@ def main() -> int:
           f"launches in this process {counts_str(tier_launches)}, in the "
           f"workers up to ready {counts_str(worker_launches)}")
 
+    # -- 7b. the placed tier on device slots, the dry run -----------------
+    placed_main = placed_tier_run(types.SimpleNamespace(
+        dev=dev, images=tier_images, logits=tier_logits["native"],
+        per_fwd=per_fwd, per_fwd_v=per_fwd_v, count=count_launches,
+        reset=ops.reset_launches))
+    t0 = time.perf_counter()
+    dry_rows = dryrun_lines(dev)
+    print(f"[dryrun] {len(dry_rows)} cells in "
+          f"{time.perf_counter() - t0:.1f} s")
+    mesh_launches = dict(placed_main["launches"])
+    for k, v in train_main["mesh_step"]["launches"].items():
+        mesh_launches[k] = mesh_launches.get(k, 0) + v
+
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "build_s": build_s,
@@ -4915,7 +5250,8 @@ def main() -> int:
         "cuts": {f"{a}/{lbl}": row for (a, lbl), row in plans_run.items()},
         "oracle": oracle_rows, "placed": placed_rows,
         "placed_rates": placed_rates,
-        "tier": tier_rows}, indent=1, default=str))
+        "tier": tier_rows, "placed_tier": placed_main, "dryrun": dry_rows},
+        indent=1, default=str))
 
     # -- 8. the kernels line, then the device line ------------------------
     kernels = [
@@ -4958,6 +5294,9 @@ def main() -> int:
                    "plain_backward_ms": {
                        w: train_times["plain_backward_ms"][w]
                        for w in ("w1", "w2")},
+                   "plain_backward": {
+                       w: train_times["plain_backward_rows"][
+                           f"sparse_matmul_{w}"] for w in ("w1", "w2")},
                    "launches_per_step": 6 * n_l,
                    "function_max_abs_err": {
                        k: v for k, v in train_main[
@@ -5030,6 +5369,8 @@ def main() -> int:
          "train": {"rows": train_times["flash"],
                    "plain_backward_ms": train_times["plain_backward_ms"][
                        "flash_attention"],
+                   "plain_backward": train_times["plain_backward_rows"][
+                       "flash_attention"],
                    "launches_per_step": 2 * n_l,
                    "function_max_abs_err": train_main[
                        "function_max_abs_err"]["flash_attention"]},
@@ -5078,6 +5419,9 @@ def main() -> int:
         # replicas warmed up and captured, and by the workers up to ready
         entry["tier"] = {"launches": tier_launches.get(name, 0),
                          "worker_launches": worker_launches.get(name, 0)}
+        # phase 7b and the mesh train step: the placed tier's warm-ups and
+        # captures, the step on a stage mesh of slots
+        entry["mesh"] = {"launches": mesh_launches.get(name, 0)}
         entry["ptxas"] = resources[name]
         entry["hmma"] = hmma[name]
         if name in _build.VARIANTS:

@@ -1,9 +1,13 @@
 """Per-layer analytic throughput model (paper Sec. IV): the CNN part of
 the reference's ``src/repro/core/costmodel.py``, which the planner's
 stage costs and weight budget read, and the measured model's
-calibration fit (``fit_scale_factors``), and the LM part the stage
+calibration fit (``fit_scale_factors``), the LM part the stage
 planner of training reads (``lm_block_flops``, ``_logits_flops``,
-``lm_decode_flops``: the reference's formulas, the same floats).
+``lm_decode_flops``) and the dry run's analytic terms
+(``step_flops_global``, ``step_bytes_per_device``,
+``hbm_estimate_per_device``; ``launch/dryrun.py``): the reference's
+formulas, the same floats. ``pytree_param_bytes`` lives in
+``core/quant.py``.
 
 HPIPE stages process one output line (1 x W x Co) at a time; a layer with
 ``n_channel_splits = s`` partitions each output channel's surviving
@@ -245,3 +249,106 @@ def lm_decode_flops(cfg, kv_len: int, batch: int, layer_idx: int) -> float:
             cost += attn_proj + attn_sdpa + 6 * t * d * cfg.d_ff * dens
         return cost
     raise ValueError(f)
+
+
+# --- the dry run's analytic terms (the reference's formulas) ------------
+
+def step_flops_global(cfg, shape) -> float:
+    """Total FLOPs of the cell's program across the fleet."""
+    b, t = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        per_layer = sum(lm_decode_flops(cfg, t, b, l)
+                        for l in range(cfg.n_layers))
+        return per_layer + _logits_flops(cfg, b)
+    fwd = sum(lm_block_flops(cfg, t, b, l) for l in range(cfg.n_layers))
+    if cfg.encoder_layers:
+        enc = cfg.encoder_layers * lm_block_flops(
+            cfg, cfg.encoder_seq, b, 0)
+        fwd += enc
+    if shape.kind == "prefill":
+        return fwd + _logits_flops(cfg, b)     # last-token logits only
+    # train: fwd + 2x bwd + ~1x remat recompute (remat="full")
+    logits = 3.0 * _logits_flops(cfg, b * t)
+    return 4.0 * fwd + logits
+
+
+def _param_bytes_local(cfg, n_model_shards: int, pure_dp: bool) -> float:
+    n = cfg.n_params()
+    return 2.0 * n / (1 if pure_dp else n_model_shards)
+
+
+def step_bytes_per_device(cfg, shape, *, n_chips: int, n_model_shards: int,
+                          pure_dp: bool) -> float:
+    """First-order HBM traffic per device per step."""
+    b, t = shape.global_batch, shape.seq_len
+    d = cfg.d_model
+    w_local = _param_bytes_local(cfg, n_model_shards, pure_dp)
+    dp = n_chips if pure_dp else max(n_chips // n_model_shards, 1)
+    if shape.kind == "decode":
+        toks_local = max(b // dp, 1)
+        # weights once; KV/state cache read+write; small activations
+        kvh, dh = cfg.kv_heads, cfg.head_dim
+        if cfg.family in ("dense", "vlm", "moe", "audio"):
+            cache = 2.0 * cfg.n_layers * b * t * kvh * dh * 2 / n_chips * \
+                (1 + 1 / max(t, 1))            # read all, write 1 slot
+        elif cfg.family == "ssm":
+            cache = 2.0 * cfg.n_layers * b * cfg.n_heads * dh * dh * 4 \
+                / n_chips
+        else:
+            nh = cfg.ssm_expand * d // dh
+            cache = 2.0 * cfg.n_layers * b * (nh * cfg.ssm_state * dh * 4 +
+                                              (cfg.attn_window or t) * kvh
+                                              * dh * 2) / n_chips
+        act = 20.0 * cfg.n_layers * toks_local * d * 2
+        return w_local + cache + act
+    toks_local = b * t / dp
+    act_factor = 12.0                          # reads+writes per layer slab
+    act = act_factor * cfg.n_layers * toks_local * d * 2
+    logits = 2.0 * toks_local * cfg.vocab_size * 4 / (
+        1 if pure_dp else n_model_shards)
+    if shape.kind == "prefill":
+        return w_local + act + logits / max(t, 1)
+    # train: weights read 3x (fwd/bwd/remat), grads + opt state f32 rw
+    opt = (4.0 + 16.0) * cfg.n_params() / (
+        (1 if pure_dp else n_model_shards) * 1.0)
+    return 3.0 * w_local + opt + 2.5 * act + logits
+
+
+def hbm_estimate_per_device(cfg, shape, *, n_chips: int,
+                            n_model_shards: int, pure_dp: bool) -> float:
+    """Resident bytes per device, analytic: bf16 weights and caches,
+    f32 moments sharded over data (ZeRO-1), f32 gradients, the remat
+    boundaries and one layer's backward working set."""
+    b, t = shape.global_batch, shape.seq_len
+    d = cfg.d_model
+    tp = 1 if pure_dp else n_model_shards
+    dp = n_chips // tp
+    dp_shards = dp
+    n = cfg.n_params()
+    params = 2.0 * n / tp
+    b_loc = max(b // dp, 1)
+    if shape.kind == "decode":
+        kvh, dh = cfg.kv_heads, cfg.head_dim
+        if cfg.family in ("dense", "vlm", "moe", "audio"):
+            cache = 2.0 * cfg.n_layers * b * t * kvh * dh * 2 / n_chips
+            if cfg.family == "audio":
+                cache += 2.0 * cfg.n_layers * b * cfg.encoder_seq * kvh \
+                    * dh * 2 / n_chips
+        elif cfg.family == "ssm":
+            cache = cfg.n_layers * b * cfg.n_heads * dh * dh * 4 / dp
+        else:
+            nh = cfg.ssm_expand * d // dh
+            cache = cfg.n_layers * b * (nh * cfg.ssm_state * dh * 4) / dp \
+                + 2.0 * (cfg.n_layers // max(cfg.hybrid_attn_every, 1)) \
+                * b * min(cfg.attn_window or t, t) * kvh * dh * 2 / n_chips
+        act = 8.0 * b_loc * d * 2 * 4                  # tiny decode slabs
+        return params + 2.0 * cache + act              # in + out buffers
+    t_loc = t / (1 if pure_dp else tp)
+    if shape.kind == "prefill":
+        live = 8.0 * b_loc * t_loc * d * 2             # flash working set
+        return params + live
+    opt = 8.0 * n / (tp * dp_shards)                   # m+v f32 (ZeRO-1)
+    grads = 4.0 * n / tp                               # transient f32
+    boundary = cfg.n_layers * b_loc * t_loc * d * 2    # remat saves
+    live = 12.0 * b_loc * t_loc * max(d, 1) * 2        # one layer's bwd
+    return params + opt + grads + boundary + live

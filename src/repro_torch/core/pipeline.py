@@ -1,7 +1,6 @@
-"""HPIPE heterogeneous layer pipeline on one card: the single-device
-semantics of the reference's ``src/repro/core/pipeline.py``
-(``pipeline_apply_gspmd_hetero(mesh=None)`` and
-``pipeline_step_hetero``), with the stages on concurrent CUDA streams.
+"""HPIPE heterogeneous layer pipeline (the reference's
+``src/repro/core/pipeline.py``): the executors with and without a
+device mesh, the stages on concurrent CUDA streams.
 
 The FPGA streams activations producer->consumer through per-layer
 hardware; the reference runs every stage of a tick in one program on a
@@ -37,8 +36,15 @@ path: ``stage_params=None`` (each stage program closes over its own
 weights), or the packed per-stage rows (:class:`PlacedParams`): stage k
 is handed ``stage_params[k]``, one uint8 row that it unpacks its weights
 from (:class:`ParamFormat`), so no stage program closes over a weight.
-Meshes (per-stage placement across devices) are not ported: one card
-holds every row.
+
+On a mesh (``launch/mesh.py``: a grid of device slots, several of which
+may share one card) stage k of replica r runs on its slot
+(:func:`mesh_slots`), on the slot's device and stream; a wire is copied
+only where it crosses to another device. The even ``(S, width)``
+buffer is placed by the spec ``(stage_axis,)`` (``launch.mesh.place``):
+each slot holds only its stage's row, replicated across a data axis.
+:func:`pipeline_apply_hetero` is the reference's shard_map executor,
+the same ticks with each slot on its own stream.
 
 Training (the HPIPE layer pipeline applied to an LM's train step,
 ``launch/steps.make_pipeline_train_step``): :func:`stack_stages` re-packs
@@ -46,8 +52,9 @@ Training (the HPIPE layer pipeline applied to an LM's train step,
 validity mask, :func:`make_stage_fn` turns a per-layer block into a stage
 program over its valid layers, and :func:`pipeline_apply_gspmd` runs M
 microbatches through the S stages in M + S - 1 ticks, the stages of a
-tick in turn, under autograd (the shard_map ``pipeline_apply`` and
-``mesh=`` wait for ROADMAP Queue 1 item 9's second half).
+tick in turn, under autograd; on a mesh (``mesh=``, or
+:func:`pipeline_apply`, the reference's shard_map form) stage k runs on
+slot k's device.
 """
 from __future__ import annotations
 
@@ -393,45 +400,129 @@ class PlacedParams:
                      zip(self.formats, self.trees, self.row_widths))
 
 
-def _check_hetero_params(stage_fns, n_stages, stage_params, mesh):
+def _check_hetero_params(stage_fns, n_stages, stage_params, mesh,
+                         stage_axis):
     """Shared validation of the executors (reference
-    ``_check_hetero_params``). Returns ``(placed, ragged)``: ``ragged``
-    marks a tuple or list of per-stage rows, the only placed form one
-    card runs."""
+    ``_check_hetero_params``, its rules and texts). Returns ``(placed,
+    ragged)``: ``ragged`` marks a tuple or list of per-stage rows, the
+    placed form without a mesh; on a mesh with ``stage_axis`` the even
+    ``(S, width)`` buffer is placed instead (a tensor, or a
+    ``launch.mesh.Sharded`` placed already)."""
     if len(stage_fns) != n_stages:
         raise ValueError(f"{len(stage_fns)} stage programs for "
                          f"{n_stages} stages")
-    _no_mesh(mesh)
     placed = stage_params is not None
     ragged = placed and isinstance(stage_params, (tuple, list))
-    if ragged and len(stage_params) != n_stages:
-        raise ValueError(f"{len(stage_params)} ragged param rows for "
-                         f"{n_stages} stages")
-    if placed and not ragged:
+    on_axis = mesh is not None and stage_axis in mesh.shape
+    if ragged:
+        if len(stage_params) != n_stages:
+            raise ValueError(f"{len(stage_params)} ragged param rows for "
+                             f"{n_stages} stages")
+        if on_axis:
+            raise ValueError(
+                "ragged per-stage param rows have unequal widths and "
+                "cannot shard over the stage axis; pass the even "
+                "(S, width) buffer from PlacedParams.pack() for "
+                "placement on a mesh, or drop the mesh for the "
+                "single-host packed path")
+    elif placed and not on_axis:
+        have = "no mesh" if mesh is None else \
+            f"mesh axes {tuple(mesh.shape)}"
         raise ValueError(
             "per-stage weight placement (stage_params=...) requires a "
-            "mesh with a 'stage' axis to place each stage's weights "
-            "onto, got no mesh; drop stage_params to run with the stage "
-            "programs' own params, or pass PlacedParams.pack_ragged() "
-            "rows (or the rows of PlacedParams.pack()) for single-card "
-            "packed params")
+            f"mesh with a {stage_axis!r} axis to place each stage's "
+            f"weights onto, got {have}; pass mesh=make_stage_mesh("
+            f"{n_stages}, devices=...) with stage_axis={stage_axis!r}, "
+            "drop stage_params to run with the stage programs' own "
+            "params, or pass PlacedParams.pack_ragged() rows (or the "
+            "rows of PlacedParams.pack()) for single-card packed params")
     return placed, ragged
 
 
-def slot_streams(n_stages: int, n_replicas: int = 1,
-                 device=None) -> list[list[torch.cuda.Stream]]:
-    """One CUDA stream per (stage, replica) slot: ``streams[k][r]``."""
-    return [[torch.cuda.Stream(device) for _ in range(n_replicas)]
-            for _ in range(n_stages)]
+def mesh_slots(mesh, n_stages: int, n_replicas: int = 1, *,
+               stage_axis: str = "stage", data_axis: str = "data"):
+    """``slots[k][r]``: the slot of stage k of replica r on ``mesh``.
+    The mesh carries ``stage_axis`` with one slot a stage, a
+    ``data_axis`` of size R when ``n_replicas`` > 1 (one stage column a
+    replica; at R 1 the first column runs), and no other axis of more
+    than one slot."""
+    if stage_axis not in mesh.shape:
+        raise ValueError(f"mesh has no {stage_axis!r} axis "
+                         f"(axes: {tuple(mesh.shape)})")
+    if mesh.shape[stage_axis] != n_stages:
+        raise ValueError(
+            f"mesh {stage_axis!r} axis has {mesh.shape[stage_axis]} "
+            f"slots for {n_stages} stages; one stage per slot required")
+    if n_replicas > 1 and mesh.shape.get(data_axis) != n_replicas:
+        raise ValueError(
+            f"n_replicas={n_replicas} needs a mesh with a {data_axis!r} "
+            f"axis of that size (one stage column per replica), got mesh "
+            f"axes {dict(mesh.shape)}")
+    wide = [a for a, n in mesh.shape.items()
+            if a not in (stage_axis, data_axis) and n > 1]
+    if wide:
+        raise ValueError(f"mesh axes {wide} hold more than one slot; a "
+                         "stage runs on one slot (no tensor parallelism)")
+    return [[mesh.slot({stage_axis: k, data_axis: r})
+             for r in range(n_replicas)] for k in range(n_stages)]
 
 
-def pipeline_step_hetero(stage_fns: Sequence, state: torch.Tensor,
-                         in_wire: Optional[torch.Tensor], *,
+def _placed_buffer(stage_params, mesh, stage_axis):
+    """The even buffer placed on ``mesh`` by ``(stage_axis,)``: a
+    ``launch.mesh.Sharded`` as it is, a tensor placed here (a copy)."""
+    from repro_torch.launch.mesh import Sharded, place
+    if isinstance(stage_params, Sharded):
+        return stage_params
+    return place(stage_params, mesh, (stage_axis,))
+
+
+def _stage_rows(stage_params, mesh, stage_axis, data_axis):
+    """``row(k, r)``: stage k's param row for replica r: a ragged row, or
+    row k of the even buffer placed on ``mesh`` (its shard on the slot of
+    stage k, replica r)."""
+    if stage_params is None:
+        return None
+    if mesh is None:
+        return lambda k, r: stage_params[k]
+    buf = _placed_buffer(stage_params, mesh, stage_axis)
+    return lambda k, r: buf.shard({stage_axis: k, data_axis: r})[0]
+
+
+def slot_streams(n_stages: int, n_replicas: int = 1, device=None, *,
+                 mesh=None, stage_axis: str = "stage",
+                 data_axis: str = "data") -> list[list[torch.cuda.Stream]]:
+    """One CUDA stream per (stage, replica) slot: ``streams[k][r]``, on
+    ``device``, or on each slot's device of ``mesh``."""
+    if mesh is None:
+        return [[torch.cuda.Stream(device) for _ in range(n_replicas)]
+                for _ in range(n_stages)]
+    return [[torch.cuda.Stream(slot.device) for slot in row]
+            for row in mesh_slots(mesh, n_stages, n_replicas,
+                                  stage_axis=stage_axis,
+                                  data_axis=data_axis)]
+
+
+def slot_buffers(shape, slots, dtype=torch.float32):
+    """Zeroed per-slot state buffers ``[k][r]``, each of ``shape`` on
+    its slot's device: the state of a pipeline whose slots span several
+    devices (a single (S[, R], ...) tensor lives on one)."""
+    return [[torch.zeros(shape, dtype=dtype, device=slot.device)
+             for slot in row] for row in slots]
+
+
+def slot_at(buf, k: int, r: int, rep: bool) -> torch.Tensor:
+    """Slot (k, r) of a state: a (S[, R], ...) tensor or per-slot lists."""
+    if isinstance(buf, torch.Tensor):
+        return buf[k, r] if rep else buf[k]
+    return buf[k][r]
+
+
+def pipeline_step_hetero(stage_fns: Sequence, state, in_wire, *,
                          n_stages: int, n_replicas: int = 1,
-                         out: Optional[torch.Tensor] = None,
-                         emit: Optional[torch.Tensor] = None,
-                         streams=None, active=None, mesh=None,
-                         stage_params=None):
+                         out=None, emit: Optional[torch.Tensor] = None,
+                         streams=None, active=None,
+                         stage_axis: str = "stage", mesh=None,
+                         stage_params=None, data_axis: str = "data"):
     """ONE pipeline tick — the primitive of both executors.
 
     Injects ``in_wire`` into ``state[0]`` (in place: the caller hands
@@ -444,79 +535,113 @@ def pipeline_step_hetero(stage_fns: Sequence, state: torch.Tensor,
     last stage's output instead of ``out[0]``.
 
     stage_fns[k](wire, out=buf) -> buf: stage k's whole program. state
-    and out: (S, mb, W), or (S, R, mb, W) with ``n_replicas`` > 1.
-    ``streams``: ``streams[k][r]`` from :func:`slot_streams` (the
-    slots run concurrently: each stream waits for the current stream,
-    runs its stage, and the current stream waits for every slot before
-    returning); ``None`` runs the slots one after another on the
-    current stream. ``active``: the stages to run (default all): a
-    stage that holds no microbatch on a fill or drain tick may be
-    skipped, its output slot then left as it was.
+    and out: (S, mb, W), or (S, R, mb, W) with ``n_replicas`` > 1; on a
+    mesh whose slots span devices, per-slot buffers ``[k][r]``
+    (:func:`slot_buffers`). ``streams``: ``streams[k][r]`` from
+    :func:`slot_streams` (the slots run concurrently: each stream waits
+    for the current stream, runs its stage, and the current stream
+    waits for every slot before returning); ``None`` runs the slots one
+    after another on the current stream. ``active``: the stages to run
+    (default all): a stage that holds no microbatch on a fill or drain
+    tick may be skipped, its output slot then left as it was.
 
-    ``stage_params``: None (the stage programs close over their
-    weights) or one uint8 row per stage (:meth:`PlacedParams.pack_ragged`,
-    or the rows of :meth:`PlacedParams.pack`): stage k then runs
-    ``stage_fns[k](stage_params[k], wire, out=buf)``.
+    ``mesh``: a stage mesh (``launch/mesh.py``; :func:`mesh_slots`'s
+    rules): stage k of replica r runs on its slot's device, and a wire
+    that crosses to another device is copied there (a hop between slots
+    of one device is no copy). ``stage_params``: None (the stage
+    programs close over their weights), one uint8 row per stage without
+    a mesh (:meth:`PlacedParams.pack_ragged`, or the rows of
+    :meth:`PlacedParams.pack`), or on a mesh the even buffer placed by
+    ``(stage_axis,)`` (``launch.mesh.place``; a tensor is placed on each
+    call): stage k then runs ``stage_fns[k](row, wire, out=buf)``.
 
     Returns ``(out, emitted)``."""
     placed, _ = _check_hetero_params(stage_fns, n_stages, stage_params,
-                                     mesh)
+                                     mesh, stage_axis)
     rep = n_replicas > 1
-    want = (n_stages, n_replicas) if rep else (n_stages,)
-    if tuple(state.shape[:len(want)]) != want:
-        raise ValueError(f"state leading dims {tuple(state.shape[:len(want)])}"
-                         f" != (n_stages{', n_replicas' if rep else ''}) "
-                         f"= {want}")
-    if out is None:
-        out = torch.empty_like(state)
-    if in_wire is not None:
-        state[0].copy_(in_wire)
+    slots = None if mesh is None else mesh_slots(
+        mesh, n_stages, n_replicas, stage_axis=stage_axis,
+        data_axis=data_axis)
+    rows = _stage_rows(stage_params, mesh, stage_axis, data_axis)
+    if isinstance(state, torch.Tensor):
+        want = (n_stages, n_replicas) if rep else (n_stages,)
+        if tuple(state.shape[:len(want)]) != want:
+            raise ValueError(
+                f"state leading dims {tuple(state.shape[:len(want)])} != "
+                f"(n_stages{', n_replicas' if rep else ''}) = {want}")
+        if slots is not None and any(sl.device != state.device
+                                     for row in slots for sl in row):
+            raise ValueError(
+                f"a state tensor lives on {state.device}; a mesh whose "
+                "slots span devices takes per-slot buffers "
+                "(pipeline.slot_buffers)")
+        if out is None:
+            out = torch.empty_like(state)
+        if in_wire is not None:
+            state[0].copy_(in_wire)
+    else:
+        if len(state) != n_stages or any(len(row) != n_replicas
+                                         for row in state):
+            raise ValueError(f"per-slot state of {len(state)} stages, "
+                             f"need {n_stages} x {n_replicas} slots")
+        if out is None:
+            out = [[torch.empty_like(t) for t in row] for row in state]
+        if in_wire is not None:
+            for r in range(n_replicas):
+                state[0][r].copy_(in_wire[r] if rep else in_wire)
     stages = range(n_stages) if active is None else active
     last = n_stages - 1
 
     def run(k: int, r: int) -> None:
-        src = state[k, r] if rep else state[k]
+        src = slot_at(state, k, r, rep)
         if k == last and emit is not None:
             dst = emit[r] if rep else emit
         else:
-            dst = out[(k + 1) % n_stages, r] if rep \
-                else out[(k + 1) % n_stages]
-        args = (stage_params[k],) if placed else ()
-        stage_fns[k](*args, src, out=dst)
+            dst = slot_at(out, (k + 1) % n_stages, r, rep)
+        args = (rows(k, r),) if placed else ()
+        if dst.device == src.device:
+            stage_fns[k](*args, src, out=dst)
+        else:                           # the hop to another device
+            dst.copy_(stage_fns[k](*args, src))
 
-    slots = [(k, r) for k in stages for r in range(n_replicas)]
+    pairs = [(k, r) for k in stages for r in range(n_replicas)]
     if streams is None:
-        for k, r in slots:
+        for k, r in pairs:
             run(k, r)
     else:
-        cur = torch.cuda.current_stream(state.device)
-        for k, r in slots:
+        cur = torch.cuda.current_stream(slot_at(state, 0, 0, rep).device)
+        for k, r in pairs:
             st = streams[k][r]
             st.wait_stream(cur)
             with torch.cuda.stream(st):
                 run(k, r)
-        for k, r in slots:
+        for k, r in pairs:
             cur.wait_stream(streams[k][r])
-    emitted = emit if emit is not None else out[0]
-    return out, emitted
+    if emit is not None:
+        return out, emit
+    if isinstance(out, torch.Tensor):
+        return out, out[0]
+    return out, (list(out[0]) if rep else out[0][0])
 
 
 def pipeline_apply_gspmd_hetero(stage_fns: Sequence, x_wire: torch.Tensor,
-                                *, n_stages: int, n_replicas: int = 1,
-                                streams=None, mesh=None,
-                                stage_params=None) -> torch.Tensor:
+                                *, n_stages: int, stage_axis: str = "pod",
+                                mesh=None, stage_params=None,
+                                n_replicas: int = 1, data_axis: str = "data",
+                                streams=None) -> torch.Tensor:
     """The batch executor: M microbatches through the S-stage pipeline
     in M + S - 1 ticks of :func:`pipeline_step_hetero`. The name is the
-    reference's; its semantics are the reference's without a mesh (no
-    GSPMD here: one card).
+    reference's; one program runs every slot's stage (no GSPMD here).
 
     x_wire: (M, mb, W) packed input microbatches, or (R, M, mb, W) with
     ``n_replicas`` > 1 (``microbatch(..., n_replicas=R)``). Returns the
-    last stage's wires, same shape. A stage runs only on the ticks where
-    its slot holds a microbatch: M x S stage runs in all instead of
-    (M + S - 1) x S, with the same outputs. ``stage_params`` as in
-    :func:`pipeline_step_hetero`."""
-    _check_hetero_params(stage_fns, n_stages, stage_params, mesh)
+    last stage's wires, same shape, on x_wire's device. A stage runs only
+    on the ticks where its slot holds a microbatch: M x S stage runs in
+    all instead of (M + S - 1) x S, with the same outputs. ``mesh``,
+    ``stage_params`` and ``streams`` as in :func:`pipeline_step_hetero`
+    (on a mesh an even buffer given as a tensor is placed once)."""
+    _check_hetero_params(stage_fns, n_stages, stage_params, mesh,
+                         stage_axis)
     rep = n_replicas > 1
     if rep and x_wire.shape[0] != n_replicas:
         raise ValueError(
@@ -527,6 +652,14 @@ def pipeline_apply_gspmd_hetero(stage_fns: Sequence, x_wire: torch.Tensor,
     mb_shape = tuple(x_wire.shape[2:] if rep else x_wire.shape[1:])
     lead = (s, n_replicas) if rep else (s,)
     bufs = [x_wire.new_zeros(lead + mb_shape) for _ in range(2)]
+    if mesh is not None:
+        slots = mesh_slots(mesh, s, n_replicas, stage_axis=stage_axis,
+                           data_axis=data_axis)
+        if any(sl.device != x_wire.device for row in slots for sl in row):
+            bufs = [slot_buffers(mb_shape, slots, x_wire.dtype)
+                    for _ in range(2)]
+        if stage_params is not None:
+            stage_params = _placed_buffer(stage_params, mesh, stage_axis)
     outs = torch.zeros_like(x_wire)
     for i in range(m + s - 1):
         inject = None
@@ -540,20 +673,51 @@ def pipeline_apply_gspmd_hetero(stage_fns: Sequence, x_wire: torch.Tensor,
         pipeline_step_hetero(stage_fns, bufs[i % 2], inject, n_stages=s,
                              n_replicas=n_replicas, out=bufs[(i + 1) % 2],
                              emit=emit, streams=streams, active=active,
-                             stage_params=stage_params)
+                             stage_axis=stage_axis, mesh=mesh,
+                             stage_params=stage_params, data_axis=data_axis)
     return outs
+
+
+def pipeline_apply_hetero(stage_fns: Sequence, x_wire: torch.Tensor, *,
+                          mesh, stage_axis: str, n_stages: int,
+                          stage_params=None, n_replicas: int = 1,
+                          data_axis: str = "data") -> torch.Tensor:
+    """The reference's shard_map executor over heterogeneous stage
+    programs (reference ``core/pipeline.py:560``): every slot of
+    ``mesh`` runs its own stage on its own device and, on a card, its
+    own CUDA stream (:func:`slot_streams`); wires hop stage to stage,
+    copied only between devices. ``stage_params``: None (each program
+    closes over its weights) or the even ``(S, width)`` buffer, placed
+    by ``(stage_axis,)`` (a tensor is placed here), so each slot holds
+    only its stage's row. ``n_replicas`` > 1 needs a ``data_axis`` of
+    that size: each replica runs the whole pipeline on its own stage
+    column, the rows replicated only across data. Returns the last
+    stage's wires, (M, mb, W) or (R, M, mb, W): bit for bit
+    :func:`pipeline_apply_gspmd_hetero` without a mesh."""
+    _, ragged = _check_hetero_params(stage_fns, n_stages, stage_params,
+                                     mesh, stage_axis)
+    if ragged:
+        raise ValueError(
+            "the shard_map executor takes the placed buffer as one "
+            "(S, width) array; ragged rows only run on the gspmd "
+            "single-host path")
+    if mesh is None:
+        raise ValueError(
+            f"pipeline_apply_hetero runs on a mesh with a {stage_axis!r} "
+            "axis (one slot a stage), got no mesh")
+    streams = None
+    if all(d.type == "cuda" for d in mesh.device_set()):
+        streams = slot_streams(n_stages, n_replicas, mesh=mesh,
+                               stage_axis=stage_axis, data_axis=data_axis)
+    return pipeline_apply_gspmd_hetero(
+        stage_fns, x_wire, n_stages=n_stages, stage_axis=stage_axis,
+        mesh=mesh, stage_params=stage_params, n_replicas=n_replicas,
+        data_axis=data_axis, streams=streams)
 
 
 # ---------------------------------------------------------------------------
 # the stage-pipelined train step (LM layer stacks)
 # ---------------------------------------------------------------------------
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: one card has no device mesh (ROADMAP Queue 1 item 9, "
-            "second half: the mesh tooling and the placed tier)")
-
 
 def stack_stages(blocks, stage_of: list, n_stages: int):
     """Re-pack per-layer stacked params (leading L axis) into per-stage
@@ -621,25 +785,53 @@ def make_stage_fn(block_fn: Callable) -> Callable:
     return stage_fn
 
 
+def _tree_to(tree, device):
+    """``tree`` on ``device`` (autograd records the copies; a tensor
+    already there is itself); host-side lists stay."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, pytree.SparseWeight):
+        return pytree.SparseWeight(tree.vals.to(device),
+                                   tree.idx.to(device), tree.d_in)
+    if isinstance(tree, list):
+        return tree
+    return tree.to(device)
+
+
 def pipeline_apply_gspmd(stage_fn: Callable, stage_params, mask, x_mb, *,
                          n_stages: int, stage_axis: str = "pod",
                          mesh=None, data_axis: str = "data",
                          remat: bool = True) -> torch.Tensor:
-    """The reference's ``pipeline_apply_gspmd`` on one card: x_mb (M,
-    mb, ...) through S stages in M + S - 1 ticks; at tick i stage k runs
+    """The reference's ``pipeline_apply_gspmd``: x_mb (M, mb, ...)
+    through S stages in M + S - 1 ticks; at tick i stage k runs
     microbatch i - k where 0 <= i - k < M (the reference runs every
     stage each tick and discards the idle ones' outputs: the same
     results), the stages of a tick in turn, each stage program under a
     checkpoint when ``remat`` (the reference's ``jax.checkpoint``).
     ``stage_params``: (S, Lmax, ...) stacks (:func:`stack_stages`);
-    ``mask``: (S, Lmax) host bools. Returns (M, mb, ...)."""
-    _no_mesh(mesh)
+    ``mask``: (S, Lmax) host bools. Returns (M, mb, ...) on x_mb's
+    device.
+
+    ``mesh``: a mesh with ``stage_axis`` of S slots (:func:`mesh_slots`):
+    stage k runs on its slot's device, its params and its input moved
+    there where they lie elsewhere (a copy autograd carries back). The
+    stages run in turn on their devices' current streams, so under
+    autograd each stage's backward runs where its forward ran; slots of
+    one card run one after another, slots of several cards overlap
+    through the launches' asynchrony. On one card the result is the
+    mesh-less step's, bit for bit."""
     m, s = x_mb.shape[0], n_stages
+    devs = [None] * s
+    if mesh is not None:
+        devs = [row[0].device for row in mesh_slots(
+            mesh, s, 1, stage_axis=stage_axis, data_axis=data_axis)]
     fn = stage_fn
     if remat:
         def fn(p, msk, x):
             return _ckpt.checkpoint(stage_fn, p, msk, x, use_reentrant=False)
     stages = [index_tree(stage_params, k) for k in range(s)]
+    if mesh is not None:
+        stages = [_tree_to(t, d) for t, d in zip(stages, devs)]
     masks = [list(np.asarray(mask)[k]) for k in range(s)]
     held = [None] * s                   # each stage's input this tick
     outs = [None] * m
@@ -649,11 +841,28 @@ def pipeline_apply_gspmd(stage_fn: Callable, stage_params, mask, x_mb, *,
         ys = [None] * s
         for k in range(s):
             if 0 <= i - k < m:
-                ys[k] = fn(stages[k], masks[k], held[k])
+                x = held[k] if devs[k] is None else held[k].to(devs[k])
+                ys[k] = fn(stages[k], masks[k], x)
         if i - (s - 1) >= 0:
             outs[i - (s - 1)] = ys[s - 1]
         held = [None] + ys[:-1]          # stage k -> k + 1
-    return torch.stack(outs)
+    return torch.stack([o.to(x_mb.device) for o in outs])
+
+
+def pipeline_apply(stage_fn: Callable, stage_params, mask, x_mb, *,
+                   mesh, stage_axis: str, n_stages: int,
+                   remat: bool = True) -> torch.Tensor:
+    """The reference's shard_map pipeline over a ``stage_axis``
+    (reference ``core/pipeline.py:130``): stage k of the (S, Lmax, ...)
+    stacks runs on slot k of ``mesh``, microbatch i - k at tick i, the
+    activations hopping slot to slot. The same schedule as
+    :func:`pipeline_apply_gspmd` on a mesh, the same bits."""
+    if mesh is None:
+        raise ValueError(f"pipeline_apply runs on a mesh with a "
+                         f"{stage_axis!r} axis, got no mesh")
+    return pipeline_apply_gspmd(stage_fn, stage_params, mask, x_mb,
+                                n_stages=n_stages, stage_axis=stage_axis,
+                                mesh=mesh, remat=remat)
 
 
 def sequential_apply(stage_fn: Callable, stage_params, mask, x_mb, *,

@@ -37,10 +37,12 @@ Weights on the card: the continuous server and the tier's replicas run
 PLACED stage programs, as the reference's single-host server does: each
 stage unpacks its params from its own packed uint8 row
 (``pipeline.PlacedParams``), every leaf on a 16-byte boundary, and no
-stage program closes over a weight. With one device per stage (S = R = 1
-on one card) the rows are those of the even ``(S, width)`` buffer, as in
-the reference's placed path; ``_serve_cnn`` takes that path there too
-and otherwise closes over one device copy of the weights.
+stage program closes over a weight. With one device slot per (stage,
+replica) (``devices=`` slots, ``launch.mesh.device_slots``; S = R = 1 on
+one card) they run on a stage mesh of those slots, row k of the even
+``(S, width)`` buffer placed on slot k, as in the reference's placed
+path; ``_serve_cnn`` takes that path there too and otherwise closes over
+one device copy of the weights.
 
 On the CPU (``device="cpu"``) the same calls run the plain versions,
 eagerly. An LM arch (``smollm-360m``) runs
@@ -155,10 +157,6 @@ class ServeConfig:
                              "mode; set hosts > 0")
         if self.n_requests < 1:
             raise ValueError(f"n_requests={self.n_requests}: need >= 1")
-
-
-_PLACEMENT = ("ROADMAP Queue 1 item 9, second half: the placed tier "
-              "across devices and the mesh tooling")
 
 
 def serve(cfg: ServeConfig) -> dict:
@@ -450,14 +448,14 @@ def _plan_cnn_serving(arch: str, *, n_stages: int, n_replicas: int,
                       calibrate: bool = False, image_size: int = 64,
                       store_dtype: str = "native",
                       params: Optional[dict] = None, verbose: bool = False,
-                      device="cuda"):
+                      device="cuda", n_devices: Optional[int] = None):
     """Shared serving preamble of every CNN executor (reference
     ``serve.py:245-303``): the weights (drawn from ``seed`` on the CPU,
     native, unless ``params`` gives them), the weight budget
     (``param_budget_frac`` of the bytes stored at ``store_dtype``) and
-    the (stages, replicas) split: the co-planner's over the devices of
-    ``device``'s kind when ``auto_split`` (one card: S = 1, R = 1), the
-    caller's otherwise. Returns ``(cfg, params, plan, n_replicas,
+    the (stages, replicas) split: the co-planner's over ``n_devices``
+    (by default the devices of ``device``'s kind; one card: S = 1, R =
+    1) when ``auto_split``, the caller's otherwise. Returns ``(cfg, params, plan, n_replicas,
     total_bytes)``.
 
     Profile-guided planning: ``tuning_cache`` (a path or a TuningCache)
@@ -497,7 +495,8 @@ def _plan_cnn_serving(arch: str, *, n_stages: int, n_replicas: int,
         tuning.set_tuning_cache(cache)      # the kernels' tuned plans
     with tuning.device_scope(dev):
         if auto_split:
-            n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+            n_dev = n_devices if n_devices is not None else \
+                torch.cuda.device_count() if dev.type == "cuda" else 1
             plan2d = planner.plan(cfg, params, planner.PlanRequest(
                 n_devices=n_dev, n_microbatches=n_microbatches,
                 max_stage_param_bytes=budget, model=model,
@@ -511,21 +510,45 @@ def _plan_cnn_serving(arch: str, *, n_stages: int, n_replicas: int,
 
 
 def _placement(placed, n_stages: int, n_replicas: int,
-               dev: torch.device) -> bool:
-    """Whether to run the even ``(S, width)`` placed buffer: with
-    ``placed=None`` when the devices of ``dev``'s kind hold one (stage,
-    replica) each, as in the reference; ``placed=True`` without them
-    raises the reference's ``ValueError``."""
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+               dev: torch.device, devices=None) -> bool:
+    """Whether to place the even ``(S, width)`` buffer on a stage mesh:
+    with ``placed=None`` when the pool holds one device slot a (stage,
+    replica), as in the reference; ``placed=True`` without them raises
+    the reference's ``ValueError``. The pool: ``devices`` (slots,
+    ``launch.mesh.device_slots``), else the cards of ``dev``'s kind (one
+    CPU device)."""
+    if devices is not None:
+        n_dev = len(devices)
+    else:
+        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
     need = n_stages * n_replicas
     if placed is None:
         return n_dev >= need
     if placed and n_dev < need:
         raise ValueError(
             f"placed=True needs >= {need} devices ({n_stages} stages x "
-            f"{n_replicas} replicas), have {n_dev}; drop "
+            f"{n_replicas} replicas), have {n_dev}; pass devices="
+            "launch.mesh.device_slots(n, device) or drop "
             "placement/replication")
     return bool(placed)
+
+
+def _mesh_on(mesh, dev: torch.device) -> bool:
+    """Whether every slot of ``mesh`` lies on ``dev`` (a CUDA graph, and
+    a state tensor, hold one device's work)."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return mesh.device_set() == {dev}
+
+
+def _stage_pool(dev: torch.device, devices, need: int) -> list:
+    """The first ``need`` slots of the pool ``_placement`` counted."""
+    from repro_torch.launch import mesh as meshlib
+    if devices is not None:
+        return list(devices)[:need]
+    if dev.type == "cuda":
+        return meshlib.default_pool()[:need]
+    return meshlib.device_slots(need, dev)
 
 
 def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
@@ -535,7 +558,8 @@ def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
                auto_split: bool = False, tuning_cache=None,
                calibrate: bool = False, quantize: str = "native",
                device="cuda", streams: bool = True,
-               params: Optional[dict] = None, images=None) -> dict:
+               params: Optional[dict] = None, images=None,
+               devices=None) -> dict:
     """Batched image serving through the heterogeneous layer pipeline.
 
     Plans cost-balanced stage cuts over the fused layer graph, compiles
@@ -545,12 +569,15 @@ def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
     (``streams=False``: all on one stream). A stage runs only on the
     ticks where its slot holds a microbatch (M x S x R stage runs).
 
-    Weights: with one device per (stage, replica) (``placed=None`` and
-    S = R = 1 on one card, or ``placed=True``) the placed stage programs
-    read the rows of the even ``(S, width)`` buffer
-    (``PlacedParams.pack()``, leaves 16-byte aligned), as the
-    reference's placed path; otherwise the stage programs close over one
-    device copy of the stored weights, as the reference's do.
+    Weights: with one device slot per (stage, replica) (``placed=None``
+    and enough slots, or ``placed=True``) the placed stage programs run
+    on a stage mesh of those slots (``devices``: slots,
+    ``launch.mesh.device_slots``; by default the cards, or the one CPU)
+    and read row k of the even ``(S, width)`` buffer
+    (``PlacedParams.pack()``, leaves 16-byte aligned) placed on the
+    slots of stage k, as the reference's placed path; otherwise the
+    stage programs close over one device copy of the stored weights, as
+    the reference's do.
 
     On the card the whole batch, from a static device input to the
     logits, is captured as one CUDA graph after an eager warm-up on a
@@ -583,7 +610,7 @@ def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
         if verbose:
             print(f"[serve] autotuned n_microbatches={n_microbatches}")
     s = plan["n_stages"]
-    use_placed = _placement(placed, s, r, dev)
+    use_placed = _placement(placed, s, r, dev, devices)
     if images is None:
         images = torch.randn((batch, image_size, image_size, 3),
                              generator=torch.Generator().manual_seed(seed))
@@ -595,12 +622,15 @@ def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
                          n_replicas=r)
     lead = (r, n_microbatches) if r > 1 else (n_microbatches,)
     mb_shape = tuple(x_mb.shape[len(lead):])
-    rows = None
+    rows = mesh = None
     if use_placed:
-        stage_fns, pack_in, unpack_out, width, pparams = cnn.stage_programs(
-            cfg, native, plan["stage_of"], mb_shape, placed=True,
-            quantize=quantize, align=pp.ALIGN)
-        rows = tuple(pparams.pack().to(dev))
+        from repro_torch.launch import mesh as meshlib
+        from repro_torch.launch.shardings import placed_stage_setup
+        stage_fns, pack_in, unpack_out, width, pparams, mesh, sps = \
+            placed_stage_setup(cfg, native, plan, mb_shape, n_replicas=r,
+                               devices=_stage_pool(dev, devices, s * r),
+                               quantize=quantize, align=pp.ALIGN)
+        rows = meshlib.place(pparams.pack(), mesh, sps["buffer"])
         placed_bytes = pparams.width
     else:
         dparams = cnn.params_to(quantize_tree(native, quantize), dev)
@@ -609,7 +639,8 @@ def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
         # what placement WOULD hold per device
         placed_bytes = int(plan["placed_bytes_per_device"])
     cuda = dev.type == "cuda"
-    slots = pp.slot_streams(s, r, dev) if streams and cuda else None
+    slots = pp.slot_streams(s, r, dev, mesh=mesh) if streams and cuda \
+        else None
 
     def run(xmb: torch.Tensor) -> torch.Tensor:
         wires = torch.zeros(lead + (mb_shape[0], width), device=dev)
@@ -617,7 +648,7 @@ def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
             pack_in(xmb[idx], out=wires[idx])
         outs = pp.pipeline_apply_gspmd_hetero(
             stage_fns, wires, n_stages=s, n_replicas=r, streams=slots,
-            stage_params=rows)
+            stage_axis="stage", mesh=mesh, stage_params=rows)
         return pp.concat_hetero_outputs(outs, unpack_out, n_microbatches,
                                         n_replicas=r)
 
@@ -625,7 +656,7 @@ def _serve_cnn(arch: str, *, batch: int = 16, n_microbatches: int = 4,
         if cuda:
             torch.cuda.synchronize(dev)
 
-    graph = cuda
+    graph = cuda and (mesh is None or _mesh_on(mesh, dev))
     before = _launch_counts()
     t0 = time.perf_counter()
     if graph:
@@ -724,19 +755,24 @@ class CNNPipelineServer:
     rows already on the card, so the tier's replicas share one plan and
     one set of rows.
 
-    Params (the reference's single-host branch): the stage programs are
-    PLACED (``cnn.stage_programs(placed=True)``): stage k unpacks its
-    weights from ``param_rows[k]``, a uint8 row on the card with every
-    leaf on a 16-byte boundary (``pipeline.ALIGN``), and no stage
-    program closes over a weight. With ``placed=None`` or ``False`` and
-    fewer devices than S x R the rows are ``pparams.pack_ragged()``;
-    where the devices suffice (S = R = 1 on one card) or with
-    ``placed=True`` they are the rows of the even ``(S, width)`` buffer
-    ``pparams.pack()`` (``param_buffer``), as the reference's placed
-    path; ``placed=True`` without the devices raises its
-    ``ValueError``. ``closures=True`` compiles the closure programs over
-    one device copy of the weights instead, the form the two are held
-    against.
+    Params: the stage programs are PLACED
+    (``cnn.stage_programs(placed=True)``): stage k unpacks its weights
+    from its own uint8 row, every leaf on a 16-byte boundary
+    (``pipeline.ALIGN``), and no stage program closes over a weight.
+    With ``placed=None`` or ``False`` and fewer device slots than S x R
+    the rows are ``pparams.pack_ragged()`` on ``device`` (the reference's
+    single-host branch). Where the slots suffice (``devices=``, S x R
+    slots, ``launch.mesh.device_slots``; by default the cards, so S = R
+    = 1 on one card) or with ``placed=True``, the server runs on a stage
+    mesh of those slots (``self.mesh``) and row k of the even ``(S,
+    width)`` buffer ``pparams.pack()`` lies on slot k
+    (``param_buffer``, a ``launch.mesh.Sharded``; ``param_buffer=``
+    takes one placed in advance on the same slots, as the tier's remesh
+    gives it), as the reference's placed path; ``placed=True`` without
+    the slots raises its ``ValueError``. ``param_rows`` is replica 0's
+    row a stage either way. ``closures=True`` compiles the closure
+    programs over one device copy of the weights instead, the form the
+    two are held against.
 
     Bitwise contract: continuous serving equals isolated requests and
     the sequential forward at the same microbatch size (slots never
@@ -750,7 +786,7 @@ class CNNPipelineServer:
                  calibrate: bool = False, quantize: str = "native",
                  device="cuda", streams: bool = True, injector=None,
                  cfg=None, plan=None, param_rows=None,
-                 closures: bool = False):
+                 closures: bool = False, devices=None, param_buffer=None):
         dev = resolve_device(device)
         if plan is not None:
             # the serving tier plans ONCE and hands every replica the
@@ -778,23 +814,49 @@ class CNNPipelineServer:
         self.image_size = image_size
         self.plan = plan
         self.device = dev
-        self.placed = _placement(placed, s, r, dev)
+        self.devices = list(devices) if devices is not None else None
+        self.placed = _placement(placed, s, r, dev, self.devices)
         mb_shape = (mb_size, image_size, image_size, 3)
-        self.pparams = self.param_buffer = rows = None
+        self.pparams = self.param_buffer = self.mesh = rows = None
+        buffer = None
         if closures:
             dparams = cnn.params_to(quantize_tree(params, quantize), dev)
             stage_fns, pack_in, unpack_out, width = cnn.stage_programs(
                 cfg, dparams, plan["stage_of"], mb_shape, quantize=quantize)
+        elif self.placed:
+            from repro_torch.launch import mesh as meshlib
+            from repro_torch.launch.shardings import placed_stage_setup
+            if param_rows is not None:
+                raise ValueError("param_rows= are a single device's rows; "
+                                 "a placed server takes param_buffer=")
+            stage_fns, pack_in, unpack_out, width, self.pparams, \
+                self.mesh, sps = placed_stage_setup(
+                    cfg, params, plan, mb_shape, n_replicas=r,
+                    devices=_stage_pool(dev, self.devices, s * r),
+                    quantize=quantize, align=pp.ALIGN)
+            if param_buffer is None:
+                param_buffer = meshlib.place(self.pparams.pack(), self.mesh,
+                                             sps["buffer"])
+            elif not isinstance(param_buffer, meshlib.Sharded) or \
+                    param_buffer.shape != (s, self.pparams.buffer_width) or \
+                    param_buffer.mesh.shape != self.mesh.shape or any(
+                        param_buffer.mesh.slot(c) != self.mesh.slot(c)
+                        for c in self.mesh.indices()):
+                raise ValueError(
+                    f"param_buffer: {param_buffer!r}, need the ({s}, "
+                    f"{self.pparams.buffer_width}) buffer placed on the "
+                    f"slots of {self.mesh!r}")
+            # a buffer placed in advance (the tier's remesh) runs as it is
+            self.param_buffer = buffer = param_buffer
+            rows = tuple(param_buffer.shard({"stage": k})[0]
+                         for k in range(s))
         else:
             stage_fns, pack_in, unpack_out, width, self.pparams = \
                 cnn.stage_programs(cfg, params, plan["stage_of"], mb_shape,
                                    placed=True, quantize=quantize,
                                    align=pp.ALIGN)
             rows = param_rows
-            if rows is None and self.placed:
-                self.param_buffer = self.pparams.pack().to(dev)
-                rows = tuple(self.param_buffer)
-            elif rows is None:
+            if rows is None:
                 rows = tuple(row.to(dev) for row in
                              self.pparams.pack_ragged())
             elif len(rows) != s or any(
@@ -805,14 +867,23 @@ class CNNPipelineServer:
                     f"{[row.numel() for row in rows]} bytes on "
                     f"{[str(row.device) for row in rows]}, need {s} of "
                     f">= {list(self.pparams.row_widths)} on {dev}")
-        # the tick's params: one packed row per stage (None: closures)
+        # one packed row per stage (replica 0's on a mesh; None: closures)
         self.param_rows = rows
+        tick_params = buffer if buffer is not None else rows
         self.width = width
         lead = (r,) if r > 1 else ()
         self._img_shape = lead + mb_shape
         self._state_shape = (s,) + lead + (mb_size, width)
-        self._bufs = [torch.zeros(self._state_shape, device=dev)
-                      for _ in range(2)]
+        # a state tensor (and a CUDA graph) holds one device's work; slots
+        # on several devices take per-slot buffers and eager ticks
+        one_device = self.mesh is None or _mesh_on(self.mesh, dev)
+        if one_device:
+            self._bufs = [torch.zeros(self._state_shape, device=dev)
+                          for _ in range(2)]
+        else:
+            slot_grid = pp.mesh_slots(self.mesh, s, r)
+            self._bufs = [pp.slot_buffers((mb_size, width), slot_grid)
+                          for _ in range(2)]
         self._img = [torch.zeros(self._img_shape, device=dev)
                      for _ in range(2)]
         logits = cnn.node_shapes(cfg, None, mb_shape)[
@@ -820,10 +891,10 @@ class CNNPipelineServer:
         out_shape = lead + tuple(logits.shape)
         self._out = [torch.zeros(out_shape, device=dev) for _ in range(2)]
         self._cuda = dev.type == "cuda"
-        slots = pp.slot_streams(s, r, dev) if streams and self._cuda \
-            else None
+        slots = pp.slot_streams(s, r, dev, mesh=self.mesh) \
+            if streams and self._cuda else None
         self.streams = s * r if slots is not None else 1
-        bufs, img, outs = self._bufs, self._img, self._out
+        bufs, img, outs, mesh = self._bufs, self._img, self._out, self.mesh
 
         # (the tick holds no reference to the server: no cycle, so a
         # server is freed, graphs and pools with it, when it is dropped;
@@ -833,17 +904,16 @@ class CNNPipelineServer:
             src, dst = bufs[p], bufs[1 - p]
             for q in range(r):
                 pack_in(img[p][q] if r > 1 else img[p],
-                        out=src[0, q] if r > 1 else src[0])
+                        out=pp.slot_at(src, 0, q, r > 1))
             pp.pipeline_step_hetero(stage_fns, src, None, n_stages=s,
                                     n_replicas=r, out=dst, streams=slots,
-                                    stage_params=rows)
+                                    stage_axis="stage", mesh=mesh,
+                                    stage_params=tick_params)
             for q in range(r):
-                if r > 1:
-                    outs[p][q].copy_(unpack_out(dst[0, q]))
-                else:
-                    outs[p].copy_(unpack_out(dst[0]))
+                (outs[p][q] if r > 1 else outs[p]).copy_(
+                    unpack_out(pp.slot_at(dst, 0, q, r > 1)))
 
-        self.captured = self._cuda
+        self.captured = self._cuda and one_device
         self.launches_per_tick = None
         if self._cuda:
             ev = torch.cuda.Event
@@ -869,6 +939,7 @@ class CNNPipelineServer:
                 tick(1)
             cur.wait_stream(side)
             torch.cuda.synchronize(dev)
+        if self.captured:
             graphs = []
             for p in range(2):
                 g = torch.cuda.CUDAGraph()
@@ -913,7 +984,9 @@ class CNNPipelineServer:
         with torch.cuda.stream(self._stream) if self._cuda else \
                 contextlib.nullcontext():
             for b in self._bufs:
-                b.zero_()
+                for t in [b] if isinstance(b, torch.Tensor) else \
+                        [t for row in b for t in row]:
+                    t.zero_()
         self._staged = None
         self._inflight = deque()
         self._emitted = None
@@ -1239,7 +1312,7 @@ def _serve_cnn_continuous(arch: str, *, n_requests: int = 4,
                           quantize: str = "native", device="cuda",
                           streams: bool = True,
                           params: Optional[dict] = None,
-                          requests=None) -> dict:
+                          requests=None, devices=None) -> dict:
     """Continuous-batching serving run: K back-to-back requests through
     one :class:`CNNPipelineServer` (the pipeline never drains between
     them), after one warm-up request. Returns the per-request logits,
@@ -1248,7 +1321,8 @@ def _serve_cnn_continuous(arch: str, *, n_requests: int = 4,
 
     ``params``: the native weights on the CPU (default: drawn from
     ``seed``); ``requests``: K arrays (B, H, W, 3) f32 (default: drawn
-    from ``seed + 1`` with a CPU ``torch.Generator``)."""
+    from ``seed + 1`` with a CPU ``torch.Generator``). ``devices``: the
+    pool of device slots a placed server runs on (``CNNPipelineServer``)."""
     srv = CNNPipelineServer(arch, mb_size=mb_size, n_stages=n_stages,
                             n_replicas=n_replicas, image_size=image_size,
                             seed=seed, placed=placed,
@@ -1256,7 +1330,8 @@ def _serve_cnn_continuous(arch: str, *, n_requests: int = 4,
                             auto_split=auto_split, verbose=False,
                             tuning_cache=tuning_cache, calibrate=calibrate,
                             quantize=quantize, device=device,
-                            streams=streams, params=params)
+                            streams=streams, params=params,
+                            devices=devices)
     warm = srv.submit(np.zeros((mb_size, image_size, image_size, 3),
                                np.float32))
     srv.run()

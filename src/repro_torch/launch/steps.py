@@ -98,18 +98,113 @@ def make_decode_step(cfg):
     return decode
 
 
+# --- the dry run's abstract trees --------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def abstract_params(cfg, mesh, *, pure_dp=None):
+    """``(params, specs)``: ``lm.abstract_params`` (meta tensors, nothing
+    allocated) and ``{key: spec}`` from ``shardings.params_shardings``
+    (``pure_dp`` by default ``shardings.use_pure_dp(cfg)``)."""
+    from repro_torch.launch import shardings as sh
+    if pure_dp is None:
+        pure_dp = sh.use_pure_dp(cfg)
+    params = lm.abstract_params(cfg)
+    return params, sh.params_shardings(params, mesh, pure_dp=pure_dp)
+
+
+def abstract_opt_state(params, specs: dict, mesh, *, zero1: bool = True):
+    """``(opt_state, specs)`` of AdamW over ``params`` (meta): f32 m and v
+    shaped as every leaf, an int32 step. ``zero1`` also shards m and v
+    over ``data`` (ZeRO-1) along the first dimension the param spec
+    leaves whole that the data axis divides: m and v are read only at
+    the update, so the gather of fresh params replaces a full-size
+    gradient all-reduce while the optimizer's bytes fall by the DP
+    degree."""
+    dsize = mesh.shape.get("data", 1)
+    flat = dict(pytree.keyed_leaves(params))
+
+    def f32_spec(key):
+        shape = flat[key].shape
+        spec = list(specs[key]) + [None] * (len(shape) - len(specs[key]))
+        if zero1 and dsize > 1:
+            for i, p in enumerate(spec):
+                if p is None and shape[i] % dsize == 0 and shape[i] >= dsize:
+                    spec[i] = "data"
+                    break
+        return tuple(spec)
+
+    m = pytree.map_leaves(lambda t: _meta(t.shape, torch.float32), params)
+    opt = adamw.OptState(m=m, v=m, step=_meta((), torch.int32))
+    out = {}
+    for key, _ in pytree.keyed_leaves(opt):
+        field, _, rest = key.partition(pytree.KEYSEP)
+        out[key] = () if field == ".step" else f32_spec(rest)
+    return opt, out
+
+
+def input_specs(cfg, shape, mesh, *, pod_is_dp: bool = True, pure_dp=None):
+    """``(inputs, specs)`` for every model input of a cell, as meta
+    tensors: train ``{"batch": {"tokens", "labels"[, "frames",
+    "patches"]}}``, prefill ``{"tokens"[, ...]}``, decode ``{"cache",
+    "tokens", "pos"}`` (the cache ``lm.init_cache``'s); the reference's
+    shapes and dtypes, ``{key: spec}`` from ``shardings.data_spec`` /
+    ``cache_spec``."""
+    from repro_torch.launch import shardings as sh
+    b, t = shape.global_batch, shape.seq_len
+    d = cfg.d_model
+    if pure_dp is None:
+        pure_dp = sh.use_pure_dp(cfg)
+    tx = t - cfg.vision_tokens if cfg.family == "vlm" else t
+
+    def extras():
+        out = {}
+        if cfg.family == "audio":
+            out["frames"] = _meta((b, cfg.encoder_seq, d), torch.bfloat16)
+        if cfg.family == "vlm":
+            out["patches"] = _meta((b, cfg.vision_tokens, d), torch.bfloat16)
+        return out
+
+    if shape.kind == "train":
+        inputs = {"batch": {"tokens": _meta((b, tx), torch.int32),
+                            "labels": _meta((b, tx), torch.int32),
+                            **extras()}}
+    elif shape.kind == "prefill":
+        inputs = {"tokens": _meta((b, tx), torch.int32), **extras()}
+    else:
+        inputs = {"cache": lm.init_cache(cfg, b, t, device="meta"),
+                  "tokens": _meta((b, 1), torch.int32),
+                  "pos": _meta((), torch.int32)}
+    kw = dict(pod_is_dp=pod_is_dp, pure_dp=pure_dp)
+    specs = {}
+    for key, leaf in pytree.keyed_leaves(inputs):
+        top = sh._path_names(key)[0]
+        if top == "cache":
+            specs[key] = sh.cache_spec(key, leaf, mesh, **kw)
+        elif top == "pos":
+            specs[key] = ()
+        else:
+            specs[key] = sh.data_spec(tuple(leaf.shape), mesh, **kw)
+    return inputs, specs
+
+
 # --- HPIPE pipelined training ---------------------------------------------
 
 def make_pipeline_train_step(cfg, mesh, shape,
                              opt_cfg: Optional[adamw.AdamWConfig] = None, *,
-                             n_stages: int, n_microbatches: int = 8,
+                             n_stages: Optional[int] = None,
+                             n_microbatches: int = 8,
                              stage_axis: str = "pod"):
-    """The reference's ``make_pipeline_train_step`` on one card: the
-    block stack runs through the layer pipeline
-    (``pipeline.pipeline_apply_gspmd``: M microbatches, S stages in turn
-    each tick, M + S - 1 ticks), cut by ``planner.plan_lm_stages`` at
-    ``shape``'s sequence and global batch. ``mesh`` must be None (the
-    reference takes S from its mesh's ``stage_axis``; here ``n_stages``).
+    """The reference's ``make_pipeline_train_step``: the block stack runs
+    through the layer pipeline (``pipeline.pipeline_apply_gspmd``: M
+    microbatches, S stages in turn each tick, M + S - 1 ticks), cut by
+    ``planner.plan_lm_stages`` at ``shape``'s sequence and global batch.
+    S is the size of ``mesh``'s ``stage_axis``, as in the reference
+    (stage s runs on slot s, its staged params there: a mesh of slots on
+    the device of the params, ``launch.mesh.device_slots``), or
+    ``n_stages`` without a mesh.
 
     Returns (train_step, restructure, planout):
     ``restructure(params) -> (sparams, mask)`` moves the (L, ...)-stacked
@@ -129,7 +224,22 @@ def make_pipeline_train_step(cfg, mesh, shape,
     ((loss, metrics), grads) without the update; ``executor=
     pipeline.sequential_apply`` runs the same microbatches through the
     stages in order, without the pipeline."""
-    pp._no_mesh(mesh)
+    if mesh is not None:
+        if stage_axis not in mesh.shape:
+            raise ValueError(f"mesh has no {stage_axis!r} axis "
+                             f"(axes: {tuple(mesh.shape)})")
+        if n_stages is not None and n_stages != mesh.shape[stage_axis]:
+            raise ValueError(f"n_stages={n_stages} but the mesh's "
+                             f"{stage_axis!r} axis has "
+                             f"{mesh.shape[stage_axis]} slots")
+        if len(mesh.device_set()) > 1:
+            raise ValueError(
+                "the train step's embedding, positions and head live on "
+                "one device; its stage mesh takes slots of that device "
+                f"(got {sorted(map(str, mesh.device_set()))})")
+        n_stages = mesh.shape[stage_axis]
+    elif n_stages is None:
+        raise ValueError("without a mesh, give n_stages")
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     planout = planner.plan_lm_stages(cfg, shape.seq_len, shape.global_batch,
                                      n_stages)
@@ -174,7 +284,7 @@ def make_pipeline_train_step(cfg, mesh, shape,
                 ps["staged"], _attn_flag=flags)
             out = executor(
                 stage_fn, staged, mask, pp.microbatch(h, n_microbatches),
-                n_stages=n_stages, stage_axis=stage_axis)
+                n_stages=n_stages, stage_axis=stage_axis, mesh=mesh)
             logits = lm._logits(cfg, ps, out.reshape(b, t, -1))
             labels = torch.as_tensor(batch["labels"]).to(dev).long()
             if cfg.family == "vlm":

@@ -16,6 +16,7 @@ encoder's output of the frames; zamba2 runs its one shared attention
 block after every ``hybrid_attn_every``-th Mamba2 layer.
 
     init_params(cfg, generator)             -> params
+    abstract_params(cfg)                    -> params on the meta device
     init_cache(cfg, batch, max_seq)         -> decode cache (zeros)
     forward(cfg, params, tokens, extra=)    -> (logits, aux)  prefill
     decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
@@ -179,6 +180,22 @@ def init_params(cfg, generator: torch.Generator) -> dict:
                                                cfg.encoder_layers),
                         "norm": ones()}
     return p
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: shapes and
+    dtypes, no storage, no numbers."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def abstract_params(cfg) -> dict:
+    """:func:`init_params`'s tree on the meta device: every leaf's shape
+    and dtype, nothing allocated (the dry run's; the reference's
+    ``jax.eval_shape`` of its ``init_params``)."""
+    return init_params(cfg, _MetaGenerator())
 
 
 def params_from_numpy(tree: dict, *, device="cuda") -> dict:

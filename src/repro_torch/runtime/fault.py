@@ -19,8 +19,9 @@ Training (torch imported where they run):
   :func:`init_error`: per-leaf symmetric int8 gradients with error
   feedback.
 
-``remesh`` is not ported: ROADMAP Queue 1 item 9, second half (the mesh
-tooling).
+Elastic re-meshing: :func:`remesh` re-places a tree from one device
+mesh onto another (``launch/mesh.py``), as the placed tier does after
+losing slots.
 """
 from __future__ import annotations
 
@@ -562,3 +563,25 @@ def init_error(grads_like):
     return pytree.map_leaves(
         lambda g: None if g is None else torch.zeros(
             g.shape, dtype=torch.float32, device=g.device), grads_like)
+
+
+# --- elastic re-meshing ------------------------------------------------------
+
+def remesh(tree, old_mesh, new_mesh, spec_fn):
+    """Re-place a tree from ``old_mesh`` onto ``new_mesh`` (after losing
+    slots: a replica's 4 slots onto 4 surviving ones). ``spec_fn(path,
+    leaf) -> spec`` on the NEW mesh (``path``: ``core/pytree.py``'s key
+    string). Each leaf, a tensor or a ``launch.mesh.Sharded`` placed on
+    ``old_mesh``, is gathered whole and placed by its spec
+    (``launch.mesh.place``): a leaf with spec ``("stage",)`` puts row k
+    on new slot k. Every returned shard is a fresh copy: none aliases
+    the donor's storage."""
+    from repro_torch.core import pytree
+    from repro_torch.launch.mesh import Sharded, place
+    out = {}
+    for key, leaf in pytree.keyed_leaves(tree):
+        if isinstance(leaf, Sharded) and leaf.mesh.shape != old_mesh.shape:
+            raise ValueError(f"{key}: placed on {leaf.mesh!r}, not on the "
+                             f"old mesh {old_mesh!r}")
+        out[key] = place(leaf, new_mesh, spec_fn(key, leaf))
+    return pytree.rebuild(tree, out.__getitem__)

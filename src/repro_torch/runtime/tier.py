@@ -45,9 +45,15 @@ and tick captures, where cuDNN chooses) under
 setting outside that scope; on the card the supervisor builds the kernels
 before it starts any worker.
 
-Not ported: the placed tier across devices (``placed=True``,
-``devices=``, ``lose_devices``, ``_remesh_buffer``) needs one device per
-stage and raises, naming ROADMAP Queue 1 item 9's second half.
+The placed tier (``ServingTier(placed=True)`` or ``devices=``): a pool
+of device slots (``launch.mesh.device_slots``; by default the cards),
+one disjoint slice of S slots a replica, each replica's even param
+buffer placed row k on its slot k. ``lose_devices`` retires the
+replicas that touch a lost slot, re-plans the surviving pool
+(``planner.plan`` with ``prev=``) and respawns replicas on free slots:
+where the cut is reused, with a surviving replica's buffer re-placed
+onto the new slots (``_remesh_buffer``, ``fault.remesh``: a fresh copy,
+no repack); where it is not, everything is rebuilt.
 """
 from __future__ import annotations
 
@@ -65,7 +71,6 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
-from repro_torch.launch.serve import _PLACEMENT
 from repro_torch.runtime import transport
 from repro_torch.runtime.fault import FailureDetector, StragglerDetector
 
@@ -444,6 +449,7 @@ class ReplicaWorker:
     """One pipeline replica: the failure domain the tier tracks."""
     idx: int
     server: Any
+    devices: Optional[list] = None
     permanent_dead: bool = False
     straggler: bool = False
     failures: int = 0
@@ -473,9 +479,14 @@ class ServingTier(_TierBase):
     replica runs its placed stage programs over those rows under one
     plan, so R replicas hold the weights on the card once. Each replica
     captures its own two tick graphs and replays them on a stream of its
-    own, so replicas overlap on the card. ``placed=True`` and
-    ``devices=`` raise ``NotImplementedError`` (Queue 1 item 9, second
-    half)."""
+    own, so replicas overlap on the card.
+
+    Placed (``placed=True``, or ``placed=None`` with a pool of at least
+    S x R slots): the pool is ``devices`` (slots,
+    ``launch.mesh.device_slots``; by default the cards), replica r runs
+    on slots ``pool[r*S:(r+1)*S]`` and places its own even buffer there
+    (``CNNPipelineServer(devices=)``); slots are told apart by ``id``.
+    :meth:`lose_devices` degrades it."""
 
     def __init__(self, arch: str, *, n_replicas: int = 2,
                  n_stages: int = 4, mb_size: int = 2,
@@ -501,18 +512,25 @@ class ServingTier(_TierBase):
         if heartbeat_timeout_s <= 0:
             raise ValueError(f"heartbeat_timeout_s must be > 0, got "
                              f"{heartbeat_timeout_s}")
-        if placed or devices is not None:
-            raise NotImplementedError(f"placed=True / devices=: "
-                                      f"{_PLACEMENT}")
         from repro_torch.core.device import resolve_device
         from repro_torch.core.quant import quantize_tree
-        from repro_torch.launch.serve import _plan_cnn_serving
+        from repro_torch.launch import mesh as meshlib
+        from repro_torch.launch.serve import _placement, _plan_cnn_serving
         dev = resolve_device(device)
-        cfg, native, self.plan, n_replicas, _ = _plan_cnn_serving(
+        if devices is not None:
+            self._pool = list(devices)
+        elif dev.type == "cuda":
+            self._pool = meshlib.default_pool()
+        else:
+            self._pool = meshlib.device_slots(1, dev)
+        cfg, native, self.plan, n_replicas, total = _plan_cnn_serving(
             arch, n_stages=n_stages, n_replicas=n_replicas,
             n_microbatches=32, param_budget_frac=param_budget_frac,
             auto_split=auto_split, seed=seed, image_size=image_size,
-            store_dtype=quantize, params=params, device=dev)
+            store_dtype=quantize, params=params, device=dev,
+            n_devices=len(self._pool))
+        self._budget = (int(param_budget_frac * total)
+                        if param_budget_frac else None)
         self.arch = arch
         self.cfg = cfg
         self.quantize = quantize
@@ -524,7 +542,8 @@ class ServingTier(_TierBase):
         self.mb_size = mb_size
         self.image_size = image_size
         self.seed = seed
-        self.placed = False
+        s = self.plan["n_stages"]
+        self.placed = _placement(placed, s, n_replicas, dev, self._pool)
         self.max_respawns = max_respawns
         self.max_worker_queue = max_worker_queue
         self.heartbeat_timeout_s = heartbeat_timeout_s
@@ -536,13 +555,19 @@ class ServingTier(_TierBase):
             clock=clock, sleep=sleep, verbose=verbose)
         self.detector = StragglerDetector(threshold=straggler_threshold)
         self.workers: list[ReplicaWorker] = []
+        self.remeshes = 0            # buffers lose_devices re-placed
         injectors = injectors or {}
         for r in range(n_replicas):
-            self._spawn_worker(injector=injectors.get(r))
+            devs = self._pool[r * s:(r + 1) * s] if self.placed else None
+            self._spawn_worker(devs, injector=injectors.get(r))
 
     # -- worker construction -------------------------------------------------
 
-    def _spawn_worker(self, *, injector=None) -> ReplicaWorker:
+    def _spawn_worker(self, devs=None, *, injector=None,
+                      param_buffer=None) -> ReplicaWorker:
+        """A replica: on ``devs`` (S slots, its even buffer placed there,
+        or ``param_buffer`` placed there already) in a placed tier, else
+        on the tier's shared rows."""
         from repro_torch.core.device import deterministic_convs
         from repro_torch.launch.serve import CNNPipelineServer
         idx = len(self.workers)
@@ -551,9 +576,13 @@ class ServingTier(_TierBase):
                 self.arch, mb_size=self.mb_size, image_size=self.image_size,
                 seed=self.seed, cfg=self.cfg, params=self.params,
                 plan=self.plan, injector=injector, quantize=self.quantize,
-                device=self.device, param_rows=self.param_rows)
-        self.param_rows = server.param_rows
+                device=self.device, placed=self.placed, devices=devs,
+                param_buffer=param_buffer,
+                param_rows=None if self.placed else self.param_rows)
+        if not self.placed:
+            self.param_rows = server.param_rows
         w = ReplicaWorker(idx=idx, server=server,
+                          devices=list(devs) if devs else None,
                           last_heartbeat=self._clock())
         server.on_result = lambda key, logits, _w=w: \
             self._deliver(_w, key, logits)
@@ -718,12 +747,77 @@ class ServingTier(_TierBase):
     # -- permanent device loss + degradation ---------------------------------
 
     def lose_devices(self, lost) -> dict:
-        """Permanent device loss re-plans a placed tier onto the
-        surviving devices: not ported (Queue 1 item 9, second half)."""
-        raise NotImplementedError(f"lose_devices: {_PLACEMENT}")
+        """Permanent device loss: retire every replica whose slots touch
+        a lost one (their work drains onto the queue), re-plan the
+        reduced pool (``planner.plan`` with ``prev=``) and respawn
+        replicas on the surviving free slots. Where the re-plan keeps
+        the previous stage cut (``reused``), a surviving replica's (else
+        a victim's) placed buffer is re-placed onto each new replica's
+        slots (:meth:`_remesh_buffer`: no repack) and the surviving
+        replicas keep their captured ticks; a new cut rebuilds (and
+        repacks) every replica. Slots are matched by ``id``. Returns the
+        re-plan dict."""
+        from repro_torch.core import planner
+        lost_ids = {getattr(d, "id", d) for d in lost}
+        self._pool = [d for d in self._pool
+                      if getattr(d, "id", d) not in lost_ids]
+        victims = [w for w in self.workers if w.alive and w.devices and
+                   any(getattr(d, "id", d) in lost_ids
+                       for d in w.devices)]
+        for w in victims:
+            gone = sorted(lost_ids & {getattr(d, "id", d)
+                                      for d in w.devices})
+            self._on_failure(w, ReplicaFailedError(
+                f"replica {w.idx}: device(s) {gone} permanently lost"),
+                permanent=True)
+        if not self.placed:
+            return {"reused": True, "n_replicas":
+                    sum(w.alive for w in self.workers)}
+        donor = victims[0] if victims else None
+        for w in self.workers:            # prefer a surviving donor
+            if w.alive and w.devices:
+                donor = w
+                break
+        if not self._pool:
+            return {"reused": False, "n_replicas": 0}
+        replan = planner.plan(self.cfg, self.params, planner.PlanRequest(
+            n_devices=len(self._pool), prev=self.plan, n_microbatches=32,
+            max_stage_param_bytes=self._budget, store_dtype=self.quantize))
+        reused = replan["reused"]
+        if not reused:
+            # the stage cut changed: every replica's programs and buffer
+            # layout are stale; drain and rebuild them all
+            for w in self.workers:
+                if w.alive:
+                    self._on_failure(w, ReplicaFailedError(
+                        "stage re-cut on degradation"), permanent=True)
+            donor = None
+            self.plan = replan["plan"]
+        s = self.plan["n_stages"]
+        used = {getattr(d, "id", d) for w in self.workers
+                if w.alive and w.devices for d in w.devices}
+        free = [d for d in self._pool if getattr(d, "id", d) not in used]
+        while sum(w.alive for w in self.workers) < \
+                replan["n_replicas"] and len(free) >= s:
+            devs, free = free[:s], free[s:]
+            buf = None
+            if reused and donor is not None and \
+                    donor.server.param_buffer is not None:
+                buf = self._remesh_buffer(donor, devs, s)
+            self._spawn_worker(devs, param_buffer=buf)
+        return replan
 
-    def _remesh_buffer(self, donor, devs, s):
-        raise NotImplementedError(f"_remesh_buffer: {_PLACEMENT}")
+    def _remesh_buffer(self, donor: ReplicaWorker, devs, s):
+        """The donor's placed buffer re-placed onto a stage mesh of
+        ``devs`` (``fault.remesh``, spec ``("stage",)``): row k on new
+        slot k, a fresh copy."""
+        from repro_torch.launch.mesh import make_stage_mesh
+        from repro_torch.runtime.fault import remesh
+        self.remeshes += 1
+        new_mesh = make_stage_mesh(s, 1, devices=devs)
+        return remesh({"buf": donor.server.param_buffer},
+                      donor.server.mesh, new_mesh,
+                      lambda path, leaf: ("stage",))["buf"]
 
 
 # --- cross-process serving: OS-process replica workers -----------------------

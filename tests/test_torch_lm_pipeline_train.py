@@ -39,6 +39,7 @@ from repro_torch.core import costmodel, planner  # noqa: E402
 from repro_torch.core import pipeline as pp  # noqa: E402
 from repro_torch.core import pytree  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch.mesh import device_slots, make_stage_mesh  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 
@@ -203,16 +204,28 @@ def test_pipeline_stages_bitwise(arch):
                 assert torch.equal(gk, base[1][key]), (s, executor, key)
 
 
-def test_pipeline_mesh_not_ported():
+def test_pipeline_mesh_sets_the_stages():
+    """As the reference: S is the size of the mesh's stage axis (a mesh
+    of slots), the plan the mesh-less one at that S; a mesh without the
+    axis, or an n_stages that disagrees with it, is refused."""
     cfg = get_config("smollm-360m")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        steps.make_pipeline_train_step(cfg, object(),
-                                       ShapeConfig("t", "train", 16, 4),
-                                       n_stages=1)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pp.pipeline_apply_gspmd(lambda p, m, x: x, {}, np.ones((1, 1), bool),
-                                torch.zeros(1, 2), n_stages=1,
-                                mesh=object())
+    shape = ShapeConfig("t", "train", 16, 4)
+    mesh = make_stage_mesh(4, stage_axis="pod",
+                           devices=device_slots(4, "cpu"))
+    _, _, plan = steps.make_pipeline_train_step(cfg, mesh, shape)
+    _, _, want = steps.make_pipeline_train_step(cfg, None, shape, n_stages=4)
+    assert plan["stage_of"] == want["stage_of"] and max(plan["stage_of"]) == 3
+    with pytest.raises(ValueError, match="no 'pod' axis"):
+        steps.make_pipeline_train_step(cfg, make_stage_mesh(
+            1, devices=device_slots(1, "cpu")), shape)
+    with pytest.raises(ValueError, match="give n_stages"):
+        steps.make_pipeline_train_step(cfg, None, shape)
+    x = torch.arange(6.0).reshape(3, 1, 2)
+    one = make_stage_mesh(1, stage_axis="pod", devices=device_slots(1, "cpu"))
+    got = pp.pipeline_apply_gspmd(lambda p, m, h: h * 2, {},
+                                  np.ones((1, 1), bool), x, n_stages=1,
+                                  mesh=one)
+    assert torch.equal(got, x * 2)
 
 
 def test_pipeline_block_fn_flag_is_host_side():

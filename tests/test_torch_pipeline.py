@@ -25,6 +25,7 @@ from repro_torch.core import pipeline as pp  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
 from repro_torch.core.quant import quantize_tree  # noqa: E402
 from repro_torch.launch import serve as port_serve  # noqa: E402
+from repro_torch.launch.mesh import Mesh, device_slots  # noqa: E402
 from repro_torch.launch.serve import (CNNPipelineServer, ServeConfig,  # noqa: E402
                                       serve)
 from repro_torch.models import cnn  # noqa: E402
@@ -181,8 +182,9 @@ def test_executors_refuse_what_the_reference_refuses():
     with pytest.raises(ValueError, match="requires a mesh"):
         pp.pipeline_apply_gspmd_hetero(fns, xw, n_stages=1,
                                        stage_params=torch.zeros((1, 8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pp.pipeline_apply_gspmd_hetero(fns, xw, n_stages=1, mesh=object())
+    with pytest.raises(ValueError, match="mesh has no 'pod' axis"):
+        pp.pipeline_apply_gspmd_hetero(fns, xw, n_stages=1, mesh=Mesh(
+            ("stage",), (1,), device_slots(1, "cpu")))
     with pytest.raises(ValueError, match="1 stage programs for 2"):
         pp.pipeline_apply_gspmd_hetero(fns, xw, n_stages=2)
     with pytest.raises(ValueError, match="n_replicas"):

@@ -26,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from jax.sharding import AbstractMesh  # noqa: E402
 
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.core import pipeline as ref_pp  # noqa: E402
@@ -38,6 +39,7 @@ from repro_torch.core import pipeline as pp  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
 from repro_torch.core.quant import QuantizedWeight, quantize_tree  # noqa: E402
 from repro_torch.launch import serve as port_serve  # noqa: E402
+from repro_torch.launch.mesh import Mesh, device_slots  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.models.layers import SparseWeight  # noqa: E402
 
@@ -400,19 +402,18 @@ def test_executors_take_rows_without_a_mesh_as_the_reference():
                                   "mesh"])
 def test_executors_refuse_what_the_reference_refuses(case):
     x = np.zeros((2, 2, 4), np.float32)
-    n_fns, params = 2, None
+    n_fns, params, mesh, ref_mesh = 2, None, None, None
     if case == "even-buffer":
         params = np.zeros((2, 8), np.uint8)
     elif case == "row-count":
         params = [np.zeros((8,), np.uint8)]
     elif case == "fn-count":
         n_fns = 3
-    if case == "mesh":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 9, second half"):
-            pp.pipeline_apply_gspmd_hetero(_port_fns(2), torch.from_numpy(x),
-                                           n_stages=2, mesh=object())
-        return
+    elif case == "mesh":
+        # the even buffer on a mesh of slots without the stage axis
+        params = np.zeros((2, 8), np.uint8)
+        mesh = Mesh(("data",), (2,), device_slots(2, "cpu"))
+        ref_mesh = AbstractMesh((2,), ("data",))
 
     def port_p(p):
         if isinstance(p, list):
@@ -426,15 +427,15 @@ def test_executors_refuse_what_the_reference_refuses(case):
 
     with pytest.raises(ValueError) as ref_err:
         ref_pp.pipeline_apply_gspmd_hetero(_ref_fns(n_fns), jnp.asarray(x),
-                                           n_stages=2,
+                                           n_stages=2, mesh=ref_mesh,
                                            stage_params=ref_p(params))
     for call in (
             lambda: pp.pipeline_apply_gspmd_hetero(
                 _port_fns(n_fns), torch.from_numpy(x), n_stages=2,
-                stage_params=port_p(params)),
+                mesh=mesh, stage_params=port_p(params)),
             lambda: pp.pipeline_step_hetero(
                 _port_fns(n_fns), torch.from_numpy(x), None, n_stages=2,
-                stage_params=port_p(params))):
+                stage_axis="pod", mesh=mesh, stage_params=port_p(params))):
         with pytest.raises(ValueError) as err:
             call()
         # the reference's message, up to the axis it names

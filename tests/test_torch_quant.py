@@ -1,12 +1,10 @@
 """The port's stored weight dtypes (``core/quant.py``) vs the JAX
 reference, at full width, 32 px: the quantizer bit for bit, the stored
-bytes, the int8 forward of the three CNNs against the reference's int8
-forward (XLA, and Pallas in interpret mode for ResNet-50), the
-reference's own int8 bars held within the port, the plain versions with
-a scale against the Pallas kernels with a scale, and serving at every
-store dtype on the CPU."""
-import functools
-
+bytes, the plain versions with a scale against the Pallas kernels with
+a scale, and serving at every store dtype on the CPU. The int8 and f32
+forwards against the reference are in
+``tests/test_torch_quant_forward.py``; both files share
+``tests/_torch_quant_ref.py``."""
 import numpy as np
 import pytest
 
@@ -30,102 +28,8 @@ from repro_torch.kernels import sparse_matmul as sm  # noqa: E402
 from repro_torch.launch.serve import ServeConfig, serve  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.models.layers import SparseWeight, tensor_from_numpy  # noqa: E402
-
-IMAGE = 32
-ARCHS = ["resnet50", "mobilenet_v1", "mobilenet_v2"]
-# The native parity bar of tests/test_torch_cnn.py and
-# tests/test_torch_mobilenet.py: max |diff| <= 1e-3 of max |ref logit|,
-# top-1 equal (both frameworks do the same f32 sums and bf16 rounds, in
-# other orders; random-init logits are tiny, so the bar is relative).
-LOGIT_RTOL = 1e-3
-# The reference's own int8 bars (tests/test_quant.py:156-190): int8 vs
-# the unquantized forward, and the fast path vs dequantize-at-entry.
-ORACLE_RTOL = 0.05
-FAST_RTOL = 0.02
-
-
-def _numpy_tree(params):
-    """The reference's params as numpy, in ``params_from_numpy``'s
-    format (quantized leaves included)."""
-    tree = {}
-    for name, p in params.items():
-        w = p["w"]
-        if isinstance(w, RefSparseWeight):
-            d = {"vals": np.asarray(w.vals), "idx": np.asarray(w.idx),
-                 "d_in": w.d_in}
-            if w.scale is not None:
-                d.update(scale=np.asarray(w.scale), orig_dtype=w.orig_dtype)
-            w = d
-        elif isinstance(w, ref_quant.QuantizedWeight):
-            w = {"codes": np.asarray(w.codes), "scale": np.asarray(w.scale),
-                 "orig_dtype": w.orig_dtype}
-        else:
-            w = np.asarray(w)
-        tree[name] = {"w": w, "b": np.asarray(p["b"])}
-    return tree
-
-
-@functools.lru_cache(maxsize=None)
-def _weights(arch):
-    """(reference native params, reference int8 params, port native
-    params on the CPU)."""
-    ref = jax.jit(lambda k: ref_cnn.init_cnn(ref_get_config(arch), k))(
-        jax.random.PRNGKey(0))
-    return (ref, ref_quant.quantize_tree(ref, "int8"),
-            cnn.params_from_numpy(_numpy_tree(ref), device="cpu"))
-
-
-def _images(n, seed):
-    return np.random.default_rng(seed).normal(
-        size=(n, IMAGE, IMAGE, 3)).astype(np.float32)
-
-
-def _forward(arch, params, x):
-    with torch.inference_mode():
-        return cnn.cnn_forward(get_config(arch), params, x, device="cpu")
-
-
-def _reference(arch, params, x, impl):
-    cfg = ref_get_config(arch)
-    with ref_ops.config(impl=impl):
-        if impl == "pallas":            # interpret mode: eager, as its tests
-            return np.asarray(ref_cnn.cnn_forward(cfg, params, x))
-        return np.asarray(jax.jit(lambda p, im: ref_cnn.cnn_forward(
-            cfg, p, im))(params, x))
-
-
-def _assert_close(got, ref, rtol):
-    got = np.asarray(got, np.float32)
-    ref = np.asarray(ref, np.float32)
-    assert got.shape == ref.shape and np.isfinite(got).all()
-    scale = np.abs(ref).max()
-    assert scale > 0
-    assert np.abs(got - ref).max() <= rtol * scale, \
-        (np.abs(got - ref).max(), scale)
-    np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
-
-
-def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-        a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
-        b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
-
-
-def _assert_same_leaf(got, want):
-    assert type(got) is type(want)
-    if isinstance(got, quant.QuantizedWeight):
-        assert got.orig_dtype == want.orig_dtype
-        pairs = [(got.codes, want.codes), (got.scale, want.scale)]
-    elif isinstance(got, SparseWeight):
-        assert got.d_in == want.d_in and got.orig_dtype == want.orig_dtype
-        assert (got.scale is None) == (want.scale is None)
-        pairs = [(got.vals, want.vals), (got.idx, want.idx)]
-        if got.scale is not None:
-            pairs.append((got.scale, want.scale))
-    else:
-        pairs = [(got, want)]
-    for a, b in pairs:
-        assert _same_bits(a, b), (a.dtype, b.dtype, a.shape, b.shape)
+from _torch_quant_ref import (  # noqa: E402
+    ARCHS, IMAGE, _assert_same_leaf, _forward, _numpy_tree, _weights)
 
 
 # --- the quantizer ------------------------------------------------------------
@@ -233,108 +137,6 @@ def test_params_from_numpy_carries_a_quantized_tree_bitwise(arch):
         ref_quant.dequantize_tree(ref8)), device="cpu")
     for name in back:
         _assert_same_leaf(back[name]["w"], ref_back[name]["w"])
-
-
-# --- the int8 forward -----------------------------------------------------------
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_int8_forward_matches_reference_xla(arch):
-    """The port's int8 CPU forward vs the reference's int8 forward on the
-    same codes: the native parity bar, top-1 equal, on 4 images."""
-    _, ref8, native = _weights(arch)
-    x = _images(4, seed=3)
-    got = _forward(arch, quant.quantize_tree(native, "int8"), x)
-    _assert_close(got.numpy(), _reference(arch, ref8, x, "xla"), LOGIT_RTOL)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_int8_nodes_match_reference_on_the_same_inputs(arch):
-    """Every node of the fused graph, fed the port's own input to it,
-    against the reference's node on the same input and int8 weights: the
-    bf16 outputs within 1 bf16 ulp, the logits within the parity bar.
-    Unlike the whole forward, this does not accumulate: a sum taken in
-    another order that rounds one bf16 activation the other way moves
-    random-init MobileNet logits by ~1e-3 of their maximum downstream."""
-    from repro.core.fusion import fused_graph_for as ref_fused_graph_for
-    from repro_torch.core.fusion import fused_graph_for
-    from repro_torch.core.graph import INPUT
-    _, ref8, native = _weights(arch)
-    params = quant.quantize_tree(native, "int8")
-    graph, ref_graph = fused_graph_for(arch), ref_fused_graph_for(arch)
-    x = _images(4, seed=3)[3:]
-    env = {INPUT: torch.from_numpy(x).to(torch.bfloat16)}
-    with torch.inference_mode(), ref_ops.config(impl="xla"):
-        for node, ref_node, srcs in zip(graph.nodes, ref_graph.nodes,
-                                        graph.inputs):
-            assert node.name == ref_node.name
-            args = [env[s] for s in srcs]
-            got = cnn.run_node(node, params, *args)
-            ref_args = [jnp.asarray(a.float().numpy()).astype(
-                jnp.bfloat16 if a.dtype == torch.bfloat16 else jnp.float32)
-                for a in args]
-            want = np.asarray(jax.jit(
-                lambda *a, n=ref_node: ref_cnn.run_node(n, ref8, *a))(
-                    *ref_args), np.float32)
-            got32 = got.float().numpy()
-            if got.dtype == torch.bfloat16:
-                np.testing.assert_allclose(
-                    got32, want, rtol=2 ** -7,
-                    atol=2 ** -7 * np.abs(want).max(), err_msg=node.name)
-            else:
-                _assert_close(got32, want, LOGIT_RTOL)
-            env[node.name] = got
-
-
-def test_int8_forward_matches_reference_pallas():
-    """ResNet-50 int8 against the reference's Pallas kernels (interpret
-    mode): the int8 sparse_conv with its scale in the flush and the
-    int8 classifier."""
-    _, ref8, native = _weights("resnet50")
-    x = _images(1, seed=4)
-    got = _forward("resnet50", quant.quantize_tree(native, "int8"), x)
-    _assert_close(got.numpy(), _reference("resnet50", ref8, x, "pallas"),
-                  LOGIT_RTOL)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_int8_tracks_the_unquantized_forward(arch):
-    """The reference's oracle bar within the port: int8 vs the native
-    weights' forward within 0.05 of max |logit|, top-1 on every image."""
-    _, _, native = _weights(arch)
-    x = _images(4, seed=5)
-    _assert_close(_forward(arch, quant.quantize_tree(native, "int8"), x),
-                  _forward(arch, native, x), ORACLE_RTOL)
-
-
-@pytest.mark.parametrize("arch", ["mobilenet_v1", "resnet50"])
-def test_int8_fast_path_matches_dequant_at_entry(arch):
-    """``ops.config(int8_fast_path=False)`` dequantizes at op entry;
-    the fast path (codes into the kernels, scale in the epilogue) agrees
-    within the reference's 0.02 of max |logit|, and the knob is scoped."""
-    _, _, native = _weights(arch)
-    params = quant.quantize_tree(native, "int8")
-    x = _images(2, seed=6)
-    fast = _forward(arch, params, x)
-    with ops.config(int8_fast_path=False):
-        assert not ops.int8_fast_path()
-        slow = _forward(arch, params, x)
-    assert ops.int8_fast_path()
-    _assert_close(fast, slow, FAST_RTOL)
-    assert not torch.equal(fast, slow)      # two routes, not one
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_f32_store_forward(arch):
-    """f32-stored weights hold the native bf16 values widened, so the
-    CPU forward equals the native one bit for bit, and meets the parity
-    bar against the reference's native forward. (The reference itself
-    cannot run an f32 store: ``lax.conv_general_dilated`` refuses the
-    bf16 activation with an f32 stem weight.)"""
-    ref, _, native = _weights(arch)
-    x = _images(2, seed=7)
-    got = _forward(arch, quant.quantize_tree(native, "f32"), x)
-    assert torch.equal(got, _forward(arch, native, x))
-    _assert_close(got.numpy(), _reference(arch, ref, x, "xla"), LOGIT_RTOL)
 
 
 # --- the plain versions with a scale vs the Pallas kernels -----------------------

@@ -34,6 +34,7 @@ from repro.runtime import tier as ref_tier  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
 from repro_torch.launch import serve as port_serve  # noqa: E402
+from repro_torch.launch.mesh import device_slots  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.runtime import tier as T  # noqa: E402
 from repro_torch.runtime.fault import (FailureInjector,  # noqa: E402
@@ -269,14 +270,18 @@ def test_replan_reuses_feasible_cut():
     assert out3["n_stages"] * out3["n_replicas"] <= 3
 
 
-def test_placement_raises_naming_its_roadmap_item(ref_tier_):
-    for kw in ({"placed": True}, {"devices": ["cpu"]}):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 9, second half"):
-            _tier(**kw)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 9, second half"):
-        ref_tier_.lose_devices(["cpu"])
+def test_placement_needs_a_slot_per_stage(ref_tier_):
+    """``placed=True`` needs S x R device slots (the CPU is one device
+    unless the caller gives slots), as the reference's needs devices;
+    ``placed=None`` places only where the pool holds them; an unplaced
+    tier loses no replica to ``lose_devices``."""
+    with pytest.raises(ValueError, match="placed=True needs >= 4 devices"):
+        _tier(placed=True)
+    with pytest.raises(ValueError, match="placed=True needs >= 4 devices"):
+        _tier(placed=True, devices=device_slots(3, "cpu"))
+    assert not ref_tier_.placed
+    assert ref_tier_.lose_devices(device_slots(1, "cpu")) == {
+        "reused": True, "n_replicas": 2}
     with pytest.raises(ValueError):
         _tier(heartbeat_timeout_s=0.0)
 

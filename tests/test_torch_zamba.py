@@ -5,10 +5,12 @@ reference's own weights carried across with ``lm.params_from_numpy``:
 the causal conv (its bf16 sums), the chunked SSD scan and the Mamba2
 layer (outputs and states, from a zero and from a carried state, at T no
 multiple of the chunk of 128, and the one-token step), an independent
-f64 token-by-token recurrence, the whole model's ``forward``,
-``decode_step`` and ``serve_lm`` past the window (the ring wraps), the
-prompt stepped through the cache against the one-shot forward, and the
-continuous batcher with the state reset at admission.
+f64 token-by-token recurrence, the whole model's ``forward``, the
+per-slot decode step and the continuous batcher with the state reset at
+admission. ``decode_step`` and ``serve_lm`` past the window and the
+prompt stepped through the cache are in
+``tests/test_torch_zamba_decode.py`` (split off so the two run side by
+side).
 
 Bars: as tests/test_torch_rwkv.py, against the reference's ops run one
 at a time. The scan within 1e-5 of its max (f32 sums in another order),
@@ -185,35 +187,6 @@ def test_forward_matches_reference():
     (through flash's window) at both sites; the FFN pruned."""
     _, cfg, _, _ = R.model(ARCH)
     R.check_forward(ARCH, R.tokens(7, 2, 80, cfg.vocab_size))
-
-
-def test_decode_steps_match_reference_past_the_window():
-    """80 steps through a cache of 96 rows: the ring of the window's 64
-    keys wraps after step 63; every step's logits, and at the end the
-    conv and SSM states and the rings."""
-    _, cfg, _, _ = R.model(ARCH)
-    cache, rcache = R.check_decode_steps(
-        ARCH, R.tokens(11, 2, 80, cfg.vocab_size), 96)
-    assert cache["attn_kv"].shape[3] == 64
-    for k in ("conv", "ssm", "attn_kv"):
-        R.within(cache[k], rcache[k], R.LOGIT_RTOL)
-
-
-def test_forward_equals_the_prompt_stepped_through_decode():
-    """T 80 > the window: the chunked scan and the windowed flash of
-    ``forward`` against the recurrent step and the wrapped ring of
-    ``decode_step``, position by position."""
-    _, cfg, _, params = R.model(ARCH)
-    toks = R.tokens(12, 1, 80, cfg.vocab_size)
-    full, _ = lm.forward(cfg, params, torch.from_numpy(toks))
-    stepped, cache = R.stepped_logits(cfg, params, toks)
-    assert cache["attn_kv"].shape[3] == 64        # min(window, 80)
-    R.within(stepped, full)
-
-
-def test_serve_lm_matches_reference_decode_loop():
-    _, cfg, _, _ = R.model(ARCH)
-    R.check_serve_lm(ARCH, R.tokens(13, 2, 8, cfg.vocab_size), 6, 16)
 
 
 def test_per_slot_positions_give_the_batch_step():
