@@ -39,7 +39,10 @@ Phases, in order; any failure raises and exits nonzero:
    (sparse_conv, sparse_matmul, dw_pw); then the throughput paths'
    microbatch shapes, n 2 and 4: sparse_conv at every ResNet-50 layer
    shape, the classifier (M 2, 4) and dw_pw at every MobileNet block
-   shape, bf16 and int8 (each shape's plan printed); each check also
+   shape, bf16 and int8 (each shape's plan printed); then the sparse
+   ResNet-50 example's shapes: sparse_conv at every layer's input at 64
+   px, batch 2 (spatial 16x16 down to 2x2), residual on and off, and the
+   classifier at M 2; each check also
    asserts the variant ("mma": tensor cores, "simt": CUDA cores, "gemv":
    M <= 8) that ``variant()`` names was the one launched;
 4. main paths, each with the launch counters reset just before and read
@@ -230,9 +233,26 @@ Phases, in order; any failure raises and exits nonzero:
    training path also runs the pipelined step on a stage mesh of 4 slots:
    bit for bit the mesh-less step, its launches counted; phase 5 times
    the plain backwards' library calls and states their bounds.)
+7c. the examples (``examples_run``; ``examples/torch_*.py``, each
+   example's function at the reference example's own arguments, its
+   launches counted by name and variant, an ``[example]`` line each with
+   its wall time): first flash at D 32 (H 4; B x T 8 x 64, 8 x 128, 4 x
+   32, and 4 x 32 under zamba2's window 64) and sparse_matmul at reduced
+   SmolLM-360M's 16 x 16 FFN blocks (M 2 "gemv", 128, 512, 1024 "mma")
+   against their plain versions, then timed with the 47 convs at 64 px,
+   batch 2; the sparse ResNet-50 (the plan equal to the CPU's on the same
+   weights, the logits within LOGIT_RTOL of max |logit| of the plain CPU
+   forward with top-1 equal, 47 sparse_conv + 1 sparse_matmul a
+   forward); the quickstart (30 steps, the loss falling, ``serve(arch,
+   ...)`` giving (2, 8) tokens); the resilient run (200 steps, 2
+   restarts, int8 gradients, the mean of the last 10 losses below the
+   first; the stragglers printed); the MoE / hybrid plans (equal to the
+   CPU's) and 20 steps each (finite); the dry run's CNN cell planned
+   from phase 6's batch-1 cache (its stage costs phase 6's measured
+   plan);
 8. one ``{"kernels": [...]}`` line (each kernel with the knobs it was
-   tuned to, its launches in the tier phase and in phase 7b and the
-   mesh step), then the device line last.
+   tuned to, its launches in the tier phase, in phase 7b and the mesh
+   step, and in phase 7c's examples), then the device line last.
 
 Per-layer numbers are also written to ``build/chip_smoke.json``.
 
@@ -254,6 +274,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import importlib.util
+import io
 import json
 import math
 import os
@@ -480,6 +502,39 @@ def conv_input_elems(x_shape, idx, k: int, stride: int, bm: int) -> int:
     return n * int(mask.sum()) * bm
 
 
+def time_conv(node, sw, b, x, r, plain_reps: dict | None = None) -> dict:
+    """One sparse conv of ``node`` (NHWC bf16 ``x``, residual ``r`` or
+    None) timed on the card: the kernel, its plain version (``time_ms``
+    with ``plain_reps``) and ``F.conv2d`` on the densified weights; the
+    bound from the bytes (the input the surviving blocks read, weights,
+    index and bias, the output and residual once each) and the kept
+    blocks' operations, in bf16."""
+    from repro_torch.core.sparsity import densify
+    from repro_torch.kernels import sparse_conv as sc
+    ob, n_k, bm, bn = sw.vals.shape
+    kw = dict(k=node.k, stride=node.stride, relu=node.relu)
+    w_lib = densify(sw).reshape(node.k, node.k, node.cin, node.cout) \
+        .permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    x_nchw = x.permute(0, 3, 1, 2)        # channels_last view, no copy
+    ms = time_ms(lambda: sc.sparse_conv(x, sw.vals, sw.idx, b, r, **kw))
+    plain = time_ms(lambda: sc.sparse_conv_torch(x, sw.vals, sw.idx, b, r,
+                                                 **kw), **(plain_reps or {}))
+    lib = time_ms(lambda: F.conv2d(x_nchw, w_lib, b, node.stride,
+                                   node.k // 2))
+    ho = -(-x.shape[1] // node.stride)
+    m = x.shape[0] * ho * ho
+    x_elems = conv_input_elems(x.shape, sw.idx, node.k, node.stride, bm)
+    nbytes = (x_elems * 2 + sw.vals.numel() * 2 + sw.idx.numel() * 4
+              + b.numel() * 2 + m * node.cout * 2
+              * (2 if r is not None else 1))
+    nops = 2 * m * ob * n_k * bm * bn
+    t_b, t_o = bound(nbytes, nops, torch.bfloat16)
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": max(t_b, t_o), "bound_by": bound_by(t_b, t_o),
+            "bytes_ms": t_b, "ops_ms": t_o, "bytes": nbytes, "ops": nops,
+            "input_read": x_elems / x.numel()}
+
+
 # The large dense LMs at full width and depth, 128-wide heads and 128 x
 # 128 FFN blocks: Qwen3-32B through prefill, the cache-chunk step,
 # serve_lm and the continuous batcher; Mistral-Nemo-12B and Granite-20B
@@ -603,6 +658,19 @@ FAMILY_LMS = ("smollm-360m", "qwen3-32b", "mistral-nemo-12b", "granite-20b",
               "llava-next-mistral-7b", "rwkv6-1.6b", "zamba2-7b",
               "whisper-large-v3")
 FAMILY_BT = (2, 64)
+# Phase 7c, the examples (``examples/torch_*.py``) at the reference
+# examples' own arguments: the sparse ResNet-50 example's batch and image
+# size (its 47 conv shapes at 64 px, spatial 16x16 down to 2x2, and the
+# classifier at M 2 are checked in phase 3), and the LM examples' kernel
+# shapes on the reduced() configs (d_model 128, 4 heads of 32, FFN 256 in
+# 16 x 16 blocks): flash at the training (B, T) of the quickstart (8 x
+# 64), the resilient run (8 x 128) and the MoE / hybrid runs (4 x 32;
+# zamba2's window 64), the FFN at those B x T rows and at 2 decoding
+EXAMPLES = ("torch_sparse_resnet_inference", "torch_quickstart",
+            "torch_resilient_training", "torch_moe_expert_parallel")
+EX_BATCH, EX_IMAGE = 2, 64
+EX_FLASH = ((8, 64, 0), (8, 128, 0), (4, 32, 0), (4, 32, 64))
+EX_MM_M = (2, 128, 512, 1024)
 
 
 def param_bytes(tree) -> int:
@@ -2727,6 +2795,311 @@ def dryrun_lines(dev) -> list:
     return rows
 
 
+def load_example(name: str):
+    """The module of ``examples/<name>.py``."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_step_launches(cfg) -> dict:
+    """The kernel launches of one ``train()`` step of a reduced LM (remat
+    "none": each layer's forward once, half a remat "full" step's)."""
+    return {k: v // 2 for k, v in family_launches(cfg).items()}
+
+
+def example_kernels(h) -> dict:
+    """The examples' new kernel shapes on the card (``h``: ``dev``,
+    ResNet-50's ``params_dev``, main's ``launch_checked``): flash at D 32
+    and the FFN's 16 x 16 blocks of reduced SmolLM-360M, each against
+    its plain version (1 bf16 ulp) in the variant ``variant()`` names,
+    then timed
+    beside it, a library call and the bound (``large_timings``); the
+    sparse ResNet-50 example's 47 convs at 64 px, batch 2 (checked in
+    phase 3), timed the same way and summed."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.fusion import conv_part, fused_graph_for
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sparse_matmul as sm
+    from repro_torch.models import cnn, lm
+    from repro_torch.models.layers import SparseWeight
+    dev = h.dev
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    err = {"flash_attention": 0.0, "sparse_matmul": 0.0}
+    rcfg = reduced(get_config(LM))
+    flash_inputs = {}
+    for b, t, window in EX_FLASH:
+        q, k, v = (randn((b, t, rcfg.n_heads, rcfg.head_dim))
+                   for _ in range(3))
+        kw = {"window": window} if window else {}
+        what = f"example B {b} T {t}" + (f" window {window}" if window
+                                         else "")
+        got = h.launch_checked(
+            "flash_attention", fa.variant(q.dtype, q.shape[-1]),
+            lambda: fa.flash_attention(q, k, v, **kw), what)
+        want = fa.flash_attention_torch(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err["flash_attention"] = max(err["flash_attention"], compare(
+            got, want, bf16_tol, f"flash_attention {what}"))
+        flash_inputs[what] = (q, k, v, kw)
+    params = lm.init_params(rcfg, torch.Generator(device=dev).manual_seed(
+        SEED))
+    ffn = lm._layer(params["blocks"], 0)["ffn"]
+    mm_inputs = {}
+    for w in ("w1", "w2"):
+        sw = ffn[w]
+        sw = SparseWeight(sw.vals.contiguous(), sw.idx.contiguous(),
+                          sw.d_in)
+        for m in EX_MM_M:
+            x = randn((m, sw.d_in)) / 4
+            var = sm.variant(x.dtype, m, *sw.vals.shape[2:])
+            got = h.launch_checked("sparse_matmul", var,
+                                   lambda: sm.sparse_matmul(x, sw.vals,
+                                                            sw.idx),
+                                   f"example {w} M={m}")
+            want = sm.sparse_matmul_torch(x, sw.vals, sw.idx)
+            torch.cuda.synchronize()
+            err["sparse_matmul"] = max(err["sparse_matmul"], compare(
+                got, want, bf16_tol, f"sparse_matmul example {w} M={m} "
+                f"vals {tuple(sw.vals.shape)} ({var})"))
+            mm_inputs[(f"{LM} reduced", w, m)] = (x, sw)
+    print(f"[check] the LM examples' shapes: flash_attention "
+          f"{list(flash_inputs)} (H {rcfg.n_heads}, D {rcfg.head_dim}), "
+          f"sparse_matmul {LM} reduced w1 / w2 at M {EX_MM_M} (16 x 16 "
+          f"blocks): max |err| {err} within 1 bf16 ulp")
+    flash_rows, mm_rows = large_timings(flash_inputs, mm_inputs)
+    del params, flash_inputs, mm_inputs
+
+    # the 47 convs at the 64 px example's shapes, batch 2, timed
+    cfg = get_config("resnet50")
+    graph = fused_graph_for(cfg.name)
+    shapes = cnn.node_shapes(cfg, None, (EX_BATCH, EX_IMAGE, EX_IMAGE, 3),
+                             graph=graph)
+    sums = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                          "bytes_ms", "ops_ms"), 0.0)
+    n_conv = 0
+    for node, edge in zip(graph.nodes, graph.inputs):
+        p = h.params_dev.get(conv_part(node).name) if node.kind == "conv" \
+            else None
+        if p is None or not isinstance(p["w"], SparseWeight):
+            continue
+        n_conv += 1
+        s_in = tuple(shapes[edge[0]].shape)
+        ho = -(-s_in[1] // node.stride)
+        r = randn((EX_BATCH, ho, ho, node.cout)) if node.residual_from \
+            else None
+        row = time_conv(node, p["w"], p["b"], randn(s_in), r,
+                        dict(reps=5, rounds=2))
+        for key in sums:
+            sums[key] += row[key]
+    if n_conv != 47:
+        raise AssertionError(f"{n_conv} sparse convs at 64 px, not 47")
+    sums["bound_by"] = bound_by(sums.pop("bytes_ms"), sums.pop("ops_ms"))
+    print(f"[time] sparse_conv x47 at the example's {EX_IMAGE} px, batch "
+          f"{EX_BATCH}: kernel {sums['ms']:.4f} ms, plain "
+          f"{sums['plain_ms']:.4f} ms, F.conv2d (densified) "
+          f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.5f} ms "
+          f"({sums['bound_by']})")
+    return {"max_abs_err": err, "flash": flash_rows, "sparse_matmul":
+            mm_rows, "sparse_conv": sums}
+
+
+def examples_run(h) -> dict:
+    """Phase 7c, the four examples on the card at the reference examples'
+    own arguments (``h``: the card ``dev``, ResNet-50's native weights
+    on the card ``params_dev``, the launch checks ``check(what, want,
+    want_variants)`` and ``launch_checked``, phase 6's batch-1 cache
+    ``cache_n1`` and the stage
+    costs it planned, ``measured_n1``). Each example's counters are reset
+    just before it runs and read just after, checked by name and
+    variant: the sparse ResNet-50 (the plan equal to the CPU's on the same
+    weights, the 64 px logits within LOGIT_RTOL of max |logit| of the
+    plain CPU forward, top-1 equal, 47 sparse_conv "mma" + 1
+    sparse_matmul "gemv"), the quickstart (the loss falls over its 30
+    steps, the serve() shim's (2, 8) tokens), the resilient run (2
+    restarts, the mean of the last 10 losses below the first), the MoE /
+    hybrid plans (equal to the CPU's) and their 20-step runs (finite);
+    then the dry run's CNN cell planned from phase 6's cache, its stage
+    costs phase 6's measured plan."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import planner, tuning
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models import cnn
+    t_phase = time.perf_counter()
+    dev = h.dev
+    res = {"kernels": example_kernels(h), "wall_s": {}}
+    launches = {}
+
+    def run(name, fn, want):
+        """``fn()`` timed, its launches checked against ``want``
+        ({(kernel, variant): n}, or a function of ``fn()``'s result that
+        gives it) and added to the phase's."""
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res["wall_s"][name] = time.perf_counter() - t0
+        if callable(want):
+            want = want(out)
+        by_name = {}
+        for (k, _), n in want.items():
+            by_name[k] = by_name.get(k, 0) + n
+        got = h.check(f"example {name}", by_name, want)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        return out, got
+
+    # the sparse ResNet-50: one forward, 47 convs and the classifier
+    ex = load_example("torch_sparse_resnet_inference")
+    out, got = run(EXAMPLES[0], lambda: ex.run(dev),
+                   {("sparse_conv", "mma"): 47, ("sparse_matmul", "gemv"): 1})
+    cfg = get_config("resnet50")
+    p_cpu = cnn.params_to(out["params"], "cpu")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = ex.compile_plan(cfg, p_cpu)
+    plan, plan_cpu = out["plan"], cpu["plan"]
+    if (out["unbalanced_cycles"], plan.cycles, plan.splits, plan.resources,
+            out["slowest"]) != (cpu["unbalanced_cycles"], plan_cpu.cycles,
+                                plan_cpu.splits, plan_cpu.resources,
+                                cpu["slowest"]):
+        raise AssertionError("sparse ResNet-50 example: the plan on the "
+                             "card's weights differs from the CPU's")
+    ref = cnn.cnn_forward(cfg, p_cpu, out["images"], device="cpu")
+    logits = out["logits"]
+    scale = float(ref.abs().max())
+    err = float((logits - ref).abs().max())
+    if not out["finite"] or tuple(logits.shape) != (EX_BATCH, 1000) or \
+            scale == 0 or err > LOGIT_RTOL * scale or not np.array_equal(
+                out["top1"], ref.argmax(-1).numpy()):
+        raise AssertionError(f"sparse ResNet-50 example: logits "
+                             f"{tuple(logits.shape)}, max |err| {err:.3e} "
+                             f"against {LOGIT_RTOL} * {scale:.3e}, top-1 "
+                             f"{out['top1']} vs {ref.argmax(-1).tolist()}")
+    res["sparse_resnet"] = {
+        "unbalanced_cycles": out["unbalanced_cycles"],
+        "bottleneck_cycles": plan.bottleneck_cycles,
+        "resources": plan.resources, "slowest": out["slowest"],
+        "logit_rel_err": err / scale, "top1": out["top1"].tolist(),
+        "launches": got}
+    print(f"[example] {EXAMPLES[0]}: {res['wall_s'][EXAMPLES[0]]:.1f} s; "
+          f"plan == the CPU's (bottleneck {out['unbalanced_cycles']} -> "
+          f"{plan.bottleneck_cycles} cycles, resources {plan.resources}); "
+          f"{EX_IMAGE} px batch {EX_BATCH} logits within "
+          f"{err / scale:.2e} of max |logit| of the plain CPU forward, top-1 "
+          f"{out['top1'].tolist()} equal; launches {got}")
+    del out, p_cpu
+
+    # the quickstart: train() of 30 steps, then the serve(arch) shim
+    ex = load_example("torch_quickstart")
+    rcfg = reduced(get_config(LM))
+    per = example_step_launches(rcfg)
+    n_dec = 8 + 8                    # prompt_len + gen_tokens decode steps
+    out, got = run(EXAMPLES[1], lambda: ex.run(device=dev), {
+        ("flash_attention", "mma"): 30 * per["flash_attention"],
+        ("sparse_matmul", "mma"): 30 * per["sparse_matmul"],
+        ("sparse_matmul", "gemv"): n_dec * per["sparse_matmul"]})
+    losses = [l for _, l in out["losses"]]
+    if len(losses) != 30 or not all(map(math.isfinite, losses)) or \
+            not losses[-1] < losses[0] or out["tokens"].shape != (2, 8):
+        raise AssertionError(f"quickstart: losses {losses}, tokens "
+                             f"{out['tokens'].shape}")
+    res["quickstart"] = {"losses": losses, "tokens": out["tokens"].tolist(),
+                         "launches": got}
+    print(f"[example] {EXAMPLES[1]}: {res['wall_s'][EXAMPLES[1]]:.1f} s; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over 30 steps; serve("
+          f"arch) {out['tokens'].shape} tokens; launches {got}")
+
+    # the resilient run: 200 steps, 2 failures, int8 gradients
+    ex = load_example("torch_resilient_training")
+    # the steps run (replays included) are known after the run
+    out, got = run(EXAMPLES[2], lambda: ex.run(dev), lambda o: {
+        ("flash_attention", "mma"): len(o["losses"]) *
+        per["flash_attention"],
+        ("sparse_matmul", "mma"): len(o["losses"]) * per["sparse_matmul"]})
+    n_run = len(out["losses"])
+    losses = [l for _, l in out["losses"]]
+    if out["restarts"] != 2 or not np.mean(losses[-10:]) < losses[0]:
+        raise AssertionError(f"resilient training: restarts "
+                             f"{out['restarts']}, loss {losses[0]} -> "
+                             f"{np.mean(losses[-10:])}")
+    res["resilient"] = {"restarts": out["restarts"], "steps_run": n_run,
+                        "stragglers": len(out["stragglers"]),
+                        "loss_first": losses[0],
+                        "loss_last10": float(np.mean(losses[-10:])),
+                        "launches": got}
+    print(f"[example] {EXAMPLES[2]}: {res['wall_s'][EXAMPLES[2]]:.1f} s; "
+          f"{out['restarts']} restarts, {n_run} steps run for 200, "
+          f"stragglers flagged {len(out['stragglers'])}; loss "
+          f"{losses[0]:.4f} -> {np.mean(losses[-10:]):.4f} (last 10); "
+          f"launches {got}")
+    del out
+
+    # the MoE / hybrid stage plans and their 20-step runs
+    ex = load_example("torch_moe_expert_parallel")
+    want = {}
+    for arch in ex.ARCHS:
+        for k, v in example_step_launches(reduced(get_config(arch))).items():
+            want[(k, "mma")] = want.get((k, "mma"), 0) + 20 * v
+    out, got = run(EXAMPLES[3], lambda: ex.run(device=dev), want)
+    rows = {}
+    for arch in ex.ARCHS:
+        cpu = planner.plan_lm_stages(get_config(arch), 4096, 16, n_stages=4)
+        row = out[arch]
+        if row["plan"]["stage_of"] != cpu["stage_of"] or \
+                row["plan"]["imbalance"] != cpu["imbalance"] or \
+                row["cuts"] != [cpu["stage_of"].index(s) for s in (1, 2, 3)]:
+            raise AssertionError(f"{arch}: the plan differs from the CPU's")
+        if len(row["losses"]) != 20 or not all(map(math.isfinite,
+                                                   row["losses"])):
+            raise AssertionError(f"{arch}: losses {row['losses']}")
+        rows[arch] = {"cuts": row["cuts"], "imbalance": row["plan"][
+            "imbalance"], "hetero": row["hetero"], "losses": row["losses"]}
+    res["moe"] = dict(rows, launches=got)
+    print(f"[example] {EXAMPLES[3]}: {res['wall_s'][EXAMPLES[3]]:.1f} s; "
+          + "; ".join(f"{a} cuts {r['cuts']} imbalance "
+                      f"{r['imbalance']:.3f} == the CPU's, loss "
+                      f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}"
+                      for a, r in rows.items()) + f"; launches {got}")
+    del out
+
+    # the dry run's CNN cell planned from phase 6's measured cache
+    prev = tuning.current_tuning_cache()
+    t0 = time.perf_counter()
+    cell = dryrun.run_cnn_pipeline_cell(
+        "resnet50", n_stages=PIPE_S, n_microbatches=PIPE_M, batch=PIPE_BATCH,
+        image_size=IMAGE_SIZE, device=dev, verbose=False,
+        tuning_cache=h.cache_n1)
+    if cell["stage_cost_cycles"] != h.measured_n1:
+        raise AssertionError(f"dry run's measured cell: stage costs "
+                             f"{cell['stage_cost_cycles']} != phase 6's "
+                             f"{h.measured_n1}")
+    if tuning.current_tuning_cache() is not prev:
+        raise AssertionError("the dry run left its cache installed")
+    res["dryrun_measured"] = {"stage_cost": cell["stage_cost_cycles"],
+                              "imbalance": cell["imbalance"],
+                              "s": time.perf_counter() - t0}
+    print(f"[dryrun] resnet50 pipeline_cnn {cell['mesh']} from phase 6's "
+          f"batch-1 cache: stage costs "
+          f"{[round(c, 1) for c in cell['stage_cost_cycles']]} us == phase "
+          f"6's measured plan (imbalance {cell['imbalance']:.3f}) in "
+          f"{res['dryrun_measured']['s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[example] phase 7c in {res['phase_s']:.1f} s; launches "
+          f"{launches}")
+    return res
+
+
 def main() -> int:
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3365,6 +3738,43 @@ def main() -> int:
           f"checks (sparse_conv at every ResNet-50 layer shape, the "
           f"classifier, dw_pw at every MobileNet block shape; bf16 and "
           f"int8): max |err| {mb_err} within 1 bf16 ulp / 1e-5 relative")
+
+    # the sparse ResNet-50 example's shapes (phase 7c runs it): every
+    # sparse conv at its input at 64 px, batch 2 (spatial 16x16 down to
+    # 2x2), residual on and off, each shape's plan printed; the classifier
+    # at M 2
+    ex_shapes = cnn.node_shapes(cfg, None, (EX_BATCH, EX_IMAGE, EX_IMAGE, 3),
+                                graph=graph)
+    edge_of = {n.name: e for n, e in zip(graph.nodes, graph.inputs)}
+    ex_err, ex_seen = {"sparse_conv": 0.0, "sparse_matmul": 0.0}, set()
+    for node in layers:
+        sw, _ = conv_part_params(node)
+        s_in = tuple(ex_shapes[edge_of[node.name][0]].shape)
+        key = (node.k, node.stride, node.cin, node.cout, sw.vals.shape[1],
+               s_in[1])
+        if key in ex_seen:
+            continue
+        ex_seen.add(key)
+        ho = -(-s_in[1] // node.stride)
+        x = randn(s_in)
+        b = randn((node.cout,)) * 0.1
+        for r, relu in ((None, node.relu),
+                        (randn((EX_BATCH, ho, ho, node.cout)), True)):
+            ex_err["sparse_conv"] = max(ex_err["sparse_conv"], check_conv(
+                f"{EX_IMAGE} px n={EX_BATCH} {key} res={r is not None}", x,
+                sw, b, r, relu, k=node.k, stride=node.stride))
+        tm, split = sc.plan(EX_BATCH * ho * ho, sw.vals.shape[0],
+                            sw.vals.shape[1])
+        print(f"[plan] sparse_conv {EX_IMAGE} px n={EX_BATCH} "
+              f"{node.name:9s} M {EX_BATCH * ho * ho:5d}: tm {tm}, split "
+              f"{split}")
+    ex_err["sparse_matmul"] = check_mm(
+        f"fc M={EX_BATCH} f32 ({EX_IMAGE} px example)",
+        randn((EX_BATCH, 2048), torch.float32), fc_w, f32_tol)
+    print(f"[check] the sparse ResNet-50 example's shapes ({EX_IMAGE} px, "
+          f"batch {EX_BATCH}): sparse_conv at {len(ex_seen)} shapes x "
+          f"residual on/off (mma), the classifier at M {EX_BATCH} (gemv): "
+          f"max |err| {ex_err} within 1 bf16 ulp / 1e-5 relative")
 
     # -- 4. the main paths ------------------------------------------------
     def check_logits(logits, images, cfg_, params_, graph=None,
@@ -4043,27 +4453,17 @@ def main() -> int:
         x = randn((1, node.in_hw, node.in_hw, node.cin))
         r = randn((1, ho, ho, node.cout)) if node.residual_from else None
         kw = dict(k=node.k, stride=node.stride, relu=node.relu)
-        w_lib = densify(sw).reshape(node.k, node.k, node.cin, node.cout) \
-            .permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        x_nchw = x.permute(0, 3, 1, 2)        # channels_last view, no copy
-        ms = time_ms(lambda: sc.sparse_conv(x, sw.vals, sw.idx, b, r, **kw))
+        row = time_conv(node, sw, b, x, r)
+        ms, plain, lib = row["ms"], row["plain_ms"], row["library_ms"]
+        nbytes, nops, t_b, t_o = (row["bytes"], row["ops"], row["bytes_ms"],
+                                  row["ops_ms"])
+        bms, by = row["bound_ms"], row["bound_by"]
         sw8 = params_q["int8"][conv_part(node).name]["w"].to(dev)
         ms8 = time_ms(lambda: sc.sparse_conv(x, sw8.vals, sw8.idx, b, r,
                                              sw8.scale, **kw))
         plain8 = time_ms(lambda: sc.sparse_conv_torch(
             x, sw8.vals, sw8.idx, b, r, sw8.scale, **kw))
-        plain = time_ms(lambda: sc.sparse_conv_torch(x, sw.vals, sw.idx, b,
-                                                     r, **kw))
-        lib = time_ms(lambda: F.conv2d(x_nchw, w_lib, b, node.stride,
-                                       node.k // 2))
         m = ho * ho
-        x_elems = conv_input_elems(x.shape, sw.idx, node.k, node.stride, bm)
-        nbytes = (x_elems * 2 + sw.vals.numel() * 2 + sw.idx.numel() * 4
-                  + b.numel() * 2 + m * node.cout * 2
-                  * (2 if r is not None else 1))
-        nops = 2 * m * ob * n_k * bm * bn
-        t_b, t_o = bound(nbytes, nops, torch.bfloat16)
-        bms, by = max(t_b, t_o), bound_by(t_b, t_o)
         # int8: a byte a weight, plus the (ob, bn) f32 scales
         nbytes8 = nbytes - sw.vals.numel() + 4 * ob * bn
         t_b8, t_o8 = bound(nbytes8, nops, torch.bfloat16)
@@ -4075,7 +4475,7 @@ def main() -> int:
                      "ms": ms,
                      "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
                      "bound_by": by, "bytes": nbytes, "ops": nops,
-                     "input_read": x_elems / x.numel(),
+                     "input_read": row["input_read"],
                      "int8": {"ms": ms8, "plain_ms": plain8,
                               "bound_ms": max(t_b8, t_o8),
                               "bound_by": bound_by(t_b8, t_o8),
@@ -4278,31 +4678,11 @@ def main() -> int:
         t = {"sparse_conv": {}, "sparse_matmul": {}, "dw_pw": {}}
         for node in layers:
             sw, b = conv_part_params(node)
-            ob, n_k, bm, bn = sw.vals.shape
             ho = node.conv_out_hw
             x = randn((n_, node.in_hw, node.in_hw, node.cin))
             r = randn((n_, ho, ho, node.cout)) if node.residual_from else None
-            kw = dict(k=node.k, stride=node.stride, relu=node.relu)
-            w_lib = densify(sw).reshape(node.k, node.k, node.cin, node.cout) \
-                .permute(3, 2, 0, 1).contiguous(
-                    memory_format=torch.channels_last)
-            x_nchw = x.permute(0, 3, 1, 2)
-            m = n_ * ho * ho
-            x_elems = conv_input_elems(x.shape, sw.idx, node.k, node.stride,
-                                       bm)
-            nbytes = (x_elems * 2 + sw.vals.numel() * 2 + sw.idx.numel() * 4
-                      + b.numel() * 2 + m * node.cout * 2
-                      * (2 if r is not None else 1))
-            t_b, t_o = bound(nbytes, 2 * m * ob * n_k * bm * bn,
-                             torch.bfloat16)
-            add_sums(t["sparse_conv"], {
-                "ms": time_ms(lambda: sc.sparse_conv(x, sw.vals, sw.idx, b,
-                                                     r, **kw)),
-                "plain_ms": time_ms(lambda: sc.sparse_conv_torch(
-                    x, sw.vals, sw.idx, b, r, **kw), reps=5, rounds=2),
-                "library_ms": time_ms(lambda: F.conv2d(
-                    x_nchw, w_lib, b, node.stride, node.k // 2)),
-                "bound_ms": max(t_b, t_o), "bytes_ms": t_b, "ops_ms": t_o})
+            add_sums(t["sparse_conv"], time_conv(node, sw, b, x, r,
+                                                 dict(reps=5, rounds=2)))
         x_fc = randn((n_, 2048), torch.float32)
         ob, n_k, bm, bn = fc_w.vals.shape
         t_b, t_o = bound(n_ * int(fc_w.idx.unique().numel()) * bm * 4
@@ -5218,6 +5598,24 @@ def main() -> int:
     for k, v in train_main["mesh_step"]["launches"].items():
         mesh_launches[k] = mesh_launches.get(k, 0) + v
 
+    # -- 7c. the examples -------------------------------------------------
+    def check_counted(what: str, want: dict, want_variants: dict) -> dict:
+        """The counters since the last reset, checked by name and by
+        variant; the nonzero ones."""
+        launches_, variants_ = dict(ops.LAUNCHES), dict(ops.VARIANT_LAUNCHES)
+        check_launches(launches_, want, what)
+        check_variants(variants_, want_variants, what)
+        return {k: v for k, v in launches_.items() if v}
+
+    examples_main = examples_run(types.SimpleNamespace(
+        dev=dev, params_dev=cnn.params_to(params_cpu, dev),
+        check=check_counted, launch_checked=launch_checked,
+        cache_n1=caches[("resnet50", 1)],
+        measured_n1=plans_run[("resnet50", "measured n1")]["predicted"]))
+    ex_max = examples_main["kernels"]["max_abs_err"]
+    for k, v in ex_err.items():
+        ex_max[k] = max(ex_max.get(k, 0.0), v)
+
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "build_s": build_s,
@@ -5250,7 +5648,8 @@ def main() -> int:
         "cuts": {f"{a}/{lbl}": row for (a, lbl), row in plans_run.items()},
         "oracle": oracle_rows, "placed": placed_rows,
         "placed_rates": placed_rates,
-        "tier": tier_rows, "placed_tier": placed_main, "dryrun": dry_rows},
+        "tier": tier_rows, "placed_tier": placed_main, "dryrun": dry_rows,
+        "examples": examples_main},
         indent=1, default=str))
 
     # -- 8. the kernels line, then the device line ------------------------
@@ -5422,6 +5821,15 @@ def main() -> int:
         # phase 7b and the mesh train step: the placed tier's warm-ups and
         # captures, the step on a stage mesh of slots
         entry["mesh"] = {"launches": mesh_launches.get(name, 0)}
+        # phase 7c: the four examples' main paths; the new shapes' checks
+        # and times (sparse_conv: the 47 convs at 64 px, batch 2, summed)
+        ex_k = examples_main["kernels"]
+        entry["examples"] = {
+            "launches": examples_main["launches"].get(name, 0),
+            "max_abs_err": ex_k["max_abs_err"].get(name),
+            "times": {"sparse_conv": ex_k["sparse_conv"],
+                      "sparse_matmul": ex_k["sparse_matmul"],
+                      "flash_attention": ex_k["flash"]}.get(name)}
         entry["ptxas"] = resources[name]
         entry["hmma"] = hmma[name]
         if name in _build.VARIANTS:

@@ -695,3 +695,30 @@ def calibrate(cfg, params, image_shape, *, graph=None, path=None,
     if path:
         cache.save(path)
     return cache
+
+
+def resolve_cache(cfg, params, tuning_cache, run_calibration: bool, *,
+                  image_size: int, device, verbose: bool = False
+                  ) -> Optional[TuningCache]:
+    """The cache a measured plan reads, or None for the analytic model:
+    ``tuning_cache`` a :class:`TuningCache` or a path (a missing file
+    loads as a cold cache); ``run_calibration`` first times every fused
+    node of ``cfg`` on ``device`` at ``(1, image_size, image_size, 3)``
+    with :func:`calibrate` (the card's kernels there, the plain versions
+    on the CPU) and writes the cache back to a path."""
+    from repro_torch.models import cnn
+    if tuning_cache is None and not run_calibration:
+        return None
+    if isinstance(tuning_cache, TuningCache):
+        path, cache = None, tuning_cache
+    else:
+        path = tuning_cache
+        cache = TuningCache.load(path) if path else TuningCache()
+    if run_calibration:
+        if verbose:
+            print(f"[tuning] calibrating {cfg.name} at {image_size}px on "
+                  f"{device} ({len(cache)} cached entries)...")
+        cache = calibrate(cfg, cnn.params_to(params, device),
+                          (1, image_size, image_size, 3), cache=cache,
+                          path=path, verbose=verbose)
+    return cache

@@ -43,6 +43,7 @@ import torch
 from repro_torch.configs import SHAPES, all_configs, applicable, get_config
 from repro_torch.core import costmodel as cm
 from repro_torch.core import pytree
+from repro_torch.core.device import resolve_device
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import shardings as sh
 from repro_torch.launch import steps as steplib
@@ -200,7 +201,8 @@ def run_cnn_pipeline_cell(arch: str, *, n_stages: int = 4,
                           image_size: int = 64, placed: bool = True,
                           param_budget_frac=None, n_replicas: int = 1,
                           quantize: str = "native", device="cuda",
-                          verbose: bool = True) -> dict:
+                          verbose: bool = True, tuning_cache=None,
+                          calibrate: bool = False) -> dict:
     """The heterogeneous CNN layer pipeline as a cell: the plan
     (``planner.plan``, with ``param_budget_frac`` of the model's bytes
     as a bound on any stage), the placed stage programs on a stage mesh
@@ -208,9 +210,17 @@ def run_cnn_pipeline_cell(arch: str, *, n_stages: int = 4,
     (``shardings.placed_stage_setup``), the even buffer placed row k on
     the slots of stage k, and the parameter bytes a slot holds, placed
     against replicated. ``placed=False`` reports what the replicated
-    executor holds and what placement would hold."""
+    executor holds and what placement would hold.
+
+    Profile-guided cuts, as in the reference: ``tuning_cache`` (a path or
+    a ``core.tuning.TuningCache``) plans with ``model="measured"`` from
+    the cache's node times on ``device``; ``calibrate`` first times every
+    fused node there at ``(1, image_size, image_size, 3)`` and writes the
+    cache back to a path. A missing or cold cache gives the analytic plan
+    bit for bit. The cache is installed while the cell plans (the
+    analytic cell installs none) and the previous one restored after."""
     from repro_torch.core import pipeline as pp
-    from repro_torch.core import planner
+    from repro_torch.core import planner, tuning
     from repro_torch.core.quant import pytree_param_bytes
     from repro_torch.launch.serve import _init_native
     cfg = get_config(arch)
@@ -227,12 +237,18 @@ def run_cnn_pipeline_cell(arch: str, *, n_stages: int = 4,
     total_bytes = pytree_param_bytes(params, quantize)
     budget = (int(param_budget_frac * total_bytes)
               if param_budget_frac else None)
-    plan = planner.plan(cfg, params, planner.PlanRequest(
-        n_stages=n_stages, max_stage_param_bytes=budget,
-        store_dtype=quantize))
+    dev = resolve_device(device)
+    cache = tuning.resolve_cache(cfg, params, tuning_cache, calibrate,
+                                 image_size=image_size, device=dev,
+                                 verbose=verbose)
+    model = "analytic" if cache is None else "measured"
+    with tuning.set_tuning_cache(cache), tuning.device_scope(dev):
+        plan = planner.plan(cfg, params, planner.PlanRequest(
+            n_stages=n_stages, max_stage_param_bytes=budget,
+            store_dtype=quantize, model=model, tuning_cache=cache))
     s, r = plan["n_stages"], n_replicas
     mb_shape = (batch // (n_microbatches * r), image_size, image_size, 3)
-    slots = meshlib.device_slots(s * r, device)
+    slots = meshlib.device_slots(s * r, dev)
     stage_fns, pack_in, unpack_out, width, pparams, mesh, sps = \
         sh.placed_stage_setup(cfg, params, plan, mb_shape, n_replicas=r,
                               devices=slots, quantize=quantize,
@@ -289,6 +305,14 @@ def main(argv=None) -> int:
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--device", default="cuda",
                     help="pipeline-cnn: the device of the stage slots")
+    ap.add_argument("--tuning-cache", type=str, default=None,
+                    metavar="PATH",
+                    help="pipeline-cnn: plan stages from this profiled "
+                         "tuning cache (model='measured'; missing file "
+                         "= cold cache = analytic plan)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="pipeline-cnn: profile every fused node on the "
+                         "device and write --tuning-cache first")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -320,7 +344,8 @@ def main(argv=None) -> int:
             image_size=args.image_size,
             placed=not args.replicated_params,
             param_budget_frac=args.param_budget_frac,
-            n_replicas=args.replicas, device=args.device))
+            n_replicas=args.replicas, device=args.device,
+            tuning_cache=args.tuning_cache, calibrate=args.calibrate))
     else:
         if not (args.arch and args.shape):
             ap.error("give --arch and --shape, or --all")

@@ -159,15 +159,27 @@ class ServeConfig:
             raise ValueError(f"n_requests={self.n_requests}: need >= 1")
 
 
-def serve(cfg: ServeConfig) -> dict:
-    """THE serving entry point. Runs on ``cfg.device`` (the card by
-    default; raises ``RuntimeError`` without one). A CNN arch runs the
-    mode the config names: ``latency`` (batch 1, p50/p99), or
-    ``throughput`` through the fault-tolerant tier (``tier`` / ``procs``
-    / ``hosts``), the continuous (``continuous``) or the one-shot
-    batched executor. An LM arch (every family: dense, MoE, VLM, rwkv6,
-    zamba2, whisper) runs ``serve_lm`` (reduced size, as the reference's
-    dispatch does)."""
+def serve(cfg, **kw) -> dict:
+    """THE serving entry point: ``serve(ServeConfig(...)) -> dict``. Runs
+    on ``cfg.device`` (the card by default; raises ``RuntimeError``
+    without one). A CNN arch runs the mode the config names: ``latency``
+    (batch 1, p50/p99), or ``throughput`` through the fault-tolerant tier
+    (``tier`` / ``procs`` / ``hosts``), the continuous (``continuous``)
+    or the one-shot batched executor. An LM arch (every family: dense,
+    MoE, VLM, rwkv6, zamba2, whisper) runs ``serve_lm`` (reduced size, as
+    the reference's dispatch does).
+
+    ``serve("arch-name", **kw)`` (the pre-ServeConfig signature) still
+    works as a DeprecationWarning shim over ``serve_lm(arch, **kw)``."""
+    if isinstance(cfg, str):
+        warnings.warn(
+            "serve(arch, ...) is deprecated; LM serving moved to "
+            "serve_lm(arch, ...) and serve() now takes a ServeConfig",
+            DeprecationWarning, stacklevel=2)
+        return serve_lm(cfg, **kw)
+    if kw:
+        raise TypeError(f"serve(ServeConfig) takes no extra kwargs "
+                        f"(got {sorted(kw)})")
     if get_config(cfg.arch).family != "cnn":
         return serve_lm(cfg.arch, batch=cfg.batch, seed=cfg.seed,
                         verbose=cfg.verbose, device=cfg.device)
@@ -208,12 +220,14 @@ def _sync(dev: torch.device) -> None:
 
 def serve_lm(arch: str, *, batch: int = 4, prompt_len: int = 32,
              gen_tokens: int = 16, max_seq: int = 128,
-             use_reduced: bool = True, seed: int = 0, verbose: bool = True,
-             prompts=None, params=None, generator=None, frames=None,
-             record_logits: bool = False, device="cuda", cfg=None) -> dict:
+             use_reduced: bool = True, seed: int = 0, greedy: bool = True,
+             verbose: bool = True, prompts=None, params=None,
+             generator=None, frames=None, record_logits: bool = False,
+             device="cuda", cfg=None) -> dict:
     """Step a batch of prompts through the decode path (filling the KV
     cache), then decode ``gen_tokens`` greedily. Returns tokens and
-    timings.
+    timings. Decoding is greedy either way: ``greedy`` is taken, as the
+    reference's is, and read nowhere.
 
     ``cfg``: a config to serve instead of ``arch``'s (a depth cut, as
     ``launch.train.train`` takes one). ``params``: the model's parameters
@@ -475,23 +489,11 @@ def _plan_cnn_serving(arch: str, *, n_stages: int, n_replicas: int,
     total_bytes = pytree_param_bytes(params, store_dtype)
     budget = (int(param_budget_frac * total_bytes)
               if param_budget_frac else None)
-    cache, model = None, "analytic"
-    if tuning_cache is not None or calibrate:
-        if isinstance(tuning_cache, tuning.TuningCache):
-            path, cache = None, tuning_cache
-        else:
-            path = tuning_cache
-            cache = (tuning.TuningCache.load(path) if path
-                     else tuning.TuningCache())
-        if calibrate:
-            if verbose:
-                print(f"[serve] calibrating {arch} at {image_size}px on "
-                      f"{dev} ({len(cache)} cached entries)...")
-            cache = tuning.calibrate(
-                cfg, cnn.params_to(params, dev),
-                (1, image_size, image_size, 3), cache=cache, path=path,
-                verbose=verbose)
-        model = "measured"
+    cache = tuning.resolve_cache(cfg, params, tuning_cache, calibrate,
+                                 image_size=image_size, device=dev,
+                                 verbose=verbose)
+    model = "analytic" if cache is None else "measured"
+    if cache is not None:
         tuning.set_tuning_cache(cache)      # the kernels' tuned plans
     with tuning.device_scope(dev):
         if auto_split:
@@ -1499,6 +1501,12 @@ def main(argv=None):
                          "stream through a never-draining pipeline")
     ap.add_argument("--mb-size", type=int, default=2,
                     help="continuous mode: images per microbatch")
+    ap.add_argument("--placed", action="store_true", default=None,
+                    help="force per-stage weight placement (needs one "
+                         "device per stage; default: auto)")
+    ap.add_argument("--replicated-params", dest="placed",
+                    action="store_false",
+                    help="force replicated params")
     ap.add_argument("--param-budget-frac", type=float, default=None,
                     help="bound any stage's weight bytes to this "
                          "fraction of the model (memory-aware planner)")
@@ -1575,7 +1583,10 @@ def main(argv=None):
     lm_args.add_argument("--prompt-len", type=int, default=32)
     lm_args.add_argument("--gen", type=int, default=16)
     lm_args.add_argument("--max-seq", type=int, default=128)
-    lm_args.add_argument("--full-size", action="store_true",
+    lm_args.add_argument("--reduced", action="store_true", default=True,
+                         help="the reduced() config (the default)")
+    lm_args.add_argument("--full-size", dest="reduced",
+                         action="store_false",
                          help="the config as published, not reduced()")
     args = ap.parse_args(argv)
     if args.dial:
@@ -1597,7 +1608,7 @@ def main(argv=None):
     if get_config(args.arch).family != "cnn":
         serve_lm(args.arch, batch=args.batch, prompt_len=args.prompt_len,
                  gen_tokens=args.gen, max_seq=args.max_seq,
-                 use_reduced=not args.full_size, seed=args.seed,
+                 use_reduced=args.reduced, seed=args.seed,
                  device=args.device)
         return
     tiered = args.tier or args.procs or args.hosts
@@ -1618,6 +1629,7 @@ def main(argv=None):
                       batch=args.batch, n_requests=args.requests,
                       n_microbatches=args.microbatches,
                       mb_size=args.mb_size, n_stages=args.stages,
+                      placed=args.placed,
                       param_budget_frac=args.param_budget_frac,
                       auto_split=args.auto_split,
                       tuning_cache=args.tuning_cache,

@@ -21,6 +21,7 @@ JAX first and restores the variable, so no later subprocess inherits
 it."""
 import json
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -175,6 +176,86 @@ def test_cnn_pipeline_cell_places_rows():
         res["param_bytes_replicated_per_device"]
     assert sum(res["stage_param_bytes"]) == \
         res["param_bytes_replicated_per_device"]
+
+
+_CELL = dict(n_stages=4, n_microbatches=2, batch=4, image_size=32,
+             device="cpu", verbose=False)
+
+
+def _cell_keys(res):
+    return {k: v for k, v in res.items() if k != "setup_s"}
+
+
+@pytest.fixture(scope="module")
+def analytic_cell():
+    return dryrun.run_cnn_pipeline_cell("mobilenet_v1", **_CELL)
+
+
+@pytest.mark.parametrize("cache", ["missing", "empty"])
+def test_cnn_cell_cold_cache_is_the_analytic_cell(cache, analytic_cell,
+                                                  tmp_path):
+    """A missing cache file or an empty cache: the cell equals the
+    analytic cell key for key (the plan bit for bit), and the cache
+    installed before the cell is back after it."""
+    from repro_torch.core import tuning
+    cold = (str(tmp_path / "missing.json") if cache == "missing"
+            else tuning.TuningCache())
+    before = tuning.TuningCache()
+    with tuning.set_tuning_cache(before), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = dryrun.run_cnn_pipeline_cell("mobilenet_v1",
+                                           tuning_cache=cold, **_CELL)
+        assert tuning.current_tuning_cache() is before
+    assert _cell_keys(got) == _cell_keys(analytic_cell)
+    assert not (tmp_path / "missing.json").exists()
+
+
+def test_cnn_cell_plans_from_a_measured_cache(analytic_cell):
+    """A hand-built cache (the analytic seed, each node's time scaled by a
+    node-dependent factor): the cell's stage costs and cut are
+    ``planner.plan(model="measured")``'s on the same cache, not the
+    analytic ones."""
+    from repro_torch.core import planner, tuning
+    from repro_torch.launch.serve import _init_native
+    cfg = get_config("mobilenet_v1")
+    params = _init_native(cfg, 0)
+    with tuning.device_scope("cpu"):
+        seed = tuning.seed_from_analytic(cfg, params, (1, 64, 64, 3))
+        cache = tuning.TuningCache(
+            {k: {"time_us": v["time_us"] * (1.0 + 3.0 * (i % 7 == 0))}
+             for i, (k, v) in enumerate(sorted(seed.entries.items()))},
+            dict(seed.meta))
+        want = planner.plan(cfg, params, planner.PlanRequest(
+            n_stages=4, model="measured", tuning_cache=cache))
+    got = dryrun.run_cnn_pipeline_cell("mobilenet_v1", tuning_cache=cache,
+                                       **_CELL)
+    assert want["measured_coverage"]["coverage"] == 1.0
+    assert got["stage_cost_cycles"] == [float(c) for c in want["stage_cost"]]
+    assert got["imbalance"] == want["imbalance"]
+    assert got["stage_cost_cycles"] != analytic_cell["stage_cost_cycles"]
+
+
+def test_main_calibrates_and_plans_from_the_cache(tmp_path):
+    """``main --calibrate --tuning-cache PATH``: every fused node timed on
+    the CPU's plain path and written to PATH, and the cell planned from
+    what was written."""
+    from repro_torch.core import planner, tuning
+    from repro_torch.launch.serve import _init_native
+    path, out = tmp_path / "c.json", tmp_path / "cell.json"
+    assert dryrun.main(["--arch", "mobilenet_v1", "--pipeline-cnn",
+                        "--device", "cpu", "--image-size", "32", "--batch",
+                        "4", "--microbatches", "2", "--stages", "3",
+                        "--calibrate", "--tuning-cache", str(path),
+                        "--out", str(out)]) == 0
+    cache = tuning.TuningCache.load(str(path))
+    assert cache.meta["device"] == "cpu:plain" and len(cache) > 0
+    cfg = get_config("mobilenet_v1")
+    with tuning.device_scope("cpu"):
+        want = planner.plan(cfg, _init_native(cfg, 0), planner.PlanRequest(
+            n_stages=3, model="measured", tuning_cache=cache))
+    assert want["measured_coverage"]["coverage"] == 1.0
+    (res,) = json.loads(out.read_text())
+    assert res["stage_cost_cycles"] == [float(c) for c in want["stage_cost"]]
 
 
 def test_stage_param_shardings_match_reference():

@@ -102,6 +102,9 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 4
+    files += examples
     assert len(files) > 15
     for f in files:
         for mod in _imports(f):
