@@ -250,18 +250,48 @@ Phases, in order; any failure raises and exits nonzero:
    CPU's) and 20 steps each (finite); the dry run's CNN cell planned
    from phase 6's batch-1 cache (its stage costs phase 6's measured
    plan);
+7d. the kernels' whole domains (``domain_run``, ``domain_kernels``):
+   sparse ResNet-50 with SparsityConfig's default 128 x 128 blocks at
+   full width, 224 px (30 convs at 128 x 128, 3 at 64 x 64, the
+   classifier at 128 x 125), native and int8: 50 batch-1 requests, each a
+   replay of one CUDA graph of ``cnn.cnn_forward`` (captured as
+   ``latency_request`` captures it), and the same requests eagerly, graph
+   == eager bit for bit; ``CNNPipelineServer(cfg=, params=, plan=)`` at mb
+   2, S 4 on ``planner.plan``'s cut, 16 requests of 8 images, == the
+   sequential forward at mb 2 bit for bit; launches exactly 33
+   sparse_conv "mma" + 1 sparse_matmul "gemv" a forward; the first
+   request's logits within LOGIT_RTOL of max |logit| of the plain CPU
+   forward, top-1 equal, every node fed the card's own input within 1
+   bf16 ulp; p50 / p99 and images/s beside the 32 x 32 cell's of this
+   run (a ``[domain]`` line each); then each kernel at the shapes only
+   its widened variants take, against its plain version (1 bf16 ulp, f32
+   1e-5 relative) and timed beside its bound and a library call: the 33
+   convs at n 1 / 2 / 4 (``F.conv2d`` on the densified weight), the
+   classifier's 128 x 125 blocks at M 1 / 4 / 16 and square blocks of
+   side 96 and 256 at M 4 and 2048 (``torch.matmul``), flash at D 80, 96
+   (H 32) and 256 (H 16), T 2048 causal, and at D 16 and 40 (T 256) in
+   both dtypes (SDPA), dw_pw int8 and f32 at k 5 and 7 and bf16 at k 9
+   (the cuDNN depthwise + 1x1 pair), depthwise_conv at k 9
+   (``F.conv2d(groups=C)``); ``[time] domain`` lines;
 8. one ``{"kernels": [...]}`` line (each kernel with the knobs it was
    tuned to, its launches in the tier phase, in phase 7b and the mesh
-   step, and in phase 7c's examples), then the device line last.
+   step, in phase 7c's examples, and in phase 7d with the shapes only its
+   widened variants take), then the device line last.
 
 Per-layer numbers are also written to ``build/chip_smoke.json``.
 
 The first build compiles five sources, one nvcc each, in parallel; the
 stored weight type is a template argument: sparse_conv's mma and simt
-for bf16 and int8 (simt also f32), sparse_matmul's gemv for bf16 and
+for bf16 and int8 (simt also f32; mma once for one-piece blocks, bm and
+bn <= 32, and once for any other), sparse_matmul's gemv for bf16 and
 int8 x f32 and bf16 inputs at 4 row counts x 3 block sizes (48) and simt
-for all three, dw_pw's mma at k 1-7 for bf16 (42) and at k 3 for int8
-(6), its simt at k 1-7 for bf16 and at k 3 for int8 and f32.
+for all three (and its mma for whole 64 x 64 pieces and for ragged
+ones), dw_pw's mma at k 1-7 for bf16 (42) and at k 3 for int8
+(6), its simt at k 1-7 for bf16, at k 3 for int8 and f32, and at a
+run-time k for all three stores (every other k); flash's mma at 11
+padded head sizes, each for D equal to it and for a smaller D, and its
+simt at 6 column chunks in f32 and one in
+bf16; depthwise_conv's templated kernel at k 1-7 and the run-time k one.
 
 Serving alone, on the card's machine from the root of a checkout:
 ``PYTHONPATH=src python -m repro_torch.launch.serve --arch mobilenet_v2
@@ -385,6 +415,90 @@ def compare(got: torch.Tensor, ref: torch.Tensor, tol_fn, what: str) -> float:
         raise AssertionError(f"{what}: {int(bad.sum())} elements beyond "
                              f"tolerance, max |err| {float(err.max()):.3e}")
     return float(err.max())
+
+
+CHECKED_VARIANTS: dict = {}     # (kernel, variant) -> checks run
+
+
+def launch_checked(name: str, want_variant: str, launch, what: str):
+    """``launch()`` launches kernel ``name`` once, in the variant
+    ``want_variant`` that its ``variant()`` names for these inputs."""
+    from repro_torch.kernels import ops
+    key = (name, want_variant)
+    before = ops.VARIANT_LAUNCHES[key]
+    out = launch()
+    if ops.VARIANT_LAUNCHES[key] != before + 1:
+        raise AssertionError(f"{name} {what}: the {want_variant} variant "
+                             f"did not launch: {ops.VARIANT_LAUNCHES}")
+    CHECKED_VARIANTS[key] = CHECKED_VARIANTS.get(key, 0) + 1
+    return out
+
+
+def check_logits(logits, images, cfg_, params_, graph=None,
+                 rtol=LOGIT_RTOL, n=2) -> float:
+    """The card's logits of the first ``n`` requests against the plain
+    CPU forward: within ``rtol`` of max |logit|, top-1 equal.
+    Returns the larger max |err| / max |logit|."""
+    from repro_torch.models import cnn
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{cfg_.name}: non-finite logits")
+    worst = 0.0
+    for i in range(min(n, logits.shape[0])):
+        ref = cnn.cnn_forward(cfg_, params_,
+                              torch.from_numpy(images[i:i + 1]),
+                              graph=graph, device="cpu")[0]
+        scale = float(ref.abs().max())
+        err = float((logits[i] - ref).abs().max())
+        if scale == 0 or err > rtol * scale or int(
+                logits[i].argmax()) != int(ref.argmax()):
+            raise AssertionError(
+                f"{cfg_.name} request {i}: card vs CPU logits max |err| "
+                f"{err:.3e} > {rtol} * {scale:.3e}, or top-1 differs")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def check_launches(launches: dict, want: dict, what: str) -> None:
+    """Every counter by name: the kernels ``want`` names launched
+    exactly that often, and any counter it does not name not at all."""
+    unknown = set(want) - set(launches)
+    full = {k: want.get(k, 0) for k in launches}
+    if unknown or launches != full:
+        raise AssertionError(f"{what}: launches {launches} != {full}, "
+                             f"counters missing: {unknown or 'none'}")
+
+
+def check_variants(variants: dict, want: dict, what: str) -> None:
+    """Every (kernel, variant) counter: those ``want`` names launched
+    exactly that often, the others not at all."""
+    full = {k: want.get(k, 0) for k in variants}
+    if set(want) - set(variants) or variants != full:
+        raise AssertionError(f"{what}: variant launches {variants} != "
+                             f"{full}")
+
+
+def check_nodes(dev, cfg_, graph, params_dev, params_cpu_, image) -> float:
+    """Each node of ``graph`` on the card ``dev`` against the same node
+    on the CPU, fed the card's own input to that node: bf16 outputs
+    within 1 bf16 ulp, the f32 logits within LOGIT_RTOL of max |logit|.
+    Returns the worst error as a share of its bar."""
+    from repro_torch.core.graph import INPUT
+    from repro_torch.models import cnn
+    env = {INPUT: torch.from_numpy(image).to(dev).to(torch.bfloat16)}
+    worst = 0.0
+    with torch.inference_mode():
+        for node, srcs in zip(graph.nodes, graph.inputs):
+            args = [env[s] for s in srcs]
+            got = cnn.run_node(node, params_dev, *args)
+            want = cnn.run_node(node, params_cpu_, *[a.cpu() for a in args])
+            env[node.name] = got
+            torch.cuda.synchronize()
+            tol = bf16_tol if want.dtype == torch.bfloat16 else logit_tol
+            compare(got.cpu(), want, tol, f"{cfg_.name} node {node.name}")
+            err = (got.cpu().float() - want.float()).abs()
+            share = err / tol(want.float()).clamp_min(1e-38)
+            worst = max(worst, float(share.max()))
+    return worst
 
 
 def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
@@ -671,6 +785,49 @@ EXAMPLES = ("torch_sparse_resnet_inference", "torch_quickstart",
 EX_BATCH, EX_IMAGE = 2, 64
 EX_FLASH = ((8, 64, 0), (8, 128, 0), (4, 32, 0), (4, 32, 64))
 EX_MM_M = (2, 128, 512, 1024)
+
+# Phase 7d, the kernels' whole domains: sparse ResNet-50 with
+# SparsityConfig's default 128 x 128 blocks at full width, 224 px (30
+# convs at 128 x 128, the 3 whose 64 input channels 128 does not divide at
+# 64 x 64, the classifier at 128 x 125), built through the entry points
+# that take a config; then every kernel at the shapes only the widened
+# variants take: the 33 convs at n 1 / 2 / 4, the classifier's blocks at
+# M 1 / 4 / 16, square blocks of side 96 and 256 at M 4 and 2048, flash at
+# the public head sizes 80, 96 and 256 (Phi-2, Phi-3-mini, Gemma-7B) at T
+# 2048 and at 16 and 40 in both dtypes, dw_pw int8 and f32 at k 5 and 7
+# and bf16 at k 9, depthwise_conv at k 9
+DOMAIN_BLOCKS = {(128, 128): 30, (64, 64): 3, (128, 125): 1}
+DOMAIN_CONV_N = (1, 2, 4)
+DOMAIN_FC_M = (1, 4, 16)
+DOMAIN_MM = ((96, 960, 1920), (256, 2048, 2048))   # (side, d_in, d_out)
+DOMAIN_MM_M = (4, 2048)
+DOMAIN_FLASH = ((1, 2048, 32, 80), (1, 2048, 32, 96), (1, 2048, 16, 256))
+DOMAIN_FLASH_SMALL = ((1, 256, 8, 16), (1, 256, 8, 40))   # both dtypes
+DOMAIN_DW_PW = (("int8", 5), ("int8", 7), ("f32", 5), ("f32", 7),
+                ("bf16", 9))
+DOMAIN_DW_PW_SHAPES = ((128, 128, 56, 1), (512, 512, 14, 2))  # C, Cout, H, s
+DOMAIN_DW_SHAPES = ((256, 28, 1), (144, 56, 2))                # C, H, s
+DOMAIN_DW_K = 9
+# what each kernel took on in the closing slice (the kernels line)
+DOMAIN_INSTANCES = {
+    "sparse_conv": "mma and simt walk any block as 32 x 32 pieces: mma at "
+                   "bm % 16 == 0 and bn % 8 == 0 of any size (split-K over "
+                   "K x ceil(bm / 32) steps; a one-piece instance for bm, "
+                   "bn <= 32), simt at any bm | C and bn",
+    "sparse_matmul": "simt and mma walk any block as 64 x 64 pieces, the "
+                     "last ragged: mma at bm, bn % 8 == 0 (8 rows "
+                     "zero-filled to 16; an instance for whole pieces of "
+                     "16-row multiples), simt at any side; gemv any block",
+    "dw_pw": "mma in bf16 at k 1-7 and int8 at k 3; simt templated in bf16 "
+             "at k 1-7 and int8 and f32 at k 3, and with k at run time in "
+             "all three stores at every other k",
+    "depthwise_conv": "the templated kernel at k 1-7; one kernel with k at "
+                      "run time past 7",
+    "flash_attention": "mma at any bf16 D <= 256, padded in shared memory "
+                       "to 16, 32, 48, ..., 128, 160, 192 or 256 (an "
+                       "instance each for D equal to the padded size); simt at "
+                       "any f32 D, and bf16 past 256, in 256-column chunks "
+                       "past 256"}
 
 
 def param_bytes(tree) -> int:
@@ -2557,7 +2714,7 @@ def large_timings(flash_inputs: dict, mm_inputs: dict) -> tuple[list, list]:
         lib_ms = time_ms(lib)
         t_b, t_o = bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
                          b * flash_ops(tq, tk, h, d, causal, reach, off),
-                         torch.bfloat16)
+                         q.dtype)
         flash_rows.append({"what": what, "shape": [b, tq, tk, h, d],
                            "q_offset": off, "causal": causal,
                            "window": window,
@@ -2568,7 +2725,8 @@ def large_timings(flash_inputs: dict, mm_inputs: dict) -> tuple[list, list]:
         masks = ("causal" if causal else "not causal") + (
             f", window {window}" if window else "")
         print(f"[time] flash_attention {what} (B {b}, Tq {tq}, Tk {tk}, H "
-              f"{h}, D {d}, bf16, {masks}, {flash_rows[-1]['variant']}): "
+              f"{h}, D {d}, {str(q.dtype).removeprefix('torch.')}, {masks}, "
+              f"{flash_rows[-1]['variant']}): "
               f"kernel {ms * 1e3:.3f} us, plain {plain * 1e3:.3f} us, SDPA "
               f"{lib_ms * 1e3:.3f} us, bound {max(t_b, t_o) * 1e3:.3f} us "
               f"({bound_by(t_b, t_o)})")
@@ -3100,6 +3258,429 @@ def examples_run(h) -> dict:
     return res
 
 
+def domain_kernels(dev, cfg, params_cpu) -> dict:
+    """Every kernel at the shapes only its widened variants take, against
+    its plain version on the same card inputs (1 bf16 ulp; 1e-5 relative
+    in f32), in the variant ``variant()`` names, then timed beside that
+    plain version, its bound and one library call on the card ``dev``.
+    Returns per kernel the rows, the sums and the worst error."""
+    from repro_torch.core.fusion import conv_part, fused_graph_for
+    from repro_torch.core.quant import quantize_tree
+    from repro_torch.core.sparsity import densify, to_block_balanced
+    from repro_torch.configs import SparsityConfig
+    from repro_torch.kernels import depthwise_conv as dwk
+    from repro_torch.kernels import dw_pw_fused as dwpw
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sparse_conv as sc
+    from repro_torch.kernels import sparse_matmul as sm
+    from repro_torch.models import cnn
+    from repro_torch.models.layers import SparseWeight
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def checked(name, what, launch, plain, tol):
+        """``launch()`` in the variant ``variant()`` names, against
+        ``plain()``; returns (max |err|, the variant)."""
+        got = launch_checked(name, what[1], launch, what[0])
+        want = plain()
+        torch.cuda.synchronize()
+        return compare(got, want, tol, f"{name} {what[0]} ({what[1]})")
+
+    err = dict.fromkeys(("sparse_conv", "sparse_matmul", "flash_attention",
+                         "dw_pw", "depthwise_conv"), 0.0)
+    res = {}
+
+    # the 33 convs at n 1 / 2 / 4, checked, then timed (summed over a
+    # forward's convs at each n) beside F.conv2d on the densified weight
+    graph = fused_graph_for(cfg.name)
+    conv_rows, conv_sums = [], {}
+    for n in DOMAIN_CONV_N:
+        shapes = cnn.node_shapes(cfg, None, (n, IMAGE_SIZE, IMAGE_SIZE, 3),
+                                 graph=graph)
+        sums = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bytes_ms", "ops_ms"), 0.0)
+        n_conv = 0
+        for node, edge in zip(graph.nodes, graph.inputs):
+            p = params_cpu.get(conv_part(node).name) \
+                if node.kind == "conv" else None
+            if p is None or not isinstance(p["w"], SparseWeight):
+                continue
+            n_conv += 1
+            sw, b = p["w"].to(dev), (randn((node.cout,)) * 0.1)
+            x = randn(tuple(shapes[edge[0]].shape))
+            ho = -(-x.shape[1] // node.stride)
+            r = randn((n, ho, ho, node.cout)) if node.residual_from else None
+            v = sc.variant(*sw.vals.shape[2:])
+            kw = dict(k=node.k, stride=node.stride, relu=node.relu)
+            err["sparse_conv"] = max(err["sparse_conv"], checked(
+                "sparse_conv", (f"{node.name} n={n} blocks "
+                                f"{tuple(sw.vals.shape[2:])}", v),
+                lambda: sc.sparse_conv(x, sw.vals, sw.idx, b, r, **kw),
+                lambda: sc.sparse_conv_torch(x, sw.vals, sw.idx, b, r, **kw),
+                bf16_tol))
+            row = time_conv(node, sw, b, x, r, dict(reps=2, rounds=2))
+            steps = sc.k_steps(sw.vals.shape[1], sw.vals.shape[2])
+            row.update(layer=node.name, n=n, vals=list(sw.vals.shape),
+                       variant=v, plan=list(sc.plan(
+                           n * ho * ho, sw.vals.shape[0], steps)))
+            conv_rows.append(row)
+            for key in sums:
+                sums[key] += row[key]
+        if n_conv != 33:
+            raise AssertionError(f"{n_conv} sparse convs at 128 x 128 "
+                                 f"blocks, not 33")
+        sums["bound_by"] = bound_by(sums.pop("bytes_ms"), sums.pop("ops_ms"))
+        conv_sums[n] = sums
+        print(f"[time] domain sparse_conv x33 at 128 x 128 / 64 x 64 blocks, "
+              f"{IMAGE_SIZE} px, n {n} (mma): kernel {sums['ms']:.4f} ms, "
+              f"plain {sums['plain_ms']:.4f} ms, F.conv2d (densified) "
+              f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.5f} ms "
+              f"({sums['bound_by']})")
+    res["sparse_conv"] = {"rows": conv_rows, "by_n": conv_sums}
+
+    # sparse_matmul: the classifier's 128 x 125 blocks (f32 x, as the
+    # forward gives it), square blocks of side 96 and 256 (bf16 x)
+    fc = params_cpu["fc"]["w"].to(dev)
+    mm_cases = [(f"fc 128x125 M={m} f32", randn((m, fc.d_in), torch.float32),
+                 fc, f32_tol) for m in DOMAIN_FC_M]
+    for side, d_in, d_out in DOMAIN_MM:
+        w = (torch.rand((d_in, d_out), generator=gen, device=dev) * 2 - 1) \
+            / math.sqrt(d_in)
+        sw = to_block_balanced(w.to(torch.bfloat16).cpu(), SparsityConfig(
+            True, 0.5, side, side)).to(dev)
+        for m in DOMAIN_MM_M:
+            mm_cases.append((f"{side}x{side} M={m} bf16",
+                             randn((m, d_in)) / 4, sw, bf16_tol))
+    mm_rows = []
+    for what, x, sw, tol in mm_cases:
+        ob, n_k, bm, bn = sw.vals.shape
+        m = x.shape[0]
+        v = sm.variant(x.dtype, m, bm, bn)
+        err["sparse_matmul"] = max(err["sparse_matmul"], checked(
+            "sparse_matmul", (what, v),
+            lambda: sm.sparse_matmul(x, sw.vals, sw.idx),
+            lambda: sm.sparse_matmul_torch(x, sw.vals, sw.idx), tol))
+        w_dense = densify(sw).to(x.dtype)
+        ms = time_ms(lambda: sm.sparse_matmul(x, sw.vals, sw.idx))
+        plain = time_ms(lambda: sm.sparse_matmul_torch(x, sw.vals, sw.idx),
+                        reps=2, rounds=2)
+        lib = time_ms(lambda: torch.matmul(x, w_dense))
+        del w_dense
+        x_elems = m * int(sw.idx.unique().numel()) * bm
+        nbytes = ((x_elems + m * ob * bn) * x.element_size()
+                  + sw.vals.numel() * sw.vals.element_size()
+                  + sw.idx.numel() * 4)
+        t_b, t_o = bound(nbytes, 2 * m * ob * n_k * bm * bn, x.dtype)
+        mm_rows.append({"what": what, "M": m, "vals": list(sw.vals.shape),
+                        "variant": v, "ms": ms, "plain_ms": plain,
+                        "library_ms": lib, "bound_ms": max(t_b, t_o),
+                        "bound_by": bound_by(t_b, t_o)})
+        print(f"[time] domain sparse_matmul {what} vals {tuple(sw.vals.shape)}"
+              f" ({v}): kernel {ms * 1e3:.3f} us, plain {plain * 1e3:.3f} us,"
+              f" torch.matmul (dense) {lib * 1e3:.3f} us, bound "
+              f"{max(t_b, t_o) * 1e3:.3f} us ({bound_by(t_b, t_o)})")
+    res["sparse_matmul"] = {"rows": mm_rows}
+
+    # flash at the public head sizes (causal T 2048) and at 16 and 40 in
+    # both dtypes, against SDPA on the same tensors (large_timings)
+    flash_inputs = {}
+    cases = [(shape, torch.bfloat16) for shape in DOMAIN_FLASH] + [
+        (shape, dt) for shape in DOMAIN_FLASH_SMALL
+        for dt in (torch.bfloat16, torch.float32)]
+    for (b, t, heads, d), dt in cases:
+        q, k, v = (randn((b, t, heads, d), dt) for _ in range(3))
+        what = f"D {d} {str(dt).removeprefix('torch.')}"
+        var = fa.variant(dt, d)
+        tol = bf16_tol if dt == torch.bfloat16 else f32_tol
+        err["flash_attention"] = max(err["flash_attention"], checked(
+            "flash_attention", (f"{what} (B {b}, T {t}, H {heads})", var),
+            lambda: fa.flash_attention(q, k, v),
+            lambda: fa.flash_attention_torch(q, k, v), tol))
+        flash_inputs[what] = (q, k, v, {})
+    flash_rows, _ = large_timings(flash_inputs, {})
+    res["flash_attention"] = {"rows": flash_rows}
+    del flash_inputs
+
+    # dw_pw: int8 and f32 at k 5 and 7, bf16 at k 9 (each the run-time k),
+    # beside the cuDNN depthwise + 1x1 pair in the store's compute dtype
+    dw_pw_rows = []
+    for store, k in DOMAIN_DW_PW:
+        for c, co, hw, stride in DOMAIN_DW_PW_SHAPES:
+            x = randn((1, hw, hw, c))
+            dw_w = randn((k, k, c)) / k
+            dw_b = randn((c,)) * 0.1
+            pw_w = randn((c, co)) / math.sqrt(c)
+            pw_b = randn((co,)) * 0.1
+            scale = None
+            if store == "int8":
+                qw = quantize_tree({"l": {"w": pw_w.cpu()}}, "int8")["l"]["w"]
+                pw_w, scale = qw.codes.to(dev), qw.scale.to(dev)
+                w_lib = qw.dequant().to(dev, torch.bfloat16)
+            elif store == "f32":
+                dw_w, dw_b, pw_w, pw_b = (t.float() for t in
+                                          (dw_w, dw_b, pw_w, pw_b))
+                w_lib = pw_w
+            else:
+                w_lib = pw_w
+            args = (x, dw_w, dw_b, pw_w, pw_b, None, scale)
+            var = dwpw.variant(c, co, k, stride, pw_w.dtype)
+            what = f"{store} k {k} C {c} Cout {co} H {hw} s {stride}"
+            err["dw_pw"] = max(err["dw_pw"], checked(
+                "dw_pw", (what, var),
+                lambda: dwpw.dw_pw(*args, stride=stride),
+                lambda: dwpw.dw_pw_torch(*args, stride=stride), bf16_tol))
+            ldt = torch.float32 if store == "f32" else torch.bfloat16
+            x_cl = x.to(ldt).permute(0, 3, 1, 2)
+            w_dw = dw_w.to(ldt).permute(2, 0, 1).unsqueeze(1).contiguous(
+                memory_format=torch.channels_last)
+            w_pw = w_lib.to(ldt).t().reshape(co, c, 1, 1).contiguous(
+                memory_format=torch.channels_last)
+            b_dw, b_pw = dw_b.to(ldt), pw_b.to(ldt)
+            ms = time_ms(lambda: dwpw.dw_pw(*args, stride=stride))
+            plain = time_ms(lambda: dwpw.dw_pw_torch(*args, stride=stride),
+                            reps=2, rounds=2)
+            pair = time_ms(lambda: F.conv2d(
+                F.conv2d(x_cl, w_dw, b_dw, stride, k // 2, groups=c),
+                w_pw, b_pw))
+            ho = -(-hw // stride)
+            m = ho * ho
+            pb = dw_w.element_size()
+            nbytes = (2 * (x.numel() + m * co) + pb * (dw_w.numel() + c + co)
+                      + pw_w.numel() * pw_w.element_size()
+                      + (4 * co if scale is not None else 0))
+            nops = 2 * m * c * (k * k + co)
+            t_b, t_o = bound(nbytes, nops, ldt)
+            dw_pw_rows.append({"what": what, "variant": var, "ms": ms,
+                               "plain_ms": plain, "library_ms": pair,
+                               "bound_ms": max(t_b, t_o),
+                               "bound_by": bound_by(t_b, t_o)})
+            print(f"[time] domain dw_pw {what} ({var}): kernel "
+                  f"{ms * 1e3:.3f} us, plain {plain * 1e3:.3f} us, F.conv2d "
+                  f"dw+1x1 pair {pair * 1e3:.3f} us, bound "
+                  f"{max(t_b, t_o) * 1e3:.3f} us ({bound_by(t_b, t_o)})")
+    res["dw_pw"] = {"rows": dw_pw_rows}
+
+    # depthwise_conv at k 9 (the run-time k) beside F.conv2d(groups=C)
+    dw_rows = []
+    k = DOMAIN_DW_K
+    for c, hw, stride in DOMAIN_DW_SHAPES:
+        x, w = randn((1, hw, hw, c)), randn((k, k, c)) / k
+        what = f"k {k} C {c} H {hw} s {stride}"
+        got = dwk.depthwise_conv(x, w, stride=stride)
+        want = dwk.depthwise_conv_torch(x, w, stride=stride)
+        torch.cuda.synchronize()
+        err["depthwise_conv"] = max(err["depthwise_conv"], compare(
+            got, want, bf16_tol, f"depthwise_conv {what}"))
+        x_cl = x.permute(0, 3, 1, 2)
+        w_dw = w.permute(2, 0, 1).unsqueeze(1).contiguous(
+            memory_format=torch.channels_last)
+        ms = time_ms(lambda: dwk.depthwise_conv(x, w, stride=stride))
+        plain = time_ms(lambda: dwk.depthwise_conv_torch(x, w,
+                                                         stride=stride),
+                        reps=2, rounds=2)
+        lib = time_ms(lambda: F.conv2d(x_cl, w_dw, None, stride, k // 2,
+                                       groups=c))
+        ho = -(-hw // stride)
+        t_b, t_o = bound(2 * (x.numel() + w.numel() + ho * ho * c),
+                         2 * ho * ho * c * k * k, torch.bfloat16)
+        dw_rows.append({"what": what, "ms": ms, "plain_ms": plain,
+                        "library_ms": lib, "bound_ms": max(t_b, t_o),
+                        "bound_by": bound_by(t_b, t_o)})
+        print(f"[time] domain depthwise_conv {what}: kernel {ms * 1e3:.3f} "
+              f"us, plain {plain * 1e3:.3f} us, F.conv2d(groups=C) "
+              f"{lib * 1e3:.3f} us, bound {max(t_b, t_o) * 1e3:.3f} us "
+              f"({bound_by(t_b, t_o)})")
+    res["depthwise_conv"] = {"rows": dw_rows}
+    print(f"[check] domain: every new kernel shape within its bar of its "
+          f"plain version (1 bf16 ulp; f32 1e-5 relative): max |err| {err}")
+    res["max_abs_err"] = err
+    return res
+
+
+def domain_run(dev, cell32=None) -> dict:
+    """Phase 7d: sparse ResNet-50 with SparsityConfig's default 128 x 128
+    blocks at full width, 224 px, on the card, through the entry points
+    that take a config, on the card ``dev`` (``cell32``: the 32 x 32
+    cell's numbers of this run by store, printed beside; None when the
+    phase runs alone). Native and int8: 50 batch-1 requests, each a replay of one
+    CUDA graph of ``cnn.cnn_forward`` (captured as ``latency_request``
+    captures it) and the same requests eagerly, graph == eager bit for
+    bit; the continuous ``CNNPipelineServer(cfg=, params=, plan=)`` at mb
+    2, S 4 on the planner's cut, 16 requests of 8 images, == the
+    sequential forward at mb 2 bit for bit. Launches are counted exactly
+    (33 sparse_conv + 1 sparse_matmul a forward, by variant); the logits
+    of the first request of each run are held to the plain CPU forward
+    (1e-3 of max |logit|, top-1 equal) and every node, fed the card's own
+    input, to 1 bf16 ulp. Then ``domain_kernels``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import planner
+    from repro_torch.core.device import graph_capture
+    from repro_torch.core.fusion import fused_graph_for
+    from repro_torch.core.quant import quantize_tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import CNNPipelineServer
+    from repro_torch.models import cnn
+    from repro_torch.models.layers import SparseWeight
+    t_phase = time.perf_counter()
+    base = get_config("resnet50")
+    cfg = dataclasses.replace(base, sparsity=dataclasses.replace(
+        base.sparsity, block_m=128, block_n=128))
+    params_cpu = cnn.init_cnn(cfg, torch.Generator().manual_seed(SEED),
+                              device="cpu")
+    blocks = {}
+    for p in params_cpu.values():
+        if isinstance(p["w"], SparseWeight):
+            key = tuple(p["w"].vals.shape[2:])
+            blocks[key] = blocks.get(key, 0) + 1
+    if blocks != DOMAIN_BLOCKS:
+        raise AssertionError(f"ResNet-50 at 128 x 128: blocks {blocks}")
+    graph = fused_graph_for(cfg.name)
+    per_fwd = {"sparse_conv": 33, "sparse_matmul": 1}
+    per_fwd_v = {("sparse_conv", "mma"): 33, ("sparse_matmul", "gemv"): 1}
+    rng = np.random.default_rng(SEED + 71)
+    images = rng.normal(size=(N_REQUESTS, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(
+        np.float32)
+    res = {"blocks": {f"{a}x{b}": n for (a, b), n in blocks.items()},
+           "stores": {}}
+    launches, variants = {}, {}
+
+    def counted(what, fn, forwards):
+        """``fn()`` with the counters reset just before and read just
+        after: ``forwards`` forwards' launches by name and variant."""
+        ops.reset_launches()
+        out = fn()
+        got, got_v = dict(ops.LAUNCHES), dict(ops.VARIANT_LAUNCHES)
+        check_launches(got, {k: v * forwards for k, v in per_fwd.items()},
+                       what)
+        check_variants(got_v, {k: v * forwards for k, v in
+                               per_fwd_v.items()}, what)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in got_v.items():
+            variants[k] = variants.get(k, 0) + v
+        return out
+
+    for q in ("native", "int8"):
+        stored = quantize_tree(params_cpu, q)
+        p_dev = cnn.params_to(stored, dev)
+
+        def forward(img):
+            return cnn.cnn_forward(cfg, p_dev, img, device=dev)
+
+        # batch 1: the warm-up on a side stream, then the forward captured
+        # into one CUDA graph, as latency_request does it
+        img_shape = (1, IMAGE_SIZE, IMAGE_SIZE, 3)
+        static_in = torch.zeros(img_shape, device=dev)
+        cuda_graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                forward(torch.zeros(img_shape)).cpu()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            with graph_capture(cuda_graph):
+                return forward(static_in)
+
+        static_out = counted(f"domain {q} warm-up and capture", capture, 2)
+        lat, g_logits = [], []
+        for i in range(N_REQUESTS):
+            t0 = time.perf_counter()
+            static_in.copy_(torch.from_numpy(images[i:i + 1]))
+            cuda_graph.replay()
+            g_logits.append(static_out.cpu())
+            lat.append(time.perf_counter() - t0)
+        e_lat, e_logits = [], []
+
+        def eager():
+            for i in range(N_REQUESTS):
+                t0 = time.perf_counter()
+                e_logits.append(forward(torch.from_numpy(
+                    images[i:i + 1])).cpu())
+                e_lat.append(time.perf_counter() - t0)
+
+        counted(f"domain {q} eager requests", eager, N_REQUESTS)
+        g_logits, e_logits = torch.cat(g_logits), torch.cat(e_logits)
+        if not torch.equal(g_logits, e_logits):
+            raise AssertionError(f"domain {q}: the graph's logits differ "
+                                 f"from the eager requests'")
+        logit_err = check_logits(g_logits, images, cfg, stored, n=1)
+        node_err = check_nodes(dev, cfg, graph, p_dev, stored, images[:1])
+        row = {"graph_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+               "graph_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+               "graph_images_per_s": N_REQUESTS / sum(lat),
+               "eager_p50_ms": float(np.percentile(e_lat, 50)) * 1e3,
+               "eager_p99_ms": float(np.percentile(e_lat, 99)) * 1e3,
+               "logit_err": logit_err, "node_err_share": node_err}
+
+        # the continuous server on the planner's cut of this config
+        plan = planner.plan(cfg, params_cpu, planner.PlanRequest(
+            n_stages=PIPE_S, store_dtype=q))
+        srv = counted(f"domain {q} continuous warm-up and capture",
+                      lambda: CNNPipelineServer(
+                          cfg.name, mb_size=2, n_stages=PIPE_S,
+                          image_size=IMAGE_SIZE, seed=SEED, quantize=q,
+                          device=dev, cfg=cfg, params=params_cpu, plan=plan),
+                      4)
+        warm = srv.submit(np.zeros((2, IMAGE_SIZE, IMAGE_SIZE, 3),
+                                   np.float32))
+        srv.run()
+        srv.results(warm)
+        reqs = [rng.normal(size=(CONT_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3))
+                .astype(np.float32) for _ in range(CONT_REQUESTS)]
+        ids = [srv.submit(x) for x in reqs]
+        metrics = srv.run()
+        outs = [srv.results(i) for i in ids]
+        with torch.inference_mode():
+            for x, got in zip(reqs, outs):
+                seq = torch.cat([forward(torch.from_numpy(x[i:i + 2])).cpu()
+                                 for i in range(0, CONT_BATCH, 2)])
+                if not torch.equal(torch.from_numpy(got), seq):
+                    raise AssertionError(f"domain {q} continuous: logits "
+                                         f"differ from the sequential "
+                                         f"forward (mb 2)")
+        c_err = check_logits(torch.from_numpy(outs[0]), reqs[0], cfg,
+                             stored, n=1)
+        lat_c = metrics["request_latencies_s"]
+        row["continuous"] = {
+            "images_per_s": metrics["images_per_s"],
+            "p50_ms": float(np.percentile(lat_c, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat_c, 99)) * 1e3,
+            "stage_of": list(plan["stage_of"]), "logit_err": c_err,
+            "launches_per_tick": srv.launches_per_tick[0]}
+        del srv
+        res["stores"][q] = row
+        print(f"[domain] resnet50 128x128 blocks {q}: {N_REQUESTS} batch-1 "
+              f"requests at {IMAGE_SIZE}px: graph p50 "
+              f"{row['graph_p50_ms']:.4f} ms, p99 {row['graph_p99_ms']:.4f} "
+              f"ms ({row['graph_images_per_s']:.1f} im/s), eager p50 "
+              f"{row['eager_p50_ms']:.4f} ms; graph == eager bitwise; "
+              f"33 sparse_conv mma + 1 sparse_matmul gemv a forward; vs CPU "
+              f"{logit_err:.3e} of max |logit| (bar {LOGIT_RTOL}), top-1 "
+              f"equal; every node within {node_err:.3f} of its 1 bf16 ulp "
+              f"bar; continuous mb 2 S {PIPE_S} (cuts {plan['stage_of']}): "
+              f"{row['continuous']['images_per_s']:.1f} im/s, request p50 "
+              f"{row['continuous']['p50_ms']:.3f} / p99 "
+              f"{row['continuous']['p99_ms']:.3f} ms, == sequential bitwise, "
+              f"vs CPU {c_err:.3e}" + ("" if cell32 is None else (
+                  f"; the 32 x 32 cell in this run: graph p50 "
+                  f"{cell32[q]['graph_p50_ms']:.4f} / p99 "
+                  f"{cell32[q]['graph_p99_ms']:.4f} ms, continuous "
+                  f"{cell32[q]['continuous_images_per_s']:.1f} im/s")))
+        del p_dev, cuda_graph, static_in, static_out
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["variant_launches"] = {f"{k}/{v}": n for (k, v), n in
+                               variants.items() if n}
+    res["kernels"] = domain_kernels(dev, cfg, params_cpu)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[domain] phase 7d in {res['phase_s']:.1f} s; launches {launches}")
+    return res
+
+
 def main() -> int:
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3110,7 +3691,7 @@ def main() -> int:
     from repro_torch.core import pipeline as pp
     from repro_torch.core import planner
     from repro_torch.core.fusion import conv_part, fused_graph_for
-    from repro_torch.core.graph import INPUT, graph_for
+    from repro_torch.core.graph import graph_for
     from repro_torch.core.quant import (STORE_DTYPES, pytree_param_bytes,
                                         quantize_tree)
     from repro_torch.core.sparsity import densify, to_block_balanced
@@ -3183,20 +3764,6 @@ def main() -> int:
 
     def randn(shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
-
-    checked_variants = {}          # (kernel, variant) -> checks run
-
-    def launch_checked(name: str, want_variant: str, launch, what: str):
-        """``launch()`` launches kernel ``name`` once, in the variant
-        ``want_variant`` that its ``variant()`` names for these inputs."""
-        key = (name, want_variant)
-        before = ops.VARIANT_LAUNCHES[key]
-        out = launch()
-        if ops.VARIANT_LAUNCHES[key] != before + 1:
-            raise AssertionError(f"{name} {what}: the {want_variant} variant "
-                                 f"did not launch: {ops.VARIANT_LAUNCHES}")
-        checked_variants[key] = checked_variants.get(key, 0) + 1
-        return out
 
     def check_conv(what, x, sw, b, r, relu, **kw) -> float:
         v = sc.variant(*sw.vals.shape[2:], sw.vals.dtype)
@@ -3456,7 +4023,7 @@ def main() -> int:
           f"{[tuple(s.vals.shape[1:]) for s in lm_ffn.values()]} at M=1, "
           f"{SERVE['batch']}, 8, 9, 16, 100, 129 and {PREFILL_T} bf16, max |err| "
           f"(all cases) {mm_err:.3e} within tolerance; checks by variant "
-          f"{ {f'{n}/{v}': c for (n, v), c in checked_variants.items()} }")
+          f"{ {f'{n}/{v}': c for (n, v), c in CHECKED_VARIANTS.items()} }")
 
     # the large dense LMs (Qwen3-32B, Mistral-Nemo-12B, Granite-20B): the
     # flash kernel at D 128, at each one's T = 2048 prefill (k, v from its
@@ -3522,7 +4089,7 @@ def main() -> int:
           f"{ {f'{n} {w}': tuple(sw.vals.shape) for (n, w), sw in large_w.items()} }"
           f" at M={LARGE_MM_M} bf16, max |err| {large_mm_err:.3e} within 1 "
           f"bf16 ulp; checks by variant "
-          f"{ {f'{n}/{v}': c for (n, v), c in checked_variants.items()} }")
+          f"{ {f'{n}/{v}': c for (n, v), c in CHECKED_VARIANTS.items()} }")
     del large_w
 
     # the recurrent and encoder-decoder LMs: flash at zamba2's D 112 (its
@@ -3593,7 +4160,7 @@ def main() -> int:
           f"{ {f'{n} {w}': tuple(sw.vals.shape) for (n, w), sw in state_w.items()} }"
           f" at M={STATE_MM_M}, bf16, max |err| {state_mm_err:.3e} within 1 "
           f"bf16 ulp; checks by variant "
-          f"{ {f'{n}/{v}': c for (n, v), c in checked_variants.items()} }")
+          f"{ {f'{n}/{v}': c for (n, v), c in CHECKED_VARIANTS.items()} }")
     del state_w
 
     # stored weights: int8 codes with their scale (the int8 store) at every
@@ -3678,7 +4245,7 @@ def main() -> int:
           f" f32 classifier (simt); int8 dw_pw at every MobileNet block shape"
           f" (mma) and C 36 (simt), f32 dw_pw (simt): max |err| "
           f"{q_err} within 1 bf16 ulp / 1e-5 relative; checks by variant "
-          f"{ {f'{n}/{v}': c for (n, v), c in checked_variants.items()} }")
+          f"{ {f'{n}/{v}': c for (n, v), c in CHECKED_VARIANTS.items()} }")
 
     # the throughput paths' microbatch shapes: every kernel at n = the
     # batched executor's mb (batch 16 over M 4) and the continuous
@@ -3777,72 +4344,11 @@ def main() -> int:
           f"max |err| {ex_err} within 1 bf16 ulp / 1e-5 relative")
 
     # -- 4. the main paths ------------------------------------------------
-    def check_logits(logits, images, cfg_, params_, graph=None,
-                     rtol=LOGIT_RTOL, n=2) -> float:
-        """The card's logits of the first ``n`` requests against the plain
-        CPU forward: within ``rtol`` of max |logit|, top-1 equal.
-        Returns the larger max |err| / max |logit|."""
-        if not torch.isfinite(logits).all():
-            raise AssertionError(f"{cfg_.name}: non-finite logits")
-        worst = 0.0
-        for i in range(min(n, logits.shape[0])):
-            ref = cnn.cnn_forward(cfg_, params_,
-                                  torch.from_numpy(images[i:i + 1]),
-                                  graph=graph, device="cpu")[0]
-            scale = float(ref.abs().max())
-            err = float((logits[i] - ref).abs().max())
-            if scale == 0 or err > rtol * scale or int(
-                    logits[i].argmax()) != int(ref.argmax()):
-                raise AssertionError(
-                    f"{cfg_.name} request {i}: card vs CPU logits max |err| "
-                    f"{err:.3e} > {rtol} * {scale:.3e}, or top-1 differs")
-            worst = max(worst, err / scale)
-        return worst
-
-    def check_launches(launches: dict, want: dict, what: str) -> None:
-        """Every counter by name: the kernels ``want`` names launched
-        exactly that often, and any counter it does not name not at all."""
-        unknown = set(want) - set(launches)
-        full = {k: want.get(k, 0) for k in launches}
-        if unknown or launches != full:
-            raise AssertionError(f"{what}: launches {launches} != {full}, "
-                                 f"counters missing: {unknown or 'none'}")
-
-    def check_variants(variants: dict, want: dict, what: str) -> None:
-        """Every (kernel, variant) counter: those ``want`` names launched
-        exactly that often, the others not at all."""
-        full = {k: want.get(k, 0) for k in variants}
-        if set(want) - set(variants) or variants != full:
-            raise AssertionError(f"{what}: variant launches {variants} != "
-                                 f"{full}")
-
     all_variants = {k: 0 for k in ops.VARIANT_LAUNCHES}
 
     def add_variants(variants: dict) -> None:
         for k, v in variants.items():
             all_variants[k] += v
-
-    def check_nodes(cfg_, graph, params_dev, params_cpu_, image) -> float:
-        """Each node of ``graph`` on the card against the same node on
-        the CPU, fed the card's own input to that node: bf16 outputs
-        within 1 bf16 ulp, the f32 logits within LOGIT_RTOL of max
-        |logit|. Returns the worst error as a share of its bar."""
-        env = {INPUT: torch.from_numpy(image).to(dev).to(torch.bfloat16)}
-        worst = 0.0
-        with torch.inference_mode():
-            for node, srcs in zip(graph.nodes, graph.inputs):
-                args = [env[s] for s in srcs]
-                got = cnn.run_node(node, params_dev, *args)
-                want = cnn.run_node(node, params_cpu_,
-                                    *[a.cpu() for a in args])
-                env[node.name] = got
-                torch.cuda.synchronize()
-                tol = bf16_tol if want.dtype == torch.bfloat16 else logit_tol
-                compare(got.cpu(), want, tol, f"{cfg_.name} node {node.name}")
-                err = (got.cpu().float() - want.float()).abs()
-                share = err / tol(want.float()).clamp_min(1e-38)
-                worst = max(worst, float(share.max()))
-        return worst
 
     # Serving: every request after the warm-up replays one CUDA graph, so
     # the wrappers count the warm-up's launches and the capture's, and the
@@ -3966,7 +4472,7 @@ def main() -> int:
         check_variants(dict(ops.VARIANT_LAUNCHES), {}, f"{name} unfused")
         unfused_err = check_logits(unfused, img, mcfg, mb_params[name],
                                    graph=graph_for(name), rtol=MB_LOGIT_RTOL)
-        node_err = {view: check_nodes(mcfg, g, params_dev, mb_params[name],
+        node_err = {view: check_nodes(dev, mcfg, g, params_dev, mb_params[name],
                                       img)
                     for view, g in (("fused", fused_graph_for(name)),
                                     ("unfused", graph_for(name)))}
@@ -5616,6 +6122,14 @@ def main() -> int:
     for k, v in ex_err.items():
         ex_max[k] = max(ex_max.get(k, 0.0), v)
 
+    # -- 7d. the kernels' whole domains -----------------------------------
+    cell32 = {q: {"graph_p50_ms": serving[("resnet50", q)]["graph_p50_ms"],
+                  "graph_p99_ms": serving[("resnet50", q)]["graph_p99_ms"],
+                  "continuous_images_per_s": pipe[("resnet50", q)][
+                      "continuous"][(2, True)]["images_per_s"]}
+              for q in ("native", "int8")}
+    domain_main = domain_run(dev, cell32)
+
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "build_s": build_s,
@@ -5649,7 +6163,7 @@ def main() -> int:
         "oracle": oracle_rows, "placed": placed_rows,
         "placed_rates": placed_rates,
         "tier": tier_rows, "placed_tier": placed_main, "dryrun": dry_rows,
-        "examples": examples_main},
+        "examples": examples_main, "domain": domain_main},
         indent=1, default=str))
 
     # -- 8. the kernels line, then the device line ------------------------
@@ -5830,6 +6344,17 @@ def main() -> int:
             "times": {"sparse_conv": ex_k["sparse_conv"],
                       "sparse_matmul": ex_k["sparse_matmul"],
                       "flash_attention": ex_k["flash"]}.get(name)}
+        # phase 7d: the shapes only the widened variants take (the domain
+        # main path's launches: sparse ResNet-50 at 128 x 128 blocks)
+        dom = domain_main["kernels"][name]
+        entry["domain"] = {
+            "launches": domain_main["launches"].get(name, 0),
+            "variants": {v: domain_main["variant_launches"].get(
+                f"{name}/{v}", 0) for v in _build.VARIANTS.get(name, ())},
+            "max_abs_err": domain_main["kernels"]["max_abs_err"][name],
+            "instances": DOMAIN_INSTANCES[name],
+            **({"by_n": dom["by_n"]} if "by_n" in dom else
+               {"rows": dom["rows"]})}
         entry["ptxas"] = resources[name]
         entry["hmma"] = hmma[name]
         if name in _build.VARIANTS:

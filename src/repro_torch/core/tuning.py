@@ -497,7 +497,7 @@ def autotune_depthwise_plan(x, w, *, stride: int = 1, cache: TuningCache,
     k = w.shape[0]
     ho, wo = same_pads(h, k, stride)[0], same_pads(wd, k, stride)[0]
     cands = _default_first(dw.plan(n, ho, wo, c, k, stride),
-                           dw.plan_candidates(c, stride))
+                           dw.plan_candidates(c, stride, k))
     best, best_us = _search(cands, lambda a, p: dw.depthwise_conv(
         a, w, stride=stride, plan=p), x, iters)
     key = kernel_key("dw", x.shape, x.dtype, device=device_signature(
@@ -545,7 +545,8 @@ def autotune_sparse_conv_plan(x, sw, bias, *, k: int, stride: int = 1,
     on the port's knobs: time the sparse conv's mma variant at every (tm,
     split) it can run for the node's K surviving blocks a column
     (``sparse_conv.plan_candidates``: tm of TILES x split in {1, 2, 4, 8}
-    up to K) and record the winner's ``tm``, ``split`` and time under the
+    up to its K steps, ``sparse_conv.k_steps``) and record the winner's
+    ``tm``, ``split`` and time under the
     ``sconv`` kernel key."""
     from repro_torch.kernels import sparse_conv as sc
     from repro_torch.kernels.sparse_conv import same_pads
@@ -556,7 +557,8 @@ def autotune_sparse_conv_plan(x, sw, bias, *, k: int, stride: int = 1,
                          "has knobs")
     n, h, wd, _ = x.shape
     m = n * same_pads(h, k, stride)[0] * same_pads(wd, k, stride)[0]
-    cands = _default_first(sc.plan(m, ob, n_k), sc.plan_candidates(n_k))
+    steps = sc.k_steps(n_k, bm)
+    cands = _default_first(sc.plan(m, ob, steps), sc.plan_candidates(steps))
     best, best_us = _search(cands, lambda a, p: sc.sparse_conv(
         a, sw.vals, sw.idx, bias, None, sw.scale, k=k, stride=stride,
         relu=relu, plan=p), x, iters)

@@ -22,7 +22,10 @@
 // copy). k (1..7), R (plan: 2 at stride 1, else 1: the best of R = 1, 2,
 // 4 at every MobileNet shape in a sweep on the H100, PERF.md; the
 // autotuner may pick 4) and the stride
-// (1 where R = 2) are template arguments; the index math is 32-bit. C that
+// (1 where R = 2) are template arguments; the index math is 32-bit. k
+// past 7 takes one more kernel (depthwise_kernel_rk: one pixel a thread,
+// k and the stride at run time, the same order of sums), as the Pallas
+// kernel takes any k. C that
 // is not a multiple of 8 takes the same kernel with masked scalar loads and
 // stores (VEC false). depthwise_conv.plan sizes the blocks so that the
 // small layers still launch >= 132 of them.
@@ -41,7 +44,7 @@
 
 namespace {
 
-constexpr int K_MAX = 7;
+constexpr int K_MAX = 7;   // the largest templated kernel size
 
 // Eight channels from c on at p; zero past C (the masked tail) or where
 // !ok (the SAME halo). VEC: one 16-byte aligned vector (C % 8 == 0).
@@ -124,6 +127,51 @@ depthwise_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// k past K_MAX: one output pixel's 8 channels a thread, k and the stride
+// at run time; per kernel row the k taps from zero, then into the
+// accumulator, as depthwise_kernel does.
+template <bool VEC>
+__global__ void __launch_bounds__(256)
+depthwise_kernel_rk(const __nv_bfloat16* __restrict__ x,
+                    const __nv_bfloat16* __restrict__ w,
+                    __nv_bfloat16* __restrict__ out, int H, int W, int C,
+                    int Ho, int Wo, int k, int stride, int pad_h, int pad_w,
+                    int G, int total) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const int c = (e % G) * 8;
+  const int t = e / G;
+  const int ox = t % Wo;
+  const int row = t / Wo;                      // n * Ho + oy
+  const int oy = row % Ho, n = row / Ho;
+  const int iy0 = oy * stride - pad_h, ix0 = ox * stride - pad_w;
+
+  float acc[8];
+  dw::zero8(acc);
+  for (int ky = 0; ky < k; ++ky) {
+    const int iy = iy0 + ky;
+    const __nv_bfloat16* xrow = x + ((n * H + iy) * W) * C + c;
+    float rs[8];   // this kernel row's sum, from zero
+    dw::zero8(rs);
+    for (int kx = 0; kx < k; ++kx) {
+      const int ix = ix0 + kx;
+      float tap[8], xv[8];
+      load8<VEC>(w + (ky * k + kx) * C + c, c, C, true, tap);
+      load8<VEC>(xrow + ix * C, c, C, dw::in_image(iy, ix, H, W), xv);
+      dw::row_mac(rs, xv, tap);
+    }
+    dw::add_row(acc, rs);
+  }
+  __nv_bfloat16* o = out + (row * Wo + ox) * C + c;
+  if constexpr (VEC) {
+    *reinterpret_cast<uint4*>(o) = dw::pack8(acc);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (c + i < C) o[i] = __float2bfloat16(acc[i]);
+  }
+}
+
 struct DwArgs {
   const __nv_bfloat16 *x, *w;
   __nv_bfloat16* out;
@@ -139,6 +187,18 @@ int launch(const DwArgs& a, int threads, cudaStream_t stream) {
   depthwise_kernel<K, S, R, VEC><<<blocks, threads, 0, stream>>>(
       a.x, a.w, a.out, a.H, a.W, a.C, a.Ho, a.Wo, a.stride, a.pad_h, a.pad_w,
       G, WR, (int)total);
+  return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int launch_rk(const DwArgs& a, int k, int threads, cudaStream_t stream) {
+  const int G = (a.C + 7) / 8;
+  const long long total = (long long)a.N * a.Ho * a.Wo * G;
+  if (total >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  depthwise_kernel_rk<VEC><<<blocks, threads, 0, stream>>>(
+      a.x, a.w, a.out, a.H, a.W, a.C, a.Ho, a.Wo, k, a.stride, a.pad_h,
+      a.pad_w, G, (int)total);
   return (int)cudaGetLastError();
 }
 
@@ -161,9 +221,9 @@ int launch_k(const DwArgs& a, int r, int threads, cudaStream_t s) {
 extern "C" {
 
 // All tensors contiguous on the device: x (N,H,W,C) bf16; w (k,k,C) bf16;
-// out (N,Ho,Wo,C) bf16; N*H*W*C and N*Ho*Wo*C < 2^31; 1 <= k <= 7; where
+// out (N,Ho,Wo,C) bf16; N*H*W*C and N*Ho*Wo*C < 2^31; k >= 1; where
 // C % 8 == 0, x, w and out 16-byte aligned. r: output pixels a thread (1,
-// or 2 or 4 at stride 1 where C % 8 == 0); threads: a block's threads, a
+// or 2 or 4 at stride 1 where C % 8 == 0 and k <= 7); threads: a block's threads, a
 // multiple of 32 up to 256. Anything else returns cudaErrorInvalidValue;
 // else cudaGetLastError() after the launch.
 int depthwise_conv_bf16(const void* x, const void* w, void* out, int N,
@@ -175,9 +235,14 @@ int depthwise_conv_bf16(const void* x, const void* w, void* out, int N,
                     pad_w};
   const cudaStream_t s = (cudaStream_t)stream;
   if (N * Ho * Wo == 0 || C == 0) return 0;
-  if (k < 1 || k > K_MAX || stride < 1 || C < 1 || threads < 32 ||
-      threads > 256 || threads % 32)
+  if (k < 1 || stride < 1 || C < 1 || threads < 32 || threads > 256 ||
+      threads % 32)
     return (int)cudaErrorInvalidValue;
+  if (k > K_MAX) {
+    if (r != 1) return (int)cudaErrorInvalidValue;
+    return C % 8 ? launch_rk<false>(a, k, threads, s)
+                 : launch_rk<true>(a, k, threads, s);
+  }
   switch (k) {
     case 1: return launch_k<1>(a, r, threads, s);
     case 2: return launch_k<2>(a, r, threads, s);

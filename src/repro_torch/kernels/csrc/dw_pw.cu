@@ -8,8 +8,9 @@
 //                                                * dw_w[ky,kx,c]) + dw_b[c]))
 //   y[p,co] = round_bf16(act(sum_c d[p,c] * pw_w[c,co] + pw_b[co] + res[p,co]))
 //
-// with SAME padding (pad_lo = total // 2) on the k x k depthwise (k = 1..7,
-// a template argument), its sums in the Pallas kernel's order
+// with SAME padding (pad_lo = total // 2) on the k x k depthwise (any k:
+// 1..7 a template argument, every other k the simt variant with k given
+// at run time), its sums in the Pallas kernel's order
 // (depthwise.cuh), the bias, ReLU and residual in f32, and the dw->pw
 // boundary rounded to bf16 exactly where the unfused graph rounds it. The
 // depthwise result d never reaches device memory: that is the TPU
@@ -20,13 +21,13 @@
 // the epilogue before pw_b (the Pallas flush, dw_pw_fused.py:83-86; under
 // the C split, the full sum after the rank-ordered reduction), with the
 // depthwise weight and the biases bf16; or all weights and biases f32
-// (simt only). The int8 and f32 instances exist for k = 3 only (the
-// MobileNets' depthwise; dw_pw_fused.QUANT_KS), to keep the build short.
+// (simt only), at every k: templated instances at k = 3 (the MobileNets'
+// depthwise), the simt variant with k at run time at every other k.
 //
 // Two variants, chosen in Python (dw_pw_fused.variant) and passed in:
 //
-// "mma" (bf16 or int8 pw_w; C and Cout multiples of 8: every MobileNet
-// block). A block owns
+// "mma" (bf16 pw_w at k 1..7, int8 at k 3; C and Cout multiples of 8:
+// every MobileNet block). A block owns
 // a pixel tile of TR whole output rows x TW columns of one image (TR*TW
 // <= TM, TM = 16, 32 or 64), TN = 64 or 128 output channels on 2 * TN
 // threads, and one slice of C, all from dw_pw_fused.plan. Per chunk of CK
@@ -56,10 +57,14 @@
 // chain gains no barrier, and the weight bytes read are halved. The TN
 // scales come into shared memory with the first chunk.
 //
-// "simt" (C or Cout not a multiple of 8, and f32 weights): f32 FMAs on the
-// CUDA cores, 64
+// "simt" (C or Cout not a multiple of 8, f32 weights, k past 7, and int8
+// at k != 3): f32
+// FMAs on the CUDA cores, 64
 // pixels x 64 output channels a block, C in chunks of 32, the depthwise
-// read straight from global memory.
+// read straight from global memory. k 1..7 is a template argument (the
+// chunk's taps in shared memory) for bf16, k 3 for int8 and f32; one
+// instance per stored type takes every other k at run time and reads the
+// taps from global memory (L1), in the same order of sums.
 //
 // What bounds it. At batch 1 a block moves x, the weights and y once each
 // and does 2*M*C*(k*k + Cout) operations: the bound is bytes over the
@@ -86,7 +91,7 @@ namespace {
 
 constexpr int VARIANT_SIMT = 0;   // the codes of _build.VARIANT_CODES
 constexpr int VARIANT_MMA = 1;
-constexpr int K_MAX = 7;          // the largest depthwise kernel size
+constexpr int K_MAX = 7;          // the largest templated kernel size
 
 // ---- simt: CUDA cores, any C and Cout -------------------------------------
 
@@ -102,8 +107,9 @@ constexpr int RN = TN_SIMT / TX;                 // 4 output channels a thread
 constexpr int W_LOADS = CK_SIMT * TN_SIMT / THREADS;   // 8 pw weights a thread
 constexpr int DS_LD = TM + 4;   // row of the depthwise tile, float4-aligned
 
-// WT: the pointwise weight's stored type; PT: the depthwise weight's and
-// the biases' (f32 beside f32, else bf16)
+// K: the kernel size, 0 for k_rt at run time; WT: the pointwise weight's
+// stored type; PT: the depthwise weight's and the biases' (f32 beside
+// f32, else bf16)
 template <int K, typename WT, typename PT = typename wtypes::Param<WT>::type>
 __global__ void __launch_bounds__(THREADS)
 dw_pw_simt(const __nv_bfloat16* __restrict__ x,
@@ -115,12 +121,13 @@ dw_pw_simt(const __nv_bfloat16* __restrict__ x,
            const float* __restrict__ pw_scale,
            __nv_bfloat16* __restrict__ out, int N, int H, int W, int C,
            int Ho, int Wo, int stride, int pad_h, int pad_w, int Cout,
-           int dw_relu, int relu) {
+           int dw_relu, int relu, int k_rt) {
   // the depthwise tile (bf16 values, channel-major) and the pointwise
   // weight tile of one chunk
   __shared__ __align__(16) float ds[CK_SIMT][DS_LD];
   __shared__ __align__(16) float ws[CK_SIMT][TN_SIMT];
-  __shared__ float taps[K * K][CK_SIMT];   // the chunk's depthwise taps
+  // the chunk's depthwise taps (a run-time k reads them from dw_w)
+  __shared__ float taps[K > 0 ? K * K : 1][CK_SIMT];
   const int M = N * Ho * Wo;
   const int m0 = blockIdx.x * TM;
   const int n0 = blockIdx.y * TN_SIMT;
@@ -148,12 +155,14 @@ dw_pw_simt(const __nv_bfloat16* __restrict__ x,
     // so only k loads are in flight per thread
     const int c = c0 + dc;
     const bool c_ok = c < C;
-    for (int e = tid; e < K * K * CK_SIMT; e += THREADS) {
-      const int ce = c0 + e % CK_SIMT;
-      taps[e / CK_SIMT][e % CK_SIMT] =
-          ce < C ? wtypes::to_f32(dw_w[(e / CK_SIMT) * C + ce]) : 0.f;
+    if constexpr (K > 0) {
+      for (int e = tid; e < K * K * CK_SIMT; e += THREADS) {
+        const int ce = c0 + e % CK_SIMT;
+        taps[e / CK_SIMT][e % CK_SIMT] =
+            ce < C ? wtypes::to_f32(dw_w[(e / CK_SIMT) * C + ce]) : 0.f;
+      }
+      __syncthreads();
     }
-    __syncthreads();
     const float b = c_ok ? wtypes::to_f32(dw_b[c]) : 0.f;
     int ox = ox_first, oy = oy_first, img = img_first;
     for (int i = 0; i < DW_PIX; ++i) {
@@ -162,21 +171,37 @@ dw_pw_simt(const __nv_bfloat16* __restrict__ x,
         const int iy0 = oy * stride - pad_h, ix0 = ox * stride - pad_w;
         const __nv_bfloat16* xi = x + (size_t)img * H * W * C + c;
         float sum = 0.f;
+        if constexpr (K > 0) {
 #pragma unroll
-        for (int ky = 0; ky < K; ++ky) {
-          const int iy = iy0 + ky;
-          float xv[K];
+          for (int ky = 0; ky < K; ++ky) {
+            const int iy = iy0 + ky;
+            float xv[K];
 #pragma unroll
-          for (int kx = 0; kx < K; ++kx)
-            xv[kx] = dw::in_image(iy, ix0 + kx, H, W)
-                         ? __bfloat162float(
-                               xi[((size_t)iy * W + ix0 + kx) * C])
-                         : 0.f;   // the SAME halo
-          float row = 0.f;   // this kernel row's sum, from zero
+            for (int kx = 0; kx < K; ++kx)
+              xv[kx] = dw::in_image(iy, ix0 + kx, H, W)
+                           ? __bfloat162float(
+                                 xi[((size_t)iy * W + ix0 + kx) * C])
+                           : 0.f;   // the SAME halo
+            float row = 0.f;   // this kernel row's sum, from zero
 #pragma unroll
-          for (int kx = 0; kx < K; ++kx)
-            row = fmaf(xv[kx], taps[ky * K + kx][dc], row);
-          sum += row;
+            for (int kx = 0; kx < K; ++kx)
+              row = fmaf(xv[kx], taps[ky * K + kx][dc], row);
+            sum += row;
+          }
+        } else {
+          for (int ky = 0; ky < k_rt; ++ky) {
+            const int iy = iy0 + ky;
+            float row = 0.f;   // this kernel row's sum, from zero
+            for (int kx = 0; kx < k_rt; ++kx) {
+              const float xv = dw::in_image(iy, ix0 + kx, H, W)
+                                   ? __bfloat162float(
+                                         xi[((size_t)iy * W + ix0 + kx) * C])
+                                   : 0.f;   // the SAME halo
+              row = fmaf(xv, wtypes::to_f32(dw_w[(ky * k_rt + kx) * C + c]),
+                         row);
+            }
+            sum += row;
+          }
         }
         d = sum + b;
         if (dw_relu) d = fmaxf(d, 0.f);
@@ -569,9 +594,10 @@ struct DwPwArgs {
   const __nv_bfloat16* res;
   const float* scale;
   __nv_bfloat16* out;
-  int N, H, W, C, Ho, Wo, stride, pad_h, pad_w, Cout, dw_relu, relu;
+  int N, H, W, C, Ho, Wo, k, stride, pad_h, pad_w, Cout, dw_relu, relu;
 };
 
+// K = 0: the run-time kernel size a.k
 template <int K, typename WT>
 int launch_simt(const DwPwArgs& a, cudaStream_t stream) {
   using PT = typename wtypes::Param<WT>::type;
@@ -580,7 +606,7 @@ int launch_simt(const DwPwArgs& a, cudaStream_t stream) {
   dw_pw_simt<K, WT><<<grid, THREADS, 0, stream>>>(
       a.x, (const PT*)a.dw_w, (const PT*)a.dw_b, (const WT*)a.pw_w,
       (const PT*)a.pw_b, a.res, a.scale, a.out, a.N, a.H, a.W, a.C, a.Ho,
-      a.Wo, a.stride, a.pad_h, a.pad_w, a.Cout, a.dw_relu, a.relu);
+      a.Wo, a.stride, a.pad_h, a.pad_w, a.Cout, a.dw_relu, a.relu, a.k);
   return (int)cudaGetLastError();
 }
 
@@ -644,7 +670,16 @@ int launch(const DwPwArgs& a, int variant, int tm, int tn, int tr, int tw,
   }
 }
 
-// k = QUANT_K takes every stored weight type; the other k bf16 only
+// The simt variant with k at run time, every stored type: k past K_MAX,
+// and int8 and f32 weights at every k but QUANT_K
+int launch_runtime_k(const DwPwArgs& a, int wtype, cudaStream_t s) {
+  if (wtype == wtypes::BF16) return launch_simt<0, __nv_bfloat16>(a, s);
+  if (wtype == wtypes::INT8) return launch_simt<0, int8_t>(a, s);
+  return launch_simt<0, float>(a, s);
+}
+
+// k = QUANT_K (the MobileNets' depthwise) has templated instances for
+// every stored type; the other k for bf16 only
 constexpr int QUANT_K = 3;
 
 template <int K>
@@ -658,7 +693,7 @@ int launch_k(const DwPwArgs& a, int wtype, int variant, int tm, int tn,
       return launch<K, int8_t>(a, variant, tm, tn, tr, tw, ck, split, s);
     return launch<K, float>(a, variant, tm, tn, tr, tw, ck, split, s);
   } else {
-    return (int)cudaErrorInvalidValue;
+    return launch_runtime_k(a, wtype, s);   // simt (checked by the caller)
   }
 }
 
@@ -670,9 +705,10 @@ extern "C" {
 // of the stored type wtype (0 bf16, 1 int8 codes, 2 f32); dw_w (k,k,C),
 // dw_b (C,) and pw_b (Cout,) f32 with f32 pw_w, else bf16; res
 // (N,Ho,Wo,Cout) bf16 or null; scale (Cout,) f32 with int8 pw_w, else
-// null; out like res; N*H*W*C and N*Ho*Wo*Cout < 2^31; 1 <= k <= 7
-// (k = 3 for int8 and f32). variant 0: simt (tm, tn, tr, tw, ck, split
-// unused). variant 1: mma (bf16 or int8; C % 8 == 0, Cout % 8 == 0,
+// null; out like res; N*H*W*C and N*Ho*Wo*Cout < 2^31; k >= 1 (past 7
+// the simt variant only). variant 0: simt (tm, tn, tr, tw, ck, split
+// unused). variant 1: mma (bf16 at k <= 7, int8 at k = 3; C % 8 == 0,
+// Cout % 8 == 0,
 // every pointer 16-byte aligned; tm 16, 32 or 64; tn 64 or 128; tr * tw
 // <= tm; ck 32 or 64; split 1..8 <= ceil(C / ck); the shared memory
 // within the limit). Anything else returns cudaErrorInvalidValue; else
@@ -686,17 +722,18 @@ int dw_pw_launch(const void* x, const void* dw_w, const void* dw_b,
                  void* stream) {
   const DwPwArgs a = {(const __nv_bfloat16*)x, dw_w, dw_b, pw_w, pw_b,
                       (const __nv_bfloat16*)res, (const float*)scale,
-                      (__nv_bfloat16*)out, N, H, W, C, Ho, Wo, stride,
+                      (__nv_bfloat16*)out, N, H, W, C, Ho, Wo, k, stride,
                       pad_h, pad_w, Cout, dw_relu, relu};
   const cudaStream_t s = (cudaStream_t)stream;
   if (wtype < wtypes::BF16 || wtype > wtypes::F32 ||
       (scale != nullptr) != (wtype == wtypes::INT8))
     return (int)cudaErrorInvalidValue;
   if (N * Ho * Wo == 0 || Cout == 0) return 0;
-  if (k < 1 || k > K_MAX || stride < 1 || C < 1 || (Cout + 63) / 64 > 65535)
+  if (k < 1 || stride < 1 || C < 1 || (Cout + 63) / 64 > 65535)
     return (int)cudaErrorInvalidValue;
   if (variant == VARIANT_MMA) {
-    if (C % 8 || Cout % 8 || (ck != 32 && ck != 64) ||
+    if (k > K_MAX || (wtype != wtypes::BF16 && k != QUANT_K) || C % 8 ||
+        Cout % 8 || (ck != 32 && ck != 64) ||
         (tn != 64 && tn != 128) || tr < 1 || tw < 1 ||
         tr * tw > tm || split < 1 || split > MAX_SPLIT ||
         split > (C + ck - 1) / ck)
@@ -704,6 +741,7 @@ int dw_pw_launch(const void* x, const void* dw_w, const void* dw_b,
   } else if (variant != VARIANT_SIMT) {
     return (int)cudaErrorInvalidValue;
   }
+  if (k > K_MAX) return launch_runtime_k(a, wtype, s);
   switch (k) {
     case 1: return launch_k<1>(a, wtype, variant, tm, tn, tr, tw, ck, split, s);
     case 2: return launch_k<2>(a, wtype, variant, tm, tn, tr, tw, ck, split, s);

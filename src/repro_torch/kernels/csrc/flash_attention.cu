@@ -14,38 +14,48 @@
 // Pallas kernel, which does not round it to bf16); masked scores are
 // NEG_INF = -1e30 and l is floored at 1e-20, as there.
 //
-// Two variants, chosen in Python (flash_attention.variant) and passed in:
+// Two variants, chosen in Python (flash_attention.variant) and passed in.
+// Both take any head size D >= 1, as the Pallas kernel (whose blocks span
+// the whole head) does:
 //
-// "simt", f32 inputs: the exact variant, f32 FMAs on the CUDA cores. The
-// TPU grid (b*h, q tile, kv tile) runs the kv axis in order with
-// (m, l, acc) in VMEM scratch; here one thread block owns one (b*h,
-// 64-row q tile) and loops over the 64-key tiles itself, with (m, l,
-// acc) in registers. 256 threads as 16 x 16: thread (ty, tx) holds query
-// rows 4*ty..4*ty+3, the scores of keys tx + 16*j (j < 4) and the output
-// columns tx*D/16 .. +D/16. Per kv tile: K (transposed) and V go to
+// "simt", f32 inputs (and bf16 past D = 256): the exact variant, f32
+// FMAs on the CUDA cores. The TPU grid (b*h, q tile, kv tile) runs the kv
+// axis in order with (m, l, acc) in VMEM scratch; here one thread block
+// owns one (b*h, 64-row q tile, DC output columns) and loops over the
+// 64-key tiles itself, with (m, l, acc) in registers. DC, a template
+// argument, is the least of 16, 32, 64, 112, 128 and 256 that holds D
+// (the columns past D zero); past 256 the head is cut into DC = 256
+// chunks: grid z walks the output chunks and each block sums S = Q K^T
+// over every chunk of D in turn (S recomputed once per output chunk).
+// 256 threads as 16 x 16: thread (ty, tx) holds query rows
+// 4*ty..4*ty+3, the scores of keys tx + 16*j (j < 4) and the output
+// columns tx*DC/16 .. +DC/16. Per kv tile: K (transposed) and V go to
 // shared memory as f32; S = Q K^T by f32 FMAs; the row max and row sum
 // reduce over the 16 threads of a row by warp shuffles; P goes to shared
 // memory (transposed) and O += P V by f32 FMAs.
 //
-// "mma", bf16 inputs: tensor cores. One block of 4 warps per (b*h, 64-row
-// q tile), 16 query rows a warp. Q is loaded once into mma A fragments
-// (ldmatrix) at D <= 64; at D = 112 and 128 the fragments are read from
-// shared memory at each tile instead, which keeps the 56 or 64 f32
-// accumulators a thread of O in registers without spills. D = 112
-// (zamba2's heads) is 7 k-steps of 16, 14 column tiles of 8 and 14
-// 16-byte chunks a row: every loop below walks D in those units, and
-// the P V product pairs the 14 tiles as 7 ldmatrix.x4.trans loads. The 64-key K and V tiles go
-// through a 2-stage cp.async ring in shared memory (rows padded to D + 8
+// "mma", bf16 inputs with D <= 256: tensor cores. One block of 4 warps
+// per (b*h, 64-row q tile), 16 query rows a warp. The head is padded to
+// DP, a template argument: D rounded up to 16, 32, 48, ..., 128, 160,
+// 192 or 256; the columns past D are zero-filled in shared memory (the
+// source-size-0 form of the 16-byte cp.async where D is a multiple of 8,
+// element loads otherwise: a row then does not start on 16 bytes) and
+// never stored, so no padded copy exists. Q is loaded once into mma A
+// fragments (ldmatrix) at DP <= 64; past it the fragments are read from
+// shared memory at each tile instead, which keeps the DP / 2 f32
+// accumulators a thread of O in registers. Every loop below walks DP in
+// units of 16 k-steps, 8-column tiles and 16-byte chunks (D = 112,
+// zamba2's heads: 7, 14 and 14), and the P V product pairs the column
+// tiles as ldmatrix.x4.trans loads. The 64-key K and V tiles go
+// through a 2-stage cp.async ring in shared memory (rows padded to DP + 8
 // elements, so the 8 rows of an ldmatrix hit 8 distinct 16-byte bank
 // groups); tile t+1's copies are issued before tile t's math. The
-// shared memory is dynamic (Q, K and V take 76,800 B at D = 112 and
-// 87,040 B at D = 128, over the 48 KB of a static array), its limit set
-// at each launch. A padded row of D + 8 = 120 elements is 240 B, so the
-// 8 rows of an ldmatrix start 60 words apart and still fall on 8
-// distinct 16-byte bank groups. S = Q K^T
+// shared memory is dynamic (Q, K and V take 640 * (DP + 8) B: 76,800 B at
+// DP = 112, 87,040 B at 128 and 168,960 B at 256, over the 48 KB of a
+// static array), its limit set at each launch. S = Q K^T
 // is mma.sync.m16n8k16 on bf16 with f32 accumulators (bf16 x bf16
 // products are exact in f32, so S is the Pallas kernel's up to sum
-// order), scaled after the product. The
+// order), scaled by 1/sqrt(D) after the product. The
 // online softmax runs on the accumulator fragments: a row's max and sum
 // reduce over the 4 lanes of a quad. O += P V keeps p's f32 value, as the
 // Pallas kernel does: p is split into p_hi = bf16(p) and p_lo = bf16(p -
@@ -71,7 +81,9 @@
 // a layer is 68.7 GFLOP, 69.5 us at the tensor-core rate; at zamba2-7b's
 // shared attention (H 32, D 112, T 2048 under its window of 4096) 30.1
 // GFLOP, 30.4 us; at whisper-large-v3's encoder (H 20, D 64, 1500 x 1500
-// keys, not causal) 11.5 GFLOP, 11.6 us.
+// keys, not causal) 11.5 GFLOP, 11.6 us. A head that is no multiple of 16
+// (D 40: DP 48) does the padded columns' products too, 1.2x here; at D
+// 256 the O accumulators take 128 registers a thread.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -93,9 +105,9 @@ constexpr int QS = BQ + 4;      // row stride (floats) of qt and pt
 constexpr int KS = BK + 4;      // row stride (floats) of kt
 constexpr float NEG_INF = -1e30f;
 
-template <int D>
+template <int DC>
 constexpr int smem_floats() {
-  return D * QS + D * KS + BK * D + BK * QS;
+  return DC * QS + DC * KS + BK * DC + BK * QS;
 }
 
 // [begin, end) of the kv tiles some query at absolute position
@@ -109,37 +121,54 @@ __device__ __forceinline__ int2 kv_tiles(int pos_first, int pos_last, int Tk,
                    kv_begin < kv_end ? (kv_end + BK - 1) / BK : t_begin);
 }
 
-// ---- simt: f32, CUDA cores --------------------------------------------
+// ---- simt: f32 (bf16 past D = 256), CUDA cores ------------------------
 
-template <int D>
+__device__ __forceinline__ float ld_f32(const float* p) { return *p; }
+__device__ __forceinline__ float ld_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+template <typename T, int DC>
 __global__ void __launch_bounds__(THREADS)
-flash_attention_simt(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     int H, int Tq, int Tk, int causal, int window,
+flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out, int H,
+                     int D, int Tq, int Tk, int causal, int window,
                      int q_offset, float scale) {
-  constexpr int DPT = D / 16;   // output columns per thread
+  constexpr int DPT = DC / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;             // [D][QS]  q tile, transposed
-  float* kt = qt + D * QS;      // [D][KS]  k tile, transposed
-  float* vs = kt + D * KS;      // [BK][D]  v tile
-  float* pt = vs + BK * D;      // [BK][QS] p tile, transposed
+  float* qt = smem;             // [DC][QS]  q chunk, transposed
+  float* kt = qt + DC * QS;     // [DC][KS]  k chunk, transposed
+  float* vs = kt + DC * KS;     // [BK][DC]  v tile, this block's columns
+  float* pt = vs + BK * DC;     // [BK][QS]  p tile, transposed
 
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest rows first
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
+  const int nd = (D + DC - 1) / DC;   // chunks of the head
+  const int oc0 = blockIdx.z * DC;    // this block's output columns
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
   const size_t rs = (size_t)H * D;                    // row stride
-  const float* qb = q + (size_t)b * Tq * rs + (size_t)h * D;
-  const float* kb = k + (size_t)b * Tk * rs + (size_t)h * D;
-  const float* vb = v + (size_t)b * Tk * rs + (size_t)h * D;
-  float* ob = out + (size_t)b * Tq * rs + (size_t)h * D;
+  const T* qb = q + (size_t)b * Tq * rs + (size_t)h * D;
+  const T* kb = k + (size_t)b * Tk * rs + (size_t)h * D;
+  const T* vb = v + (size_t)b * Tk * rs + (size_t)h * D;
+  T* ob = out + (size_t)b * Tq * rs + (size_t)h * D;
 
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D, d = e % D;
-    qt[d * QS + r] = q0 + r < Tq ? qb[(size_t)(q0 + r) * rs + d] : 0.f;
-  }
+  // chunk c of the q tile, transposed; zero past Tq and past D
+  auto load_q = [&](int c) {
+    for (int e = tid; e < BQ * DC; e += THREADS) {
+      const int r = e / DC, d = e % DC, dd = c * DC + d;
+      qt[d * QS + r] =
+          q0 + r < Tq && dd < D ? ld_f32(qb + (size_t)(q0 + r) * rs + dd)
+                                : 0.f;
+    }
+  };
+  if (nd == 1) load_q(0);
 
   // The kv tiles some row of this q tile can see.
   const int2 tiles = kv_tiles(q_offset + q0, q_offset + min(q0 + BQ, Tq) - 1,
@@ -157,33 +186,40 @@ flash_attention_simt(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * BK;
-    __syncthreads();   // the previous tile's kt, vs, pt are consumed
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int r = e / D, d = e % D;
-      const bool in = k0 + r < Tk;
-      const size_t off = (size_t)(k0 + r) * rs + d;
-      kt[d * KS + r] = in ? kb[off] : 0.f;
-      vs[r * D + d] = in ? vb[off] : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T for rows 4*ty+i, keys tx+16*j
+    // S = Q K^T for rows 4*ty+i, keys tx+16*j, summed over the chunks of
+    // D in order; V's chunk comes in with the first
     float s[RPT][CPT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
       for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
+    for (int c = 0; c < nd; ++c) {
+      __syncthreads();   // the previous chunk's or tile's tiles are consumed
+      if (nd > 1) load_q(c);
+      for (int e = tid; e < BK * DC; e += THREADS) {
+        const int r = e / DC, d = e % DC;
+        const bool in = k0 + r < Tk;
+        const size_t row = (size_t)(k0 + r) * rs;
+        kt[d * KS + r] = in && c * DC + d < D ? ld_f32(kb + row + c * DC + d)
+                                              : 0.f;
+        if (c == 0)
+          vs[r * DC + d] = in && oc0 + d < D ? ld_f32(vb + row + oc0 + d)
+                                             : 0.f;
+      }
+      __syncthreads();
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(&qt[d * QS + ty * RPT]);
-      const float qr[RPT] = {qv.x, qv.y, qv.z, qv.w};
-      float kr[CPT];
+      for (int d = 0; d < DC; ++d) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(&qt[d * QS + ty * RPT]);
+        const float qr[RPT] = {qv.x, qv.y, qv.z, qv.w};
+        float kr[CPT];
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) kr[j] = kt[d * KS + tx + 16 * j];
+        for (int j = 0; j < CPT; ++j) kr[j] = kt[d * KS + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
+        for (int i = 0; i < RPT; ++i)
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qr[i], kr[j], s[i][j]);
+          for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qr[i], kr[j], s[i][j]);
+      }
     }
 
     // scale, mask, online softmax; a row's 64 keys live on 16 threads
@@ -233,7 +269,7 @@ flash_attention_simt(const float* __restrict__ q, const float* __restrict__ k,
       const float4 pv = *reinterpret_cast<const float4*>(&pt[kk * QS + ty * RPT]);
       const float pr[RPT] = {pv.x, pv.y, pv.z, pv.w};
       float vr[DPT];
-      const float* vrow = &vs[kk * D + tx * DPT];
+      const float* vrow = &vs[kk * DC + tx * DPT];
       if constexpr (DPT % 4 == 0) {
 #pragma unroll
         for (int c = 0; c < DPT; c += 4) {
@@ -257,8 +293,10 @@ flash_attention_simt(const float* __restrict__ q, const float* __restrict__ k,
     if (r < Tq) {
       const float li = fmaxf(l[i], 1e-20f);
 #pragma unroll
-      for (int c = 0; c < DPT; ++c)
-        ob[(size_t)r * rs + tx * DPT + c] = o[i][c] / li;
+      for (int c = 0; c < DPT; ++c) {
+        const int col = oc0 + tx * DPT + c;
+        if (col < D) st_f32(ob + (size_t)r * rs + col, o[i][c] / li);
+      }
     }
   }
 }
@@ -267,30 +305,67 @@ flash_attention_simt(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int MMA_THREADS = 128;   // 4 warps of 16 query rows
 
-template <int D>
+template <int DP>
 struct MmaSmem {
-  static constexpr int LD = D + 8;          // row stride (elements)
-  static constexpr bool Q_IN_REGS = D <= 64;  // else re-read each tile
+  static constexpr int LD = DP + 8;         // row stride (elements)
+  static constexpr bool Q_IN_REGS = DP <= 64;  // else re-read each tile
   __nv_bfloat16 q[BQ * LD];
   __nv_bfloat16 k[2][BK * LD];              // the 2-stage ring
   __nv_bfloat16 v[2][BK * LD];
 };
 
-template <int D>
+// Rows [0, 64) of N (rows, D) slices at src[i] (row stride rs) into
+// (64, DP) tiles at dst[i] (row stride LD), the N copies of an element
+// issued together: rows at or past n_rows and columns at or past D read
+// zero (EXACT: D == DP, no column check). vec (D % 8 == 0, 16-byte
+// aligned rows): 16-byte cp.async, zero-filled by the source-size-0
+// form; else element loads (a row of such a D does not start on 16
+// bytes).
+template <int DP, bool EXACT, int N>
+__device__ __forceinline__ void load_tiles(
+    __nv_bfloat16* const (&dst)[N], const __nv_bfloat16* const (&src)[N],
+    size_t rs, int n_rows, int D) {
+  constexpr int LD = DP + 8, CH = DP / 8;
+  if (EXACT || D % 8 == 0) {
+    for (int e = threadIdx.x; e < BQ * CH; e += MMA_THREADS) {
+      const int r = e / CH, c = (e % CH) * 8;
+      const bool in = r < n_rows && (EXACT || c < D);
+      const size_t off = in ? (size_t)r * rs + c : 0;
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        tc::cp_async16(&dst[i][r * LD + c], src[i] + off, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < BQ * DP; e += MMA_THREADS) {
+      const int r = e / DP, c = e % DP;
+      const bool in = r < n_rows && c < D;
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        dst[i][r * LD + c] = in ? src[i][(size_t)r * rs + c]
+                                : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// EXACT: D == DP (16, 32, ..., 128, 160, 192 or 256: every config's D),
+// so D is a compile-time constant and the column checks fold away, as in
+// the kernel templated on D alone; else D < DP comes at run time.
+template <int DP, bool EXACT>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_attention_mma(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ out, int H, int Tq, int Tk,
-                    int causal, int window, int q_offset, float scale) {
-  constexpr int LD = MmaSmem<D>::LD;
-  constexpr int KC = D / 16;        // k-steps of S = Q K^T
+                    __nv_bfloat16* __restrict__ out, int H, int d_arg,
+                    int Tq, int Tk, int causal, int window, int q_offset,
+                    float scale) {
+  const int D = EXACT ? DP : d_arg;
+  constexpr int LD = MmaSmem<DP>::LD;
+  constexpr int KC = DP / 16;       // k-steps of S = Q K^T
   constexpr int NT = BK / 8;        // 8-key column tiles of S
-  constexpr int DT = D / 8;         // 8-wide column tiles of O
-  constexpr int CH = D / 8;         // 16-byte chunks in a row
-  constexpr bool Q_IN_REGS = MmaSmem<D>::Q_IN_REGS;
+  constexpr int DT = DP / 8;        // 8-wide column tiles of O
+  constexpr bool Q_IN_REGS = MmaSmem<DP>::Q_IN_REGS;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  MmaSmem<D>& sm = *reinterpret_cast<MmaSmem<D>*>(smem_raw);
+  MmaSmem<DP>& sm = *reinterpret_cast<MmaSmem<DP>*>(smem_raw);
 
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest rows first
   const int b = blockIdx.x / H;
@@ -309,26 +384,22 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
   const int2 tiles = kv_tiles(pos_first, pos_last, Tk, causal, window);
   const int t_begin = tiles.x, t_end = tiles.y;
 
-  // rows past Tq / Tk are zero-filled (never read from memory)
-  for (int e = tid; e < BQ * CH; e += MMA_THREADS) {
-    const int r = e / CH, c = (e % CH) * 8;
-    const bool in = q0 + r < Tq;
-    tc::cp_async16(&sm.q[r * LD + c], in ? qb + (size_t)(q0 + r) * rs + c : qb,
-                   in);
+  // rows past Tq / Tk and columns past D are zero-filled (never read from
+  // memory)
+  {
+    __nv_bfloat16* const dst[1] = {sm.q};
+    const __nv_bfloat16* const src[1] = {qb + (size_t)q0 * rs};
+    load_tiles<DP, EXACT>(dst, src, rs, Tq - q0, D);
   }
   auto load_kv = [&](int t, int st) {
     const int k0 = t * BK;
-    for (int e = tid; e < BK * CH; e += MMA_THREADS) {
-      const int r = e / CH, c = (e % CH) * 8;
-      const bool in = k0 + r < Tk;
-      const size_t off = in ? (size_t)(k0 + r) * rs + c : 0;
-      tc::cp_async16(&sm.k[st][r * LD + c], kb + off, in);
-      tc::cp_async16(&sm.v[st][r * LD + c], vb + off, in);
-    }
+    __nv_bfloat16* const dst[2] = {sm.k[st], sm.v[st]};
+    const __nv_bfloat16* const src[2] = {kb + (size_t)k0 * rs,
+                                         vb + (size_t)k0 * rs};
+    load_tiles<DP, EXACT>(dst, src, rs, Tk - k0, D);
   };
   if (t_begin < t_end) load_kv(t_begin, 0);
   tc::cp_async_commit();
-
   // this thread's rows: g and g + 8 of the warp's 16
   const int qpos0 = q_offset + q0 + warp * 16 + g;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -474,92 +545,103 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
     const int row = q0 + warp * 16 + g + r * 8;
     if (row < Tq) {
       const float li = fmaxf(l[r], 1e-20f);
-      __nv_bfloat16* orow = ob + (size_t)row * rs + 2 * tg;
+      __nv_bfloat16* orow = ob + (size_t)row * rs;
 #pragma unroll
-      for (int n = 0; n < DT; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
-            __floats2bfloat162_rn(o[n][2 * r] / li, o[n][2 * r + 1] / li);
+      for (int n = 0; n < DT; ++n) {
+        const int col = n * 8 + 2 * tg;   // and col + 1; none past D
+        if (col >= D) continue;
+        const float y0 = o[n][2 * r] / li, y1 = o[n][2 * r + 1] / li;
+        if (D % 2 == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(y0, y1);
+        } else {
+          orow[col] = __float2bfloat16(y0);
+          if (col + 1 < D) orow[col + 1] = __float2bfloat16(y1);
+        }
+      }
     }
   }
 }
 
 // ---- launch --------------------------------------------------------------
 
-template <int D>
+template <typename T, int DC>
 int launch_simt(const void* q, const void* k, const void* v, void* out,
-                int B, int H, int Tq, int Tk, int causal, int window,
+                int B, int H, int D, int Tq, int Tk, int causal, int window,
                 int q_offset, float scale, void* stream) {
-  constexpr int smem = smem_floats<D>() * (int)sizeof(float);
-  auto kern = flash_attention_simt<D>;
+  constexpr int smem = smem_floats<DC>() * (int)sizeof(float);
+  auto kern = flash_attention_simt<T, DC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * H, (Tq + BQ - 1) / BQ);
+  dim3 grid(B * H, (Tq + BQ - 1) / BQ, (D + DC - 1) / DC);
   kern<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, H, Tq,
-      Tk, causal, window, q_offset, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, D, Tq, Tk, causal,
+      window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DP>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
-               int H, int Tq, int Tk, int causal, int window, int q_offset,
-               float scale, void* stream) {
-  constexpr int smem = (int)sizeof(MmaSmem<D>);
-  auto kern = flash_attention_mma<D>;
+               int H, int D, int Tq, int Tk, int causal, int window,
+               int q_offset, float scale, void* stream) {
+  constexpr int smem = (int)sizeof(MmaSmem<DP>);
+  auto kern = D == DP ? flash_attention_mma<DP, true>
+                      : flash_attention_mma<DP, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Tq + BQ - 1) / BQ);
   kern<<<grid, MMA_THREADS, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, H, Tq, Tk, causal,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, H, D, Tq, Tk, causal,
       window, q_offset, scale);
   return (int)cudaGetLastError();
 }
+
+#define FLASH_ARGS q, k, v, out, B, H, D, Tq, Tk, causal, window, q_offset, \
+                   scale, stream
 
 }  // namespace
 
 extern "C" {
 
 // q (B, Tq, H, D), k and v (B, Tk, H, D), out like q; one dtype, all
-// contiguous on the device (the bf16 ones 16-byte aligned); D in {32,
-// 64, 112, 128}. scale = 1/sqrt(D) as an f32. variant: 0 simt (f32 only), 1 mma
-// (bf16 only). Returns the cudaError_t of the launch.
+// contiguous on the device (for the mma variant 16-byte aligned); any D
+// >= 1. scale = 1/sqrt(D) as an f32. variant: 0 simt (f32, and bf16 at D
+// > 256), 1 mma (bf16, D <= 256). Returns the cudaError_t of the launch.
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* out, int B, int H, int Tq, int Tk, int D,
                         int causal, int window, int q_offset, float scale,
                         int variant, void* stream) {
-  if (variant != VARIANT_SIMT) return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 32: return launch_simt<32>(q, k, v, out, B, H, Tq, Tk, causal,
-                                    window, q_offset, scale, stream);
-    case 64: return launch_simt<64>(q, k, v, out, B, H, Tq, Tk, causal,
-                                    window, q_offset, scale, stream);
-    case 112: return launch_simt<112>(q, k, v, out, B, H, Tq, Tk, causal,
-                                     window, q_offset, scale, stream);
-    case 128: return launch_simt<128>(q, k, v, out, B, H, Tq, Tk, causal,
-                                     window, q_offset, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (variant != VARIANT_SIMT || D < 1) return (int)cudaErrorInvalidValue;
+  if (D <= 16) return launch_simt<float, 16>(FLASH_ARGS);
+  if (D <= 32) return launch_simt<float, 32>(FLASH_ARGS);
+  if (D <= 64) return launch_simt<float, 64>(FLASH_ARGS);
+  if (D <= 112) return launch_simt<float, 112>(FLASH_ARGS);
+  if (D <= 128) return launch_simt<float, 128>(FLASH_ARGS);
+  return launch_simt<float, 256>(FLASH_ARGS);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* out, int B, int H, int Tq, int Tk, int D,
                          int causal, int window, int q_offset, float scale,
                          int variant, void* stream) {
-  if (variant != VARIANT_MMA) return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 32: return launch_mma<32>(q, k, v, out, B, H, Tq, Tk, causal,
-                                   window, q_offset, scale, stream);
-    case 64: return launch_mma<64>(q, k, v, out, B, H, Tq, Tk, causal,
-                                   window, q_offset, scale, stream);
-    case 112: return launch_mma<112>(q, k, v, out, B, H, Tq, Tk, causal,
-                                    window, q_offset, scale, stream);
-    case 128: return launch_mma<128>(q, k, v, out, B, H, Tq, Tk, causal,
-                                    window, q_offset, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (D < 1) return (int)cudaErrorInvalidValue;
+  if (variant == VARIANT_SIMT && D > 256)
+    return launch_simt<__nv_bfloat16, 256>(FLASH_ARGS);
+  if (variant != VARIANT_MMA || D > 256) return (int)cudaErrorInvalidValue;
+  if (D <= 16) return launch_mma<16>(FLASH_ARGS);
+  if (D <= 32) return launch_mma<32>(FLASH_ARGS);
+  if (D <= 48) return launch_mma<48>(FLASH_ARGS);
+  if (D <= 64) return launch_mma<64>(FLASH_ARGS);
+  if (D <= 80) return launch_mma<80>(FLASH_ARGS);
+  if (D <= 96) return launch_mma<96>(FLASH_ARGS);
+  if (D <= 112) return launch_mma<112>(FLASH_ARGS);
+  if (D <= 128) return launch_mma<128>(FLASH_ARGS);
+  if (D <= 160) return launch_mma<160>(FLASH_ARGS);
+  if (D <= 192) return launch_mma<192>(FLASH_ARGS);
+  return launch_mma<256>(FLASH_ARGS);
 }
 
 const char* flash_attention_error_string(int err) {

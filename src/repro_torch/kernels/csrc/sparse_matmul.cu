@@ -16,46 +16,50 @@
 // (simt, mma) or rows spread over a block's threads (gemv).
 //
 // "gemv": M <= 8 (the ResNet-50 classifier in f32, the LM decode in
-// bf16), any blocks up to 128 x 128. Column j's surviving blocks, vals[j],
+// bf16), any blocks. Column j's surviving blocks, vals[j],
 // are one contiguous (K*bm) x bn matrix. A block of 64, 128 or 256
 // threads (about one per two rows) owns 8 of its output columns (grid
 // (ceil(bn/8), ob): 160 blocks for the classifier, 320 and 120 for
 // SmolLM-360M's w1 and w2) and every row: thread t takes rows t,
 // t + THREADS, ..., loading each row's 8 columns as one 16-byte vector
 // (8 bytes for int8 codes; bn % 8 == 0; element by element otherwise, as
-// for the classifier's bn = 25) and the gathered x values (idx, then x)
-// into registers, every load issued before the first FMA; M rounded up
-// to 1, 2, 4 or 8 is a template argument, so a thread holds that many x
-// 8 sums. The f32 partials are summed over each warp's lanes by an xor
-// butterfly, then over the warps in order: one barrier, no reduction
-// across blocks, deterministic.
+// for the classifier's bn = 25 and 125) and the gathered x values (idx,
+// then x) into registers, every load issued before the first FMA; M
+// rounded up to 1, 2, 4 or 8 is a template argument, so a thread holds
+// that many x 8 sums. The f32 partials are summed over each warp's lanes
+// by an xor butterfly, then over the warps in order: one barrier, no
+// reduction across blocks, deterministic.
 //
-// "simt" and "mma" take blocks up to 128 x 128 whose sides are at most
-// 64 or multiples of 64: a block past 64 is walked as 64 x 64 sub-blocks
-// (SubBlocks). A thread block owns sbn = min(bn, 64) columns of one
-// block column (grid y = ob * bn / sbn), and its steps walk each
-// surviving block's bm / sbm sub-blocks of sbm = min(bm, 64) rows, so
-// shared memory and registers stay those of a 64 x 64 block and the
-// gathered x rows are read once per column half.
+// "simt" and "mma" take blocks of any size, walked as SUB x SUB (64 x 64)
+// pieces (SubBlocks), the last piece of a side that is no multiple of 64
+// ragged. A thread block owns one column piece, min(64, bn - n0) columns
+// n0.. of one block column (grid y = ob * ceil(bn / 64)), and its steps
+// walk each surviving block's ceil(bm / 64) row pieces, so shared memory
+// and registers stay those of a 64 x 64 block and the gathered x rows are
+// read once per column piece.
 //
-// "simt": M > 8 with f32 x or bf16 block shapes the mma variant does not
-// take. 256 threads as 8 row groups x 32 lanes: a thread owns RPT = 8
+// "simt": M > 8 with f32 x, f32 weights, or a block side the mma variant
+// does not take (the classifier's 125 at SparsityConfig's default).
+// 256 threads as 8 row groups x 32 lanes: a thread owns RPT = 8
 // rows of x (TM = 64 rows a block) and the output columns lane and
-// lane + 32; grid (ceil(M/64), ob * bn / sbn). Each step stages one
-// sbm x sbn weight sub-block and the TM x sbm gathered slice of x
+// lane + 32; grid (ceil(M/64), ob * ceil(bn / 64)). Each step stages one
+// weight piece and the TM x rows gathered slice of x
 // (transposed, so a thread reads its rows as float4) in shared memory as
-// f32; a step's loads go to registers first, all issued together, and
-// step l+1's are issued before step l's FMAs. bn need not be a power of
-// two: every column index is checked against sbn.
+// f32, zero past a ragged piece's rows and columns; a step's loads go to
+// registers first, all issued together, and step l+1's are issued before
+// step l's FMAs. Every row and column index is checked against the
+// piece's.
 //
-// "mma": bf16 x with M > 8 (the LM prefill, M = B*T), bm a multiple of
-// 16 and bn of 8. A block of 4 warps owns TM = 64 rows (16 a warp) and
-// sbn columns of one output block column j. For each step (a sub-block
-// of surviving block l), a 2-stage cp.async ring copies the gathered x
-// slice (TM rows of sbm contiguous bf16 at column idx[j,l]*bm + rb; rows
-// >= M zero-filled) and the sbm x sbn sub-block of vals[j,l] into shared
-// memory, rows padded by 8 elements; step s+1's copies (and its idx) are
-// issued before step s's
+// "mma": bf16 x and weights with M > 8 (the LM prefill, M = B*T), bm and
+// bn multiples of 8. A block of 4 warps owns TM = 64 rows (16 a warp) and
+// one column piece of one output block column j. For each step (a row
+// piece of surviving block l), a 2-stage cp.async ring copies the
+// gathered x slice (TM rows of the piece's contiguous bf16 at column
+// idx[j,l]*bm + rb; rows >= M zero-filled) and the piece of vals[j,l]
+// into shared memory, rows padded by 8 elements; a piece of 8 rows past a
+// multiple of 16 (bm % 16 == 8) is zero-filled to the next 16 in both,
+// so the 16-deep products add nothing for it; step s+1's copies (and its
+// idx) are issued before step s's
 // products. A fragments of x come from ldmatrix, B fragments of the
 // weight from ldmatrix.trans, and mma.sync.m16n8k16 sums in f32 (bf16 x
 // bf16 products are exact in f32: the Pallas kernel's f32 dot of
@@ -90,11 +94,8 @@ constexpr int VARIANT_SIMT = 0;   // the codes of _build.VARIANT_CODES
 constexpr int VARIANT_MMA = 1;
 constexpr int VARIANT_GEMV = 2;
 
-constexpr int BM_MAX = 128;             // the largest blocks taken
-constexpr int BN_MAX = 128;
-constexpr int SUB = 64;                 // simt and mma: the sub-block a
-                                        // step stages (a block side past
-                                        // SUB is a multiple of SUB)
+constexpr int SUB = 64;                 // simt and mma: the piece a
+                                        // step stages at most
 constexpr int THREADS = 256;
 constexpr int LANES = 32;               // columns lane and lane + 32
 constexpr int GROUPS = THREADS / LANES; // 8 row groups
@@ -102,10 +103,9 @@ constexpr int W_LOADS = SUB * SUB / THREADS;   // 16 per thread
 
 using wtypes::to_f32;
 
-// A block side the simt and mma variants take: up to SUB, or a multiple
-// of SUB up to the largest.
-__host__ __device__ constexpr bool side_ok(int b, int most) {
-  return b >= 1 && (b <= SUB || (b % SUB == 0 && b <= most));
+// The pieces of a block side: ceil(side / SUB).
+__host__ __device__ constexpr int pieces(int side) {
+  return (side + SUB - 1) / SUB;
 }
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
@@ -113,20 +113,24 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// A block of the simt and mma variants owns the sbn = min(bn, SUB)
+// A block of the simt and mma variants owns the cols = min(SUB, bn - n0)
 // output columns n0.. of block column j; its steps walk the K surviving
-// blocks and, in each, the bm / sbm sub-blocks of sbm = min(bm, SUB)
-// rows: step s stages rows rb.. of block l.
+// blocks and, in each, the n_m = ceil(bm / SUB) row pieces: step s stages
+// rows rb.. of block l, rows(s) of them. sbm and sbn are a full piece's
+// sides, min(bm, SUB) and min(bn, SUB).
 struct SubBlocks {
-  int sbm, sbn, n_m, j, n0;
-  __device__ SubBlocks(int bm, int bn) {
+  int bm, sbm, sbn, n_m, j, n0, cols;
+  __device__ SubBlocks(int bm_, int bn) : bm(bm_) {
     sbm = min(bm, SUB);
     sbn = min(bn, SUB);
-    n_m = bm / sbm;
-    const int n_n = bn / sbn;
+    n_m = pieces(bm);
+    const int n_n = pieces(bn);
     j = blockIdx.y / n_n;
-    n0 = (blockIdx.y % n_n) * sbn;
+    n0 = (blockIdx.y % n_n) * SUB;
+    cols = min(SUB, bn - n0);
   }
+  __device__ int rb(int step) const { return (step % n_m) * SUB; }
+  __device__ int rows(int step) const { return min(SUB, bm - rb(step)); }
 };
 
 template <typename T, typename WT>
@@ -152,14 +156,15 @@ sparse_matmul_simt(const T* __restrict__ x,
   // unused), the offset in the sub-block of each of its weight loads,
   // and the offset in x (without the step's columns) of each of its x
   // loads (-1: past M).
-  int w_slot[W_LOADS], w_off[W_LOADS];
+  int w_slot[W_LOADS], w_r[W_LOADS], w_c[W_LOADS];
 #pragma unroll
   for (int u = 0; u < W_LOADS; ++u) {
     const int e = tid + u * THREADS;
-    w_slot[u] = e < sbm * sbn ? (e / sbn) * SUB + e % sbn : -1;
-    w_off[u] = (e / sbn) * bn + e % sbn;
+    w_r[u] = e / sbn;
+    w_c[u] = e % sbn;
+    w_slot[u] = e < sbm * sbn ? w_r[u] * SUB + w_c[u] : -1;
   }
-  int x_slot[X_LOADS], x_off[X_LOADS];
+  int x_slot[X_LOADS], x_off[X_LOADS], x_c[X_LOADS];
 #pragma unroll
   for (int u = 0; u < X_LOADS; ++u) {
     const int e = tid + u * THREADS;
@@ -167,20 +172,25 @@ sparse_matmul_simt(const T* __restrict__ x,
     const bool in = e < TM * sbm;
     x_slot[u] = in ? c * XS + mm : -1;
     x_off[u] = (in && m0 + mm < M) ? (m0 + mm) * d_in + c : -1;
+    x_c[u] = c;
   }
 
+  // a ragged piece loads zero past its rows and columns
   float wv[W_LOADS], xv[X_LOADS];
   auto load = [&](int step) {
-    const int l = step / sb.n_m, rb = (step % sb.n_m) * sbm;
+    const int l = step / sb.n_m, rb = sb.rb(step), rows = sb.rows(step);
     const int c0 = idx[j * K + l] * bm + rb;
     const WT* wb = vals + ((size_t)j * K + l) * bm * bn + (size_t)rb * bn +
                    sb.n0;
 #pragma unroll
     for (int u = 0; u < W_LOADS; ++u)
-      wv[u] = w_slot[u] >= 0 ? to_f32(wb[w_off[u]]) : 0.f;
+      wv[u] = w_slot[u] >= 0 && w_r[u] < rows && w_c[u] < sb.cols
+                  ? to_f32(wb[w_r[u] * bn + w_c[u]])
+                  : 0.f;
 #pragma unroll
     for (int u = 0; u < X_LOADS; ++u)
-      xv[u] = x_off[u] >= 0 ? to_f32(x[x_off[u] + c0]) : 0.f;
+      xv[u] = x_off[u] >= 0 && x_c[u] < rows ? to_f32(x[x_off[u] + c0])
+                                             : 0.f;
   };
 
   float acc[RPT][2];
@@ -198,8 +208,9 @@ sparse_matmul_simt(const T* __restrict__ x,
       if (x_slot[u] >= 0) xs[x_slot[u]] = xv[u];
     __syncthreads();
     if (step + 1 < steps) load(step + 1);
+    const int rows = sb.rows(step);
 #pragma unroll 8
-    for (int c = 0; c < sbm; ++c) {
+    for (int c = 0; c < rows; ++c) {
       float xr[RPT];
 #pragma unroll
       for (int r = 0; r < RPT; r += 4) {
@@ -221,8 +232,8 @@ sparse_matmul_simt(const T* __restrict__ x,
     const int m = m0 + grp * RPT + r;
     if (m >= M) continue;
     T* row = out + (size_t)m * ob * bn + (size_t)j * bn + sb.n0;
-    if (lane < sbn) store(&row[lane], acc[r][0]);
-    if (lane + LANES < sbn) store(&row[lane + LANES], acc[r][1]);
+    if (lane < sb.cols) store(&row[lane], acc[r][0]);
+    if (lane + LANES < sb.cols) store(&row[lane + LANES], acc[r][1]);
   }
 }
 
@@ -233,6 +244,11 @@ constexpr int MMA_THREADS = 128;
 constexpr int XLD = SUB + 8;             // row strides (elements) in
 constexpr int WLD = SUB + 8;             // shared memory
 
+// REG: every piece whole, its rows a multiple of 16 (sides of at most 64
+// or multiples of 64, bm % 16 == 0: every LM's blocks), so a step stages
+// its full piece with no row predicate, as before blocks had ragged
+// pieces; else the rows of each step are worked out and masked.
+template <bool REG>
 __global__ void __launch_bounds__(MMA_THREADS)
 sparse_matmul_mma(const __nv_bfloat16* __restrict__ x,
                   const __nv_bfloat16* __restrict__ vals,
@@ -244,28 +260,34 @@ sparse_matmul_mma(const __nv_bfloat16* __restrict__ x,
   __shared__ __align__(128) __nv_bfloat16 xs[2 * XS];
   __shared__ __align__(128) __nv_bfloat16 ws[2 * WS];
   const SubBlocks sb(bm, bn);
-  const int j = sb.j, sbm = sb.sbm;
+  const int j = sb.j;
   const int m0 = blockIdx.x * MMA_TM;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tg = lane % 4;
-  const int x_chunks = sbm / 8, w_chunks = sb.sbn / 8;   // 16 B each, a row
-  const int n_tiles = sb.sbn / 8;
+  const int w_chunks = sb.cols / 8;      // 16 B each, a row
+  const int n_tiles = sb.cols / 8;
 
+  // a step's rows rounded up to 16 are staged, those past its rows (bm %
+  // 16 == 8) zero-filled
   auto load = [&](int step, int st) {
-    const int l = step / sb.n_m, rb = (step % sb.n_m) * sbm;
+    const int l = step / sb.n_m, rb = sb.rb(step);
+    const int rows = REG ? sb.sbm : sb.rows(step);
+    const int x_chunks = REG ? sb.sbm / 8 : (rows + 15) / 16 * 2;
     const int c0 = idx[j * K + l] * bm + rb;
     const __nv_bfloat16* wb = vals + ((size_t)j * K + l) * bm * bn +
                               (size_t)rb * bn + sb.n0;
     for (int e = tid; e < MMA_TM * x_chunks; e += MMA_THREADS) {
       const int r = e / x_chunks, c = (e % x_chunks) * 8;
-      const bool in = m0 + r < M;
+      const bool in = m0 + r < M && (REG || c < rows);
       tc::cp_async16(&xs[st * XS + r * XLD + c],
                      in ? x + (size_t)(m0 + r) * d_in + c0 + c : x, in);
     }
-    for (int e = tid; e < sbm * w_chunks; e += MMA_THREADS) {
+    for (int e = tid; e < x_chunks * 8 * w_chunks; e += MMA_THREADS) {
       const int r = e / w_chunks, c = (e % w_chunks) * 8;
-      tc::cp_async16(&ws[st * WS + r * WLD + c], wb + r * bn + c, true);
+      const bool in = REG || r < rows;
+      tc::cp_async16(&ws[st * WS + r * WLD + c], in ? wb + r * bn + c : wb,
+                     in);
     }
   };
 
@@ -291,9 +313,10 @@ sparse_matmul_mma(const __nv_bfloat16* __restrict__ x,
     __syncthreads();
     const __nv_bfloat16* xt = xs + st * XS;
     const __nv_bfloat16* wt = ws + st * WS;
+    const int rows = REG ? sb.sbm : sb.rows(step);
 #pragma unroll
     for (int kc = 0; kc < SUB / 16; ++kc) {
-      if (kc * 16 >= sbm) break;
+      if (kc * 16 >= rows) break;
       uint32_t a[4];
       tc::ldmatrix_x4(a, &xt[(warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8) *
                                  XLD + kc * 16 + (lane / 16) * 8]);
@@ -467,10 +490,9 @@ template <typename T, typename WT>
 int launch_simt(const void* x, const void* vals, const void* idx, void* out,
                 int M, int d_in, int ob, int K, int bm, int bn,
                 cudaStream_t stream) {
-  if (!side_ok(bm, BM_MAX) || !side_ok(bn, BN_MAX) ||
-      (size_t)ob * (bn / min(bn, SUB)) > 65535)
+  if (bm < 1 || bn < 1 || (size_t)ob * pieces(bn) > 65535)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((M + GROUPS * 8 - 1) / (GROUPS * 8), ob * (bn / min(bn, SUB)));
+  dim3 grid((M + GROUPS * 8 - 1) / (GROUPS * 8), ob * pieces(bn));
   sparse_matmul_simt<T, WT><<<grid, THREADS, 0, stream>>>(
       (const T*)x, (const WT*)vals, (const int32_t*)idx, (T*)out, M, d_in,
       ob, K, bm, bn);
@@ -513,7 +535,8 @@ template <typename T, typename WT>
 int launch_gemv(const void* x, const void* vals, const void* idx, void* out,
                 int M, int d_in, int ob, int K, int bm, int bn,
                 cudaStream_t stream) {
-  if (M < 1 || M > 8 || ob > 65535) return (int)cudaErrorInvalidValue;
+  if (M < 1 || M > 8 || bm < 1 || bn < 1 || ob > 65535)
+    return (int)cudaErrorInvalidValue;
   const int vec = bn % 8 == 0 && reinterpret_cast<uintptr_t>(vals) %
                                          (8 * sizeof(WT)) == 0;
   const int want = vec ? (K * bm + 1) / 2 : K * bm;   // threads wanted
@@ -562,11 +585,14 @@ int launch_by_weight(const void* x, const void* vals, const void* idx,
 int launch_mma(const void* x, const void* vals, const void* idx, void* out,
                int M, int d_in, int ob, int K, int bm, int bn,
                cudaStream_t stream) {
-  if (bm % 16 || bn % 8 || !side_ok(bm, BM_MAX) || !side_ok(bn, BN_MAX) ||
-      (size_t)ob * (bn / min(bn, SUB)) > 65535)
+  if (bm < 1 || bn < 1 || bm % 8 || bn % 8 ||
+      (size_t)ob * pieces(bn) > 65535)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((M + MMA_TM - 1) / MMA_TM, ob * (bn / min(bn, SUB)));
-  sparse_matmul_mma<<<grid, MMA_THREADS, 0, stream>>>(
+  dim3 grid((M + MMA_TM - 1) / MMA_TM, ob * pieces(bn));
+  const bool reg = (bm <= SUB || bm % SUB == 0) && bm % 16 == 0 &&
+                   (bn <= SUB || bn % SUB == 0);
+  auto kern = reg ? sparse_matmul_mma<true> : sparse_matmul_mma<false>;
+  kern<<<grid, MMA_THREADS, 0, stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)vals,
       (const int32_t*)idx, (__nv_bfloat16*)out, M, d_in, ob, K, bm, bn);
   return (int)cudaGetLastError();
@@ -576,15 +602,12 @@ int launch_mma(const void* x, const void* vals, const void* idx, void* out,
 
 extern "C" {
 
-int sparse_matmul_max_bm() { return BM_MAX; }
-int sparse_matmul_max_bn() { return BN_MAX; }
-
 // x (M, d_in) f32 or bf16, M * d_in < 2^31; vals (ob,K,bm,bn) of the
-// stored type wtype (0 bf16, 1 int8 codes, 2 f32), bm, bn <= 128, each
-// at most 64 or a multiple of 64 (any side for gemv); idx
+// stored type wtype (0 bf16, 1 int8 codes, 2 f32), any bm that divides
+// d_in and any bn, ob * ceil(bn / 64) <= 65535; idx
 // (ob,K) int32; out (M, ob*bn) in x's dtype; all contiguous on the
 // device (16-byte aligned for mma). variant: 0 simt, 1 mma (bf16 x and
-// vals only; bm % 16 == 0, bn % 8 == 0), 2 gemv (M <= 8; bf16 or int8
+// vals only; bm % 8 == 0, bn % 8 == 0), 2 gemv (M <= 8; bf16 or int8
 // vals). Returns cudaErrorInvalidValue for a combination the kernels
 // lack, else cudaGetLastError() after the launch.
 int sparse_matmul_f32(const void* x, const void* vals, const void* idx,

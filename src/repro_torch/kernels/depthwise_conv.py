@@ -70,7 +70,8 @@ def depthwise_conv_torch(x, w, *, stride: int = 1) -> torch.Tensor:
     return depthwise_acc(xp, w, stride=stride, ho=ho, wo=wo).to(x.dtype)
 
 
-MAX_K = 7              # the kernel sizes the kernel is built for: 1..MAX_K
+MAX_K = 7              # the templated kernel sizes, 1..MAX_K; past it
+                       # one kernel takes k at run time, one pixel a thread
 MIN_BLOCKS = 132       # one block for each SM of the H100
 
 
@@ -84,7 +85,7 @@ def plan(n: int, ho: int, wo: int, c: int, k: int,
     at every MobileNet shape in a sweep on the H100). A block is the
     largest of 256, 128 and 64 threads that leaves MIN_BLOCKS blocks,
     else 32: the small 7x7 and 14x14 layers still fill the card."""
-    r = 2 if stride == 1 and c % 8 == 0 else 1
+    r = 2 if stride == 1 and c % 8 == 0 and k <= MAX_K else 1
     items = n * ho * -(-wo // r) * -(-c // 8)
     threads = next((t for t in (256, 128, 64)
                     if -(-items // t) >= MIN_BLOCKS), 32)
@@ -97,23 +98,25 @@ RS = (1, 2, 4)                 # pixels a thread: the kernel's instances
 THREADS = (32, 64, 128, 256)   # threads a block the autotuner tries
 
 
-def plan_candidates(c: int, stride: int) -> list[tuple[int, int]]:
+def plan_candidates(c: int, stride: int,
+                    k: int = 3) -> list[tuple[int, int]]:
     """Every (r, threads) the kernel can run: r of RS (r > 1 only at
-    stride 1 where C is a multiple of 8) x threads of THREADS. The
-    autotuner's search space (``core/tuning.autotune_depthwise_plan``)."""
-    rs = RS if stride == 1 and c % 8 == 0 else (1,)
+    stride 1 where C is a multiple of 8 and k <= MAX_K) x threads of
+    THREADS. The autotuner's search space
+    (``core/tuning.autotune_depthwise_plan``)."""
+    rs = RS if stride == 1 and c % 8 == 0 and k <= MAX_K else (1,)
     return [(r, t) for r in rs for t in THREADS]
 
 
-def check_plan(plan, c: int, stride: int) -> tuple[int, int]:
+def check_plan(plan, c: int, stride: int, k: int = 3) -> tuple[int, int]:
     """``plan`` as an int pair (r, threads) if the kernel can run it, else
     ValueError (the candidates of :func:`plan_candidates`)."""
     r, threads = (int(v) for v in plan)
-    if (r, threads) not in plan_candidates(c, stride):
+    if (r, threads) not in plan_candidates(c, stride, k):
         raise ValueError(f"depthwise_conv: plan (r {r}, threads {threads}) "
                          f"needs r in {RS} (r > 1 at stride 1 with C % 8 "
-                         f"== 0; here stride {stride}, C {c}) and threads "
-                         f"in {THREADS}")
+                         f"== 0 and k <= {MAX_K}; here stride {stride}, C "
+                         f"{c}, k {k}) and threads in {THREADS}")
     return r, threads
 
 
@@ -129,21 +132,43 @@ def _kernel():
     return lib, fn
 
 
+def check_shapes(x_shape, w_shape, *,
+                 stride: int = 1) -> tuple[int, int, int, int]:
+    """The wrapper's shape check, without a card: ``(ho, wo, pad_h,
+    pad_w)`` of the SAME output if the kernel takes these shapes, else
+    ValueError. It takes every k >= 1, stride >= 1 and C (the Pallas
+    kernel asserts only that its channel tile divides C, and picks one
+    that does), and refuses only shapes that do not fit together and
+    tensors of 2^31 elements or more (32-bit offsets)."""
+    if len(x_shape) != 4 or len(w_shape) != 3 or w_shape[0] < 1 or \
+            tuple(w_shape) != (w_shape[0], w_shape[0], x_shape[-1]):
+        raise ValueError(f"depthwise_conv: needs x (N, H, W, C) and w (k, "
+                         f"k, C), k >= 1; got {tuple(x_shape)} and "
+                         f"{tuple(w_shape)}")
+    if stride < 1:
+        raise ValueError(f"depthwise_conv: stride {stride} < 1")
+    n, h, wd, c = x_shape
+    k = w_shape[0]
+    ho, ph, _ = same_pads(h, k, stride)
+    wo, pw, _ = same_pads(wd, k, stride)
+    if n * h * wd * c >= 2 ** 31 or n * ho * wo * c >= 2 ** 31:
+        raise ValueError("depthwise_conv: x and the output need < 2^31 "
+                         "elements")
+    return ho, wo, ph, pw
+
+
 def depthwise_conv(x, w, *, stride: int = 1, plan=None) -> torch.Tensor:
     """The CUDA kernel: same function and arguments as
     :func:`depthwise_conv_torch`, on contiguous bf16 CUDA tensors with a
-    k x k kernel, 1 <= k <= MAX_K, and any C (C not a multiple of 8 takes
-    masked scalar loads). Raises on anything the kernel does not take; it
-    never falls back to the plain version. The output is allocated here
-    and the kernel runs on the current stream without synchronising.
+    k x k kernel, any k >= 1, and any C (C not a multiple of 8 takes
+    masked scalar loads). Raises on anything the kernel does not take
+    (:func:`check_shapes`); it never falls back to the plain version.
+    The output is allocated here and the kernel runs on the current
+    stream without synchronising.
 
     ``plan``: (r, threads) in place of :func:`plan`'s (a tuned plan,
     ``kernels/ops.py``); one it cannot run raises (:func:`check_plan`).
     The kernel never substitutes its own."""
-    k = w.shape[0]
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"depthwise_conv: a {k}x{k} kernel; the kernel is "
-                         f"built for k from 1 to {MAX_K}")
     for name, t in (("x", x), ("w", w)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"depthwise_conv: {name} must be on {x.device} "
@@ -153,22 +178,13 @@ def depthwise_conv(x, w, *, stride: int = 1, plan=None) -> torch.Tensor:
         if t.dtype != torch.bfloat16:
             raise ValueError(f"depthwise_conv: {name} must be bfloat16, "
                              f"got {t.dtype}")
-    if x.dim() != 4 or w.dim() != 3 or tuple(w.shape) != (
-            w.shape[0], w.shape[0], x.shape[-1]):
-        raise ValueError(f"depthwise_conv: needs x (N, H, W, C) and w (k, "
-                         f"k, C); got {tuple(x.shape)} and {tuple(w.shape)}")
-    if stride < 1:
-        raise ValueError(f"depthwise_conv: stride {stride} < 1")
+    ho, wo, ph, pw = check_shapes(x.shape, w.shape, stride=stride)
     n, h, wd, c = x.shape
-    ho, ph, _ = same_pads(h, k, stride)
-    wo, pw, _ = same_pads(wd, k, stride)
+    k = w.shape[0]
     out = torch.empty((n, ho, wo, c), dtype=torch.bfloat16, device=x.device)
-    if x.numel() >= 2 ** 31 or out.numel() >= 2 ** 31:
-        raise ValueError("depthwise_conv: x and the output need < 2^31 "
-                         "elements")
     if c % 8 == 0:                    # 16-byte vectors of 8 channels
         x, w = _build.aligned16(x), _build.aligned16(w)
-    r, threads = check_plan(plan, c, stride) if plan is not None else \
+    r, threads = check_plan(plan, c, stride, k) if plan is not None else \
         _default_plan(n, ho, wo, c, k, stride)
     lib, fn = _kernel()
     stream = torch.cuda.current_stream(x.device).cuda_stream

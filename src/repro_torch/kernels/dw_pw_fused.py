@@ -22,8 +22,10 @@ Stored weights: all bf16 (native); int8 pointwise codes with a (Cout,)
 f32 ``pw_scale`` that multiplies the f32 code product before ``pw_b``
 (the reference's flush, ``dw_pw_fused.py:83-86``), the depthwise weight
 and the biases bf16; or all weights and biases f32 (the "f32" store).
-The kernel is built for the int8 and f32 stores at k = 3 only
-(``QUANT_KS``), the MobileNets' depthwise.
+Every store takes any k, as the Pallas kernel does: bf16 at k 1..MAX_K
+and int8 and f32 at k = QUANT_K (the MobileNets' depthwise) through
+templated instances, every other k through the simt variant with k
+given at run time.
 """
 from __future__ import annotations
 
@@ -87,7 +89,8 @@ def dw_pw_torch(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
     return out
 
 
-MAX_K = 7              # the kernel sizes the kernel is built for: 1..MAX_K
+MAX_K = 7              # the templated bf16 kernel sizes, 1..MAX_K (the mma
+                       # variant's); past it the simt variant, k at run time
 TILES = (64, 32, 16)   # output pixels a block (the mma instances)
 MAX_SPLIT = 8          # the portable thread-block cluster size
 STEPS_PER_SLICE = 3    # channel chunks a block walks at most, where S allows
@@ -95,20 +98,21 @@ STAGES = 3             # the cp.async ring
 MIN_BLOCKS = 128       # a grid this large fills the card (a sweep)
 SMEM_MAX = 232448      # the shared memory one block may hold on sm_90
 MAX_MMA_STRIDE = 4     # beyond it the halo of a 16-pixel tile may not fit
-QUANT_KS = (3,)        # the k the int8 and f32 instances are built for
+QUANT_K = 3            # the k with templated int8 and f32 instances
 
 
 def variant(c: int, cout: int, k: int, stride: int = 1,
             w_dtype=torch.bfloat16) -> str:
     """The kernel variant for C input and Cout output channels, a k x k
     depthwise, ``stride`` and a pointwise weight stored as ``w_dtype``:
-    "mma" for bf16 or int8 weights (the codes are exact in bf16) when C
-    and Cout are multiples of 8 (16-byte copies of 8 channels; every
-    MobileNet block) and the stride is at most MAX_MMA_STRIDE, else
-    "simt" (f32 weights always)."""
+    "mma" for bf16 weights at k up to MAX_K and int8 weights (the codes
+    are exact in bf16) at k = QUANT_K, when C and Cout are multiples of 8
+    (16-byte copies of 8 channels; every MobileNet block) and the stride
+    is at most MAX_MMA_STRIDE, else "simt" (f32 weights always; any
+    k)."""
+    mma_k = 1 <= k <= MAX_K if w_dtype == torch.bfloat16 else k == QUANT_K
     if w_dtype in (torch.bfloat16, torch.int8) and c % 8 == 0 and \
-            cout % 8 == 0 and 1 <= k <= MAX_K and \
-            1 <= stride <= MAX_MMA_STRIDE:
+            cout % 8 == 0 and mma_k and 1 <= stride <= MAX_MMA_STRIDE:
         return "mma"
     return "simt"
 
@@ -291,16 +295,52 @@ def _kernel():
     return lib, fn
 
 
+def check_shapes(x_shape, dw_w_shape, dw_b_shape, pw_w_shape, pw_b_shape,
+                 residual_shape=None, pw_scale_shape=None, *,
+                 stride: int = 1) -> tuple[int, int, int, int]:
+    """The wrapper's shape check, without a card: ``(ho, wo, pad_h,
+    pad_w)`` of the SAME output if the kernel takes these shapes, else
+    ValueError. It takes every k >= 1, stride >= 1, C and Cout, as the
+    Pallas kernel (which asserts nothing of them) does, and refuses only
+    shapes that do not fit together and tensors of 2^31 elements or
+    more (32-bit offsets)."""
+    if len(x_shape) != 4 or len(dw_w_shape) != 3 or len(pw_w_shape) != 2:
+        raise ValueError(f"dw_pw: needs x (N, H, W, C), dw_w (k, k, C) and "
+                         f"pw_w (C, Cout); got {tuple(x_shape)}, "
+                         f"{tuple(dw_w_shape)}, {tuple(pw_w_shape)}")
+    n, h, w, c = x_shape
+    k = dw_w_shape[0]
+    co = pw_w_shape[1]
+    if (k < 1 or tuple(dw_w_shape) != (k, k, c) or tuple(dw_b_shape) != (c,)
+            or pw_w_shape[0] != c or tuple(pw_b_shape) != (co,)
+            or (pw_scale_shape is not None
+                and tuple(pw_scale_shape) != (co,))):
+        raise ValueError(f"dw_pw: dw_w {tuple(dw_w_shape)}, dw_b "
+                         f"{tuple(dw_b_shape)}, pw_w {tuple(pw_w_shape)}, "
+                         f"pw_b {tuple(pw_b_shape)} do not fit C={c}")
+    if stride < 1:
+        raise ValueError(f"dw_pw: stride {stride} < 1")
+    ho, ph, _ = same_pads(h, k, stride)
+    wo, pw, _ = same_pads(w, k, stride)
+    if residual_shape is not None and \
+            tuple(residual_shape) != (n, ho, wo, co):
+        raise ValueError(f"dw_pw: residual {tuple(residual_shape)} != "
+                         f"output {(n, ho, wo, co)}")
+    if n * h * w * c >= 2 ** 31 or n * ho * wo * co >= 2 ** 31:
+        raise ValueError("dw_pw: x and the output need < 2^31 elements")
+    return ho, wo, ph, pw
+
+
 def dw_pw(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
           stride: int = 1, dw_relu: bool = True, relu: bool = True,
           plan=None) -> torch.Tensor:
     """The CUDA kernel: same function and arguments as
     :func:`dw_pw_torch`, on contiguous CUDA tensors with a k x k
-    depthwise, 1 <= k <= MAX_K, in the variant :func:`variant` names.
+    depthwise, any k >= 1, in the variant :func:`variant` names.
     x and residual are bf16; the weights and biases bf16 (native), or
     pw_w int8 codes with an f32 ``pw_scale`` and the rest bf16, or all
-    f32; int8 and f32 at k in QUANT_KS only. Raises on anything the
-    kernel does not take, and if the launch fails (a cluster launch
+    f32. Raises on anything the kernel does not take
+    (:func:`check_shapes`), and if the launch fails (a cluster launch
     included); it never falls back to the plain version or to the other
     variant. The output is allocated here and the kernel runs on the
     current stream without synchronising.
@@ -309,18 +349,10 @@ def dw_pw(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
     (a tuned plan, ``kernels/ops.py``); one it cannot run raises
     (:func:`check_plan`), and so does a plan for the simt variant, which
     has no knobs. The kernel never substitutes its own."""
-    k = dw_w.shape[0]
     w_dtype = pw_w.dtype
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"dw_pw: a {k}x{k} depthwise; the kernel is built "
-                         f"for k from 1 to {MAX_K}")
     if w_dtype not in (torch.bfloat16, torch.int8, torch.float32):
         raise ValueError(f"dw_pw: pw_w must be bf16, int8 or f32, got "
                          f"{w_dtype}")
-    if w_dtype != torch.bfloat16 and k not in QUANT_KS:
-        raise ValueError(f"dw_pw: {w_dtype} weights with a {k}x{k} "
-                         f"depthwise; the kernel's int8 and f32 instances "
-                         f"are built for k in {QUANT_KS}")
     if (pw_scale is not None) != (w_dtype == torch.int8):
         raise ValueError("dw_pw: a pw_scale comes with int8 pw_w, and only "
                          "with it")
@@ -343,28 +375,13 @@ def dw_pw(x, dw_w, dw_b, pw_w, pw_b, residual=None, pw_scale=None, *,
         if t.dtype != want[name]:
             raise ValueError(f"dw_pw: {name} must be {want[name]}, "
                              f"got {t.dtype}")
-    if x.dim() != 4 or dw_w.dim() != 3 or pw_w.dim() != 2:
-        raise ValueError(f"dw_pw: needs x (N, H, W, C), dw_w (k, k, C) and "
-                         f"pw_w (C, Cout); got {tuple(x.shape)}, "
-                         f"{tuple(dw_w.shape)}, {tuple(pw_w.shape)}")
+    ho, wo, ph, pw = check_shapes(
+        x.shape, dw_w.shape, dw_b.shape, pw_w.shape, pw_b.shape,
+        None if residual is None else residual.shape,
+        None if pw_scale is None else pw_scale.shape, stride=stride)
     n, h, w, c = x.shape
-    co = pw_w.shape[1]
-    if (tuple(dw_w.shape) != (k, k, c) or tuple(dw_b.shape) != (c,)
-            or pw_w.shape[0] != c or tuple(pw_b.shape) != (co,)
-            or (pw_scale is not None and tuple(pw_scale.shape) != (co,))):
-        raise ValueError(f"dw_pw: dw_w {tuple(dw_w.shape)}, dw_b "
-                         f"{tuple(dw_b.shape)}, pw_w {tuple(pw_w.shape)}, "
-                         f"pw_b {tuple(pw_b.shape)} do not fit C={c}")
-    if stride < 1:
-        raise ValueError(f"dw_pw: stride {stride} < 1")
-    ho, ph, _ = same_pads(h, k, stride)
-    wo, pw, _ = same_pads(w, k, stride)
+    k, co = dw_w.shape[0], pw_w.shape[1]
     out = torch.empty((n, ho, wo, co), dtype=torch.bfloat16, device=x.device)
-    if residual is not None and residual.shape != out.shape:
-        raise ValueError(f"dw_pw: residual {tuple(residual.shape)} != "
-                         f"output {tuple(out.shape)}")
-    if x.numel() >= 2 ** 31 or out.numel() >= 2 ** 31:
-        raise ValueError("dw_pw: x and the output need < 2^31 elements")
     v = variant(c, co, k, stride, w_dtype)
     if plan is not None and v != "mma":
         raise ValueError(f"dw_pw: a plan for the {v} variant, which takes "

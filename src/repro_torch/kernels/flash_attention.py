@@ -37,17 +37,40 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 BLOCK_Q = 64        # the CUDA kernel's query tile
 BLOCK_K = 64        # and key tile
-#: SmolLM-360M's and whisper-large-v3's 64; the reference kernel tests'
-#: 32; zamba2-7b's 112; Mistral-Nemo-12B, Qwen3-32B and Granite-20B's 128.
-#: The Pallas kernel's blocks span the whole head, so it takes any D; the
-#: wrapper pads none (a copy the plain version does not make)
-HEAD_DIMS = (32, 64, 112, 128)
+#: the largest head the mma variant takes (the kernel pads D to a
+#: multiple of 16 inside shared memory; the wrapper pads none, a copy the
+#: plain version does not make); the Pallas kernel's blocks span the whole
+#: head, so it, and the simt variant, take any D
+MMA_MAX_D = 256
 
 
 def variant(dtype: torch.dtype, d: int) -> str:
     """The kernel variant for q, k, v of ``dtype`` and head size ``d``:
-    "mma" (tensor cores) for bf16 with d in HEAD_DIMS, else "simt"."""
-    return "mma" if dtype == torch.bfloat16 and d in HEAD_DIMS else "simt"
+    "mma" (tensor cores) for bf16 with d <= MMA_MAX_D, else "simt" (f32
+    at any d; bf16 past MMA_MAX_D)."""
+    return "mma" if dtype == torch.bfloat16 and d <= MMA_MAX_D else "simt"
+
+
+def check_shapes(q_shape, k_shape, v_shape, *, window: int = 0,
+                 q_offset: int = 0) -> None:
+    """The wrapper's shape check, without a card: returns if the kernel
+    takes these shapes, else ValueError. It takes any head size D >= 1
+    and any lengths (the Pallas kernel takes any D, and lengths its
+    blocks divide); it refuses shapes that do not fit together, empty
+    ones, a negative window or offset, and more than 65535 query tiles."""
+    if len(q_shape) != 4:
+        raise ValueError(f"flash_attention: q {tuple(q_shape)} is not "
+                         f"(B, T, H, D)")
+    b, tq, h, d = q_shape
+    tk = k_shape[1] if len(k_shape) == 4 else 0
+    if tuple(k_shape) != (b, tk, h, d) or tuple(v_shape) != tuple(k_shape) \
+            or min(b, h, d, tq, tk) < 1 or -(-tq // BLOCK_Q) > 65535:
+        raise ValueError(f"flash_attention: q {tuple(q_shape)}, k "
+                         f"{tuple(k_shape)}, v {tuple(v_shape)}: needs "
+                         f"(B, T, H, D) with D >= 1, T >= 1")
+    if window < 0 or q_offset < 0:
+        raise ValueError(f"flash_attention: window={window}, q_offset="
+                         f"{q_offset} must be >= 0")
 
 
 def kv_tile_range(q_first: int, q_last: int, tk: int, *, causal: bool,
@@ -202,8 +225,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
     """The CUDA kernel: same function and arguments as
     :func:`flash_attention_torch`, with q, k, v of one dtype (f32 or
-    bf16), contiguous on one CUDA device, D in ``HEAD_DIMS``, in the
-    variant :func:`variant` names. Raises on anything the kernel does
+    bf16), contiguous on one CUDA device, any D, in the variant
+    :func:`variant` names. Raises on anything the kernel does
     not take, and if the launch fails; it never falls back to the plain
     version or to the other variant."""
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -217,16 +240,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             raise ValueError(f"flash_attention: q, k, v must all be f32 or "
                              f"all bf16; got {q.dtype}, {k.dtype}, "
                              f"{v.dtype}")
+    check_shapes(q.shape, k.shape, v.shape, window=window,
+                 q_offset=q_offset)
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    if k.shape != (b, tk, h, d) or v.shape != k.shape or d not in HEAD_DIMS \
-            or tq < 1 or tk < 1 or -(-tq // BLOCK_Q) > 65535:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}: needs "
-                         f"(B, T, H, D) with D in {HEAD_DIMS}, T >= 1")
-    if window < 0 or q_offset < 0:
-        raise ValueError(f"flash_attention: window={window}, q_offset="
-                         f"{q_offset} must be >= 0")
     lib, fns = _kernel()
     var = variant(q.dtype, d)
     if var == "mma":

@@ -91,14 +91,26 @@ def sparse_conv_torch(x, vals, idx, bias, residual=None, scale=None, *,
     return y.to(x.dtype)
 
 
+PIECE = 32   # both variants walk a stored block as PIECE x PIECE pieces
+
+
+def k_steps(n_k: int, bm: int) -> int:
+    """The K loop's steps for n_k surviving blocks of bm rows a column:
+    each block is ceil(bm / PIECE) row pieces (a 128-row block at tap
+    (ky, kx) is four consecutive 32-channel gathers). :func:`plan` and
+    the cluster split-K run over these."""
+    return n_k * -(-bm // PIECE)
+
+
 def variant(bm: int, bn: int, w_dtype=torch.bfloat16) -> str:
     """The kernel variant for (bm, bn) weight blocks stored as
     ``w_dtype``: "mma" for bf16 or int8 blocks (the codes are exact in
-    bf16) when bm is a multiple of 16 and bn of 8, both <= 32 (the
-    mma.m16n8k16 tiles; every ResNet-50 layer, 32 x 32), else "simt"
-    (f32 weights always)."""
-    if w_dtype in (torch.bfloat16, torch.int8) and bm % 16 == 0 and \
-            bn % 8 == 0 and 0 < bm <= 32 and 0 < bn <= 32:
+    bf16) when bm is a multiple of 16 and bn of 8 (the mma.m16n8k16
+    tiles; every ResNet-50 layer at 32 x 32, and at SparsityConfig's
+    default 128 x 128 / 64 x 64), else "simt" (any bm that divides C,
+    any bn; f32 weights always)."""
+    if w_dtype in (torch.bfloat16, torch.int8) and bm > 0 and bn > 0 and \
+            bm % 16 == 0 and bn % 8 == 0:
         return "mma"
     return "simt"
 
@@ -110,7 +122,8 @@ STEPS_PER_SLICE = 3    # K steps a block walks at most, where S allows
 
 def plan(m: int, ob: int, k_steps: int) -> tuple[int, int]:
     """(tm, split) of the mma variant for m output pixels, ob output
-    block columns and k_steps surviving blocks a column.
+    block columns and k_steps steps a column (:func:`k_steps`: the
+    surviving blocks at 32-row blocks and below).
 
     The grid is (ceil(m / tm), ob, split), split along a cluster. At
     batch 1 the time is latency: a chain of gathers and products per
@@ -130,7 +143,7 @@ SPLITS = (1, 2, 4, 8)  # the splits the autotuner tries (<= MAX_SPLIT)
 
 def plan_candidates(k_steps: int) -> list[tuple[int, int]]:
     """Every (tm, split) the mma variant can run for a column of k_steps
-    surviving blocks: each tile of TILES x each split of SPLITS up to
+    steps (:func:`k_steps`): each tile of TILES x each split of SPLITS up to
     k_steps (every rank walks at least one step). The autotuner's
     search space (``core/tuning.autotune_sparse_conv_plan``)."""
     return [(tm, split) for tm in TILES for split in SPLITS
@@ -165,7 +178,45 @@ def _kernel():
     fn = lib.sparse_conv_launch
     fn.argtypes = [_P] * 7 + [_I] * 19 + [_P]
     fn.restype = _I
-    return lib, fn, lib.sparse_conv_max_bm(), lib.sparse_conv_max_bn()
+    return lib, fn
+
+
+def check_shapes(x_shape, vals_shape, idx_shape, bias_shape,
+                 residual_shape=None, scale_shape=None, *, k: int,
+                 stride: int = 1) -> tuple[int, int, int, int]:
+    """The wrapper's shape check, without a card: ``(ho, wo, pad_h,
+    pad_w)`` of the SAME output if the kernel takes these shapes, else
+    ValueError. It takes every block shape the Pallas kernel takes (its
+    one assert: bm divides C; any bn), and refuses only shapes that do
+    not fit together, a kernel size or stride below 1, and tensors of
+    2^31 elements or more (32-bit offsets)."""
+    if len(x_shape) != 4 or len(vals_shape) != 4:
+        raise ValueError(f"sparse_conv: needs x (N, H, W, C) and vals (ob, "
+                         f"K, bm, bn); got {tuple(x_shape)}, "
+                         f"{tuple(vals_shape)}")
+    n, h, w, c = x_shape
+    ob, n_k, bm, bn = vals_shape
+    if bm < 1 or bn < 1 or c % bm:
+        raise ValueError(f"sparse_conv: blocks ({bm}, {bn}) need bm | C={c}")
+    if k < 1 or stride < 1:
+        raise ValueError(f"sparse_conv: k={k}, stride={stride} must be >= 1")
+    if tuple(idx_shape) != (ob, n_k) or tuple(bias_shape) != (ob * bn,) \
+            or (scale_shape is not None and tuple(scale_shape) != (ob, bn)):
+        raise ValueError(f"sparse_conv: idx {tuple(idx_shape)} / bias "
+                         f"{tuple(bias_shape)} / scale "
+                         f"{None if scale_shape is None else tuple(scale_shape)}"
+                         f" do not match vals {tuple(vals_shape)}")
+    ho, ph, _ = same_pads(h, k, stride)
+    wo, pw, _ = same_pads(w, k, stride)
+    if residual_shape is not None and \
+            tuple(residual_shape) != (n, ho, wo, ob * bn):
+        raise ValueError(f"sparse_conv: residual {tuple(residual_shape)} != "
+                         f"output {(n, ho, wo, ob * bn)}")
+    if n * h * w * c >= 2 ** 31 or n * ho * wo * ob * bn >= 2 ** 31 or \
+            ob * -(-bn // PIECE) > 65535:
+        raise ValueError("sparse_conv: x and the output need < 2^31 "
+                         "elements, and ob * ceil(bn / 32) <= 65535")
+    return ho, wo, ph, pw
 
 
 def sparse_conv(x, vals, idx, bias, residual=None, scale=None, *, k: int,
@@ -212,32 +263,20 @@ def sparse_conv(x, vals, idx, bias, residual=None, scale=None, *, k: int,
                              f"got {t.dtype}")
     n, h, w, c = x.shape
     ob, n_k, bm, bn = vals.shape
-    lib, fn, max_bm, max_bn = _kernel()
-    if c % bm or bm > max_bm or bn > max_bn:
-        raise ValueError(f"sparse_conv: blocks ({bm}, {bn}) need bm | C={c}"
-                         f", bm <= {max_bm} and bn <= {max_bn}")
-    if tuple(idx.shape) != (ob, n_k) or tuple(bias.shape) != (ob * bn,) \
-            or (scale is not None and tuple(scale.shape) != (ob, bn)):
-        raise ValueError(f"sparse_conv: idx {tuple(idx.shape)} / bias "
-                         f"{tuple(bias.shape)} / scale "
-                         f"{None if scale is None else tuple(scale.shape)} "
-                         f"do not match vals {tuple(vals.shape)}")
-    ho, ph, _ = same_pads(h, k, stride)
-    wo, pw, _ = same_pads(w, k, stride)
+    ho, wo, ph, pw = check_shapes(
+        x.shape, vals.shape, idx.shape, bias.shape,
+        None if residual is None else residual.shape,
+        None if scale is None else scale.shape, k=k, stride=stride)
     out = torch.empty((n, ho, wo, ob * bn), dtype=torch.bfloat16,
                       device=x.device)
-    if residual is not None and residual.shape != out.shape:
-        raise ValueError(f"sparse_conv: residual {tuple(residual.shape)} != "
-                         f"output {tuple(out.shape)}")
-    if x.numel() >= 2 ** 31 or out.numel() >= 2 ** 31:
-        raise ValueError("sparse_conv: x and the output need < 2^31 elements")
     v = variant(bm, bn, w_dtype)
     if plan is not None and v != "mma":
         raise ValueError(f"sparse_conv: a plan for the {v} variant, which "
                          f"takes none")
     if v == "mma":
-        tm, split = check_plan(plan, n_k) if plan is not None else \
-            _default_plan(n * ho * wo, ob, n_k)
+        steps = k_steps(n_k, bm)
+        tm, split = check_plan(plan, steps) if plan is not None else \
+            _default_plan(n * ho * wo, ob, steps)
     else:
         tm, split = 64, 1
     if v == "mma":
@@ -246,6 +285,7 @@ def sparse_conv(x, vals, idx, bias, residual=None, scale=None, *, k: int,
             residual = _build.aligned16(residual)
         if scale is not None:
             scale = _build.aligned16(scale)
+    lib, fn = _kernel()
     err = fn(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), bias.data_ptr(),
              None if residual is None else residual.data_ptr(),
              None if scale is None else scale.data_ptr(),

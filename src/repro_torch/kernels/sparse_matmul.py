@@ -7,8 +7,9 @@ which replaces the reference's ``kernels/sparse_matmul.py::
 sparse_matmul_pallas``, in the variant that :func:`variant` names:
 "gemv" for at most ``SIMT_MAX_M`` rows (the f32 classifier, the LM
 decode; one block per 8 output columns), "mma" (tensor
-cores) for more bf16 rows with blocks the tensor-core tiles divide (the
-LM prefill), "simt" (CUDA cores) otherwise. ``sparse_matmul_torch`` is
+cores) for more bf16 rows with block sides that are multiples of 8 (the
+LM prefill), "simt" (CUDA cores) otherwise. Every variant takes blocks
+of any size, as the Pallas kernel does. ``sparse_matmul_torch`` is
 the plain PyTorch version of the same function: the CPU path and the
 check every variant is held to on the card.
 
@@ -137,31 +138,24 @@ class SparseMatmulFn(torch.autograd.Function):
 
 
 SIMT_MAX_M = 8     # rows up to which the gemv variant runs (decode)
-BLOCK_MAX = 128    # the largest block side the kernel takes (csrc)
-SUB_BLOCK = 64     # simt and mma walk a larger block as 64 x 64 pieces
-
-
-def side_ok(b: int) -> bool:
-    """A block side the simt and mma variants take: at most SUB_BLOCK,
-    or a multiple of it up to BLOCK_MAX (gemv takes any side up to
-    BLOCK_MAX)."""
-    return 0 < b <= BLOCK_MAX and (b <= SUB_BLOCK or b % SUB_BLOCK == 0)
+SUB_BLOCK = 64     # simt and mma walk a block as 64 x 64 pieces (csrc)
 
 
 def variant(dtype: torch.dtype, m: int, bm: int, bn: int,
             w_dtype=torch.bfloat16) -> str:
     """The kernel variant for x of ``dtype`` with ``m`` rows and (bm, bn)
     weight blocks stored as ``w_dtype``: "gemv" for m <= SIMT_MAX_M
-    (f32 or bf16 x, bf16 or int8 blocks up to 128 x 128); "mma" for bf16
-    x and bf16 blocks, bm a multiple of 16 and bn of 8, each side
-    :func:`side_ok` (the mma.m16n8k16 tiles); else "simt" (f32 weights
+    (f32 or bf16 x, bf16 or int8 blocks of any size); "mma" for bf16 x
+    and bf16 blocks whose sides are multiples of 8 (the mma.m16n8k16
+    tiles, a ragged 8 rows zero-filled to 16); else "simt" (any side,
+    e.g. the classifier's 125 at SparsityConfig's default; f32 weights
     always)."""
     if w_dtype == torch.float32:
         return "simt"
     if m <= SIMT_MAX_M:
         return "gemv"
     if dtype == torch.bfloat16 and w_dtype == torch.bfloat16 and \
-            bm % 16 == 0 and bn % 8 == 0 and side_ok(bm) and side_ok(bn):
+            bm % 8 == 0 and bn % 8 == 0:
         return "mma"
     return "simt"
 
@@ -196,7 +190,27 @@ def _kernel():
         fn.argtypes = [_P] * 4 + [_I] * 8 + [_P]
         fn.restype = _I
         fns[dtype] = fn
-    return lib, fns, lib.sparse_matmul_max_bm(), lib.sparse_matmul_max_bn()
+    return lib, fns
+
+
+def check_shapes(x_shape, vals_shape, idx_shape) -> None:
+    """The wrapper's shape check, without a card: returns if the kernel
+    takes these shapes, else ValueError. It takes every block shape the
+    Pallas kernel takes (its assert: bm divides d_in; any bn, any M),
+    and refuses only shapes that do not fit together and sizes past the
+    32-bit offsets and the grid (M * d_in < 2^31, ob * ceil(bn / 64) <=
+    65535)."""
+    if len(x_shape) != 2 or len(vals_shape) != 4:
+        raise ValueError(f"sparse_matmul: needs x (M, d_in) and vals (ob, "
+                         f"K, bm, bn); got {tuple(x_shape)}, "
+                         f"{tuple(vals_shape)}")
+    m, d_in = x_shape
+    ob, n_k, bm, bn = vals_shape
+    if bm < 1 or bn < 1 or d_in % bm or tuple(idx_shape) != (ob, n_k) \
+            or m * d_in >= 2 ** 31 or ob * -(-bn // SUB_BLOCK) > 65535:
+        raise ValueError(f"sparse_matmul: vals {tuple(vals_shape)} / idx "
+                         f"{tuple(idx_shape)} do not fit x {tuple(x_shape)} "
+                         f"(bm must divide d_in)")
 
 
 def sparse_matmul(x, vals, idx) -> torch.Tensor:
@@ -218,18 +232,11 @@ def sparse_matmul(x, vals, idx) -> torch.Tensor:
         raise ValueError(f"sparse_matmul: needs x f32/bf16, vals bf16/int8/"
                          f"f32, idx int32; got {x.dtype}, {vals.dtype}, "
                          f"{idx.dtype}")
+    check_shapes(x.shape, vals.shape, idx.shape)
     m, d_in = x.shape
     ob, n_k, bm, bn = vals.shape
-    lib, fns, max_bm, max_bn = _kernel()
+    lib, fns = _kernel()
     v = variant(x.dtype, m, bm, bn, vals.dtype)
-    if d_in % bm or bm > max_bm or bn > max_bn \
-            or (v != "gemv" and not (side_ok(bm) and side_ok(bn))) \
-            or tuple(idx.shape) != (ob, n_k) or m * d_in >= 2 ** 31:
-        raise ValueError(f"sparse_matmul: vals {tuple(vals.shape)} / idx "
-                         f"{tuple(idx.shape)} do not fit x {tuple(x.shape)} "
-                         f"(bm, bn <= {max_bm}, {max_bn}; past "
-                         f"{SUB_BLOCK} a multiple of {SUB_BLOCK} in the "
-                         f"{v} variant)")
     if v == "mma":
         x, vals = _build.aligned16(x), _build.aligned16(vals)
     elif v == "gemv":               # 16-byte weight loads where bn % 8 == 0

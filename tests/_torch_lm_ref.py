@@ -388,16 +388,8 @@ def bf16_ulp(w):
                                    - 7), 2.0 ** -133)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op torch thread while a module's tests run (a module
-    that imports this fixture): the suite runs files side by side in
-    worker processes, and a full torch thread pool in each oversubscribes
-    the cores many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# the modules that import the LM helpers take the one-thread pin from here
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 # --- the loss and its gradients against the reference ----------------------

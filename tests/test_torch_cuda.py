@@ -374,8 +374,8 @@ def test_flash_attention_kernel_matches_plain(dev, case, dtype):
 
 
 def test_flash_attention_refuses_what_it_does_not_take(dev):
-    q = torch.zeros((1, 8, 2, 48), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="D in"):
+    q = torch.zeros((1, 8, 2, 0), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D >= 1"):
         fa.flash_attention(q, q, q)
     q = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="all bf16"):
@@ -658,15 +658,20 @@ def test_dw_pw_stored_weights_match_plain(dev, shape, store):
 
 
 def test_stored_weights_refused_where_not_built(dev):
-    """int8 and f32 dw_pw are built for the 3x3 depthwise only; a scale
-    without int8 codes is refused; nothing falls back."""
+    """int8 dw_pw takes every k (k 5 here, through the simt variant with
+    k at run time); a scale without int8 codes is refused; nothing falls
+    back."""
     gen = torch.Generator().manual_seed(0)
     x, dw_w, dw_b, pw_w, pw_b, _ = _dw_pw_inputs(gen, 1, 32, 32, 8, 1, False,
                                                  dev, k=5)
     codes = torch.ones((32, 32), dtype=torch.int8, device=dev)
-    with pytest.raises(ValueError, match="k in"):
-        dwpw.dw_pw(x, dw_w, dw_b, codes, pw_b, None,
-                   torch.ones(32, device=dev))
+    scale = torch.ones(32, device=dev)
+    ops.reset_launches()
+    got = dwpw.dw_pw(x, dw_w, dw_b, codes, pw_b, None, scale)
+    _assert_variant("dw_pw", "simt")
+    want = dwpw.dw_pw_torch(x, dw_w, dw_b, codes, pw_b, None, scale)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
     with pytest.raises(ValueError, match="pw_scale"):
         dwpw.dw_pw(x, dw_w, dw_b, pw_w, pw_b, None,
                    torch.ones(32, device=dev))
@@ -1580,3 +1585,141 @@ def test_train_step_on_card_matches_cpu(dev):
     from repro_torch.core import pytree
     for a, b_ in zip(pytree.leaves(outs[0][1]), pytree.leaves(outs[1][1])):
         assert torch.equal(a, b_)
+
+
+# ---- the kernels' whole domains: every shape the Pallas kernels take ----
+
+# (N, H, cin, cout, bm, bn, k, stride, sparsity): SparsityConfig's default
+# 128 x 128 blocks and the 64 x 64 ones sparse ResNet-50 takes at it,
+# ragged pieces (bm 48, bn 40) through mma, and sides mma does not take
+# (bm 40, bn 20, 125) through simt
+DOMAIN_CONV_CASES = [
+    (1, 7, 512, 512, 128, 128, 3, 1, 0.7),    # s3 c2 at the default
+    (1, 14, 256, 1024, 128, 128, 1, 1, 0.7),  # a 1x1 widening conv
+    (1, 56, 64, 64, 64, 64, 3, 1, 0.5),       # s0 c2 at 64 x 64
+    (2, 9, 96, 80, 48, 40, 3, 2, 0.5),        # ragged row and column pieces
+    (1, 9, 80, 40, 40, 20, 3, 1, 0.5),        # simt
+    (1, 7, 256, 250, 128, 125, 1, 1, 0.5),    # simt at a 128-row block
+]
+
+
+@pytest.mark.parametrize("store", ["native", "int8", "f32"])
+@pytest.mark.parametrize("case", DOMAIN_CONV_CASES, ids=str)
+def test_sparse_conv_domain_matches_plain(dev, case, store):
+    """Every block shape the Pallas kernel takes (bm divides C, any bn):
+    within 1 bf16 ulp of the plain version, in the variant ``variant()``
+    names, for each stored type."""
+    n, h, cin, cout, bm, bn, k, stride, sp = case
+    gen = torch.Generator().manual_seed(cin + cout + bm + bn)
+    sw = _weight(gen, k * k * cin, cout, bm, bn, sp, dev)
+    x = torch.randn((n, h, h, cin), generator=gen).to(dev, torch.bfloat16)
+    b = (torch.randn((cout,), generator=gen) * 0.1).to(dev, torch.bfloat16)
+    ho = -(-h // stride)
+    r = torch.randn((n, ho, ho, cout), generator=gen).to(dev, torch.bfloat16)
+    if store == "int8":
+        sw = _int8(sw)
+    elif store == "f32":
+        sw = type(sw)(sw.vals.float(), sw.idx, sw.d_in)
+        b = b.float()
+    v = sc.variant(bm, bn, sw.vals.dtype)
+    ops.reset_launches()
+    got = sc.sparse_conv(x, sw.vals, sw.idx, b, r, sw.scale, k=k,
+                         stride=stride, relu=True)
+    _assert_variant("sparse_conv", v)
+    want = sc.sparse_conv_torch(x, sw.vals, sw.idx, b, r, sw.scale, k=k,
+                                stride=stride, relu=True)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 2048])
+@pytest.mark.parametrize("d_in,d_out,bm,bn", [
+    (2048, 1000, 128, 125),     # the classifier at the default blocks
+    (768, 960, 96, 96), (1024, 1024, 256, 256), (480, 384, 40, 24)],
+    ids=["b128x125", "b96", "b256", "b40x24"])
+def test_sparse_matmul_domain_matches_plain(dev, d_in, d_out, bm, bn, m):
+    """Any block sides: mma where both are multiples of 8 (bm 40: a
+    ragged 8 rows zero-filled to 16), simt for the rest (125), gemv at M
+    <= 8; within 1 bf16 ulp of the plain version."""
+    gen = torch.Generator().manual_seed(d_in + bm + m)
+    sw = _weight(gen, d_in, d_out, bm, bn, 0.5, dev)
+    x = torch.randn((m, d_in), generator=gen).to(dev, torch.bfloat16)
+    v = sm.variant(x.dtype, m, bm, bn)
+    ops.reset_launches()
+    got = sm.sparse_matmul(x, sw.vals, sw.idx)
+    _assert_variant("sparse_matmul", v)
+    want = sm.sparse_matmul_torch(x, sw.vals, sw.idx)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 20, 40, 80, 96, 256, 300])
+def test_flash_attention_any_head_size(dev, d, dtype):
+    """Any D: mma pads bf16 heads to a multiple of 16 in shared memory
+    (element loads where D is no multiple of 8) up to 256, simt takes f32
+    and bf16 past 256; causal, a window and an offset, lengths no tile
+    multiple."""
+    gen = torch.Generator().manual_seed(d)
+    for (tq, tk, kw) in ((200, 200, {}), (70, 270, {"q_offset": 200}),
+                         (130, 130, {"window": 48})):
+        q = torch.randn((1, tq, 2, d), generator=gen).to(dev, dtype)
+        k, v = (torch.randn((1, tk, 2, d), generator=gen).to(dev, dtype)
+                for _ in range(2))
+        ops.reset_launches()
+        got = fa.flash_attention(q, k, v, **kw)
+        _assert_variant("flash_attention", fa.variant(dtype, d))
+        want = fa.flash_attention_torch(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * float(want.abs().max()))
+        else:
+            _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("store", ["native", "int8", "f32"])
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 9, 11])
+def test_dw_pw_every_k_and_store(dev, k, store):
+    """Every k in every store: bf16 through mma at k <= 7, int8 through
+    mma at k 3, f32 through simt, and every other k the simt variant with
+    k at run time; within 1 bf16 ulp of the plain version."""
+    from repro_torch.core.quant import quantize_tree
+    c, co, h, stride = 64, 96, 15, 2 if k % 2 else 1
+    gen = torch.Generator().manual_seed(k)
+    x, dw_w, dw_b, pw_w, pw_b, r = _dw_pw_inputs(gen, 1, c, co, h, stride,
+                                                 True, dev, k)
+    if store == "int8":
+        q = quantize_tree({"l": {"w": pw_w.cpu()}}, "int8")["l"]["w"]
+        args = (x, dw_w, dw_b, q.codes.to(dev), pw_b, r, q.scale.to(dev))
+    elif store == "f32":
+        args = (x, dw_w.float(), dw_b.float(), pw_w.float(), pw_b.float(), r,
+                None)
+    else:
+        args = (x, dw_w, dw_b, pw_w, pw_b, r, None)
+    v = dwpw.variant(c, co, k, stride, args[3].dtype)
+    mma = k <= dwpw.MAX_K if store == "native" else (
+        store == "int8" and k == dwpw.QUANT_K)
+    assert v == ("mma" if mma else "simt")
+    ops.reset_launches()
+    got = dwpw.dw_pw(*args, stride=stride)
+    _assert_variant("dw_pw", v)
+    want = dwpw.dw_pw_torch(*args, stride=stride)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("c", [64, 37])
+@pytest.mark.parametrize("k,stride", [(9, 1), (9, 2), (11, 1)])
+def test_depthwise_conv_past_the_templated_k(dev, k, stride, c):
+    """k past MAX_K through the run-time kernel (one pixel a thread),
+    C a multiple of 8 and not; within 1 bf16 ulp of the plain version."""
+    gen = torch.Generator().manual_seed(k + c)
+    x = torch.randn((2, 17, 17, c), generator=gen).to(dev, torch.bfloat16)
+    w = (torch.randn((k, k, c), generator=gen) / k).to(dev, torch.bfloat16)
+    ops.reset_launches()
+    got = dw.depthwise_conv(x, w, stride=stride)
+    _assert_launches({"depthwise_conv": 1})
+    want = dw.depthwise_conv_torch(x, w, stride=stride)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)

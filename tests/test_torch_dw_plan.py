@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -119,16 +121,25 @@ def test_dw_pw_variant_choice(c, co, k, stride, want):
 
 @pytest.mark.parametrize("k", [0, 8, 9])
 def test_wrappers_name_the_kernel_size_limit(k):
-    """Both wrappers refuse a kernel size they are not built for, and say
-    which they are, before anything touches a card."""
-    x = torch.zeros(1, 9, 9, 8, dtype=torch.bfloat16)
-    w = torch.zeros(k, k, 8, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="k from 1 to 7"):
-        dwpw.dw_pw(x, w, torch.zeros(8, dtype=torch.bfloat16),
-                   torch.zeros(8, 8, dtype=torch.bfloat16),
-                   torch.zeros(8, dtype=torch.bfloat16))
-    with pytest.raises(ValueError, match="k from 1 to 7"):
-        dw.depthwise_conv(x, w)
+    """Both wrappers' shape checks refuse a kernel size below 1 and take
+    every larger one, as the Pallas kernels do (past MAX_K through the
+    simt variant with k at run time), before anything touches a card;
+    the variant names the run-time instances past MAX_K."""
+    x = (1, 9, 9, 8)
+    w = (k, k, 8)
+    args = (x, w, (8,), (8, 8), (8,))
+    if k < 1:
+        with pytest.raises(ValueError, match="k >= 1|do not fit"):
+            dwpw.check_shapes(*args)
+        with pytest.raises(ValueError, match="k >= 1"):
+            dw.check_shapes(x, w)
+    else:
+        ho = -(-9 // 1)
+        assert dwpw.check_shapes(*args)[:2] == (ho, ho)
+        assert dw.check_shapes(x, w)[:2] == (ho, ho)
+        assert dwpw.variant(8, 8, k) == "simt"
+        assert dw.plan(1, ho, ho, 8, k, 1)[0] == 1
+        assert dw.plan_candidates(8, 1, k) == [(1, t) for t in dw.THREADS]
     assert dwpw.MAX_K == dw.MAX_K == 7
 
 

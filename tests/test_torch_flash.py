@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
@@ -322,7 +324,11 @@ def _check_split_p(tq, tk, causal, window, d, seed):
     (torch.float32, 128, "simt"),
     (torch.bfloat16, 112, "mma"),     # zamba2's shared attention
     (torch.float32, 112, "simt"),
-    (torch.bfloat16, 48, "simt"),     # no head size the kernel takes
+    (torch.bfloat16, 48, "mma"),      # padded to 48 inside the kernel
+    (torch.bfloat16, 80, "mma"),      # Phi-2's heads
+    (torch.bfloat16, 256, "mma"),     # Gemma-7B's, the largest mma head
+    (torch.bfloat16, 300, "simt"),    # past it: the CUDA cores
+    (torch.float32, 40, "simt"),
 ])
 def test_flash_attention_variant_choice(dtype, d, want):
     assert fa.variant(dtype, d) == want
@@ -336,17 +342,20 @@ def test_flash_attention_variant_choice(dtype, d, want):
     (torch.bfloat16, 9, 32, 25, "simt"),     # bn no multiple of 8
     (torch.bfloat16, 9, 32, 24, "mma"),
     (torch.bfloat16, 9, 16, 8, "mma"),       # the smallest mma tiles
-    (torch.bfloat16, 9, 8, 8, "simt"),       # bm no multiple of 16
+    (torch.bfloat16, 9, 8, 8, "mma"),        # 8 rows zero-filled to 16
     (torch.bfloat16, 9, 48, 64, "mma"),
-    (torch.bfloat16, 9, 80, 64, "simt"),     # bm > 64, no multiple of 64
-    (torch.bfloat16, 9, 64, 72, "simt"),     # bn > 64, no multiple of 64
+    (torch.bfloat16, 9, 80, 64, "mma"),      # a ragged 16-row piece
+    (torch.bfloat16, 9, 64, 72, "mma"),      # a ragged 8-column piece
     (torch.bfloat16, 2048, 128, 128, "mma"),  # the large LMs' prefill
     (torch.bfloat16, 9, 128, 64, "mma"),
     (torch.bfloat16, 9, 64, 128, "mma"),
     (torch.bfloat16, 4, 128, 128, "gemv"),    # their decode
-    (torch.bfloat16, 9, 192, 64, "simt"),    # past the largest block
+    (torch.bfloat16, 9, 192, 64, "mma"),     # three 64-row pieces
     (torch.float32, 9, 64, 64, "simt"),      # f32 x
     (torch.float32, 1, 32, 25, "gemv"),      # the ResNet-50 classifier
+    (torch.bfloat16, 16, 128, 125, "simt"),  # the classifier at the
+    (torch.bfloat16, 1, 128, 125, "gemv"),   # default blocks
+    (torch.bfloat16, 9, 96, 256, "mma"),
 ])
 def test_sparse_matmul_variant_choice(dtype, m, bm, bn, want):
     assert sm.variant(dtype, m, bm, bn) == want
@@ -439,14 +448,36 @@ def test_sparse_matmul_128x128_blocks_match_reference(d_in, d_out, m, dtype):
 
 
 def test_sparse_matmul_wrapper_refuses_blocks_the_kernel_lacks(monkeypatch):
-    """Past 64 a side the simt and mma variants take only multiples of
-    64, up to 128; the wrapper checks before it launches (no card
-    needed: the library is stubbed)."""
-    monkeypatch.setattr(sm, "_kernel", lambda: (None, {}, 128, 128))
+    """The wrapper refuses only blocks the Pallas kernel refuses too (bm
+    must divide d_in); sides past 64 that are no multiple of 64, and
+    past 128, now reach the launch in the variant ``variant()`` names
+    (no card needed: the library and the stream are stubbed)."""
+    from repro_torch.kernels import _build
+    launched = []
+
+    def fake(*args):
+        launched.append(args[4:10])       # M, d_in, ob, K, bm, bn
+        return 0
+
+    monkeypatch.setattr(sm, "_kernel", lambda: (None, {
+        torch.bfloat16: fake, torch.float32: fake}))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    for m, bm, bn in ((9, 96, 64), (9, 64, 192), (4, 192, 64)):
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(_build, "LAUNCHES", dict(_build.LAUNCHES))
+    monkeypatch.setattr(_build, "VARIANT_LAUNCHES",
+                        dict(_build.VARIANT_LAUNCHES))
+    for m, bm, bn in ((9, 96, 64), (9, 64, 192), (4, 192, 64),
+                      (16, 128, 125)):
         x = torch.zeros((m, 4 * bm), dtype=torch.bfloat16)
         vals = torch.zeros((2, 1, bm, bn), dtype=torch.bfloat16)
         idx = torch.zeros((2, 1), dtype=torch.int32)
-        with pytest.raises(ValueError, match="do not fit"):
-            sm.sparse_matmul(x, vals, idx)
+        v = sm.variant(x.dtype, m, bm, bn)
+        before = _build.VARIANT_LAUNCHES[("sparse_matmul", v)]
+        assert sm.sparse_matmul(x, vals, idx).shape == (m, 2 * bn)
+        assert launched[-1] == (m, 4 * bm, 2, 1, bm, bn)
+        assert _build.VARIANT_LAUNCHES[("sparse_matmul", v)] == before + 1
+    x = torch.zeros((9, 100), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="do not fit"):
+        sm.sparse_matmul(x, torch.zeros((2, 1, 64, 64), dtype=torch.bfloat16),
+                         torch.zeros((2, 1), dtype=torch.int32))

@@ -27,6 +27,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 
 from repro.checkpoint import ckpt as ref_ckpt  # noqa: E402

@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -260,8 +262,11 @@ def test_gemv_emulation_matches_plain_and_reference(shape, m, dtype):
     (32, 24, "mma"),       # three 8-column tiles
     (8, 8, "simt"),        # bm no multiple of 16
     (32, 25, "simt"),      # bn no multiple of 8
-    (64, 32, "simt"),      # bm > 32
-    (32, 40, "simt"),      # bn > 32
+    (64, 32, "mma"),       # bm > 32: walked as two 32-row pieces
+    (32, 40, "mma"),       # bn > 32: a ragged 8-column piece
+    (128, 128, "mma"),     # SparsityConfig's default blocks
+    (48, 32, "mma"),       # a ragged 16-row piece
+    (128, 125, "simt"),    # the classifier's blocks at the default
 ])
 def test_sparse_conv_variant_choice(bm, bn, want):
     assert sc.variant(bm, bn) == want

@@ -8,6 +8,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import _torch_lm_ref as R  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
